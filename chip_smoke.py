@@ -5,24 +5,37 @@
 Phases, each printed on its own line (any failure fails the run):
 
 1. the card's name and power limit, as nvidia-smi reports them;
-2. build the port's CUDA kernel from the sources in this checkout
-   (``src/repro_torch/kernels/paged_attention/csrc``) with nvcc;
+2. build the port's CUDA kernels from the sources in this checkout
+   (``src/repro_torch/kernels/*/csrc``), one nvcc per source, all
+   started together;
 3. hold each kernel, through the wrapper the engine calls, against its
    plain PyTorch version on the card, at the serving path's shapes:
    f32 within 1e-4; bf16 within 6e-2 and, since both sides accumulate
    in float32 from the same inputs and round once, within one bf16 ulp
-   (2^-7 relative);
+   (2^-7 relative).  K1 (paged attention) at T = 1 and 64; K3 (verify
+   attention) at T = 5 and 64 on tables whose lanes share their prefix
+   pages, also against K1 on the same inputs;
 4. check the port's engine on the card against the same engine on the
    CPU (where every kernel wrapper runs its plain version) on the
-   olmo-1b smoke config: identical tokens and status rows;
-5. serve olmo-1b at full width (16 layers x 2048, 16 heads, hd 128,
-   vocab 50304, bf16, page size 64) with random weights from ``--seed``
-   through ``ServingEngine.run``: every request finishes, the pool
-   drains leak-free, the kernel ran 16 times per step, and each step
-   made exactly one device-to-host transfer;
-6. time the kernel, its plain version, a PyTorch library call for the
-   same attention and the bound, at the serving shapes, and print the
-   kernels line.
+   olmo-1b smoke config: identical tokens and status rows, for the
+   plain path and, with speculation, for the hot-prefix workload of
+   ``tests/test_speculative.py``;
+5. the plain path: serve olmo-1b at full width (16 layers x 2048, 16
+   heads, hd 128, vocab 50304, bf16, page size 64) with random weights
+   from ``--seed`` through ``ServingEngine.run``: every request
+   finishes, the pool drains leak-free, K1 ran 16 times per step, and
+   each step made exactly one device-to-host transfer;
+6. time K1, its plain version, a PyTorch library call for the same
+   attention and the bound, at the serving shapes;
+7. the speculative path: the same engine settings with draft length 4
+   serve hot-prefix traffic (4 system prompts of 512 tokens, user tails
+   of 32-128 tokens, half of the requests repeating an earlier prompt
+   exactly, 32 requests of 64 new tokens) with and without
+   speculation: K3 ran 16 times per speculative step, one transfer per
+   step, leak-free; in f32 both runs give identical tokens; in bf16 the
+   count of identical streams is printed;
+8. time K3 at T = 5 on hot-prefix tables and at T = 64, beside its
+   bound, its plain version and SDPA, and print the kernels line.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the rest of the repository beside it, the script
@@ -32,6 +45,7 @@ exits with a non-zero code and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -66,36 +80,50 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def cuda_ms(fn, iters: int = 40, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms, by CUDA events around ``iters``
-    back-to-back calls after a warm-up."""
+def cuda_ms(fn, iters: int = 40, warmup: int = 3):
+    """(device ms, host ms) of one call of ``fn``.  The device time is
+    taken by CUDA events around ``iters`` back-to-back calls that the
+    host enqueued while a sleep kernel held the card, so the host's
+    cost per call (the Python wrapper, the launches) does not show in
+    it; the host time is the wall time per call of the same loop run
+    plainly, which is what a caller that waits for it pays."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # at most 2 GHz: the sleep outlasts the enqueue at any SM clock
+    torch.cuda._sleep(int(2e9 * (2 * host_s + 1e-3)))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, 1e3 * host_s / iters
 
 
 def attn_case(rng, B, T, H, KH, hd, psz, maxp, P, dtype, base=None,
-              masked=(), dead=()):
+              masked=(), dead=(), hot=0):
     """Paged-attention inputs on the card: ragged ``base`` lengths, a
-    table of distinct random pages covering base + T, optional
-    all-masked rows (table all -1) and dead pages (-1 inside the run)."""
+    table of random pages covering base + T, the first ``hot`` of them
+    the same pages in every lane (a shared prefix) and the rest
+    distinct, optional all-masked rows (table all -1) and dead pages
+    (-1 inside the run)."""
     if base is None:
-        hi = max((maxp - 1) * psz - T, 1)
-        base = rng.randint(0, hi, B)
+        hi = max((maxp - 1) * psz - T, hot * psz + 1)
+        base = rng.randint(hot * psz, hi, B)
     base = np.asarray(base, np.int32)
     table = np.full((B, maxp), -1, np.int32)
     avail = list(rng.permutation(P))
+    prefix = [avail.pop() for _ in range(hot)]
     for b in range(B):
         for i in range(min(-(-(int(base[b]) + T) // psz), maxp)):
-            table[b, i] = avail.pop()
+            table[b, i] = prefix[i] if i < hot else avail.pop()
     for b in masked:
         table[b] = -1
     for b, i in dead:
@@ -152,6 +180,59 @@ def check_kernel(ops, plain, rng, cfg_full, cfg_smoke, b_local, maxp, P):
     return worst
 
 
+def check_k3(k3, ops, plain, rng, cfg_full, cfg_smoke, b_local, maxp, P):
+    """Phase 3: K3, through the dispatcher the engine calls, against its
+    plain version and against K1 on the same inputs, on tables whose
+    lanes share a 512-token prefix (8 pages); lane 1 is idle.  Returns
+    the worst bf16 error against the plain version."""
+    worst = 0.0
+    full = dict(H=cfg_full.n_heads, KH=cfg_full.n_kv_heads, hd=cfg_full.hd,
+                psz=cfg_full.page_size, maxp=maxp, P=P, hot=8)
+    smoke = dict(H=cfg_smoke.n_heads, KH=cfg_smoke.n_kv_heads,
+                 hd=cfg_smoke.hd, psz=cfg_smoke.page_size, maxp=8, P=72,
+                 hot=2)
+    cases = [("full T=5 bf16", full, 5, torch.bfloat16),
+             ("full T=64 bf16", full, 64, torch.bfloat16),
+             ("full T=5 f32", full, 5, torch.float32),
+             ("full T=64 f32", full, 64, torch.float32),
+             ("smoke T=5 f32 (G=2)", smoke, 5, torch.float32)]
+    for name, shp, T, dt in cases:
+        args = attn_case(rng, b_local, T, dtype=dt, masked=(1,), **shp)
+        before = k3.verify_attention.launches
+        out = k3.verify_attention(*args)
+        torch.cuda.synchronize()
+        check(k3.verify_attention.launches == before + 1,
+              f"K3 {name}: the dispatcher launched the kernel once")
+        check(bool(torch.isfinite(out.float()).all()), f"K3 {name}: finite")
+        check(bool((out[1] == 0).all()), f"K3 {name}: all-masked row is "
+                                         f"zero")
+        errs = []
+        for what, ref in (("plain", plain(*args)),
+                          ("K1", ops.paged_attention_chunk(*args))):
+            ref = ref.float()
+            errs.append((out.float() - ref).abs().max().item())
+            torch.testing.assert_close(
+                out.float(), ref, atol=TOL[dt], rtol=TOL[dt],
+                msg=lambda m, n=name, w=what: f"K3 {n} vs {w}: {m}")
+            if dt == torch.bfloat16:
+                torch.testing.assert_close(
+                    out.float(), ref, atol=BF16_ULP_ATOL,
+                    rtol=BF16_ULP_RTOL,
+                    msg=lambda m, n=name, w=what: f"K3 {n} vs {w}, one "
+                                                  f"bf16 ulp: {m}")
+        tol = f"tol {TOL[dt]:g}" + (
+            f" and one ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}"
+            if dt == torch.bfloat16 else "")
+        shared = int((args[3][:, :shp["hot"]] >= 0).sum())
+        phase(f"[3] K3 {name}: max_abs_err vs plain {errs[0]:.3e}, vs K1 "
+              f"{errs[1]:.3e}, max|ref| {out.float().abs().max().item():.3e}"
+              f" ({tol}); {shared} table entries on {shp['hot']} shared "
+              f"prefix pages")
+        if dt == torch.bfloat16:
+            worst = max(worst, errs[0])
+    return worst
+
+
 def check_engine_vs_cpu(tengine, cfg_smoke, seed):
     """Phase 4: the engine on the card against the engine on the CPU
     (plain versions), olmo-1b smoke config, f32."""
@@ -179,6 +260,54 @@ def check_engine_vs_cpu(tengine, cfg_smoke, seed):
     check(runs["cuda"] == runs["cpu"], "engine on the card == on the CPU")
     phase(f"[4] smoke engine on the card == on the CPU: 9 requests, "
           f"{len(runs['cuda'][1])} steps, identical tokens and status rows")
+
+
+def check_spec_engine_vs_cpu(tengine, k3, cfg_smoke, seed):
+    """Phase 4: the speculative engine on the card against the same
+    engine on the CPU, on the hot-prefix workload of
+    tests/test_speculative.py (DP 2, 2 slots a shard, a 16-token prompt
+    six times and three cold ones, draft length 4; the wall-clock gate
+    off, so both engines draft alike)."""
+    from repro_torch.models.model import init_params
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serving.telemetry import FlightRecorder
+
+    params = init_params(cfg_smoke, seed=seed, device="cpu")
+    rng = np.random.RandomState(seed)
+    hot = list(rng.randint(1, cfg_smoke.vocab, 16))
+    prompts = [hot] * 6 + [list(rng.randint(1, cfg_smoke.vocab, 10))
+                           for _ in range(3)]
+    runs, engines = {}, {}
+    for dev in ("cpu", "cuda"):
+        eng = engines[dev] = tengine.ServingEngine(
+            cfg_smoke, tree_map(lambda a: a.to(dev), params), dp=2,
+            b_local=2, max_len=64, prefix_sharing=True, speculate=True,
+            draft_len=4, spec_gate=False, device=dev,
+            flight=FlightRecorder(capacity=4096))
+        reqs = [tengine.Request(i, prompt=list(p), max_new_tokens=6)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        launches0 = k3.verify_attention.launches
+        eng.run(max_steps=500)
+        launches = k3.verify_attention.launches - launches0
+        check(all(r.done for r in reqs) and eng.leak_free(),
+              f"smoke spec engine on {dev} drained")
+        runs[dev] = ([r.out_tokens for r in reqs],
+                     [(rec["T"], rec["spec"], rec["status"])
+                      for rec in eng.flight.ring])
+    check(runs["cuda"] == runs["cpu"],
+          "speculative engine on the card == on the CPU")
+    eng = engines["cuda"]
+    spec_steps = sum(rec["spec"] for rec in eng.flight.ring)
+    accepted = eng.stats["spec_accepted"]
+    check(accepted > 0 and spec_steps > 0, "drafts were accepted")
+    check(launches == cfg_smoke.n_layers * spec_steps,
+          "K3 launched once per layer per speculative step on the card")
+    phase(f"[4] smoke speculative engine on the card == on the CPU: 9 "
+          f"requests, {len(runs['cuda'][1])} steps ({spec_steps} "
+          f"speculative), {accepted} drafts accepted, identical tokens "
+          f"and status rows")
 
 
 def make_requests(tengine, cfg, seed, n=16):
@@ -265,6 +394,137 @@ def serve_full_width(tengine, cfg, ops, seed, b_local, max_len, chunk):
     return eng, launches, tokens / wall
 
 
+def hot_prefix_prompts(cfg, seed, n=32):
+    """Phase 7's traffic: 4 system prompts of 512 tokens (8 pages), each
+    request one of them plus a user tail of 32-128 tokens; every other
+    request repeats an earlier prompt exactly."""
+    rng = np.random.RandomState(seed + 7)
+    systems = [list(rng.randint(1, cfg.vocab, 512)) for _ in range(4)]
+    prompts = []
+    for i in range(n):
+        if i % 2:
+            prompts.append(list(prompts[rng.randint(len(prompts))]))
+        else:
+            prompts.append(systems[(i // 2) % 4] + list(
+                rng.randint(1, cfg.vocab, rng.randint(32, 129))))
+    return prompts
+
+
+def serve_trace(tengine, k3, ops, cfg, params, prompts, speculate, b_local,
+                max_len, chunk, max_new=64):
+    """Serve ``prompts`` on a fresh engine (after a warm-up that runs a
+    prefill chunk, plain decode and, with speculation, a verify step),
+    with the kernels' launch counts zeroed just before and read just
+    after.  Returns the run's numbers."""
+    from repro_torch.serving.telemetry import FlightRecorder
+
+    eng = tengine.ServingEngine(
+        cfg, params, dp=1, b_local=b_local, max_len=max_len,
+        chunk_size=chunk, prefix_sharing=True, speculate=speculate,
+        draft_len=4, device="cuda", flight=FlightRecorder(capacity=100_000))
+    warm = [1] * (chunk + 1)
+    for rid in (10**6, 10**6 + 1):     # the second drafts from the first
+        eng.submit(tengine.Request(rid, prompt=list(warm), max_new_tokens=8))
+        eng.run(max_steps=100)
+    reqs = [tengine.Request(i, prompt=list(p), max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    st0 = dict(eng.stats)
+    transfers0, adm0 = eng.host_transfers, eng.admission_transfers
+    n_rec0 = len(eng.flight.ring)
+    # the main path's run: counts zeroed just before, read just after
+    ops.paged_attention_chunk.launches = 0
+    k3.verify_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run(max_steps=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1_launches = ops.paged_attention_chunk.launches
+    k3_launches = k3.verify_attention.launches
+    recs = list(eng.flight.ring)[n_rec0:]
+    d = {k: eng.stats[k] - st0[k] for k in (
+        "steps", "tokens_out", "prompt_tokens", "spec_drafted",
+        "spec_accepted", "spec_pages_rolled_back", "spec_mixed_steps",
+        "prefix_shared_tokens", "prefix_shared_reqs", "cow_copies")}
+    d.update(
+        wall=wall, k1=k1_launches, k3=k3_launches,
+        spec_steps=sum(rec["spec"] for rec in recs), records=len(recs),
+        transfers=eng.host_transfers - transfers0,
+        admission_transfers=eng.admission_transfers - adm0,
+        tokens=[r.out_tokens for r in reqs], done=all(r.done for r in reqs),
+        pages_after=eng.pages_in_use(), leak_free=eng.leak_free())
+    del eng
+    torch.cuda.empty_cache()
+    return d
+
+
+def serve_speculative(tengine, k3, ops, cfg, seed, b_local, max_len, chunk):
+    """Phase 7: hot-prefix traffic at full width, speculative and plain,
+    in bf16 (the model's type; K3's main-path run) and in f32 (where
+    the two runs must give identical tokens)."""
+    from repro_torch.models.model import init_params
+
+    n_layers = cfg.n_layers
+    prompts = hot_prefix_prompts(cfg, seed)
+    phase(f"[7] hot-prefix trace: {len(prompts)} requests, "
+          f"{sum(len(p) for p in prompts)} prompt tokens, 64 new tokens "
+          f"each, draft length 4")
+    runs = {}
+    for dtype in ("bfloat16", "float32"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        params = init_params(c, seed=seed, device="cuda")
+        for spec in (True, False):
+            r = serve_trace(tengine, k3, ops, c, params, prompts, spec,
+                            b_local, max_len, chunk)
+            runs[dtype, spec] = r
+            name = f"{dtype} {'speculative' if spec else 'plain'}"
+            check(r["done"], f"{name}: every request finished")
+            check(r["records"] == r["steps"], f"{name}: flight records")
+            check(all(0 <= t < cfg.vocab for s in r["tokens"] for t in s)
+                  and all(len(s) == 64 for s in r["tokens"]),
+                  f"{name}: 64 tokens inside the vocabulary per request")
+            check(r["pages_after"] == 0 and r["leak_free"],
+                  f"{name}: no page in use after the drain")
+            check(r["transfers"] == r["steps"],
+                  f"{name}: one transfer per step ({r['transfers']}, "
+                  f"{r['steps']})")
+            check(r["k3"] == n_layers * r["spec_steps"]
+                  and r["k1"] == n_layers * (r["steps"] - r["spec_steps"]),
+                  f"{name}: K3 {r['k3']} launches = {n_layers} x "
+                  f"{r['spec_steps']} speculative steps, K1 {r['k1']} = "
+                  f"{n_layers} x the other steps")
+            check(r["prefix_shared_tokens"] > 0, f"{name}: prefixes shared")
+            if spec:
+                check(r["spec_accepted"] > 0 and r["spec_steps"] > 0,
+                      f"{name}: drafts accepted")
+            phase(f"[7] {name}: {r['steps']} steps ({r['spec_steps']} "
+                  f"speculative, {r['spec_mixed_steps']} mixed), drafted "
+                  f"{r['spec_drafted']}, accepted {r['spec_accepted']}, "
+                  f"pages rolled back {r['spec_pages_rolled_back']}, "
+                  f"prefix_shared_tokens {r['prefix_shared_tokens']} "
+                  f"({r['prefix_shared_reqs']} requests), cow_copies "
+                  f"{r['cow_copies']}; K3 launches {r['k3']} = {n_layers} x "
+                  f"{r['spec_steps']}, K1 launches {r['k1']}; "
+                  f"host_transfers {r['transfers']} = steps, "
+                  f"admission_transfers {r['admission_transfers']}; pages "
+                  f"in use after the drain {r['pages_after']}")
+            phase(f"[7] {name}: {r['tokens_out'] / r['wall']:.1f} generated "
+                  f"tok/s, {1e3 * r['wall'] / r['steps']:.2f} ms/step, wall "
+                  f"{r['wall']:.3f} s")
+        del params
+        torch.cuda.empty_cache()
+    check(runs["float32", True]["tokens"] == runs["float32", False]["tokens"],
+          "f32: speculative tokens == plain tokens")
+    a, b = runs["bfloat16", True]["tokens"], runs["bfloat16", False]["tokens"]
+    same16 = sum(x == y for x, y in zip(a, b))
+    phase(f"[7] f32: speculative == plain on all {len(prompts)} streams; "
+          f"bf16: {same16} of {len(prompts)} streams identical (near-ties "
+          f"may flip between kernels and matmul widths)")
+    return runs["bfloat16", True]
+
+
 def profile_serve(tengine, eng, cfg, seed):
     """``--profile``: serve the workload again on the warm engine under
     ``torch.profiler`` and print where a step's time goes."""
@@ -302,19 +562,24 @@ def profile_serve(tengine, eng, cfg, seed):
               f"{key[:80]}")
 
 
-def time_kernel(ops, plain, rng, cfg, b_local, maxp, P, T, base):
-    """Phase 6: K1, its plain version, SDPA over pre-gathered dense K/V
-    with the same mask, and the bound, at one serving shape.  Each of
-    the model's layers has its own pages, so the timing cycles through
-    that many K/V arrays and reads them cold from HBM, as a step does."""
+def time_kernel(kernel, bound_bytes, plain, rng, cfg, b_local, maxp, P, T,
+                base, hot=0):
+    """Phases 6 and 8: a kernel, its plain version, SDPA over
+    pre-gathered dense K/V with the same mask, and the bound, at one
+    serving shape.  ``kernel(*inputs)`` returns a callable that
+    launches the kernel once on those inputs (set-up the engine does
+    once per step happens there, outside the timing).  Each of the
+    model's layers has its own pages, so the timing cycles through that
+    many K/V arrays and reads them cold from HBM, as a step does."""
     H, KH, hd, psz = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.page_size
     dt = cfg.tdtype
     layers = [attn_case(rng, b_local, T, H, KH, hd, psz, maxp, P, dt,
-                        base=base) for _ in range(cfg.n_layers)]
+                        base=base, hot=hot) for _ in range(cfg.n_layers)]
+    calls = [kernel(*layer) for layer in layers]
     it = iter(range(10 ** 9))
 
     def kern():
-        ops.paged_attention_chunk_cuda(*layers[next(it) % len(layers)])
+        calls[next(it) % len(calls)]()
 
     def ref():
         plain(*layers[next(it) % len(layers)])
@@ -337,20 +602,20 @@ def time_kernel(ops, plain, rng, cfg, b_local, maxp, P, T, base):
         torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=KH != H)
 
-    ms = cuda_ms(kern, iters=4 * cfg.n_layers)
-    plain_ms = cuda_ms(ref, iters=cfg.n_layers, warmup=1)
-    library_ms = cuda_ms(lib, iters=4 * cfg.n_layers)
+    ms, host_ms = cuda_ms(kern, iters=4 * cfg.n_layers)
+    plain_ms, _ = cuda_ms(ref, iters=cfg.n_layers, warmup=1)
+    library_ms, _ = cuda_ms(lib, iters=4 * cfg.n_layers)
     q, kp, vp, table, bl = layers[0]
-    nbytes = ops.bound_bytes(q, kp, table, bl)
+    nbytes = bound_bytes(q, kp, table, bl)
     pairs = sum(int(b) + t + 1 for b in base for t in range(T))
     flops = 4 * hd * H * pairs
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
     ops_ms = 1e3 * flops / PEAK_OPS[dt]
     bound_ms = max(bytes_ms, ops_ms)
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
-    return dict(T=T, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-                flops=flops)
+    return dict(T=T, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                bytes=nbytes, flops=flops)
 
 
 def main() -> int:
@@ -369,6 +634,9 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import \
         paged_attention_chunk_ref as plain
+    from repro_torch.kernels.verify_attention import ops as k3
+    from repro_torch.kernels.verify_attention.schedule import \
+        build_verify_schedule
     from repro_torch.serving import engine as tengine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -386,14 +654,16 @@ def main() -> int:
     phase(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{kind}, capability {torch.cuda.get_device_capability(0)}")
 
-    # [2] build the kernel from this checkout's sources
+    # [2] build the kernels from this checkout's sources, in parallel
     t0 = time.perf_counter()
-    build.load("paged_attention")
-    for line in build.logs.get("paged_attention", "").splitlines():
-        if "registers" in line or "spill" in line:
-            phase(f"[2] paged_attention: {line.strip()}")
-    phase(f"[2] built paged_attention in {time.perf_counter() - t0:.1f} s "
-          f"into {build.BUILD_DIR}")
+    stems = ("paged_attention", "verify_attention")
+    build.load_all(stems)
+    for stem in stems:
+        for line in build.logs.get(stem, "").splitlines():
+            if "registers" in line or "spill" in line:
+                phase(f"[2] {stem}: {line.strip()}")
+    phase(f"[2] built {', '.join(stems)} in {time.perf_counter() - t0:.1f} "
+          f"s into {build.BUILD_DIR}")
 
     cfg = get_config("olmo-1b")
     cfg_smoke = smoke_config(cfg)
@@ -402,56 +672,102 @@ def main() -> int:
     from repro_torch.models.transformer import pool_class_specs
     P = pool_class_specs(cfg, b_local, max_len, chunk)[0].num_blocks + 1
 
-    # [3] kernel vs plain version
+    # [3] kernels vs plain versions
     rng = np.random.RandomState(args.seed)
     err = check_kernel(ops, plain, rng, cfg, cfg_smoke, b_local, maxp, P)
+    err3 = check_k3(k3, ops, plain, rng, cfg, cfg_smoke, b_local, maxp, P)
 
     # [4] the engine on the card vs on the CPU, small input
     check_engine_vs_cpu(tengine, cfg_smoke, args.seed)
+    check_spec_engine_vs_cpu(tengine, k3, cfg_smoke, args.seed)
 
-    # [5] the main path at full width
+    # [5] the plain path at full width
     eng, launches, tok_s = serve_full_width(tengine, cfg, ops, args.seed,
                                             b_local, max_len, chunk)
     if args.profile:
         profile_serve(tengine, eng, cfg, args.seed)
     del eng
+    torch.cuda.empty_cache()
 
-    # [6] timings at the serving shapes: decode (T=1) at the contexts
+    # [6] K1 timings at the serving shapes: decode (T=1) at the contexts
     # the run reached, and a prefill chunk (T=64)
+    def k1_call(*inputs):
+        return lambda: ops.paged_attention_chunk_cuda(*inputs)
+
     base1 = rng.randint(64 + 32, 1024 + 64, b_local)
     base64 = rng.randint(0, 1024 - 64, b_local) // 64 * 64
-    t1 = time_kernel(ops, plain, rng, cfg, b_local, maxp, P, 1, base1)
-    t64 = time_kernel(ops, plain, rng, cfg, b_local, maxp, P, 64, base64)
+    t1 = time_kernel(k1_call, ops.bound_bytes, plain, rng, cfg, b_local,
+                     maxp, P, 1, base1)
+    t64 = time_kernel(k1_call, ops.bound_bytes, plain, rng, cfg, b_local,
+                      maxp, P, 64, base64)
     for t in (t1, t64):
         phase(f"[6] K1 T={t['T']} B={b_local} H={cfg.n_heads} hd={cfg.hd} "
-              f"psz={cfg.page_size} bf16 on {smi}: kernel {t['ms']:.4f} ms, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+              f"psz={cfg.page_size} bf16 on {smi}: kernel {t['ms']:.4f} ms "
+              f"(host {t['host_ms']:.4f} ms a call), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
               f"{t['bytes']} B, {t['flops']} flop), plain "
               f"{t['plain_ms']:.4f} ms, library (SDPA, dense K/V) "
               f"{t['library_ms']:.4f} ms")
     phase(f"[6] end-to-end decode on {smi}: {tok_s:.1f} generated tok/s")
-    kernels = [{
-        "name": "paged_attention_chunk", "route": "cuda",
-        "source": "src/repro_torch/kernels/paged_attention/csrc/"
-                  "paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention/kernel.py:171",
-        "launches": launches, "max_abs_err": err,
-        "ms": t1["ms"], "plain_ms": t1["plain_ms"],
-        "bound_ms": t1["bound_ms"], "bound_by": t1["bound_by"],
-        "library_ms": t1["library_ms"],
-        "shape": f"T=1 B={b_local} H={cfg.n_heads} hd={cfg.hd} "
-                 f"psz={cfg.page_size} bf16",
-        "t64": {k: t64[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
-    }]
-    phase(f"[6] total {time.perf_counter() - t_start:.1f} s")
+
+    # [7] the speculative path at full width
+    spec = serve_speculative(tengine, k3, ops, cfg, args.seed, b_local,
+                             max_len, chunk)
+
+    # [8] K3 timings: a verify step (T=5) of lanes past a shared
+    # 512-token prompt, and a 64-token chunk after it
+    work = torch.empty(k3.workspace_numel(b_local, 64, cfg.n_heads, cfg.hd,
+                                          maxp), device="cuda")
+
+    def k3_call(q, kp, vp, table, base):
+        sched = build_verify_schedule(table, base, q.shape[1], kp.shape[1])
+        return lambda: k3.verify_attention_cuda(q, kp, vp, table, base,
+                                                sched, work)
+
+    v5 = time_kernel(k3_call, k3.bound_bytes, plain, rng, cfg, b_local,
+                     maxp, P, 5, rng.randint(512 + 32, 512 + 192, b_local),
+                     hot=8)
+    v64 = time_kernel(k3_call, k3.bound_bytes, plain, rng, cfg, b_local,
+                      maxp, P, 64, rng.randint(512, 576, b_local), hot=8)
+    for t in (v5, v64):
+        phase(f"[8] K3 T={t['T']} B={b_local} H={cfg.n_heads} hd={cfg.hd} "
+              f"psz={cfg.page_size} bf16, 8 shared prefix pages, on {smi}: "
+              f"kernel {t['ms']:.4f} ms (host {t['host_ms']:.4f} ms a call), "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} "
+              f"B, distinct pages; "
+              f"{t['flops']} flop), plain {t['plain_ms']:.4f} ms, library "
+              f"(SDPA, dense K/V) {t['library_ms']:.4f} ms")
+
+    def row(name, src, replaces, n, e, t, t_other, shape):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": n, "max_abs_err": e,
+                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")},
+                "shape": shape,
+                f"t{t_other['T']}": {k: t_other[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
+
+    shape = (f"B={b_local} H={cfg.n_heads} hd={cfg.hd} psz={cfg.page_size} "
+             f"bf16")
+    kernels = [
+        row("paged_attention_chunk",
+            "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+            "src/repro/kernels/paged_attention/kernel.py:171", launches, err,
+            t1, t64, f"T=1 {shape}"),
+        row("verify_attention",
+            "src/repro_torch/kernels/verify_attention/csrc/"
+            "verify_attention.cu",
+            "src/repro/kernels/verify_attention/kernel.py:173", spec["k3"],
+            err3, v5, v64, f"T=5 {shape}, 8 shared prefix pages"),
+    ]
+    phase(f"[8] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

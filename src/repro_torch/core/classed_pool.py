@@ -86,6 +86,13 @@ def free_n_metered_dp(pool: ClassedPool, cls: int, ids: torch.Tensor
     return _put(pool, cls, hp), spilled
 
 
+def addref_dp(pool: ClassedPool, cls: int, ids: torch.Tensor
+              ) -> ClassedPool:
+    """ids int32[DP, ...]: one extra reference per valid id, each on
+    its own shard (prefix sharing)."""
+    return _put(pool, cls, hier_pool.addref_dp(pool.classes[cls], ids))
+
+
 def rebalance_drain_dp(pool: ClassedPool,
                        cls: Optional[int] = None) -> ClassedPool:
     if cls is not None:

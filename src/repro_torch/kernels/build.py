@@ -2,9 +2,12 @@
 
 Each ``*.cu`` source under the package's ``csrc/`` directories is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain
-C interface.  The libraries go to ``build/repro_torch_kernels/`` at the
-root of the checkout (listed in ``.gitignore``), named by a hash of
-their source, so an edited kernel is rebuilt and a built one is reused.
+C interface; headers shared by several kernels live in
+``kernels/csrc/``.  The libraries go to ``build/repro_torch_kernels/``
+at the root of the checkout (listed in ``.gitignore``), named by a hash
+of their source and the shared headers, so an edited kernel is rebuilt
+and a built one is reused.  :func:`load_all` starts one ``nvcc`` per
+source, all at once.
 
 Nothing here runs when a module is imported: the CPU tests import every
 module of the package on a machine without ``nvcc``.
@@ -17,14 +20,16 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 PKG = Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG.parents[1] / "build" / "repro_torch_kernels"
+COMMON = PKG / "kernels" / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-Xptxas", "-v", f"-I{COMMON}"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 #: nvcc's output for each source this process compiled (``-Xptxas -v``
@@ -46,7 +51,10 @@ def load(stem: str) -> ctypes.CDLL:
     lib = _loaded.get(stem)
     if lib is None:
         (src,) = PKG.glob(f"kernels/**/csrc/{stem}.cu")
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+        h = hashlib.sha256(src.read_bytes())
+        for header in sorted(COMMON.glob("*.cuh")):
+            h.update(header.read_bytes())
+        digest = h.hexdigest()[:16]
         out = BUILD_DIR / f"lib{stem}-{digest}.so"
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -61,3 +69,11 @@ def load(stem: str) -> ctypes.CDLL:
             logs[stem] = proc.stdout
         lib = _loaded[stem] = ctypes.CDLL(str(out))
     return lib
+
+
+def load_all(stems: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """:func:`load` for several kernels, their ``nvcc`` runs started
+    together (each waits in its own thread; the first failure raises)."""
+    with ThreadPoolExecutor(max_workers=max(len(stems), 1)) as pool:
+        libs = list(pool.map(load, stems))
+    return dict(zip(stems, libs))

@@ -45,74 +45,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
+
+using namespace attn;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 8;
 constexpr int kTileRows = kWarps * kRowsPerWarp;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// 16 bytes of T to floats: 4 float32 or 8 bfloat16 values.
-__device__ __forceinline__ void load16(const float* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(h[k]);
-    out[2 * k] = f.x;
-    out[2 * k + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Stage one [psz, hd] page of kv head kh (page stride psz * KH * hd,
-// row stride KH * hd) into shared memory as float with row stride ld.
-template <typename T>
-__device__ __forceinline__ void stage_page(const T* __restrict__ src,
-                                           float* dst, int ld, int psz,
-                                           int KH, int hd, bool vec) {
-  if (vec) {
-    constexpr int VE = 16 / sizeof(T);
-    for (int i = threadIdx.x; i < psz * hd / VE; i += kThreads) {
-      const int j = i * VE / hd, d = i * VE % hd;
-      float f[VE];
-      load16(src + (size_t)j * KH * hd + d, f);
-#pragma unroll
-      for (int e = 0; e < VE; ++e) dst[j * ld + d + e] = f[e];
-    }
-  } else {
-    for (int i = threadIdx.x; i < psz * hd; i += kThreads) {
-      const int j = i / hd, d = i % hd;
-      dst[j * ld + d] = to_f(src[(size_t)j * KH * hd + d]);
-    }
-  }
-}
 
 // DPL: head dims per lane (hd <= 32 * DPL).
 template <typename T, int DPL>
@@ -180,8 +122,8 @@ paged_attention_chunk_kernel(const T* __restrict__ q,
       if (page < 0) continue;  // dead page: block-uniform skip
       __syncthreads();         // previous page (and Qs fill) complete
       const size_t off = (size_t)page * page_elems + (size_t)kh * hd;
-      stage_page(k_pages + off, Ks, kstride, psz, KH, hd, vec);
-      stage_page(v_pages + off, Vs, hd, psz, KH, hd, vec);
+      stage_page(k_pages + off, Ks, kstride, psz, KH, hd, vec, kThreads);
+      stage_page(v_pages + off, Vs, hd, psz, KH, hd, vec, kThreads);
       __syncthreads();
       if (!busy) continue;     // warp-uniform
 
@@ -320,10 +262,7 @@ cudaError_t dispatch(const void* q, const void* kp, const void* vp,
                      const int* table, const int* base, void* out, int B,
                      int Tq, int H, int KH, int hd, int psz, int maxp,
                      cudaStream_t s) {
-  // 16-byte page loads need 16-byte aligned rows
-  const bool vec = (hd * sizeof(T)) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(kp) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(vp) % 16 == 0;
+  const bool vec = vec_ok<T>(kp, vp, hd);
   if (hd <= 32)
     return launch<T, 1>(q, kp, vp, table, base, out, B, Tq, H, KH, hd, psz,
                         maxp, vec, s);

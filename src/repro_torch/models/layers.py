@@ -158,3 +158,27 @@ def logits_apply(cfg, params, x):
     if w is None:
         w = params["tok"].T
     return x @ w
+
+
+def logits_argmax_chunked(cfg, params, x, chunk: int = 1024):
+    """``argmax(logits_apply(cfg, params, x), -1)`` as int32 without
+    building the [..., V] logits: a running (max, argmax) over
+    vocabulary chunks.  Each candidate logit is the dot product the
+    full projection computes, and ascending chunk order with a strict
+    ``>`` keeps the first maximum, as a full argmax does.  The
+    speculative verify path scores its positions with it."""
+    w = params.get("lm_head")
+    if w is None:
+        w = params["tok"].T
+    V = w.shape[1]
+    chunk = min(chunk, V)
+    best = torch.full(x.shape[:-1], -torch.inf, dtype=torch.float32,
+                      device=x.device)
+    arg = torch.zeros(x.shape[:-1], dtype=torch.int32, device=x.device)
+    for off in range(0, V, chunk):
+        lg = (x @ w[:, off:off + chunk]).float()
+        m, a = lg.amax(-1), lg.argmax(-1)        # argmax: first maximum
+        upd = m > best
+        best = torch.where(upd, m, best)
+        arg = torch.where(upd, a.to(torch.int32) + off, arg)
+    return arg

@@ -30,6 +30,8 @@ from ..core import block_pool, classed_pool
 from ..core.block_pool import I32, NULL
 from ..core.classed_pool import CLS_KV, ClassSpec
 from ..kernels.paged_attention.ops import paged_attention_chunk
+from ..kernels.verify_attention.ops import verify_attention, workspace_numel
+from ..kernels.verify_attention.schedule import build_verify_schedule
 from .layers import (ParamDef, apply_norm, embed_apply, embed_defs,
                      ffn_apply, ffn_defs, norm_defs, rope_tables, rotate,
                      tree_map)
@@ -179,17 +181,19 @@ def decode_state_defs(cfg, dp: int, b_local: int, max_len: int,
 
 class _StepIndex(NamedTuple):
     """What every layer of one chunked step shares, computed once per
-    step: the RoPE tables, the KV write coordinates and the kernel's
-    DP-folded page table and base lengths."""
+    step: the RoPE tables, the KV write coordinates, the kernels'
+    DP-folded page table and base lengths, and on a verify step K3's
+    page-sorted schedule and partials workspace."""
     cos: torch.Tensor         # float32 [DP*Bl, T, 1, hd/2]
     sin: torch.Tensor
     write: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # [DP, Bl, T]
     tables: torch.Tensor      # int32 [DP*Bl, maxp], shard d offset d*(P+1)
     base: torch.Tensor        # int32 [DP*Bl]
+    verify: Optional[Tuple[Tuple[torch.Tensor, ...], torch.Tensor]]
 
 
 def _step_index(cfg, state: DecodeState, positions, tok_valid, base,
-                n_pages: int) -> _StepIndex:
+                n_pages: int, verify: bool) -> _StepIndex:
     """Per-step indices.  A token is written iff it is valid and its
     page is mapped; masked tokens go to the sink page ``n_pages``.  The
     kernel sees all DP shards as one batch: shard-local page ids are
@@ -207,8 +211,18 @@ def _step_index(cfg, state: DecodeState, positions, tok_valid, base,
                          NULL).reshape(DP * Bl, maxp)
     cos, sin = rope_tables(positions.reshape(DP * Bl, T), cfg.hd,
                            cfg.rope_theta)
-    return _StepIndex(cos, sin, (d, pid, (positions % psz).long()),
-                      tables.contiguous(), base.reshape(DP * Bl).contiguous())
+    tables = tables.contiguous()
+    base = base.reshape(DP * Bl).contiguous()
+    vidx = None
+    if verify:
+        # every layer attends over the same table: one schedule and one
+        # workspace per step, not per layer
+        vidx = (build_verify_schedule(tables, base, T, psz),
+                torch.empty(workspace_numel(DP * Bl, T, cfg.n_heads, cfg.hd,
+                                            maxp),
+                            dtype=torch.float32, device=tables.device))
+    return _StepIndex(cos, sin, (d, pid, (positions % psz).long()), tables,
+                      base, vidx)
 
 
 def _paged_write_chunk(k_pages, v_pages, k_new, v_new, write) -> None:
@@ -222,12 +236,18 @@ def _paged_write_chunk(k_pages, v_pages, k_new, v_new, write) -> None:
 
 def _paged_attn_chunk(q, k_pages, v_pages, idx: _StepIndex):
     """q: [DP, Bl, T, H, hd]; pages: [DP, P + 1, psz, KH, hd].  Folds DP
-    into the kernel batch so one kernel launch covers all shards."""
+    into the kernel batch so one kernel launch covers all shards.  A
+    verify step (``idx.verify`` set) attends through K3's page-grouped
+    schedule: the same function, each hot shared page read once for
+    all the lanes that map it."""
     DP, Bl, T, H, hd = q.shape
     kg = k_pages.reshape((-1,) + k_pages.shape[2:])
     vg = v_pages.reshape((-1,) + v_pages.shape[2:])
-    o = paged_attention_chunk(q.reshape(DP * Bl, T, H, hd).contiguous(),
-                              kg, vg, idx.tables, idx.base)
+    qf = q.reshape(DP * Bl, T, H, hd).contiguous()
+    if idx.verify is not None:
+        o = verify_attention(qf, kg, vg, idx.tables, idx.base, *idx.verify)
+    else:
+        o = paged_attention_chunk(qf, kg, vg, idx.tables, idx.base)
     return o.reshape(DP, Bl, T, H, hd)
 
 
@@ -255,7 +275,7 @@ def _mix_decode_chunk(cfg, lp, x, kv, idx: _StepIndex):
 
 
 def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
-                         active=None):
+                         active=None, verify: bool = False):
     """Chunked decode/prefill: up to T tokens per sequence per call.
 
     tokens: int32 [DP, Bl, T]; lens: int32 [DP, Bl] — valid tokens per
@@ -268,6 +288,8 @@ def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
     sequence: a chunk that would overflow the page table, or whose
     pages the pool denies, appends nothing.  The reference's
     ``lax.scan`` over layer groups is a Python loop over layers.
+    ``verify`` routes attention through the verify kernel (K3), as the
+    engine does on a step where any lane carries drafts.
     """
     _check_slice(cfg)
     DP, Bl, T = tokens.shape
@@ -296,7 +318,8 @@ def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
                                                device=tokens.device)
     tok_valid = torch.arange(T, device=tokens.device) < lens[..., None]
     n_pages = classed_pool.pages_local(state.pool, CLS_KV)
-    idx = _step_index(cfg, state, positions, tok_valid, base, n_pages)
+    idx = _step_index(cfg, state, positions, tok_valid, base, n_pages,
+                      verify)
 
     def layer(lp, pos, g, x):
         kv = tuple(t[g] for t in state.kv_pages[pos])

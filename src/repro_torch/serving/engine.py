@@ -1,8 +1,9 @@
 """Continuous-batching serving engine on the paper's allocator.
 
-Counterpart of the JAX package's ``serving/engine.py``, limited to this
-slice of the port: greedy, non-speculative serving of one size class
-(paged KV) on one device, DP kept as a leading axis.
+Counterpart of the JAX package's ``serving/engine.py``, limited to the
+port's slices so far: greedy serving of one size class (paged KV) on one
+device, DP kept as a leading axis, with prefix sharing from live donors
+and greedy speculative decoding over shared prefixes.
 
 Two allocator integrations, as in the reference:
 
@@ -17,16 +18,19 @@ Two allocator integrations, as in the reference:
 Each step feeds a variable-width token lane per active slot (a prefill
 chunk or one decode token read from the device-resident ``last_tok``
 register) through :func:`_serve_step`, which runs the forward pass,
-greedy argmax, EOS/budget/length done-detection, page release of
-finished slots, the rebalance and the telemetry counter block, and
-returns one packed int32 status.  The host copies that status in
-:meth:`ServingEngine._status_to_host`, the step's ONE device-to-host
-transfer (counted in ``host_transfers``); the step's inputs go up in
-one non-blocking copy from pinned memory.
+greedy argmax (or, on a step that carries drafts, draft verification
+and the rollback of the rejected tail), EOS/budget/length
+done-detection, page release of finished slots, the rebalance and the
+telemetry counter block, and returns one packed int32 status.  The host
+copies that status in :meth:`ServingEngine._status_to_host`, the step's
+ONE device-to-host transfer (counted in ``host_transfers``); the step's
+inputs go up in one non-blocking copy from pinned memory.  Admission
+with a prefix match reads the share step's ``ok`` flag, a transfer
+outside the step (counted in ``admission_transfers``).
 
-Options of the reference that later slices bring (speculation,
-sampling, prefix sharing, size classes, expert paging, a mesh, chaos
-injection and journaling, preemption) raise ``NotImplementedError``.
+Options of the reference that later slices bring (sampling, pinned
+prefixes, preemption, size classes, expert paging, a mesh, chaos
+injection and journaling) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,14 +48,15 @@ from ..core import NULL, SimContext, WaitFreeAllocator, classed_pool
 from ..core.block_pool import I32
 from ..core.classed_pool import CLS_KV
 from ..models.decode_init import empty_decode_state, empty_serve_arrays
-from ..models.layers import logits_apply
+from ..models.layers import logits_apply, logits_argmax_chunked
 from ..models.transformer import (DecodeState, forward_decode_chunk,
                                   pool_class_specs)
 from ..runtime.fault import StepWatchdog
+from .prefix_cache import PrefixCache, SpeculationStore, share_prefix_step
 from .sched import Admission, AdmissionScheduler, SchedConfig
 from .telemetry import (CTR_ALLOC, CTR_DRAIN, CTR_FREED, CTR_MARGIN,
-                        CTR_REFILL, CTR_SHARED_FREE, CTR_SPILL, N_CTR,
-                        FlightRecorder, Telemetry)
+                        CTR_REFILL, CTR_ROLLBACK, CTR_SHARED_FREE,
+                        CTR_SPILL, N_CTR, FlightRecorder, Telemetry)
 from .trace import Tracer
 
 
@@ -74,6 +79,7 @@ class Request:
     first_token_at: float = 0.0
     finished_at: float = 0.0
     _seq: int = 0                      # admission order
+    _spec_key: Optional[tuple] = None  # whole-page prefix (speculation)
 
 
 def _release_slots(state: DecodeState, mask):
@@ -100,46 +106,127 @@ STATUS_DONE = 1      # + T: 1 iff the slot finished (pages released)
 STATUS_PAGES = 2     # + T: KV pages-in-use on the slot's DP shard
 
 
-def _serve_step(cfg, max_len, eos_id, params, state, last_tok, out_count,
-                budget, prompt_toks, feed_lens, is_prompt, emit):
+def _serve_step(cfg, max_len, eos_id, spec, n_verify, params, state,
+                last_tok, out_count, budget, prompt_toks, feed_lens,
+                is_prompt, emit):
     """One device-resident greedy token-lane step.
 
     prompt_toks: int32[DP, Bl, T] host-provided lane tokens (a prompt
-    chunk; a generating lane reads its token from ``last_tok``);
-    feed_lens: tokens fed per slot (0 = idle, 1 = decode); is_prompt:
-    the slot consumes prompt tokens; emit: the slot emits a token this
-    step.  Returns ``(state, last_tok, out_count, status)``.
+    chunk; a generating lane reads its first token from ``last_tok``
+    and, when ``spec``, carries drafted tokens at positions 1..k);
+    feed_lens: tokens fed per slot (0 = idle, 1 = decode, > 1 on a
+    generating lane = draft + verify); is_prompt: the slot consumes
+    prompt tokens; emit: the slot emits this step.
+
+    ``spec`` (the host knows whether any lane carries drafts): attention
+    runs through the verify kernel (K3); only the ``n_verify`` (draft
+    length + 1) verify positions of each lane are scored, with the
+    chunked-vocabulary argmax; draft i is accepted iff it equals the
+    candidate of position i - 1 and every earlier draft was accepted,
+    so the accepted stream is the one plain greedy decode would emit.
+    A lane emits its accepted prefix plus one token, keeps exactly that
+    many KV positions, and returns the whole pages of the rejected tail
+    to its own lane (:func:`classed_pool.free_n_metered_dp`) before the
+    release of finished slots and the rebalance.
+
+    Returns ``(state, last_tok, out_count, status)``.
     """
     DP, Bl, T = prompt_toks.shape
     C = len(state.pool.classes)
+    dev = prompt_toks.device
     gen_lane = prompt_toks.clone()
     gen_lane[:, :, 0] = last_tok
     toks = torch.where(is_prompt[..., None], prompt_toks, gen_lane)
     active = feed_lens > 0
+    base = state.seq_lens
 
     def free_all(pool):
         return [classed_pool.free_per_shard(pool, c) for c in range(C)]
 
     free_in = free_all(state.pool)
     hidden, state = forward_decode_chunk(cfg, params, toks, state, feed_lens,
-                                         active=active)
+                                         active=active, verify=spec)
     free_fwd = free_all(state.pool)
     ctr_alloc = [free_in[c] - free_fwd[c] for c in range(C)]
-    idx = (feed_lens - 1).clamp(min=0).long()
+    idx = (feed_lens - 1).clamp(min=0)
     emit = emit & active
-    h_last = hidden.gather(
-        2, idx[:, :, None, None].expand(DP, Bl, 1, hidden.shape[-1]))[:, :, 0]
-    logits = logits_apply(cfg, params["embed"], h_last)
-    nxt = torch.argmax(logits, dim=-1).to(I32)      # first maximum
-    out_count = out_count + emit.to(I32)
-    seq_full = state.seq_lens >= max_len - 1
-    done = active & ((out_count >= budget) | seq_full | (emit & (nxt == eos_id)))
-    last_tok = torch.where(emit, nxt, last_tok)
-    n_emit = emit.to(I32)
-    tok_rows = torch.full((DP, Bl, T), -1, dtype=I32, device=nxt.device)
-    tok_rows[:, :, 0] = torch.where(emit, nxt, -1)
+    if spec:
+        # score only the verify positions: a generating lane's are lane
+        # positions 0..Tv-1, a prompt lane needs its emitting position
+        Tv = min(T, n_verify) if n_verify > 0 else T
+        j = torch.arange(Tv, dtype=I32, device=dev)
+        vpos = torch.where(is_prompt[..., None], idx[..., None],
+                           j.clamp(max=T - 1)[None, None])   # [DP, Bl, Tv]
+        hidden_v = hidden.gather(2, vpos[..., None].long().expand(
+            DP, Bl, Tv, hidden.shape[-1]))
+        nxt_all = logits_argmax_chunked(cfg, params["embed"], hidden_v)
+        # a prompt lane's rows all hold position idx, so row 0 is its
+        # candidate; a generating lane's last fed position is feed - 1
+        vidx = torch.where(is_prompt, 0, idx.clamp(max=Tv - 1))
+        last_pos = nxt_all.gather(2, vidx[..., None].long())[..., 0]
+        etoks = torch.where(is_prompt[..., None], last_pos[..., None],
+                            nxt_all)
+        dmatch = ((nxt_all[..., :-1] == toks[..., 1:Tv])
+                  & (j[None, None, 1:] < feed_lens[..., None]))
+        accepted = torch.cumprod(dmatch.to(I32), -1).sum(-1, dtype=I32)
+        n_cand = torch.where(is_prompt, 1, accepted + 1) * emit.to(I32)
+        # EOS and budget cut the emission stream (an emitted EOS is
+        # included, then the slot finishes)
+        is_e = (etoks == eos_id) & (j[None, None] < n_cand[..., None])
+        eos_cut = torch.where(is_e.any(-1), is_e.to(I32).argmax(-1) + 1,
+                              Tv + 1).to(I32)
+        room = (budget - out_count).clamp(min=0)
+        n_emit = torch.minimum(n_cand, torch.minimum(room, eos_cut))
+        hit_eos = (is_e & (j[None, None] < n_emit[..., None])).any(-1)
+        # rollback: keep last_tok + the accepted drafts, free the whole
+        # pages of the rejected tail to the slot's own lane (refcount-1
+        # pages granted this very step)
+        adv = state.seq_lens - base
+        n_keep = torch.where(is_prompt, adv, torch.minimum(n_emit, adv))
+        psz = cfg.page_size
+        maxp = state.page_tables.shape[2]
+        keep_pages = (base + n_keep + psz - 1) // psz
+        have_pages = (base + adv + psz - 1) // psz
+        kidx = torch.arange(maxp, dtype=I32, device=dev)
+        roll = ((kidx >= keep_pages[..., None])
+                & (kidx < have_pages[..., None]))
+        pool, spill_roll = classed_pool.free_n_metered_dp(
+            state.pool, CLS_KV, torch.where(roll, state.page_tables, NULL))
+        state = state._replace(
+            pool=pool, page_tables=torch.where(roll, NULL, state.page_tables),
+            seq_lens=base + n_keep)
+        ctr_roll = [classed_pool.free_per_shard(state.pool, CLS_KV)
+                    - free_fwd[CLS_KV]]
+        ctr_roll += [torch.zeros_like(ctr_roll[0]) for _ in range(C - 1)]
+        out_count = out_count + n_emit
+        seq_full = state.seq_lens >= max_len - 1
+        done = active & ((out_count >= budget) | seq_full | hit_eos)
+        last_emitted = etoks.gather(
+            2, (n_emit - 1).clamp(min=0)[..., None].long())[..., 0]
+        last_tok = torch.where(n_emit > 0, last_emitted, last_tok)
+        tok_rows = torch.full((DP, Bl, T), -1, dtype=I32, device=dev)
+        tok_rows[..., :Tv] = torch.where(j[None, None] < n_emit[..., None],
+                                         etoks, -1)
+    else:
+        ctr_roll = [torch.zeros_like(f) for f in free_in]
+        spill_roll = torch.zeros_like(free_in[CLS_KV])
+        h_last = hidden.gather(2, idx[:, :, None, None].long().expand(
+            DP, Bl, 1, hidden.shape[-1]))[:, :, 0]
+        logits = logits_apply(cfg, params["embed"], h_last)
+        nxt = torch.argmax(logits, dim=-1).to(I32)      # first maximum
+        out_count = out_count + emit.to(I32)
+        seq_full = state.seq_lens >= max_len - 1
+        done = active & ((out_count >= budget) | seq_full
+                         | (emit & (nxt == eos_id)))
+        last_tok = torch.where(emit, nxt, last_tok)
+        n_emit = emit.to(I32)
+        tok_rows = torch.full((DP, Bl, T), -1, dtype=I32, device=dev)
+        tok_rows[:, :, 0] = torch.where(emit, nxt, -1)
     state, spill = _release_slots(state, done)
+    # everything freed since the forward pass: rollback plus release
     ctr_freed = [classed_pool.free_per_shard(state.pool, c) - free_fwd[c]
+                 for c in range(C)]
+    ctr_spill = [spill[c] + (spill_roll if c == CLS_KV else 0)
                  for c in range(C)]
     # deamortized shared<->lane traffic, once per step, phases run
     # separately so the counter block meters each
@@ -158,12 +245,13 @@ def _serve_step(cfg, max_len, eos_id, params, state, last_tok, out_count,
     ctrs = []
     for c in range(C):
         hp = pool.classes[c]
-        ctr = torch.zeros((N_CTR, DP), dtype=I32, device=nxt.device)
+        ctr = torch.zeros((N_CTR, DP), dtype=I32, device=dev)
         ctr[CTR_ALLOC] = ctr_alloc[c]
         ctr[CTR_FREED] = ctr_freed[c]
+        ctr[CTR_ROLLBACK] = ctr_roll[c]
         ctr[CTR_DRAIN] = lane0[c] - lane_drained[c]
         ctr[CTR_REFILL] = hp.private_top.sum(-1, dtype=I32) - lane_drained[c]
-        ctr[CTR_SPILL] = spill[c]
+        ctr[CTR_SPILL] = ctr_spill[c]
         ctr[CTR_SHARED_FREE] = hp.shared.top
         ctr[CTR_MARGIN] = (hp.private_top.min(-1).values
                            - classed_pool.lane_ell(pool, c))
@@ -181,8 +269,9 @@ class ServingEngine:
                  max_len: int = 512, scheduler_lanes: int = 2,
                  greedy: bool = True, chunk_size: int = 8,
                  eos_id: Optional[int] = None,
-                 prefix_sharing: bool = False,
-                 speculate: bool = False,
+                 prefix_sharing: bool = True,
+                 speculate: bool = False, draft_len: int = 4,
+                 spec_gate: bool = True,
                  sched: Optional[SchedConfig] = None,
                  mesh=None, size_classes: int = 1,
                  expert_paging: bool = False,
@@ -193,10 +282,11 @@ class ServingEngine:
                  tracer: Optional[Tracer] = None,
                  flight: Optional[FlightRecorder] = None,
                  device="cuda"):
+        self.sched_config = sched or SchedConfig()
         unsupported = {
             "greedy=False": not greedy,
-            "prefix_sharing": prefix_sharing,
-            "speculate": speculate,
+            "SchedConfig(pin_pages > 0), pinned prefixes":
+                self.sched_config.pin_pages > 0,
             "mesh": mesh is not None,
             "size_classes > 1": size_classes != 1,
             "expert_paging": expert_paging,
@@ -219,8 +309,14 @@ class ServingEngine:
             telemetry.flight = FlightRecorder()
         self.flight = telemetry.flight
         self.chunk = max(int(chunk_size), 1)
+        self.draft_len = max(int(draft_len), 0)
+        # lanes cover the widest lane the engine dispatches: the prefill
+        # chunk or a draft + verify lane (§4.2: ell >= per-step demand)
+        lane_tokens = self.chunk
+        if speculate:
+            lane_tokens = max(lane_tokens, self.draft_len + 1)
         self.state = empty_decode_state(cfg, dp, b_local, max_len,
-                                        chunk=self.chunk, device=self.device)
+                                        chunk=lane_tokens, device=self.device)
         self.n_classes = len(self.state.pool.classes)
         assert self.telemetry.n_classes == self.n_classes
         self.last_tok, self.out_count, self.budget = empty_serve_arrays(
@@ -232,13 +328,33 @@ class ServingEngine:
         # plan-time §4.2 validation: the pool must carry 3*ell*L slack
         # over the worst-case live pages, or lanes can run dry mid-step
         classed_pool.validate_specs(
-            pool_class_specs(cfg, b_local, max_len, self.chunk),
+            pool_class_specs(cfg, b_local, max_len, lane_tokens),
             [b_local * maxp])
         self._fed: Dict[int, int] = {}       # host shadow of seq_lens
         self.eos_id = eos_id
         self._eos = -1 if eos_id is None else int(eos_id)
         self.host_transfers = 0
-        self.sched_config = sched or SchedConfig()
+        # the share step's ok flag, read at admission, outside the step
+        self.admission_transfers = 0
+        self._spec_T = self.draft_len + 1
+        # prefix sharing from live donors (the slice's models keep their
+        # whole decode state in pages, so every one can share)
+        self.prefix_cache = PrefixCache(cfg.page_size) if prefix_sharing \
+            else None
+        # speculative decoding over shared prefixes: drafts come from
+        # the continuation history of hot prefixes
+        self.spec_store: Optional[SpeculationStore] = None
+        if speculate and self.draft_len > 0 and self.prefix_cache is not None:
+            self.spec_store = SpeculationStore(cfg.page_size)
+        self.speculate = self.spec_store is not None
+        # accept-rate-gated drafting: a per-prefix accept-rate EWMA (in
+        # the SpeculationStore) against an EWMA of the step's wall time
+        # keyed by (lane width, spec); before both are measured, a
+        # width-(k+1) verify step costs ~ 1 + slope * k plain steps
+        self.spec_gate = bool(spec_gate)
+        self.spec_cost_slope = 0.25
+        self._step_cost: Dict[Tuple[int, bool], float] = {}
+        self._cost_seen: set = set()
         self.scheduler = AdmissionScheduler(
             self.sched_config, n_shards=dp, page_budget=b_local * maxp)
         self.pins = None                     # pinning: a later slice
@@ -262,11 +378,14 @@ class ServingEngine:
         self._latencies: List[float] = []
         self._ft_latencies: List[float] = []
         self.scheduler.telemetry = self.telemetry
+        if self.prefix_cache is not None:
+            self.prefix_cache.telemetry = self.telemetry
         self.flight.meta.update(
             dp=dp, b_local=b_local, page_size=int(cfg.page_size),
             pages_local=int(self.pages_local),
             lane_ell=classed_pool.lane_ell(self.state.pool, CLS_KV),
-            size_classes=self.n_classes, arch=getattr(cfg, "name", "?"))
+            size_classes=self.n_classes, speculate=self.speculate,
+            arch=getattr(cfg, "name", "?"))
 
     @property
     def stats(self):
@@ -367,7 +486,12 @@ class ServingEngine:
         return {s // self.bl for s in self._free_slots}
 
     def prefix_match(self, req: Request, shard: Optional[int] = None):
-        return None       # prefix sharing: a later slice
+        """Trie lookup, restricted to ``shard`` when given (the scheduler
+        always restricts: donor pages are shard-local)."""
+        if self.prefix_cache is None:
+            return None
+        toks = (list(req.prompt) + list(req.out_tokens)) or [1]
+        return self.prefix_cache.match(toks, shard=shard)
 
     def pinned_pages_on(self, shard: int) -> int:
         return 0
@@ -381,20 +505,62 @@ class ServingEngine:
         d, b = divmod(slot, self.bl)
         req.slot = slot
         self.active[slot] = req
-        self.pending_tokens[slot] = toks
-        self._fed[slot] = 0
+        shared_n = 0
+        if match is not None:
+            shared_n = self._try_share(slot, match, len(toks))
+        self.pending_tokens[slot] = toks[shared_n:]
+        self._fed[slot] = shared_n
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(slot, d, toks)
+            self.prefix_cache.update_progress(slot, shared_n)
+        if self.spec_store is not None:
+            req._spec_key = self.spec_store.key_of(req.prompt)
         self.budget[d, b] = int(req.max_new_tokens)
         self.out_count[d, b] = len(req.out_tokens)
         self.telemetry.inc("admitted")
         self._tr_begin("active", req.rid, slot=slot, shard=d)
         self.tracer.instant("admit", tid=req.rid, slot=slot, shard=d,
-                            shared_tokens=0)
+                            shared_tokens=shared_n)
         return slot
 
     def preempt(self, slot: int) -> Request:
         """The scheduler preempts for a higher SLO class; preemption
-        comes with prefix sharing in a later slice of the port."""
-        raise NotImplementedError("preemption: a later slice of the port")
+        (with pinned prefixes) is a later slice of the port."""
+        raise NotImplementedError("preemption: a later slice of the port "
+                                  "(with pinned prefixes)")
+
+    def _try_share(self, slot: int, match, prompt_len: int) -> int:
+        """Map the matched prefix of a live donor onto its pages (one
+        device step, off the per-token path).  Returns the number of
+        tokens now resident in the slot's KV (0 = no sharing)."""
+        assert match.shard == slot // self.bl, (
+            "cross-shard donor: page ids never alias across shards; the "
+            "scheduler must match shard-locally")
+        psz = self.cfg.page_size
+        n = min(match.n_tokens, prompt_len - 1, self.capacity - 1)
+        if n < psz:
+            return 0
+        dst = np.zeros((self.dp, self.bl), bool)
+        dst[slot // self.bl, slot % self.bl] = True
+        src = np.zeros((self.dp, self.bl), bool)
+        src[match.slot // self.bl, match.slot % self.bl] = True
+        self.state, ok = share_prefix_step(
+            psz, self.state, self._to_device(dst), self._to_device(src), n)
+        self.admission_transfers += 1
+        if not bool(ok):   # shared pool dry for the COW page: no sharing
+            return 0
+        self.telemetry.inc("prefix_shared_tokens", n)
+        self.telemetry.inc("prefix_shared_reqs")
+        rid = self.active[slot].rid
+        self.tracer.instant("share", tid=rid, tokens=n, shard=match.shard,
+                            pinned=False)
+        if n % psz != 0:
+            # the slot got a private copy of the donor's partial tail
+            # page, counted here at the share step (COW never happens
+            # inside the serve step)
+            self.telemetry.inc("cow_copies")
+            self.tracer.instant("cow_copy", tid=rid)
+        return n
 
     # -------------------------------------------------------------- step
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -410,6 +576,67 @@ class ServingEngine:
         self.host_transfers += 1
         return status.cpu().numpy()
 
+    def _gate_k(self, key, k_max: int) -> int:
+        """Break-even draft length for this prefix.
+
+        Expected tokens per step at accept rate ``a`` with k drafts are
+        ``1 + a + ... + a^k``; a width-(k+1) verify step costs
+        ``cost(k+1, spec) / cost(1, decode)`` plain steps, from the
+        measured per-step EWMA when both widths have run, else the
+        linear fallback model.  Returns the largest k <= k_max whose
+        expected tokens clear its cost, or 0 to skip drafting.  An
+        unmeasured prefix drafts at k_max.
+        """
+        if not self.spec_gate or k_max <= 0:
+            return k_max
+        a = self.spec_store.accept_rate(key)
+        if a is None:
+            return k_max
+        c1 = self._step_cost.get((1, False))
+        exp_tokens = 1.0
+        gain = 1.0
+        best = 0
+        for k in range(1, k_max + 1):
+            gain *= a
+            exp_tokens += gain
+            ck = self._step_cost.get((k + 1, True))
+            ratio = (ck / c1 if c1 and ck
+                     else 1.0 + self.spec_cost_slope * k)
+            if exp_tokens >= ratio:
+                best = k
+        return best
+
+    def _build_drafts(self, limit: int) -> Dict[int, List[int]]:
+        """Draft proposals for this step's generating slots, from the
+        continuation store, once per (prefix, context): never reads
+        device state.  Drafts stay within the slot's page-table
+        capacity and output budget, and the accept-rate gate shrinks or
+        zeroes them."""
+        out: Dict[int, List[int]] = {}
+        if limit <= 0:
+            return out
+        memo: Dict[tuple, List[int]] = {}
+        for slot, req in self.active.items():
+            if self.pending_tokens[slot] or req._spec_key is None:
+                continue
+            key = req._spec_key
+            k = min(limit, self.draft_len,
+                    self.capacity - 1 - self._fed[slot],
+                    req.max_new_tokens - len(req.out_tokens) - 1)
+            if k <= 0:
+                continue
+            k_gated = self._gate_k(key, k)
+            if k_gated <= 0:
+                self.telemetry.inc("spec_gate_skips")
+                continue
+            suffix = tuple(req.prompt[len(key):]) + tuple(req.out_tokens)
+            mk = (key, suffix, k_gated)
+            if mk not in memo:
+                memo[mk] = self.spec_store.draft(key, suffix, k_gated)
+            if memo[mk]:
+                out[slot] = memo[mk]
+        return out
+
     def step(self) -> bool:
         """One engine step.  Returns True iff device work was dispatched
         (False = idle fast-path: nothing active after admission)."""
@@ -419,13 +646,27 @@ class ServingEngine:
             self.telemetry.inc("idle_steps")
             return False
 
+        # lane widths: the scheduler's prefill bucket, else width 1,
+        # widened to draft_len + 1 when an all-decode step has drafts;
+        # drafts also ride mixed prompt/decode steps
         any_prompt = any(self.pending_tokens[s] for s in self.active)
         T = self.scheduler.pick_chunk(self, self.chunk) if any_prompt else 1
+        drafts: Dict[int, List[int]] = {}
+        if self.spec_store is not None:
+            if not any_prompt:
+                drafts = self._build_drafts(self._spec_T - 1)
+                if drafts:
+                    T = self._spec_T
+            elif T > 1:
+                drafts = self._build_drafts(min(self._spec_T, T) - 1)
+                if drafts:
+                    self.telemetry.inc("spec_mixed_steps")
         # one host buffer, one upload: [DP, Bl, T + 3] holds the lane
         # tokens, then feed_lens, is_prompt and emit
         feed = np.zeros((self.dp, self.bl, T + 3), np.int32)
         prompt_toks, feed_lens = feed[..., :T], feed[..., T]
         is_prompt, emit = feed[..., T + 1], feed[..., T + 2]
+        gen_slots: Dict[int, int] = {}       # slot -> drafts fed
         for slot, req in self.active.items():
             d, b = divmod(slot, self.bl)
             pend = self.pending_tokens[slot]
@@ -443,14 +684,21 @@ class ServingEngine:
                                     tokens=n, fed=self._fed[slot] + n)
                 self._fed[slot] += n
             else:
-                feed_lens[d, b] = 1
+                dr = drafts.get(slot, [])
+                prompt_toks[d, b, 1:1 + len(dr)] = dr
+                feed_lens[d, b] = 1 + len(dr)
                 emit[d, b] = 1
+                # the KV the lane keeps (== tokens emitted) is known only
+                # after verification: _fed advances on the status read
+                gen_slots[slot] = len(dr)
 
+        spec = any(gen_slots.values())
         dev = self._to_device(feed)
         self.state, self.last_tok, self.out_count, status = _serve_step(
-            self.cfg, self.capacity, self._eos, self.params, self.state,
-            self.last_tok, self.out_count, self.budget, dev[..., :T],
-            dev[..., T], dev[..., T + 1].bool(), dev[..., T + 2].bool())
+            self.cfg, self.capacity, self._eos, spec, self._spec_T,
+            self.params, self.state, self.last_tok, self.out_count,
+            self.budget, dev[..., :T], dev[..., T], dev[..., T + 1].bool(),
+            dev[..., T + 2].bool())
         self.telemetry.inc("steps")
         self.telemetry.observe_hist("chunk_hist", T)
         status = self._status_to_host(status)
@@ -466,6 +714,7 @@ class ServingEngine:
         self.telemetry.inc("pages_sum", pages_now)
 
         now = self._clock()
+        psz = self.cfg.page_size
         for slot, req in list(self.active.items()):
             d, b = divmod(slot, self.bl)
             ne = int(n_emit[d, b])
@@ -477,7 +726,27 @@ class ServingEngine:
                     req.first_token_at = now
                     self._ft_latencies.append(now - req.submitted_at)
                     self.tracer.instant("first_token", tid=req.rid)
-            if not is_prompt[d, b]:
+            if slot in gen_slots:
+                k = gen_slots[slot]
+                if k:
+                    acc = max(ne - 1, 0)
+                    self.telemetry.inc("spec_lanes")
+                    self.telemetry.inc("spec_drafted", k)
+                    self.telemetry.inc("spec_accepted", acc)
+                    self.telemetry.observe_hist("accept_hist", acc)
+                    self.tracer.instant("spec_accept", tid=req.rid,
+                                        drafted=k, accepted=acc)
+                    if req._spec_key is not None:
+                        self.spec_store.observe(req._spec_key, k, acc)
+                    # whole-page rollback, from the _fed shadow: the
+                    # lane fed 1 + k tokens and kept ne
+                    fed0 = self._fed[slot]
+                    over = (-(-(fed0 + 1 + k) // psz)
+                            - (-(-(fed0 + ne) // psz)))
+                    self.telemetry.inc("spec_pages_rolled_back", over)
+                    if over:
+                        self.tracer.instant("spec_rollback",
+                                            tid=req.rid, pages=over)
                 self._fed[slot] += ne
             if done_row[d, b]:
                 # pages were already released inside the step
@@ -486,13 +755,34 @@ class ServingEngine:
                 self._latencies.append(now - req.submitted_at)
                 self.active.pop(slot)
                 self.pending_tokens.pop(slot, None)
+                if self.prefix_cache is not None:
+                    self.prefix_cache.remove(slot)
+                if self.spec_store is not None and req._spec_key:
+                    # this finished stream drafts for its hot prefix
+                    self.spec_store.record(
+                        req._spec_key,
+                        tuple(req.prompt[len(req._spec_key):])
+                        + tuple(req.out_tokens))
                 self._host_free_slot(slot)
                 self.scheduler.on_released(slot)
                 self.tracer.instant("finish", tid=req.rid,
                                     tokens=len(req.out_tokens))
                 self._tr_end("active", req.rid)
                 self._tr_end("request", req.rid)
+            elif self.prefix_cache is not None:
+                # this step's feed is in device KV now: the slot can
+                # donate that much of its prompt
+                self.prefix_cache.update_progress(slot, self._fed[slot])
+        # the gate's per-step cost model: an EWMA of wall time keyed by
+        # (lane width, spec); the first sample of a key is discarded
         dt = time.perf_counter() - t0
+        ck = (T, spec)
+        if ck in self._cost_seen:
+            prev = self._step_cost.get(ck)
+            self._step_cost[ck] = dt if prev is None else (
+                0.8 * prev + 0.2 * dt)
+        else:
+            self._cost_seen.add(ck)
         verdict = self.watchdog.observe(self.stats["steps"], dt)
         if verdict == "straggler":
             self.telemetry.inc("stragglers")
@@ -502,8 +792,9 @@ class ServingEngine:
             self.tracer.instant("watchdog", verdict=verdict,
                                 step=self.stats["steps"])
         self.flight.record(
-            step=self.stats["steps"], t=now, T=T, spec=False,
-            status=status.tolist(), ctr=ctr_block.tolist(), drafts={},
+            step=self.stats["steps"], t=now, T=T, spec=spec,
+            status=status.tolist(), ctr=ctr_block.tolist(),
+            drafts={int(s): len(d) for s, d in drafts.items()},
             rids={int(s): int(r.rid) for s, r in self.active.items()},
             watchdog=verdict, dt_ms=round(dt * 1e3, 3))
         return True

@@ -27,3 +27,94 @@ def assert_pools_equal(jpool, tpool, what=""):
     for i, (a, b) in enumerate(zip(pool_leaves(jpool), pool_leaves(tpool))):
         assert a.dtype == b.dtype and a.shape == b.shape, (what, i)
         assert np.array_equal(a, b), f"{what}: pool leaf {i} differs"
+
+
+# --------------------------------------------------- engine parity harness
+
+#: counters that read the wall clock (the step watchdog)
+TIMING = {"stragglers", "step_timeouts"}
+
+
+def engine_setup(arch):
+    """(reference config, reference params, port config, bridged port
+    params) of ``arch``'s smoke config, weights from PRNGKey(0)."""
+    import jax
+    from repro import models as jmodels
+    from repro.configs import get_config, smoke_config
+    from repro_torch.bridge import params_from_numpy
+    from repro_torch.configs import get_config as t_get_config
+    from repro_torch.configs import smoke_config as t_smoke_config
+
+    cfg = smoke_config(get_config(arch))
+    params = jmodels.init_params(cfg, jax.random.PRNGKey(0))
+    tcfg = t_smoke_config(t_get_config(arch))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    return cfg, params, tcfg, tparams
+
+
+def serve(setup, port, prompts, max_new, prepare=None, submit_at=None,
+          **kw):
+    """Run one workload through one package's engine with a counting
+    clock; returns (engine, requests).  ``prepare(engine)`` runs before
+    the first submission; ``submit_at[i]`` is the number of steps taken
+    before request i is submitted (all at once by default).  The
+    engine options ``kw`` go to both packages alike."""
+    import itertools
+
+    from repro.serving import engine as jengine
+    from repro.serving.telemetry import FlightRecorder as JFlight
+    from repro_torch.serving import engine as tengine
+    from repro_torch.serving.telemetry import FlightRecorder as TFlight
+
+    cfg, params, tcfg, tparams = setup
+    clock = itertools.count()
+    if port:
+        eng = tengine.ServingEngine(
+            tcfg, tparams, flight=TFlight(capacity=4096),
+            clock=lambda: float(next(clock)), device="cpu", **kw)
+        Req = tengine.Request
+    else:
+        eng = jengine.ServingEngine(
+            cfg, params, flight=JFlight(capacity=4096),
+            clock=lambda: float(next(clock)), **kw)
+        Req = jengine.Request
+    if prepare is not None:
+        prepare(eng)
+    reqs = [Req(i, prompt=list(p), max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    submit_at = submit_at or [0] * len(reqs)
+    for step in range(max(submit_at, default=0) + 1):
+        for r, at in zip(reqs, submit_at):
+            if at == step:
+                eng.submit(r)
+        if step < max(submit_at):
+            eng.step()
+    eng.run(max_steps=500)
+    return eng, reqs
+
+
+def assert_same(setup, prompts, max_new, **kw):
+    """The port's engine against the reference's on one workload:
+    identical tokens, every step's packed status rows, counter blocks,
+    lane widths, drafts and active sets, identical non-timing stats and
+    per-shard telemetry, exactly one counted transfer per step and a
+    leak-free drain.  Returns (port requests, port engine, reference
+    engine)."""
+    je, jr = serve(setup, False, prompts, max_new, **kw)
+    te, tr = serve(setup, True, prompts, max_new, **kw)
+    assert all(r.done for r in tr)
+    assert [r.out_tokens for r in tr] == [r.out_tokens for r in jr]
+    jrec, trec = list(je.flight.ring), list(te.flight.ring)
+    assert len(trec) == len(jrec) == te.stats["steps"]
+    keys = ("T", "spec", "drafts", "status", "ctr", "rids")
+    for s, (a, b) in enumerate(zip(jrec, trec)):
+        assert [b[k] for k in keys] == [a[k] for k in keys], f"step {s}"
+    assert ({k: v for k, v in te.stats.items() if k not in TIMING}
+            == {k: v for k, v in je.stats.items() if k not in TIMING})
+    assert te.telemetry.snapshot()["per_shard"] == \
+        je.telemetry.snapshot()["per_shard"]
+    assert te.latency_quantiles() == je.latency_quantiles()
+    assert te.host_transfers == te.stats["steps"]
+    assert te.page_occupancy() == je.page_occupancy() == 0.0
+    assert te.leak_free()
+    return tr, te, je

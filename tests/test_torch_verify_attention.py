@@ -1,0 +1,196 @@
+"""K3, page-grouped verify attention: the port's plain version against
+the reference's jnp oracle and its Pallas kernel run in interpret mode,
+on the sweep of ``tests/test_spec_perf.py`` (no / prefix / all page
+overlap, GQA 1-4); the port's device schedule item for item against the
+reference's; the dispatcher's CPU path and byte bound; the chunked
+vocabulary argmax.  The CUDA kernel itself is held against the plain
+version on the card (tests/test_torch_kernels_cuda.py, chip_smoke.py).
+"""
+
+import pytest
+
+pytest.importorskip("torch")   # the port's tests need PyTorch
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import _torch_helpers  # noqa: F401  (caps torch's CPU threads)
+from repro import models as jmodels
+from repro.configs import get_config, smoke_config
+from repro.kernels.verify_attention import (build_verify_schedule,
+                                            verify_attention_ref)
+from repro.kernels.verify_attention.kernel import verify_attention \
+    as pallas_verify
+from repro.models.layers import logits_apply as j_logits
+from repro_torch.bridge import params_from_numpy
+from repro_torch.kernels.paged_attention.ref import \
+    paged_attention_chunk_ref
+from repro_torch.kernels.verify_attention import ops
+from repro_torch.kernels.verify_attention.ref import \
+    verify_attention_ref as plain
+from repro_torch.kernels.verify_attention.schedule import \
+    build_verify_schedule as t_schedule
+from repro_torch.models.layers import logits_apply, logits_argmax_chunked
+
+#: tests/test_spec_perf.py::TestVerifyAttentionKernel::test_vs_ref_sweep
+SWEEP = [
+    (4, 5, 4, 2, 32, 8, 6, 64, "prefix"),     # draft_len 4
+    (8, 3, 4, 2, 32, 8, 6, 64, "all"),        # draft_len 2, hot pages
+    (2, 2, 4, 4, 16, 4, 8, 32, "none"),       # draft_len 1, no GQA
+    (6, 5, 8, 2, 16, 16, 4, 48, "prefix"),    # big pages, GQA 4
+    (3, 4, 4, 1, 32, 8, 6, 32, "all"),        # single kv head
+]
+
+
+def _spec_tables(rng, B, T, psz, maxp, P, overlap):
+    """Verify-step tables as the reference suite builds them: B lanes
+    mid-generation sharing no / the first two / all prefix pages."""
+    base = rng.randint(psz, (maxp - 1) * psz - T, size=B).astype(np.int32)
+    tbl = np.full((B, maxp), -1, np.int32)
+    shared = rng.choice(P, size=maxp, replace=False)
+    for b in range(B):
+        for i in range(int(np.ceil((int(base[b]) + T) / psz))):
+            if overlap == "all" or (overlap == "prefix" and i < 2):
+                tbl[b, i] = shared[i]
+            else:
+                tbl[b, i] = int(rng.randint(0, P))
+    return tbl, base
+
+
+def _case(seed, B, T, H, KH, hd, psz, maxp, P, overlap):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(B, T, H, hd).astype(np.float32)
+    kp = rng.randn(P, psz, KH, hd).astype(np.float32)
+    vp = rng.randn(P, psz, KH, hd).astype(np.float32)
+    tbl, base = _spec_tables(rng, B, T, psz, maxp, P, overlap)
+    return q, kp, vp, tbl, base
+
+
+def _torch(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _jax(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+@pytest.mark.parametrize("B,T,H,KH,hd,psz,maxp,P,overlap", SWEEP)
+def test_plain_vs_ref_and_pallas(B, T, H, KH, hd, psz, maxp, P, overlap):
+    case = _case(B * 100 + T * 10 + psz, B, T, H, KH, hd, psz, maxp, P,
+                 overlap)
+    out = plain(*_torch(*case))
+    assert out.shape == (B, T, H, hd) and out.dtype == torch.float32
+    for ref in (verify_attention_ref(*_jax(*case)),
+                pallas_verify(*_jax(*case), interpret=True)):
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,T,H,KH,hd,psz,maxp,P,overlap", SWEEP)
+def test_schedule_equals_reference(B, T, H, KH, hd, psz, maxp, P, overlap):
+    """The device schedule, item for item: pages sorted stably with the
+    dead items at the tail (page -1), lanes and slots in the same
+    order."""
+    _, _, _, tbl, base = _case(B + T + psz, B, T, H, KH, hd, psz, maxp, P,
+                               overlap)
+    want = build_verify_schedule(jnp.asarray(tbl), jnp.asarray(base), T, psz)
+    got = t_schedule(*_torch(tbl, base), T, psz)
+    for w, g in zip(want, got):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_schedule_parks_items_past_the_window():
+    """Fully mapped tables (pages past each lane's causal window, as a
+    lane holds after a chunk was granted), with windows that end
+    exactly on a page boundary, one page short of it and one past it:
+    the same schedule, and the pages past base + T - 1 are dead."""
+    T, psz, maxp = 5, 8, 6
+    tbl = np.random.RandomState(4).permutation(40)[:4 * maxp].reshape(
+        4, maxp).astype(np.int32)
+    base = np.array([3, 11, 12, 0], np.int32)    # base + T: 8, 16, 17, 5
+    want = build_verify_schedule(jnp.asarray(tbl), jnp.asarray(base), T, psz)
+    got = t_schedule(*_torch(tbl, base), T, psz)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    pages, lanes, slots = (g.numpy() for g in got)
+    live = pages >= 0
+    assert sorted(zip(lanes[live], slots[live])) == \
+        [(0, 0), (1, 0), (1, 1), (2, 0), (2, 1), (2, 2), (3, 0)]
+
+
+def test_all_masked_rows_are_zero_and_match_k1():
+    """An idle lane (table all -1) and rows past every key output exact
+    zeros; on the same inputs K3's function is K1's."""
+    q, kp, vp, tbl, base = _case(7, 4, 5, 4, 2, 32, 8, 6, 64, "prefix")
+    tbl[1] = -1
+    base[1] = 0
+    t = _torch(q, kp, vp, tbl, base)
+    out = plain(*t)
+    assert (out[1] == 0).all()
+    assert torch.equal(out, paged_attention_chunk_ref(*t))
+    np.testing.assert_allclose(
+        out.numpy(), np.asarray(pallas_verify(*_jax(q, kp, vp, tbl, base),
+                                              interpret=True)),
+        atol=1e-4, rtol=1e-4)
+
+
+def test_dispatcher_takes_plain_version_on_cpu():
+    case = _torch(*_case(3, 4, 5, 4, 2, 32, 8, 6, 64, "all"))
+    before = ops.verify_attention.launches
+    out = ops.verify_attention(*case)
+    assert ops.verify_attention.launches == before
+    assert torch.equal(out, plain(*case))
+
+
+def test_bound_counts_each_distinct_page_once():
+    """Lanes that share every page cost the bytes of one lane's pages."""
+    q, kp, vp, tbl, base = _case(5, 8, 3, 4, 2, 32, 8, 6, 64, "all")
+    t = _torch(q, kp, vp, tbl, base)
+    distinct = len({int(p) for b in range(8) for i, p in enumerate(tbl[b])
+                    if p >= 0 and i * 8 <= base[b] + 2})
+    page_bytes = 8 * 2 * 32 * 4
+    assert ops.bound_bytes(t[0], t[1], t[3], t[4]) == \
+        2 * q.nbytes + 2 * distinct * page_bytes
+    assert distinct < int((tbl >= 0).sum())
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    cfg = smoke_config(get_config("olmo-1b"))
+    params = jmodels.init_params(cfg, jax.random.PRNGKey(0))
+    return cfg, params
+
+
+@pytest.mark.parametrize("chunk", [16, 100, 256, 1024])
+def test_chunked_argmax_matches_full_projection(smoke, chunk):
+    """Split, odd, exact and single-chunk vocabularies (vocab 256), on
+    the bridged weights of the smoke config, against the port's full
+    projection and the reference's."""
+    cfg, params = smoke
+    embed = params_from_numpy(jax.tree.map(np.asarray, params["embed"]),
+                              "cpu")
+    x = np.random.RandomState(2).randn(2, 3, 5, cfg.d_model).astype(
+        np.float32)
+    full = torch.argmax(logits_apply(cfg, embed, torch.from_numpy(x)), -1)
+    got = logits_argmax_chunked(cfg, embed, torch.from_numpy(x), chunk=chunk)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, full.to(torch.int32))
+    ref = jnp.argmax(j_logits(cfg, params["embed"], jnp.asarray(x)), -1)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_chunked_argmax_tie_break_is_first_max(smoke):
+    """Duplicated lm_head columns give exact ties, across chunks and
+    inside one: the first maximum wins, as in a full argmax."""
+    cfg, _ = smoke
+    w = torch.zeros((cfg.d_model, 8))
+    w[:, 2] = 1.0
+    w[:, 5] = 1.0
+    w[:, 3] = 1.0
+    x = torch.ones((3, cfg.d_model))
+    for chunk in (2, 3, 8):
+        got = logits_argmax_chunked(cfg, {"lm_head": w}, x, chunk=chunk)
+        assert (got == 2).all(), chunk
