@@ -14,17 +14,22 @@ Phases, each printed on its own line (any failure fails the run):
    in float32 from the same inputs and round once, within one bf16 ulp
    (2^-7 relative).  K1 (paged attention) at T = 1 and 64; K3 (verify
    attention) at T = 5 and 64 on tables whose lanes share their prefix
-   pages, also against K1 on the same inputs;
+   pages, also against K1 on the same inputs; K4 (SSD scan, f32 and
+   bf16) and K5 (RG-LRU, float32 only) at T = 1 and 64 at full width
+   and at smoke width, from a carried state, with inert lanes whose
+   state must stay bit for bit;
 4. check the port's engine on the card against the same engine on the
-   CPU (where every kernel wrapper runs its plain version) on the
-   olmo-1b smoke config: identical tokens and status rows, for the
-   plain path and, with speculation, for the hot-prefix workload of
-   ``tests/test_speculative.py``;
+   CPU (where every kernel wrapper runs its plain version) on smoke
+   configs: identical tokens and status rows, for olmo-1b's plain path
+   and, with speculation, the hot-prefix workload of
+   ``tests/test_speculative.py``, and for recurrentgemma-2b and
+   mamba2-370m with two size classes;
 5. the plain path: serve olmo-1b at full width (16 layers x 2048, 16
    heads, hd 128, vocab 50304, bf16, page size 64) with random weights
    from ``--seed`` through ``ServingEngine.run``: every request
-   finishes, the pool drains leak-free, K1 ran 16 times per step, and
-   each step made exactly one device-to-host transfer;
+   finishes, the pool drains leak-free, K1 ran 16 times per step and
+   no other kernel ran, and each step made exactly one device-to-host
+   transfer;
 6. time K1, its plain version, a PyTorch library call for the same
    attention and the bound, at the serving shapes;
 7. the speculative path: the same engine settings with draft length 4
@@ -35,7 +40,19 @@ Phases, each printed on its own line (any failure fails the run):
    step, leak-free; in f32 both runs give identical tokens; in bf16 the
    count of identical streams is printed;
 8. time K3 at T = 5 on hot-prefix tables and at T = 64, beside its
-   bound, its plain version and SDPA, and print the kernels line.
+   bound, its plain version and SDPA;
+9. the SSD path: serve mamba2-370m at full width (48 SSD layers, d_model
+   1024, 32 heads of 64, state 128, bf16) with two size classes, the
+   workload of phase 5, max_len 2048: every request finishes, K4 ran 48
+   times per step and no other kernel ran, one transfer per step, no KV
+   page and no state block in use after the drain;
+10. the RG-LRU path: the same for recurrentgemma-2b (18 RG-LRU layers
+   and 8 sliding-window layers of window 2048, d_model 2560, bf16) at
+   max_len 4096, 16 prompts of 64-3,000 tokens, 4 of them past the
+   window: K5 ran 18 times per step;
+11. time K4 and K5 at T = 1 and 64 beside their bounds and plain
+   versions, print both families' end-to-end rates, and the kernels
+   line (K1, K3, K4, K5).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the rest of the repository beside it, the script
@@ -233,9 +250,78 @@ def check_k3(k3, ops, plain, rng, cfg_full, cfg_smoke, b_local, maxp, P):
     return worst
 
 
-def check_engine_vs_cpu(tengine, cfg_smoke, seed):
+def scan_case(rng, kind, dims, dtype):
+    """Inputs of K4 (``kind`` "ssd", dims (B, S, H, P, N)) or K5
+    ("rglru", dims (B, S, d)) on the card, with the carried state h0 !=
+    0; lane 1 is inert (dt = 0, or a = 1 and b = 0) from token 2 on and
+    lane 2 throughout, as the serving path's ragged tails and idle slots
+    are.  Returns (inputs without the state, h0)."""
+    f = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.randn(*shape).astype(np.float32)).cuda()
+    if kind == "ssd":
+        B, S, H, P, N = dims
+        dt = torch.from_numpy(rng.rand(B, S, H).astype(np.float32) * 0.5
+                              + 0.1).cuda()
+        dt[1, 2:] = 0.0
+        dt[2] = 0.0
+        args = [(f(B, S, H, P) * 0.5).to(dtype), dt, -f(H).abs() * 0.5,
+                (f(B, S, N) * 0.3).to(dtype), (f(B, S, N) * 0.3).to(dtype),
+                f(H) * 0.1]
+        return args, f(B, H, P, N)
+    B, S, d = dims
+    a = torch.from_numpy(rng.rand(B, S, d).astype(np.float32) * 0.9).cuda()
+    b = f(B, S, d) * 0.5
+    a[1, 2:], b[1, 2:] = 1.0, 0.0
+    a[2], b[2] = 1.0, 0.0
+    return [a, b], f(B, d)
+
+
+def check_scan(name, fn, plain, kind, cases, rng):
+    """Phase 3: K4 or K5, through the dispatcher the engine calls, from a
+    carried state and with inert lanes, against its plain version on
+    the card.  Returns the worst error of the output over the cases."""
+    worst = 0.0
+    for label, dims, dt in cases:
+        args, h0 = scan_case(rng, kind, dims, dt)
+        h = h0.clone()
+        before = fn.launches
+        out, h_out = fn(*args, h)
+        torch.cuda.synchronize()
+        check(fn.launches == before + 1 and h_out is h,
+              f"{name} {label}: the dispatcher launched the kernel once and "
+              f"updated the state in place")
+        ref, h_ref = plain(*args, h0)
+        check(bool(torch.isfinite(out.float()).all())
+              and bool(torch.isfinite(h).all()), f"{name} {label}: finite")
+        check(torch.equal(h[2], h0[2]),
+              f"{name} {label}: an inert lane keeps its state bit for bit")
+        torch.testing.assert_close(h, h_ref, atol=TOL[torch.float32],
+                                   rtol=TOL[torch.float32],
+                                   msg=lambda m, n=label: f"{name} {n} h: {m}")
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dt],
+                                   rtol=TOL[dt],
+                                   msg=lambda m, n=label: f"{name} {n}: {m}")
+        tol = f"tol {TOL[dt]:g}"
+        if dt == torch.bfloat16:
+            torch.testing.assert_close(
+                out.float(), ref.float(), atol=BF16_ULP_ATOL,
+                rtol=BF16_ULP_RTOL,
+                msg=lambda m, n=label: f"{name} {n}, one bf16 ulp: {m}")
+            tol += f" and one ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}"
+        err = (out.float() - ref.float()).abs().max().item()
+        herr = (h - h_ref).abs().max().item()
+        phase(f"[3] {name} {label}: max_abs_err {err:.3e} (state "
+              f"{herr:.3e}), max|ref| {ref.float().abs().max().item():.3e} "
+              f"({tol}); inert lane bit-equal")
+        worst = max(worst, err)
+    return worst
+
+
+def check_engine_vs_cpu(tengine, cfg_smoke, seed, name="smoke engine",
+                        **kw):
     """Phase 4: the engine on the card against the engine on the CPU
-    (plain versions), olmo-1b smoke config, f32."""
+    (plain versions) on a smoke config, f32; ``kw`` go to both
+    engines."""
     from repro_torch.models.model import init_params
     from repro_torch.models.layers import tree_map
 
@@ -247,18 +333,18 @@ def check_engine_vs_cpu(tengine, cfg_smoke, seed):
     for dev in ("cpu", "cuda"):
         eng = tengine.ServingEngine(
             cfg_smoke, tree_map(lambda a: a.to(dev), params), dp=2,
-            b_local=2, max_len=64, chunk_size=8, device=dev)
+            b_local=2, max_len=64, chunk_size=8, device=dev, **kw)
         reqs = [tengine.Request(i, prompt=p, max_new_tokens=6)
                 for i, p in enumerate(prompts)]
         for r in reqs:
             eng.submit(r)
         eng.run(max_steps=500)
         check(all(r.done for r in reqs) and eng.leak_free(),
-              f"smoke engine on {dev} drained")
+              f"{name} on {dev} drained")
         runs[dev] = ([r.out_tokens for r in reqs],
                      [rec["status"] for rec in eng.flight.ring])
-    check(runs["cuda"] == runs["cpu"], "engine on the card == on the CPU")
-    phase(f"[4] smoke engine on the card == on the CPU: 9 requests, "
+    check(runs["cuda"] == runs["cpu"], f"{name} on the card == on the CPU")
+    phase(f"[4] {name} on the card == on the CPU: 9 requests, "
           f"{len(runs['cuda'][1])} steps, identical tokens and status rows")
 
 
@@ -310,19 +396,30 @@ def check_spec_engine_vs_cpu(tengine, k3, cfg_smoke, seed):
           f"and status rows")
 
 
-def make_requests(tengine, cfg, seed, n=16):
-    """The smoke workload: ``n`` requests of 64-1024 random prompt
-    tokens and 32-64 new tokens each, from ``seed``."""
+def make_requests(tengine, cfg, seed, n=16, hi=1024, n_long=0, long_lo=0):
+    """The smoke workload: ``n`` requests of 64-``hi`` random prompt
+    tokens and 32-64 new tokens each, from ``seed``; every (n //
+    n_long)-th prompt (``n_long`` of them) is at least ``long_lo``
+    tokens long."""
     rng = np.random.RandomState(seed)
-    return [tengine.Request(i, prompt=list(rng.randint(1, cfg.vocab,
-                                                       rng.randint(64, 1025))),
+    lens = rng.randint(64, hi + 1, n)
+    if n_long:
+        lens[::n // n_long] = rng.randint(long_lo, hi + 1, n_long)
+    return [tengine.Request(i, prompt=list(rng.randint(1, cfg.vocab, m)),
                             max_new_tokens=int(rng.randint(32, 65)))
-            for i in range(n)]
+            for i, m in enumerate(lens)]
 
 
-def serve_full_width(tengine, cfg, ops, seed, b_local, max_len, chunk):
-    """Phase 5: full-width olmo-1b through ``ServingEngine.run``.
-    Returns (engine, K1 launches, generated tok/s)."""
+def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
+                     max_len, chunk, reqs, size_classes=1,
+                     profile_reqs=None):
+    """Phases 5, 9 and 10: one model at full width through
+    ``ServingEngine.run``.  ``counted`` maps each kernel's name to its
+    dispatcher; ``kernel`` names the one that every layer of its kind
+    must launch once a step, and no other kernel may run.
+    ``profile_reqs``, when given, are served again under the profiler.
+    Returns the run's numbers."""
+    from repro_torch.core.classed_pool import CLS_KV
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.model import init_params
 
@@ -330,22 +427,33 @@ def serve_full_width(tengine, cfg, ops, seed, b_local, max_len, chunk):
     params = init_params(cfg, seed=seed, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tree_leaves(params))
-    phase(f"[5] olmo-1b params: {n_params} ({cfg.dtype}), init "
+    tag = f"{tag} {cfg.name}"
+    phase(f"{tag} params: {n_params} ({cfg.dtype}), init "
           f"{time.perf_counter() - t0:.1f} s")
     eng = tengine.ServingEngine(cfg, params, dp=1, b_local=b_local,
                                 max_len=max_len, chunk_size=chunk,
-                                device="cuda")
+                                size_classes=size_classes, device="cuda")
+    bounded = bool(eng.state.rings or eng.state.rec)
+    check((eng.prefix_cache is None) == bounded
+          and not (bounded and eng.speculate),
+          f"{tag}: sharing and speculation off exactly for ring and "
+          f"recurrent state")
     # warm-up: one short request loads the prefill (T = 64) and decode
     # (T = 1) kernels and picks the matmul algorithms; not counted
     eng.submit(tengine.Request(10**6, prompt=[1] * (chunk + 1),
                                max_new_tokens=3))
     eng.run(max_steps=100)
-    reqs = make_requests(tengine, cfg, seed)
-    phase(f"[5] pool: {eng.pages_local} pages/shard, "
-          f"{sum(len(r.prompt) for r in reqs)} prompt tokens, "
+    kind = {"K1": "global", "K4": "ssd", "K5": "rglru"}[kernel]
+    n_layers = sum(1 for k in cfg.layer_kinds if k == kind)
+    phase(f"{tag}: {n_layers} {kind} layers, {size_classes} size "
+          f"class(es): {eng.pages_local} KV pages a shard, "
+          f"{eng.est_state_blocks(reqs[0])} state blocks a slot; "
+          f"{sum(len(r.prompt) for r in reqs)} prompt tokens (longest "
+          f"{max(len(r.prompt) for r in reqs)}), "
           f"{sum(r.max_new_tokens for r in reqs)} new tokens asked")
     # the main path's run: counts zeroed just before, read just after
-    ops.paged_attention_chunk.launches = 0
+    for fn in counted.values():
+        fn.launches = 0
     steps0, transfers0 = eng.stats["steps"], eng.host_transfers
     tokens0, prompt0 = eng.stats["tokens_out"], eng.stats["prompt_tokens"]
     torch.cuda.synchronize()
@@ -366,32 +474,79 @@ def serve_full_width(tengine, cfg, ops, seed, b_local, max_len, chunk):
     eng.run(max_steps=10_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.paged_attention_chunk.launches
+    launches = {k: fn.launches for k, fn in counted.items()}
     steps = eng.stats["steps"] - steps0
     transfers = eng.host_transfers - transfers0
     tokens = eng.stats["tokens_out"] - tokens0
     prompt = eng.stats["prompt_tokens"] - prompt0
-    check(all(r.done for r in reqs), "every request finished")
+    check(all(r.done for r in reqs), f"{tag}: every request finished")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
-          "tokens inside the vocabulary")
+          f"{tag}: tokens inside the vocabulary")
     check([len(r.out_tokens) for r in reqs]
-          == [r.max_new_tokens for r in reqs], "every budget generated")
-    check(eng.page_occupancy() == 0.0 and eng.leak_free(),
-          "no page leaked after the drain")
-    check(launches == cfg.n_layers * steps > 0,
-          f"K1 launched once per layer per step ({launches}, {steps})")
-    check(transfers == steps, f"one transfer per step ({transfers}, "
+          == [r.max_new_tokens for r in reqs], f"{tag}: every budget "
+                                               f"generated")
+    check(launches[kernel] == n_layers * steps > 0
+          and sum(launches.values()) == launches[kernel],
+          f"{tag}: {kernel} launched once per {kind} layer per step and no "
+          f"other kernel ran ({launches}, {steps} steps)")
+    check(transfers == steps, f"{tag}: one transfer per step ({transfers}, "
                               f"{steps})")
-    phase(f"[5] served 16 requests: {steps} steps, {tokens} tokens out, "
-          f"{prompt} prompt tokens, wall {wall:.3f} s")
-    phase(f"[5] K1 launches {launches} = {cfg.n_layers} layers x {steps} "
-          f"steps; device->host transfers {transfers} (1 per step); "
+    in_use = [eng.blocks_in_use(c) for c in range(eng.n_classes)]
+    check(not any(in_use) and eng.leak_free(),
+          f"{tag}: no KV page and no state block in use after the drain")
+    phase(f"{tag}: served {len(reqs)} requests: {steps} steps, {tokens} "
+          f"tokens out, {prompt} prompt tokens, wall {wall:.3f} s; "
+          f"{kernel} launches {launches[kernel]} = {n_layers} x {steps} "
+          f"steps, other kernels {sum(launches.values()) - launches[kernel]}"
+          f"; device->host transfers {transfers} (1 per step), "
           f"synchronizing calls in one step under sync-debug mode: "
-          f"{len(syncs)} {syncs}")
-    phase(f"[5] end-to-end: {tokens / wall:.1f} generated tok/s, "
+          f"{len(syncs)} {syncs}; state blocks granted "
+          f"{eng.stats['state_blocks_granted']}; blocks in use after the "
+          f"drain, per class (KV first): {in_use}")
+    phase(f"{tag}: end-to-end {tokens / wall:.1f} generated tok/s, "
           f"{(tokens + prompt) / wall:.1f} total tok/s, "
           f"{1e3 * wall / steps:.2f} ms/step")
-    return eng, launches, tokens / wall
+    out = dict(launches=launches[kernel], steps=steps, tok_s=tokens / wall,
+               ms_step=1e3 * wall / steps, n_layers=n_layers)
+    if profile_reqs is not None:
+        profile_serve(eng, profile_reqs, f"{tag} [p]")
+    del eng, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_scan(kind, fn_cuda, plain, bound_bytes, flops, dims, n_layers, rng,
+              dtype):
+    """Phase 11: K4 or K5 (``fn_cuda`` launches it on inputs and a state)
+    and its plain version at one serving shape, beside the bound.  Each
+    layer has its own state, so the timing cycles through ``n_layers``
+    inputs and states and reads them cold, as a step does.  No single
+    PyTorch call computes either recurrence: no library time."""
+    layers = []
+    for _ in range(n_layers):
+        args, h = scan_case(rng, kind, dims, dtype)
+        layers.append((args, h))
+    it = iter(range(10 ** 9))
+
+    def kern():
+        args, h = layers[next(it) % n_layers]
+        fn_cuda(*args, h)
+
+    def ref():
+        args, h = layers[next(it) % n_layers]
+        plain(*args, h)
+
+    ms, host_ms = cuda_ms(kern, iters=4 * n_layers)
+    plain_ms, _ = cuda_ms(ref, iters=n_layers, warmup=1)
+    args, h = layers[0]
+    nbytes = bound_bytes(args, h)
+    nflops = flops(args)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nflops / PEAK_OPS[torch.float32]
+    return dict(T=dims[1], ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, flops=nflops)
 
 
 def hot_prefix_prompts(cfg, seed, n=32):
@@ -525,12 +680,11 @@ def serve_speculative(tengine, k3, ops, cfg, seed, b_local, max_len, chunk):
     return runs["bfloat16", True]
 
 
-def profile_serve(tengine, eng, cfg, seed):
-    """``--profile``: serve the workload again on the warm engine under
+def profile_serve(eng, reqs, tag="[p]"):
+    """``--profile``: serve ``reqs`` again on the warm engine under
     ``torch.profiler`` and print where a step's time goes."""
     from torch.profiler import ProfilerActivity, profile
 
-    reqs = make_requests(tengine, cfg, seed + 1)
     steps0 = eng.stats["steps"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -550,15 +704,15 @@ def profile_serve(tengine, eng, cfg, seed):
             ops.append((e.key, e.count, e.self_cpu_time_total))
     busy_us = sum(k[2] for k in kernels)
     launches = sum(k[1] for k in kernels)
-    phase(f"[p] profiled run: {steps} steps, wall {1e3 * wall:.1f} ms "
+    phase(f"{tag} profiled run: {steps} steps, wall {1e3 * wall:.1f} ms "
           f"({1e3 * wall / steps:.2f} ms/step), kernels "
           f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}% of "
           f"wall), {launches / steps:.0f} kernels/step")
     for key, count, t in sorted(kernels, key=lambda r: -r[2])[:10]:
-        phase(f"[p] device {t / 1e3 / steps:8.3f} ms/step {count:7d}x "
+        phase(f"{tag} device {t / 1e3 / steps:8.3f} ms/step {count:7d}x "
               f"{key[:80]}")
     for key, count, t in sorted(ops, key=lambda r: -r[2])[:10]:
-        phase(f"[p] host   {t / 1e3 / steps:8.3f} ms/step {count:7d}x "
+        phase(f"{tag} host   {t / 1e3 / steps:8.3f} ms/step {count:7d}x "
               f"{key[:80]}")
 
 
@@ -634,6 +788,10 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import \
         paged_attention_chunk_ref as plain
+    from repro_torch.kernels.rg_lru import ops as k5
+    from repro_torch.kernels.rg_lru.ref import rg_lru_ref
+    from repro_torch.kernels.ssd_scan import ops as k4
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.kernels.verify_attention import ops as k3
     from repro_torch.kernels.verify_attention.schedule import \
         build_verify_schedule
@@ -656,7 +814,7 @@ def main() -> int:
 
     # [2] build the kernels from this checkout's sources, in parallel
     t0 = time.perf_counter()
-    stems = ("paged_attention", "verify_attention")
+    stems = ("paged_attention", "verify_attention", "ssd_scan", "rg_lru")
     build.load_all(stems)
     for stem in stems:
         for line in build.logs.get(stem, "").splitlines():
@@ -676,18 +834,46 @@ def main() -> int:
     rng = np.random.RandomState(args.seed)
     err = check_kernel(ops, plain, rng, cfg, cfg_smoke, b_local, maxp, P)
     err3 = check_k3(k3, ops, plain, rng, cfg, cfg_smoke, b_local, maxp, P)
+    mamba, mamba_smoke = (get_config("mamba2-370m"),
+                          smoke_config(get_config("mamba2-370m")))
+    rgemma, rgemma_smoke = (get_config("recurrentgemma-2b"),
+                            smoke_config(get_config("recurrentgemma-2b")))
+
+    def ssd_dims(c, T):
+        di = c.ssd_expand * c.d_model
+        return (b_local, T, di // c.ssd_head_dim, c.ssd_head_dim,
+                c.ssd_state)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    err4 = check_scan("K4", k4.ssd_scan, ssd_scan_ref, "ssd", [
+        ("full T=1 bf16", ssd_dims(mamba, 1), bf),
+        ("full T=64 bf16", ssd_dims(mamba, 64), bf),
+        ("full T=1 f32", ssd_dims(mamba, 1), f32),
+        ("full T=64 f32", ssd_dims(mamba, 64), f32),
+        ("smoke T=8 f32", ssd_dims(mamba_smoke, 8), f32),
+        ("smoke T=1 f32", ssd_dims(mamba_smoke, 1), f32)], rng)
+    # K5's a and b are float32 in a bf16 model too
+    err5 = check_scan("K5", k5.rg_lru, rg_lru_ref, "rglru", [
+        ("full T=1 f32", (b_local, 1, rgemma.d_model), f32),
+        ("full T=64 f32", (b_local, 64, rgemma.d_model), f32),
+        ("smoke T=8 f32", (b_local, 8, rgemma_smoke.d_model), f32),
+        ("S=200 d=192 f32", (b_local, 200, 192), f32)], rng)
 
     # [4] the engine on the card vs on the CPU, small input
     check_engine_vs_cpu(tengine, cfg_smoke, args.seed)
     check_spec_engine_vs_cpu(tengine, k3, cfg_smoke, args.seed)
+    for c in (rgemma_smoke, mamba_smoke):
+        check_engine_vs_cpu(tengine, c, args.seed, name=f"{c.name} engine "
+                            f"(two size classes)", size_classes=2)
 
     # [5] the plain path at full width
-    eng, launches, tok_s = serve_full_width(tengine, cfg, ops, args.seed,
-                                            b_local, max_len, chunk)
-    if args.profile:
-        profile_serve(tengine, eng, cfg, args.seed)
-    del eng
-    torch.cuda.empty_cache()
+    counted = {"K1": ops.paged_attention_chunk, "K3": k3.verify_attention,
+               "K4": k4.ssd_scan, "K5": k5.rg_lru}
+    run1 = serve_full_width(
+        "[5]", tengine, counted, "K1", cfg, args.seed, b_local, max_len,
+        chunk, make_requests(tengine, cfg, args.seed),
+        profile_reqs=make_requests(tengine, cfg, args.seed + 1)
+        if args.profile else None)
 
     # [6] K1 timings at the serving shapes: decode (T=1) at the contexts
     # the run reached, and a prefill chunk (T=64)
@@ -708,7 +894,8 @@ def main() -> int:
               f"{t['bytes']} B, {t['flops']} flop), plain "
               f"{t['plain_ms']:.4f} ms, library (SDPA, dense K/V) "
               f"{t['library_ms']:.4f} ms")
-    phase(f"[6] end-to-end decode on {smi}: {tok_s:.1f} generated tok/s")
+    phase(f"[6] end-to-end decode on {smi}: {run1['tok_s']:.1f} generated "
+          f"tok/s")
 
     # [7] the speculative path at full width
     spec = serve_speculative(tengine, k3, ops, cfg, args.seed, b_local,
@@ -738,6 +925,51 @@ def main() -> int:
               f"{t['flops']} flop), plain {t['plain_ms']:.4f} ms, library "
               f"(SDPA, dense K/V) {t['library_ms']:.4f} ms")
 
+    # [9], [10] the recurrent paths at full width: mamba2-370m (K4) and
+    # recurrentgemma-2b (K5, and ring attention in plain torch ops)
+    def rgemma_requests(seed):
+        return make_requests(tengine, rgemma, seed, hi=3000, n_long=4,
+                             long_lo=rgemma.window + 1)
+
+    run4 = serve_full_width(
+        "[9]", tengine, counted, "K4", mamba, args.seed, b_local, 2048,
+        chunk, make_requests(tengine, mamba, args.seed), size_classes=2,
+        profile_reqs=make_requests(tengine, mamba, args.seed + 1)
+        if args.profile else None)
+    run5 = serve_full_width(
+        "[10]", tengine, counted, "K5", rgemma, args.seed, b_local, 4096,
+        chunk, rgemma_requests(args.seed), size_classes=2,
+        profile_reqs=rgemma_requests(args.seed + 1) if args.profile
+        else None)
+
+    # [11] K4 and K5 timings at the serving shapes: decode (T=1) and a
+    # prefill chunk (T=64); bf16 activations as the model serves them
+    def k4_bytes(a, h):
+        return k4.bound_bytes(a[0], a[1], a[3], h)
+
+    k4_times = [time_scan("ssd", k4.ssd_scan_cuda, ssd_scan_ref, k4_bytes,
+                          lambda a: k4.flops(a[0], a[3]), ssd_dims(mamba, T),
+                          mamba.n_layers, rng, bf) for T in (1, 64)]
+    k5_times = [time_scan("rglru", k5.rg_lru_cuda, rg_lru_ref,
+                          lambda a, h: k5.bound_bytes(a[0], h),
+                          lambda a: k5.flops(a[0]),
+                          (b_local, T, rgemma.d_model), run5["n_layers"], rng,
+                          f32) for T in (1, 64)]
+    for name, shape, ts in (
+            ("K4", f"B={b_local} H={ssd_dims(mamba, 1)[2]} "
+                   f"P={mamba.ssd_head_dim} N={mamba.ssd_state} bf16 x",
+             k4_times),
+            ("K5", f"B={b_local} d={rgemma.d_model} f32", k5_times)):
+        for t in ts:
+            phase(f"[11] {name} T={t['T']} {shape} on {smi}: kernel "
+                  f"{t['ms']:.4f} ms (host {t['host_ms']:.4f} ms a call), "
+                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                  f"{t['bytes']} B, {t['flops']} flop), plain "
+                  f"{t['plain_ms']:.4f} ms, library: no single PyTorch call")
+    for name, r in (("mamba2-370m", run4), ("recurrentgemma-2b", run5)):
+        phase(f"[11] end-to-end {name} on {smi}: {r['tok_s']:.1f} generated "
+              f"tok/s, {r['ms_step']:.2f} ms/step")
+
     def row(name, src, replaces, n, e, t, t_other, shape):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": n, "max_abs_err": e,
@@ -753,15 +985,24 @@ def main() -> int:
     kernels = [
         row("paged_attention_chunk",
             "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
-            "src/repro/kernels/paged_attention/kernel.py:171", launches, err,
+            "src/repro/kernels/paged_attention/kernel.py:171",
+            run1["launches"], err,
             t1, t64, f"T=1 {shape}"),
         row("verify_attention",
             "src/repro_torch/kernels/verify_attention/csrc/"
             "verify_attention.cu",
             "src/repro/kernels/verify_attention/kernel.py:173", spec["k3"],
             err3, v5, v64, f"T=5 {shape}, 8 shared prefix pages"),
+        row("ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+            "src/repro/kernels/ssd_scan/kernel.py:93", run4["launches"],
+            err4, *k4_times, f"T=1 B={b_local} H={ssd_dims(mamba, 1)[2]} "
+                             f"P={mamba.ssd_head_dim} N={mamba.ssd_state} "
+                             f"bf16"),
+        row("rg_lru", "src/repro_torch/kernels/rg_lru/csrc/rg_lru.cu",
+            "src/repro/kernels/rg_lru/kernel.py:67", run5["launches"], err5,
+            *k5_times, f"T=1 B={b_local} d={rgemma.d_model} f32"),
     ]
-    phase(f"[8] total {time.perf_counter() - t_start:.1f} s")
+    phase(f"[11] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,9 @@
 A static tuple of independent :class:`~repro_torch.core.hier_pool.HierPool`
 s, one per size class; the §4.2 never-dry argument holds per class
 because the classes never exchange blocks.  Counterpart of the JAX
-package's ``core/classed_pool.py``.  This slice of the port serves the
-single coarse KV class (C = 1); the fine bounded-state and expert
-classes arrive with the layers that use them.
+package's ``core/classed_pool.py``.  The port serves the coarse KV
+class and the fine bounded-state class (C <= 2); the expert class
+arrives with expert paging.
 
 Every op takes the class index ``cls`` as a Python int and runs the
 single-class op on that class's leaves.
@@ -22,6 +22,9 @@ from .hier_pool import HierPool
 
 #: class index of the coarse paged-KV class — always present, always 0.
 CLS_KV = 0
+#: class index of the fine bounded-state class (ring windows, recurrent
+#: state) in a two-class pool.
+CLS_STATE = 1
 
 
 class ClassSpec(NamedTuple):

@@ -2,7 +2,8 @@
 // paged_attention/csrc, K3 in verify_attention/csrc): conversions
 // between the storage type and float, 16-byte loads, warp reductions,
 // and the staging of one [psz, hd] page of one kv head into shared
-// memory.
+// memory.  The SSD scan (K4, ssd_scan/csrc) uses the conversions and
+// the warp sum.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -13,27 +13,38 @@ import torch
 
 from ..core import classed_pool
 from ..core.block_pool import I32, NULL
+from .layers import tree_map
 from .transformer import DecodeState, decode_state_defs, pool_class_specs
 
 
 def empty_decode_state(cfg, dp: int, b_local: int, max_len: int,
                        chunk: Optional[int] = None, size_classes: int = 1,
                        device="cuda") -> DecodeState:
-    """Concrete zero state on ``device``: zero KV pages, empty page
-    tables, and a per-shard pool with one private lane per slot
-    (``chunk`` sizes the lane batch ``ell``)."""
+    """Concrete zero state on ``device``: zero KV pages, rings and
+    recurrent state, empty page and state tables, and a per-shard pool
+    vector with one private lane per slot per class (``chunk`` sizes the
+    KV lane batch ``ell``, ``size_classes`` the class vector)."""
     defs = decode_state_defs(cfg, dp, b_local, max_len, chunk=chunk,
                              size_classes=size_classes)
-    kv_pages = {pos: tuple(torch.zeros(d.shape, dtype=d.dtype, device=device)
-                           for d in kv)
-                for pos, kv in defs.kv_pages.items()}
+
+    def zeros(d):
+        return torch.zeros(d.shape, dtype=d.dtype, device=device)
+
     specs = pool_class_specs(cfg, b_local, max_len, chunk, size_classes)
+    state_tables = None
+    if defs.state_tables is not None:
+        state_tables = torch.full(defs.state_tables.shape, NULL, dtype=I32,
+                                  device=device)
     return DecodeState(
-        kv_pages=kv_pages,
+        kv_pages={pos: tuple(map(zeros, kv))
+                  for pos, kv in defs.kv_pages.items()},
+        rings={pos: tuple(map(zeros, kv)) for pos, kv in defs.rings.items()},
+        rec=tree_map(zeros, defs.rec),
         page_tables=torch.full(defs.page_tables.shape, NULL, dtype=I32,
                                device=device),
         seq_lens=torch.zeros(defs.seq_lens.shape, dtype=I32, device=device),
-        pool=classed_pool.create_dp(dp, specs, device))
+        pool=classed_pool.create_dp(dp, specs, device),
+        state_tables=state_tables)
 
 
 def empty_serve_arrays(dp: int, b_local: int, device="cuda"):

@@ -1,7 +1,8 @@
-"""Parameter definitions, norms, RoPE, embeddings, dense FFN.
+"""Parameter definitions, norms, RoPE, embeddings, dense FFN, the causal
+convolution of the recurrent blocks.
 
 Counterpart of the JAX package's ``models/layers.py``, limited to what
-the paged decode path calls.  Parameters live in nested dicts of
+the decode path calls.  Parameters live in nested dicts of
 tensors declared by :class:`ParamDef` trees, with the same tree,
 shapes and dtypes as the reference's.
 """
@@ -120,19 +121,49 @@ def apply_rope(x, positions, theta: float):
 
 def ffn_defs(cfg):
     d, f, dt = cfg.d_model, cfg.d_ff, cfg.tdtype
-    if cfg.act != "swiglu":
-        raise NotImplementedError(f"act={cfg.act!r}: this slice of the "
-                                  f"port serves the dense SwiGLU FFN")
+    if cfg.act == "swiglu":
+        return {
+            "w_gate": ParamDef((d, f), ("embed", "mlp"), dt),
+            "w_up": ParamDef((d, f), ("embed", "mlp"), dt),
+            "w_down": ParamDef((f, d), ("mlp", "embed"), dt),
+        }
     return {
-        "w_gate": ParamDef((d, f), ("embed", "mlp"), dt),
         "w_up": ParamDef((d, f), ("embed", "mlp"), dt),
         "w_down": ParamDef((f, d), ("mlp", "embed"), dt),
     }
 
 
+def gelu(x):
+    """GeLU in its tanh form, which ``jax.nn.gelu`` computes by default
+    (torch's default, the erf form, differs by more than 1e-4)."""
+    return F.gelu(x, approximate="tanh")
+
+
 def ffn_apply(cfg, params, x):
-    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    if cfg.act == "swiglu":
+        h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    else:
+        h = gelu(x @ params["w_up"])
     return h @ params["w_down"]
+
+
+# ----------------------------------------------------------------- conv
+
+def causal_conv(x, w, state, lens):
+    """Depthwise causal convolution of a chunk, kernel K = w.shape[0].
+
+    x: [B, T, C]; w: [K, C]; state: [B, K - 1, C], the K - 1 inputs
+    before the chunk; lens: [B] valid tokens of the chunk.  Returns
+    (y [B, T, C], new_state [B, K - 1, C]): the new state is the K - 1
+    inputs that end at each sequence's last valid token, so a ragged
+    tail leaves it as token-by-token updates would (lens = 0 keeps the
+    old state)."""
+    B, T, C = x.shape
+    K = w.shape[0]
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = sum(xp[:, i:i + T] * w[i] for i in range(K))
+    idx = lens.long()[:, None] + torch.arange(K - 1, device=x.device)
+    return y, xp.gather(1, idx[..., None].expand(B, K - 1, C))
 
 
 # ----------------------------------------------------------------- embeds

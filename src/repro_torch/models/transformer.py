@@ -1,22 +1,31 @@
-"""Decoder stack, paged decode state and the chunked decode forward.
+"""Decoder stack, decode state and the chunked decode forward.
 
 Counterpart of the JAX package's ``models/transformer.py``, limited to
-this slice of the port: decoders whose layers are all global attention
-over **paged KV** with a dense SwiGLU FFN (olmo-1b, llama3.2-1b,
-phi4-mini).  Pages come from the two-level size-classed pool
-(:mod:`repro_torch.core.classed_pool`, one KV class) exactly as in the
-reference: per-slot private lanes over a per-shard shared stack.
+the slices of the port so far: decoders of global attention over
+**paged KV** (olmo-1b, llama3.2-1b, phi4-mini), sliding-window
+attention over per-slot **ring** slabs (gemma3's local layers,
+recurrentgemma's), and recurrent **SSD** (mamba2) and **RG-LRU**
+(recurrentgemma) layers over per-slot state slabs, with a dense SwiGLU
+or GeLU FFN.  Pages come from the two-level size-classed pool
+(:mod:`repro_torch.core.classed_pool`) exactly as in the reference:
+per-slot private lanes over a per-shard shared stack; a two-class pool
+adds the fine ``CLS_STATE`` class that bounded ring and recurrent state
+is admitted against.
 
 Decode batch layout is [DP, B_local, ...]; DP stays a leading axis on
 one device, as in the reference's single-device fallback.
 
-Where the port departs from the reference's pure functions: the KV
-pages are updated in place (a copy of every layer's pages per step is
-what a functional update would cost).  Each shard's page array carries
-one extra page, index ``pages_local``, that the allocator never grants:
+Where the port departs from the reference's pure functions: KV pages,
+rings and recurrent state are updated in place (a copy of every
+layer's state per step is what a functional update would cost).  Each
+shard's page array carries one extra page, index ``pages_local``, that
+the allocator never grants, and each ring one extra slot, index W:
 masked tokens are written there, which is how this port expresses
-JAX's out-of-range ``mode="drop"`` scatter.  Everything else in
-:class:`DecodeState` (tables, lengths, pool) is replaced, not mutated.
+JAX's out-of-range ``mode="drop"`` scatter.  Tables, lengths and the
+pool are replaced, not mutated.  The reference runs a recurrent layer
+over a chunk as T gated single-token updates; the port runs it as one
+chunk pass through the scan kernels K4 and K5, with the ragged tail
+made inert inside the scan (``models/ssm.py``, ``models/rglru.py``).
 """
 
 from __future__ import annotations
@@ -30,8 +39,11 @@ from ..core import block_pool, classed_pool
 from ..core.block_pool import I32, NULL
 from ..core.classed_pool import CLS_KV, ClassSpec
 from ..kernels.paged_attention.ops import paged_attention_chunk
+from ..kernels.paged_attention.ref import NEG_INF
 from ..kernels.verify_attention.ops import verify_attention, workspace_numel
 from ..kernels.verify_attention.schedule import build_verify_schedule
+from . import rglru as rglru_mod
+from . import ssm as ssm_mod
 from .layers import (ParamDef, apply_norm, embed_apply, embed_defs,
                      ffn_apply, ffn_defs, norm_defs, rope_tables, rotate,
                      tree_map)
@@ -40,13 +52,14 @@ from .layers import (ParamDef, apply_norm, embed_apply, embed_defs,
 # ===================================================================== defs
 
 def _check_slice(cfg) -> None:
-    """Raise for a configuration outside this slice of the port."""
+    """Raise for a configuration outside the port's slices so far."""
     kinds = set(cfg.pattern) | set(cfg.remainder)
-    if kinds != {"global"} or cfg.arch_kind != "decoder" or not cfg.d_ff:
+    if (not kinds <= {"global", "local", "ssd", "rglru"}
+            or cfg.arch_kind != "decoder"):
         raise NotImplementedError(
-            f"{cfg.name}: this slice of the port serves decoders of paged "
-            f"global-attention layers with a dense FFN (pattern "
-            f"{cfg.pattern}, arch_kind {cfg.arch_kind!r})")
+            f"{cfg.name}: the port serves decoders of global, local, ssd "
+            f"and rglru layers with a dense FFN (pattern {cfg.pattern}, "
+            f"arch_kind {cfg.arch_kind!r})")
 
 
 def attn_defs(cfg):
@@ -68,14 +81,24 @@ def _stack(defs, n: int):
 
 
 def layer_defs(cfg, kind: str):
-    if base_kind(kind) != "global" or is_moe_kind(kind):
+    bk = base_kind(kind)
+    if is_moe_kind(kind) or bk not in ("global", "local", "ssd", "rglru"):
         raise NotImplementedError(f"layer kind {kind!r}")
-    return {"norm1": norm_defs(cfg), "attn": attn_defs(cfg),
-            "norm2": norm_defs(cfg), "ffn": ffn_defs(cfg)}
+    d = {"norm1": norm_defs(cfg)}
+    if bk in ("global", "local"):
+        d["attn"] = attn_defs(cfg)
+    elif bk == "ssd":
+        d["ssd"] = ssm_mod.ssd_defs(cfg)
+    else:
+        d["rglru"] = rglru_mod.rglru_defs(cfg)
+    if bk != "ssd" and cfg.d_ff:
+        d["norm2"] = norm_defs(cfg)
+        d["ffn"] = ffn_defs(cfg)
+    return d
 
 
 def model_defs(cfg):
-    """The reference's parameter tree for this slice's decoders:
+    """The reference's parameter tree for the port's decoders:
     ``embed``, ``final_norm`` (RMS configs), ``groups`` (the pattern
     groups stacked on a leading layers axis) and ``rem``."""
     _check_slice(cfg)
@@ -100,19 +123,31 @@ class DecodeState(NamedTuple):
     kv_pages:    dict pos -> (k, v) [n_stack, DP, pages_local + 1, psz,
                  KH, hd]; the last page of each shard is the write sink
                  of masked tokens, never granted and never read
+    rings:       dict pos -> (k, v) [n_stack, DP, Bl, W + 1, KH, hd];
+                 slot W of each ring is the write sink of masked tokens
+    rec:         dict pos -> {"h", "conv"} recurrent state slabs
+                 [n_stack, DP, Bl, ...] (:func:`_rec_state_defs`)
     page_tables: int32 [DP, Bl, max_pages]   (shared by all paged layers)
     seq_lens:    int32 [DP, Bl]
-    pool:        ClassedPool with leading-[DP] leaves, one KV class:
-                 per-slot private lanes of capacity 3*ell over a
-                 per-shard shared stack
+    pool:        ClassedPool with leading-[DP] leaves: class CLS_KV backs
+                 the paged KV with per-slot private lanes of capacity
+                 3*ell over a per-shard shared stack; a two-class pool
+                 adds CLS_STATE, the fine class that meters each slot's
+                 bounded ring and recurrent state
+    state_tables: int32 [DP, Bl, state_blocks_per_slot] CLS_STATE grants
+                 of each slot (granted at admission, freed at release),
+                 or None in a single-class pool
 
-    The reference's ring, recurrent, encoder, state-class and expert
-    fields belong to layers later slices of the port bring in.
+    The reference's encoder and expert fields belong to layers later
+    slices of the port bring in.
     """
     kv_pages: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+    rings: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+    rec: Dict[str, Dict[str, torch.Tensor]]
     page_tables: torch.Tensor
     seq_lens: torch.Tensor
     pool: classed_pool.ClassedPool
+    state_tables: Optional[torch.Tensor] = None
 
 
 class TensorDef(NamedTuple):
@@ -120,6 +155,18 @@ class TensorDef(NamedTuple):
     ``jax.ShapeDtypeStruct``)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
+
+
+def _state_kind(kind: str) -> str:
+    """Layer kind -> the kind of state it keeps: 'paged', 'ring' or
+    'rec'."""
+    bk = base_kind(kind)
+    return {"global": "paged", "local": "ring"}.get(bk, "rec")
+
+
+def ring_window(cfg, max_len: int) -> int:
+    """Slots W of a ring: the window, at most max_len."""
+    return min(cfg.window or max_len, max_len)
 
 
 def pool_ell(cfg, chunk: Optional[int] = None) -> int:
@@ -130,21 +177,68 @@ def pool_ell(cfg, chunk: Optional[int] = None) -> int:
     return max(-(-int(chunk) // cfg.page_size), 2)
 
 
+def state_page_tokens(cfg) -> int:
+    """Granularity (token-capacity units) of the fine CLS_STATE class: a
+    quarter KV page."""
+    return max(1, cfg.page_size // 4)
+
+
+def state_blocks_per_slot(cfg, max_len: int) -> int:
+    """CLS_STATE blocks one slot's bounded state occupies, at
+    :func:`state_page_tokens` granularity: a ring charges its window,
+    a recurrent layer one block.  The grants are real allocator traffic
+    that meters state kept in dense slot-indexed slabs, so admission
+    counts bounded state at its own granularity instead of rounding it
+    up to KV pages."""
+    psz_s = state_page_tokens(cfg)
+    W = ring_window(cfg, max_len)
+    per_kind = {"paged": 0, "ring": -(-W // psz_s), "rec": 1}
+    return (cfg.n_groups * sum(per_kind[_state_kind(k)] for k in cfg.pattern)
+            + sum(per_kind[_state_kind(k)] for k in cfg.remainder))
+
+
 def pool_class_specs(cfg, b_local: int, max_len: int,
                      chunk: Optional[int] = None,
                      size_classes: int = 1) -> Tuple[ClassSpec, ...]:
-    """The class vector: one coarse paged-KV class sized for every
-    local slot at max length PLUS fully-stocked lanes (3*ell per
-    slot), the §4.2 slack."""
-    if size_classes != 1:
-        raise NotImplementedError("size_classes > 1: the fine state and "
-                                  "expert classes are later slices")
+    """The class vector.  Class 0 (CLS_KV) is the coarse paged-KV class,
+    sized for every local slot at max length PLUS fully-stocked lanes
+    (3*ell per slot), the §4.2 slack.  With ``size_classes`` 2, class 1
+    (CLS_STATE) is the fine bounded-state class with the same slack
+    rule at its own granularity and demand."""
+    if size_classes not in (1, 2):
+        raise NotImplementedError("size_classes > 2: the expert class is a "
+                                  "later slice of the port")
     psz = cfg.page_size
     max_pages = max(max_len // psz, 1)
     ell = pool_ell(cfg, chunk)
-    return (ClassSpec(page_size=psz,
-                      num_blocks=b_local * max_pages + 3 * ell * b_local,
-                      num_lanes=b_local, ell=ell),)
+    specs = [ClassSpec(page_size=psz,
+                       num_blocks=b_local * max_pages + 3 * ell * b_local,
+                       num_lanes=b_local, ell=ell)]
+    if size_classes == 2:
+        ell1 = 2       # in-step demand is frees only; keep the floor
+        specs.append(ClassSpec(
+            page_size=state_page_tokens(cfg),
+            num_blocks=(b_local * state_blocks_per_slot(cfg, max_len)
+                        + 3 * ell1 * b_local),
+            num_lanes=b_local, ell=ell1))
+    return tuple(specs)
+
+
+def _rec_state_defs(cfg, kind: str, stack: int, dp: int, b_local: int):
+    if kind == "ssd":
+        di = cfg.ssd_expand * cfg.d_model
+        H = di // cfg.ssd_head_dim
+        return {
+            "h": TensorDef((stack, dp, b_local, H, cfg.ssd_head_dim,
+                            cfg.ssd_state), torch.float32),
+            "conv": TensorDef((stack, dp, b_local, 3, di + 2 * cfg.ssd_state),
+                              cfg.tdtype),
+        }
+    return {
+        "h": TensorDef((stack, dp, b_local, cfg.d_model), torch.float32),
+        "conv": TensorDef((stack, dp, b_local, cfg.rglru_conv - 1,
+                           cfg.d_model), cfg.tdtype),
+    }
 
 
 def decode_state_defs(cfg, dp: int, b_local: int, max_len: int,
@@ -154,53 +248,92 @@ def decode_state_defs(cfg, dp: int, b_local: int, max_len: int,
     _check_slice(cfg)
     psz, KH, hd, dt = cfg.page_size, cfg.n_kv_heads, cfg.hd, cfg.tdtype
     max_pages = max(max_len // psz, 1)
-    (spec,) = pool_class_specs(cfg, b_local, max_len, chunk, size_classes)
-    P = spec.num_blocks
-    kv_pages = {}
-    for j in range(len(cfg.pattern)):
-        shp = (cfg.n_groups, dp, P + 1, psz, KH, hd)
-        kv_pages[f"pos{j}"] = (TensorDef(shp, dt),) * 2
-    for j in range(len(cfg.remainder)):
-        shp = (1, dp, P + 1, psz, KH, hd)
-        kv_pages[f"rem{j}"] = (TensorDef(shp, dt),) * 2
-    m, L, cap = spec.num_blocks, spec.num_lanes, 3 * spec.ell
-    hp = classed_pool.HierPool(
-        shared=block_pool.BlockPool(
-            free_ids=TensorDef((dp, m), I32), top=TensorDef((dp,), I32),
-            refcount=TensorDef((dp, m), torch.int16)),
-        private_ids=TensorDef((dp, L, cap), I32),
-        private_top=TensorDef((dp, L), I32))
+    specs = pool_class_specs(cfg, b_local, max_len, chunk, size_classes)
+    P = specs[CLS_KV].num_blocks
+    W = ring_window(cfg, max_len)
+    kv_pages, rings, rec = {}, {}, {}
+
+    def entry(pos, kind, stack):
+        sk = _state_kind(kind)
+        if sk == "paged":
+            shp = (stack, dp, P + 1, psz, KH, hd)
+            kv_pages[pos] = (TensorDef(shp, dt),) * 2
+        elif sk == "ring":
+            shp = (stack, dp, b_local, W + 1, KH, hd)
+            rings[pos] = (TensorDef(shp, dt),) * 2
+        else:
+            rec[pos] = _rec_state_defs(cfg, base_kind(kind), stack, dp,
+                                       b_local)
+
+    for j, k in enumerate(cfg.pattern):
+        entry(f"pos{j}", k, cfg.n_groups)
+    for j, k in enumerate(cfg.remainder):
+        entry(f"rem{j}", k, 1)
+
+    def class_def(s: ClassSpec):
+        m, L, cap = s.num_blocks, s.num_lanes, 3 * s.ell
+        return classed_pool.HierPool(
+            shared=block_pool.BlockPool(
+                free_ids=TensorDef((dp, m), I32), top=TensorDef((dp,), I32),
+                refcount=TensorDef((dp, m), torch.int16)),
+            private_ids=TensorDef((dp, L, cap), I32),
+            private_top=TensorDef((dp, L), I32))
+
+    state_tables = None
+    if size_classes == 2:
+        sbs = max(state_blocks_per_slot(cfg, max_len), 1)
+        state_tables = TensorDef((dp, b_local, sbs), I32)
     return DecodeState(
-        kv_pages=kv_pages,
+        kv_pages=kv_pages, rings=rings, rec=rec,
         page_tables=TensorDef((dp, b_local, max_pages), I32),
         seq_lens=TensorDef((dp, b_local), I32),
-        pool=classed_pool.ClassedPool(classes=(hp,)))
+        pool=classed_pool.ClassedPool(
+            classes=tuple(class_def(s) for s in specs)),
+        state_tables=state_tables)
 
 
 # ======================================================= chunked decode path
 
-class _StepIndex(NamedTuple):
-    """What every layer of one chunked step shares, computed once per
-    step: the RoPE tables, the KV write coordinates, the kernels'
-    DP-folded page table and base lengths, and on a verify step K3's
-    page-sorted schedule and partials workspace."""
-    cos: torch.Tensor         # float32 [DP*Bl, T, 1, hd/2]
-    sin: torch.Tensor
+class _PagedIndex(NamedTuple):
+    """The paged layers' share of a step: the KV write coordinates, the
+    kernels' DP-folded page table and base lengths, and on a verify
+    step K3's page-sorted schedule and partials workspace."""
     write: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # [DP, Bl, T]
     tables: torch.Tensor      # int32 [DP*Bl, maxp], shard d offset d*(P+1)
     base: torch.Tensor        # int32 [DP*Bl]
     verify: Optional[Tuple[Tuple[torch.Tensor, ...], torch.Tensor]]
 
 
-def _step_index(cfg, state: DecodeState, positions, tok_valid, base,
-                n_pages: int, verify: bool) -> _StepIndex:
-    """Per-step indices.  A token is written iff it is valid and its
-    page is mapped; masked tokens go to the sink page ``n_pages``.  The
-    kernel sees all DP shards as one batch: shard-local page ids are
-    offset by d * (n_pages + 1)."""
+class _RingIndex(NamedTuple):
+    """The ring layers' share of a step: the ring write coordinates and
+    the window mask over (ring slots, chunk tokens)."""
+    write: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # [DP, Bl, T]
+    valid: torch.Tensor       # bool [DP*Bl, 1, T, W + T]
+    any_valid: torch.Tensor   # bool [DP*Bl, 1, T, 1]
+
+
+class _StepIndex(NamedTuple):
+    """What every layer of one chunked step shares, computed once per
+    step: the RoPE tables (attention layers), the valid lengths and
+    token mask (recurrent layers), and the paged and ring indices of
+    the layer kinds the model has."""
+    cos: Optional[torch.Tensor]   # float32 [DP*Bl, T, 1, hd/2]
+    sin: Optional[torch.Tensor]
+    lens: torch.Tensor            # int32 [DP, Bl]
+    tok_valid: torch.Tensor       # bool [DP, Bl, T]
+    paged: Optional[_PagedIndex]
+    ring: Optional[_RingIndex]
+
+
+def _paged_index(cfg, state: DecodeState, positions, tok_valid, base,
+                 verify: bool) -> _PagedIndex:
+    """A token is written iff it is valid and its page is mapped; masked
+    tokens go to the sink page.  The kernel sees all DP shards as one
+    batch: shard-local page ids are offset by d * (pages_local + 1)."""
     DP, Bl, T = positions.shape
     psz = cfg.page_size
     maxp = state.page_tables.shape[2]
+    n_pages = classed_pool.pages_local(state.pool, CLS_KV)
     pid = block_pool.take(state.page_tables,
                           (positions // psz).clamp(max=maxp - 1))
     pid = torch.where(tok_valid & (pid >= 0), pid, n_pages).long()
@@ -208,10 +341,7 @@ def _step_index(cfg, state: DecodeState, positions, tok_valid, base,
     off = (torch.arange(DP, dtype=I32, device=pid.device)
            * (n_pages + 1))[:, None, None]
     tables = torch.where(state.page_tables >= 0, state.page_tables + off,
-                         NULL).reshape(DP * Bl, maxp)
-    cos, sin = rope_tables(positions.reshape(DP * Bl, T), cfg.hd,
-                           cfg.rope_theta)
-    tables = tables.contiguous()
+                         NULL).reshape(DP * Bl, maxp).contiguous()
     base = base.reshape(DP * Bl).contiguous()
     vidx = None
     if verify:
@@ -221,8 +351,53 @@ def _step_index(cfg, state: DecodeState, positions, tok_valid, base,
                 torch.empty(workspace_numel(DP * Bl, T, cfg.n_heads, cfg.hd,
                                             maxp),
                             dtype=torch.float32, device=tables.device))
-    return _StepIndex(cos, sin, (d, pid, (positions % psz).long()), tables,
-                      base, vidx)
+    return _PagedIndex((d, pid, (positions % psz).long()), tables, base,
+                       vidx)
+
+
+def _ring_index(cfg, W: int, positions, tok_valid, base, lens) -> _RingIndex:
+    """Ring slot r holds absolute position r + W * floor((base - 1 - r) /
+    W) before the chunk (negative: never written).  Query t (position
+    base + t) sees ring tokens and chunk tokens t' <= t, both inside the
+    window.  Only the last W valid tokens of a chunk can survive in a
+    ring of W slots: the rest, and invalid tokens, go to the sink slot
+    W, which also removes duplicate-slot writes when T > W."""
+    DP, Bl, T = positions.shape
+    dev = positions.device
+    win = cfg.window or W
+    r = torch.arange(W, device=dev)
+    last = (base.long() - 1)[..., None]
+    abs_ring = r + W * torch.div(last - r, W, rounding_mode="floor")
+    t = torch.arange(T, device=dev)
+    qpos = base.long()[..., None] + t                           # [DP,Bl,T]
+    valid_ring = ((abs_ring[:, :, None, :] >= 0)
+                  & (abs_ring[:, :, None, :] > qpos[..., None] - win))
+    tp, tq = t[None, None, None, :], t[None, None, :, None]
+    valid_chunk = ((tp <= tq) & (tp < lens[..., None, None])
+                   & (tq - tp < win))
+    valid = torch.cat([valid_ring, valid_chunk.expand(DP, Bl, T, T)],
+                      dim=3).reshape(DP * Bl, 1, T, W + T)
+    write = tok_valid & (t >= lens[..., None] - W)
+    slot = torch.where(write, positions % W, W).long()
+    dp_i = torch.arange(DP, device=dev)[:, None, None].expand_as(slot)
+    bl_i = torch.arange(Bl, device=dev)[None, :, None].expand_as(slot)
+    return _RingIndex((dp_i, bl_i, slot), valid,
+                      valid.any(-1, keepdim=True))
+
+
+def _step_index(cfg, state: DecodeState, positions, tok_valid, base, lens,
+                verify: bool) -> _StepIndex:
+    DP, Bl, T = positions.shape
+    cos = sin = paged = ring = None
+    if state.kv_pages or state.rings:
+        cos, sin = rope_tables(positions.reshape(DP * Bl, T), cfg.hd,
+                               cfg.rope_theta)
+    if state.kv_pages:
+        paged = _paged_index(cfg, state, positions, tok_valid, base, verify)
+    if state.rings:
+        W = next(iter(state.rings.values()))[0].shape[3] - 1
+        ring = _ring_index(cfg, W, positions, tok_valid, base, lens)
+    return _StepIndex(cos, sin, lens, tok_valid, paged, ring)
 
 
 def _paged_write_chunk(k_pages, v_pages, k_new, v_new, write) -> None:
@@ -234,7 +409,7 @@ def _paged_write_chunk(k_pages, v_pages, k_new, v_new, write) -> None:
     v_pages.index_put_(write, v_new.to(v_pages.dtype))
 
 
-def _paged_attn_chunk(q, k_pages, v_pages, idx: _StepIndex):
+def _paged_attn_chunk(q, k_pages, v_pages, idx: _PagedIndex):
     """q: [DP, Bl, T, H, hd]; pages: [DP, P + 1, psz, KH, hd].  Folds DP
     into the kernel batch so one kernel launch covers all shards.  A
     verify step (``idx.verify`` set) attends through K3's page-grouped
@@ -251,27 +426,86 @@ def _paged_attn_chunk(q, k_pages, v_pages, idx: _StepIndex):
     return o.reshape(DP, Bl, T, H, hd)
 
 
-def _mix_decode_chunk(cfg, lp, x, kv, idx: _StepIndex):
-    """One global-attention layer with its dense FFN over a chunk of up
-    to T tokens per sequence: write the chunk's K/V into its pages,
-    attend over the pages, add the FFN.  x: [DP, Bl, T, d]."""
+def _ring_write_chunk(k_ring, v_ring, k_new, v_new, write) -> None:
+    """In place: rings [DP, Bl, W + 1, KH, hd]; k_new [DP, Bl, T, KH,
+    hd]; write: the (shard, slot, ring slot) coordinates [DP, Bl, T],
+    masked tokens on the sink slot W."""
+    k_ring.index_put_(write, k_new.to(k_ring.dtype))
+    v_ring.index_put_(write, v_new.to(v_ring.dtype))
+
+
+def _expand_kv(k, n_heads: int):
+    """GQA: repeat kv heads to match q heads."""
+    KH = k.shape[2]
+    if KH == n_heads:
+        return k
+    return k.repeat_interleave(n_heads // KH, dim=2)
+
+
+def _ring_attn_chunk(q, k_ring, v_ring, k_chunk, v_chunk, idx: _RingIndex):
+    """Chunked sliding-window attention over ring + in-chunk K/V, plain
+    torch ops as in the reference.
+
+    q: [DP, Bl, T, H, hd]; rings: [DP, Bl, W + 1, KH, hd] holding the
+    PRE-chunk content (slot W is the sink); k/v_chunk: [DP, Bl, T, KH,
+    hd].  Attention runs before the ring is overwritten, so early
+    queries still see tokens that later chunk tokens evict."""
+    DP, Bl, T, H, hd = q.shape
+    W = k_ring.shape[2] - 1
+    k = torch.cat([k_ring[:, :, :W], k_chunk.to(k_ring.dtype)], dim=2)
+    v = torch.cat([v_ring[:, :, :W], v_chunk.to(v_ring.dtype)], dim=2)
+    ke = _expand_kv(k.reshape(DP * Bl, W + T, -1, hd), H)
+    ve = _expand_kv(v.reshape(DP * Bl, W + T, -1, hd), H)
+    qf = q.reshape(DP * Bl, T, H, hd)
+    s = torch.einsum("bthd,bkhd->bhtk", qf, ke) / (hd ** 0.5)
+    s = torch.where(idx.valid, s.float(), NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(idx.any_valid, p, 0.0)
+    o = torch.einsum("bhtk,bkhd->bthd", p.to(q.dtype), ve)
+    return o.reshape(DP, Bl, T, H, hd)
+
+
+def _mix_decode_chunk(cfg, lp, x, kind: str, layer_state, idx: _StepIndex):
+    """One layer over a chunk of up to T tokens per sequence, x: [DP,
+    Bl, T, d].  Attention layers write the chunk's K/V once (pages or
+    ring) and attend in one call; recurrent layers run the chunk in one
+    scan-kernel launch from the carried state; then the FFN, where the
+    layer has one."""
     DP, Bl, T, d = x.shape
     h = apply_norm(cfg, lp["norm1"], x)
-    hf = h.reshape(DP * Bl, T, d)
-    a = lp["attn"]
-    q = rotate(torch.einsum("bsd,dhk->bshk", hf, a["wq"]), idx.cos, idx.sin)
-    k = rotate(torch.einsum("bsd,dhk->bshk", hf, a["wk"]), idx.cos, idx.sin)
-    v = torch.einsum("bsd,dhk->bshk", hf, a["wv"])
-    kp, vp = kv
-    _paged_write_chunk(kp, vp, k.reshape(DP, Bl, T, cfg.n_kv_heads, cfg.hd),
-                       v.reshape(DP, Bl, T, cfg.n_kv_heads, cfg.hd),
-                       idx.write)
-    o = _paged_attn_chunk(q.reshape(DP, Bl, T, cfg.n_heads, cfg.hd), kp, vp,
-                          idx)
-    x = x + torch.einsum("xbthk,hkd->xbtd", o, a["wo"])
-    h2 = apply_norm(cfg, lp["norm2"], x)
-    f = ffn_apply(cfg, lp["ffn"], h2.reshape(DP * Bl, T, d))
-    return x + f.reshape(DP, Bl, T, d)
+    sk = _state_kind(kind)
+    if sk in ("paged", "ring"):
+        H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        hf = h.reshape(DP * Bl, T, d)
+        a = lp["attn"]
+        q = rotate(torch.einsum("bsd,dhk->bshk", hf, a["wq"]), idx.cos,
+                   idx.sin).reshape(DP, Bl, T, H, hd)
+        k = rotate(torch.einsum("bsd,dhk->bshk", hf, a["wk"]), idx.cos,
+                   idx.sin).reshape(DP, Bl, T, KH, hd)
+        v = torch.einsum("bsd,dhk->bshk", hf, a["wv"]).reshape(
+            DP, Bl, T, KH, hd)
+        kp, vp = layer_state
+        if sk == "paged":
+            _paged_write_chunk(kp, vp, k, v, idx.paged.write)
+            o = _paged_attn_chunk(q, kp, vp, idx.paged)
+        else:
+            o = _ring_attn_chunk(q, kp, vp, k, v, idx.ring)
+            _ring_write_chunk(kp, vp, k, v, idx.ring.write)
+        x = x + torch.einsum("xbthk,hkd->xbtd", o, a["wo"])
+    else:
+        st = {n: t.reshape((DP * Bl,) + t.shape[2:])
+              for n, t in layer_state.items()}
+        block = (ssm_mod.ssd_block_apply if base_kind(kind) == "ssd"
+                 else rglru_mod.rglru_block_apply)
+        o = block(cfg, lp[base_kind(kind)], h.reshape(DP * Bl, T, d),
+                  st["h"], st["conv"], idx.lens.reshape(DP * Bl),
+                  idx.tok_valid.reshape(DP * Bl, T))
+        x = x + o.reshape(DP, Bl, T, d)
+    if "ffn" in lp:
+        h2 = apply_norm(cfg, lp["norm2"], x)
+        f = ffn_apply(cfg, lp["ffn"], h2.reshape(DP * Bl, T, d))
+        x = x + f.reshape(DP, Bl, T, d)
+    return x
 
 
 def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
@@ -279,17 +513,18 @@ def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
     """Chunked decode/prefill: up to T tokens per sequence per call.
 
     tokens: int32 [DP, Bl, T]; lens: int32 [DP, Bl] — valid tokens per
-    sequence this call (ragged tails are inert: written to no page).
-    Returns (hidden [DP, Bl, T, d], new DecodeState) with seq_lens
-    advanced by lens.
+    sequence this call (ragged tails are inert: written to no page or
+    ring slot, and no recurrent state).  Returns (hidden [DP, Bl, T,
+    d], new DecodeState) with seq_lens advanced by lens.
 
-    Pages for the whole chunk come from each slot's private lane in one
+    Where the model has paged layers, pages for the whole chunk come
+    from each slot's private lane in one
     :func:`hier_pool.alloc_n_or_shared` call, all-or-nothing per
     sequence: a chunk that would overflow the page table, or whose
     pages the pool denies, appends nothing.  The reference's
     ``lax.scan`` over layer groups is a Python loop over layers.
-    ``verify`` routes attention through the verify kernel (K3), as the
-    engine does on a step where any lane carries drafts.
+    ``verify`` routes paged attention through the verify kernel (K3),
+    as the engine does on a step where any lane carries drafts.
     """
     _check_slice(cfg)
     DP, Bl, T = tokens.shape
@@ -299,39 +534,41 @@ def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
     base = state.seq_lens
     x = embed_apply(params["embed"], tokens).to(cfg.tdtype)
 
-    # --- page allocation for the whole chunk (once, all paged layers)
-    psz = cfg.page_size
-    maxp = state.page_tables.shape[2]
-    kmax = -(-T // psz)
-    lens, pages_before, counts = block_pool.chunk_page_plan(
-        base, lens, psz, maxp)
-    pool, got = classed_pool.alloc_n_or_shared_dp(state.pool, CLS_KV,
-                                                  counts, kmax)
-    lens = torch.where(block_pool.granted_mask(got, counts), lens, 0)
-    kk = torch.arange(kmax, dtype=I32, device=tokens.device)
-    new_page = (kk < counts[..., None]) & (got >= 0)
-    slot = torch.where(new_page, pages_before[..., None] + kk, maxp)
-    tables = block_pool.put(state.page_tables, slot, got)
-    state = state._replace(page_tables=tables, pool=pool)
+    if state.kv_pages:
+        # page allocation for the whole chunk (once, all paged layers)
+        psz = cfg.page_size
+        maxp = state.page_tables.shape[2]
+        kmax = -(-T // psz)
+        lens, pages_before, counts = block_pool.chunk_page_plan(
+            base, lens, psz, maxp)
+        pool, got = classed_pool.alloc_n_or_shared_dp(state.pool, CLS_KV,
+                                                      counts, kmax)
+        lens = torch.where(block_pool.granted_mask(got, counts), lens, 0)
+        kk = torch.arange(kmax, dtype=I32, device=tokens.device)
+        new_page = (kk < counts[..., None]) & (got >= 0)
+        slot = torch.where(new_page, pages_before[..., None] + kk, maxp)
+        tables = block_pool.put(state.page_tables, slot, got)
+        state = state._replace(page_tables=tables, pool=pool)
 
     positions = base[..., None] + torch.arange(T, dtype=I32,
                                                device=tokens.device)
     tok_valid = torch.arange(T, device=tokens.device) < lens[..., None]
-    n_pages = classed_pool.pages_local(state.pool, CLS_KV)
-    idx = _step_index(cfg, state, positions, tok_valid, base, n_pages,
-                      verify)
+    idx = _step_index(cfg, state, positions, tok_valid, base, lens, verify)
 
-    def layer(lp, pos, g, x):
-        kv = tuple(t[g] for t in state.kv_pages[pos])
-        return _mix_decode_chunk(cfg, lp, x, kv, idx)
+    def layer(lp, pos, g, kind, x):
+        if pos in state.rec:
+            ls = {n: t[g] for n, t in state.rec[pos].items()}
+        else:
+            ls = tuple(t[g] for t in (state.kv_pages.get(pos)
+                                      or state.rings[pos]))
+        return _mix_decode_chunk(cfg, lp, x, kind, ls, idx)
 
     for g in range(cfg.n_groups):
-        for j in range(len(cfg.pattern)):
-            pos = f"pos{j}"
-            lp = tree_map(lambda a: a[g], params["groups"][pos])
-            x = layer(lp, pos, g, x)
-    for j in range(len(cfg.remainder)):
-        x = layer(params["rem"][f"pos{j}"], f"rem{j}", 0, x)
+        for j, kind in enumerate(cfg.pattern):
+            lp = tree_map(lambda a: a[g], params["groups"][f"pos{j}"])
+            x = layer(lp, f"pos{j}", g, kind, x)
+    for j, kind in enumerate(cfg.remainder):
+        x = layer(params["rem"][f"pos{j}"], f"rem{j}", 0, kind, x)
 
     state = state._replace(seq_lens=base + lens)
     return apply_norm(cfg, params.get("final_norm", {}), x), state

@@ -1,9 +1,11 @@
 """Continuous-batching serving engine on the paper's allocator.
 
 Counterpart of the JAX package's ``serving/engine.py``, limited to the
-port's slices so far: greedy serving of one size class (paged KV) on one
-device, DP kept as a leading axis, with prefix sharing from live donors
-and greedy speculative decoding over shared prefixes.
+port's slices so far: greedy serving on one device, DP kept as a leading
+axis, of paged, ring and recurrent decoders over one or two size
+classes (paged KV, and the fine bounded-state class), with prefix
+sharing from live donors and greedy speculative decoding over shared
+prefixes for fully paged models.
 
 Two allocator integrations, as in the reference:
 
@@ -29,8 +31,8 @@ with a prefix match reads the share step's ``ok`` flag, a transfer
 outside the step (counted in ``admission_transfers``).
 
 Options of the reference that later slices bring (sampling, pinned
-prefixes, preemption, size classes, expert paging, a mesh, chaos
-injection and journaling) raise ``NotImplementedError``.
+prefixes, preemption, the expert size class and expert paging, a mesh,
+chaos injection and journaling) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,11 +48,12 @@ import torch
 
 from ..core import NULL, SimContext, WaitFreeAllocator, classed_pool
 from ..core.block_pool import I32
-from ..core.classed_pool import CLS_KV
+from ..core import hier_pool
+from ..core.classed_pool import CLS_KV, CLS_STATE
 from ..models.decode_init import empty_decode_state, empty_serve_arrays
 from ..models.layers import logits_apply, logits_argmax_chunked
 from ..models.transformer import (DecodeState, forward_decode_chunk,
-                                  pool_class_specs)
+                                  pool_class_specs, state_blocks_per_slot)
 from ..runtime.fault import StepWatchdog
 from .prefix_cache import PrefixCache, SpeculationStore, share_prefix_step
 from .sched import Admission, AdmissionScheduler, SchedConfig
@@ -83,17 +86,46 @@ class Request:
 
 
 def _release_slots(state: DecodeState, mask):
-    """Release all pages of masked slots (mask bool[DP, Bl]) and zero
-    their tables and lengths.  Each page loses one reference; pages
-    reaching zero return to the slot's lane, overflow spilling to the
-    shared stack.  Returns ``(state, spill int32[C, DP])``."""
+    """Release all pages of masked slots (mask bool[DP, Bl]), and in a
+    two-class pool their CLS_STATE grants, and zero their tables,
+    lengths, rings and recurrent state (in place).  Each page loses one
+    reference; pages reaching zero return to the slot's lane, overflow
+    spilling to the shared stack.  Returns ``(state, spill int32[C,
+    DP])``."""
     tables = state.page_tables
     to_free = torch.where(mask[..., None], tables, NULL)
-    pool, spill = classed_pool.free_n_metered_dp(state.pool, CLS_KV, to_free)
+    pool, spill_kv = classed_pool.free_n_metered_dp(state.pool, CLS_KV,
+                                                    to_free)
+    spills = [spill_kv] + [torch.zeros_like(spill_kv)] * (
+        len(pool.classes) - 1)
+    if state.state_tables is not None:
+        st = state.state_tables
+        pool, spills[CLS_STATE] = classed_pool.free_n_metered_dp(
+            pool, CLS_STATE, torch.where(mask[..., None], st, NULL))
+        state = state._replace(
+            state_tables=torch.where(mask[..., None], NULL, st))
+    dp, bl = mask.shape
+    for leaf in ([t for kv in state.rings.values() for t in kv]
+                 + [t for r in state.rec.values() for t in r.values()]):
+        leaf.masked_fill_(mask.view((1, dp, bl) + (1,) * (leaf.dim() - 3)),
+                          0)
     state = state._replace(
         pool=pool, page_tables=torch.where(mask[..., None], NULL, tables),
         seq_lens=torch.where(mask, 0, state.seq_lens))
-    return state, spill[None]
+    return state, torch.stack(spills)
+
+
+def _alloc_state_step(state: DecodeState, counts):
+    """Admission-time CLS_STATE grant: pull ``counts[d, b]`` fine blocks
+    per slot from class 1's shared stack in one bulk call (off the
+    serve step's path) and write them into the slot's ``state_tables``
+    row.  While admission respects the class budget, the class's §4.2
+    slack guarantees the shared stack covers every grant."""
+    kmax = state.state_tables.shape[2]
+    pool, ids = classed_pool.alloc_from_shared_dp(state.pool, CLS_STATE,
+                                                  counts, kmax)
+    tables = torch.where(counts[..., None] > 0, ids, state.state_tables)
+    return state._replace(pool=pool, state_tables=tables)
 
 
 # Packed per-step status (the step's single device->host transfer),
@@ -288,7 +320,7 @@ class ServingEngine:
             "SchedConfig(pin_pages > 0), pinned prefixes":
                 self.sched_config.pin_pages > 0,
             "mesh": mesh is not None,
-            "size_classes > 1": size_classes != 1,
+            "size_classes > 2 (the expert class)": size_classes > 2,
             "expert_paging": expert_paging,
             "journal": journal is not None,
             "injector": injector is not None,
@@ -301,8 +333,10 @@ class ServingEngine:
         self.params = params
         self.device = torch.device(device)
         self.dp, self.bl = dp, b_local
+        size_classes = max(int(size_classes), 1)
         if telemetry is None:
-            telemetry = Telemetry(dp, tracer=tracer, flight=flight)
+            telemetry = Telemetry(dp, tracer=tracer, flight=flight,
+                                  n_classes=size_classes)
         self.telemetry = telemetry
         self.tracer = telemetry.tracer
         if telemetry.flight is None:
@@ -316,20 +350,31 @@ class ServingEngine:
         if speculate:
             lane_tokens = max(lane_tokens, self.draft_len + 1)
         self.state = empty_decode_state(cfg, dp, b_local, max_len,
-                                        chunk=lane_tokens, device=self.device)
+                                        chunk=lane_tokens,
+                                        size_classes=size_classes,
+                                        device=self.device)
         self.n_classes = len(self.state.pool.classes)
         assert self.telemetry.n_classes == self.n_classes
         self.last_tok, self.out_count, self.budget = empty_serve_arrays(
             dp, b_local, self.device)
         maxp = self.state.page_tables.shape[2]
-        # sequences can never outgrow the page table
-        self.capacity = min(max_len, maxp * cfg.page_size)
+        # sequences can never outgrow the page table (a model without
+        # paged layers has none to outgrow)
+        self.capacity = (min(max_len, maxp * cfg.page_size)
+                         if self.state.kv_pages else max_len)
         self.pages_local = classed_pool.pages_local(self.state.pool, CLS_KV)
-        # plan-time §4.2 validation: the pool must carry 3*ell*L slack
-        # over the worst-case live pages, or lanes can run dry mid-step
+        # CLS_STATE blocks of one slot's bounded state (0 in a
+        # single-class pool): granted at admission, freed at release
+        self._state_blocks = (state_blocks_per_slot(cfg, max_len)
+                              if self.state.state_tables is not None else 0)
+        # plan-time §4.2 validation: every class must carry 3*ell*L
+        # slack over its worst-case live blocks, or lanes can run dry
+        # mid-step
         classed_pool.validate_specs(
-            pool_class_specs(cfg, b_local, max_len, lane_tokens),
-            [b_local * maxp])
+            pool_class_specs(cfg, b_local, max_len, lane_tokens,
+                             size_classes),
+            [b_local * maxp] + [b_local * self._state_blocks]
+            * (self.n_classes - 1))
         self._fed: Dict[int, int] = {}       # host shadow of seq_lens
         self.eos_id = eos_id
         self._eos = -1 if eos_id is None else int(eos_id)
@@ -337,12 +382,17 @@ class ServingEngine:
         # the share step's ok flag, read at admission, outside the step
         self.admission_transfers = 0
         self._spec_T = self.draft_len + 1
-        # prefix sharing from live donors (the slice's models keep their
-        # whole decode state in pages, so every one can share)
-        self.prefix_cache = PrefixCache(cfg.page_size) if prefix_sharing \
-            else None
-        # speculative decoding over shared prefixes: drafts come from
-        # the continuation history of hot prefixes
+        # prefix sharing from live donors: sound only when the whole
+        # decode state is paged (a ring or recurrent layer would need the
+        # donor's state at the match point)
+        self.prefix_cache = None
+        if (prefix_sharing and self.state.kv_pages and not self.state.rings
+                and not self.state.rec):
+            self.prefix_cache = PrefixCache(cfg.page_size)
+        # speculative decoding over shared prefixes, under the same
+        # condition (a rejected draft rolls back pages and seq_lens, but
+        # ring and recurrent state cannot be un-evolved): drafts come
+        # from the continuation history of hot prefixes
         self.spec_store: Optional[SpeculationStore] = None
         if speculate and self.draft_len > 0 and self.prefix_cache is not None:
             self.spec_store = SpeculationStore(cfg.page_size)
@@ -356,7 +406,8 @@ class ServingEngine:
         self._step_cost: Dict[Tuple[int, bool], float] = {}
         self._cost_seen: set = set()
         self.scheduler = AdmissionScheduler(
-            self.sched_config, n_shards=dp, page_budget=b_local * maxp)
+            self.sched_config, n_shards=dp, page_budget=b_local * maxp,
+            state_budget=b_local * self._state_blocks)
         self.pins = None                     # pinning: a later slice
         self.pages_used_shard: List[int] = [0] * dp
 
@@ -480,7 +531,9 @@ class ServingEngine:
         return -(-toks // self.cfg.page_size)
 
     def est_state_blocks(self, req: Request) -> int:
-        return 0          # one size class: the state dimension never binds
+        """CLS_STATE blocks the request holds while admitted: its slot's
+        whole bounded state (0 in a single-class pool)."""
+        return self._state_blocks
 
     def free_slot_shards(self) -> set:
         return {s // self.bl for s in self._free_slots}
@@ -510,6 +563,15 @@ class ServingEngine:
             shared_n = self._try_share(slot, match, len(toks))
         self.pending_tokens[slot] = toks[shared_n:]
         self._fed[slot] = shared_n
+        if self._state_blocks > 0:
+            # the slot's bounded-state blocks from the fine class, one
+            # bulk shared-pool pull; the class's §4.2 slack and the
+            # scheduler's state budget guarantee the grant
+            counts = np.zeros((self.dp, self.bl), np.int32)
+            counts[d, b] = self._state_blocks
+            self.state = _alloc_state_step(self.state,
+                                           self._to_device(counts))
+            self.telemetry.inc("state_blocks_granted", self._state_blocks)
         if self.prefix_cache is not None:
             self.prefix_cache.insert(slot, d, toks)
             self.prefix_cache.update_progress(slot, shared_n)
@@ -812,18 +874,24 @@ class ServingEngine:
             self.step()
 
     # ------------------------------------------------------------ metrics
+    def blocks_in_use(self, cls: int = CLS_KV) -> int:
+        """Blocks of one size class currently referenced across shards
+        (shared pages count once)."""
+        total = classed_pool.pages_local(self.state.pool, cls) * self.dp
+        return total - int(hier_pool.total_free(self.state.pool.classes[cls]))
+
     def pages_in_use(self) -> int:
         """Physical KV pages currently referenced across shards."""
-        total = self.pages_local * self.dp
-        return total - int(classed_pool.total_free(self.state.pool))
+        return self.blocks_in_use(CLS_KV)
 
     def page_occupancy(self) -> float:
         return self.pages_in_use() / (self.pages_local * self.dp)
 
     def leak_free(self) -> bool:
-        """Zero live pages on every shard (the post-drain invariant)."""
-        live = classed_pool.live_per_shard(self.state.pool, CLS_KV)
-        return bool((live == 0).all())
+        """Zero live blocks of every class on every shard (the
+        post-drain invariant)."""
+        return all(bool((classed_pool.live_per_shard(self.state.pool, c)
+                         == 0).all()) for c in range(self.n_classes))
 
     def latency_quantiles(self) -> Dict[str, float]:
         """p50/p99 end-to-end and first-token latency (seconds)."""

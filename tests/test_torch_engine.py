@@ -108,7 +108,7 @@ def _sampled_under_speculation(eng):
     (dict(sched=SchedConfig(pin_pages=4)), None),
     (dict(), _preempt),
     (dict(speculate=True), _sampled_under_speculation),
-    (dict(size_classes=2), None), (dict(expert_paging=True), None),
+    (dict(size_classes=3), None), (dict(expert_paging=True), None),
     (dict(greedy=False), None), (dict(mesh="auto"), None)])
 def test_options_outside_the_slice_raise(setup, option, drive):
     _, _, tcfg, tparams = setup

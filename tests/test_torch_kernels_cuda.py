@@ -15,6 +15,10 @@ import torch
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import \
     paged_attention_chunk_ref as plain
+from repro_torch.kernels.rg_lru import ops as k5
+from repro_torch.kernels.rg_lru.ref import rg_lru_ref
+from repro_torch.kernels.ssd_scan import ops as k4
+from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 from repro_torch.kernels.verify_attention import ops as k3
 
 
@@ -116,3 +120,66 @@ def test_verify_attention_kernel_vs_plain_and_k1(card, dtype, T, H, KH, hd,
         if dtype == torch.bfloat16:
             torch.testing.assert_close(out.float(), ref, atol=1e-5,
                                        rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,S,H,P,N", [
+    (torch.float32, 3, 5, 4, 16, 16),         # smoke widths
+    (torch.float32, 8, 1, 32, 64, 128),       # mamba2-370m, decode
+    (torch.float32, 8, 64, 32, 64, 128),      # mamba2-370m, prefill chunk
+    (torch.bfloat16, 8, 1, 32, 64, 128),
+    (torch.bfloat16, 8, 64, 32, 64, 128),
+    (torch.float32, 3, 7, 3, 48, 100),        # P, N off the warp tiling
+])
+def test_ssd_scan_kernel_vs_plain(card, dtype, B, S, H, P, N):
+    """K4 from a carried state h0 != 0, lane 1 with dt = 0 from token 2
+    on and lane 2 with dt = 0 throughout (the serving path's inert
+    tails): y and the state against the plain version, lane 2's state
+    unchanged bit for bit."""
+    rng = np.random.RandomState(S + P)
+    dt = rng.rand(B, S, H).astype(np.float32) * 0.5 + 0.1
+    dt[1, 2:] = 0.0
+    dt[2] = 0.0
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))  # noqa
+    x, Bm, Cm = f(B, S, H, P) * 0.5, f(B, S, N) * 0.3, f(B, S, N) * 0.3
+    args = [x.to("cuda", dtype), torch.from_numpy(dt).cuda(),
+            (-f(H).abs() * 0.5).cuda(), Bm.to("cuda", dtype),
+            Cm.to("cuda", dtype), (f(H) * 0.1).cuda()]
+    h0 = f(B, H, P, N).cuda()
+    h = h0.clone()
+    before = k4.ssd_scan.launches
+    y, h_out = k4.ssd_scan(*args, h)
+    torch.cuda.synchronize()
+    assert k4.ssd_scan.launches == before + 1 and h_out is h
+    y_ref, h_ref = ssd_scan_ref(*args, h0)
+    assert y.dtype == dtype and torch.equal(h[2], h0[2])
+    torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
+    tol = 1e-4 if dtype == torch.float32 else 6e-2
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(y.float(), y_ref.float(), atol=1e-5,
+                                   rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,d", [
+    (2, 5, 64), (8, 1, 2560), (8, 64, 2560),  # smoke; recurrentgemma-2b
+    (3, 200, 192), (2, 13, 100)])             # S % 128 != 0; odd width
+def test_rg_lru_kernel_vs_plain(card, B, S, d):
+    """K5 from h0 != 0 with lane 1 inert (a = 1, b = 0) from token 3
+    on: bit-equal to the plain version (the kernel rounds the product
+    and the sum separately, as the two tensor ops do)."""
+    rng = np.random.RandomState(S + d)
+    a = rng.rand(B, S, d).astype(np.float32) * 0.9
+    b = rng.randn(B, S, d).astype(np.float32) * 0.5
+    a[1, 3:], b[1, 3:] = 1.0, 0.0
+    a, b = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+    h0 = torch.from_numpy(rng.randn(B, d).astype(np.float32)).cuda()
+    h = h0.clone()
+    before = k5.rg_lru.launches
+    hs, h_out = k5.rg_lru(a, b, h)
+    torch.cuda.synchronize()
+    assert k5.rg_lru.launches == before + 1 and h_out is h
+    hs_ref, h_ref = rg_lru_ref(a, b, h0)
+    assert torch.equal(hs, hs_ref) and torch.equal(h, h_ref)
+    assert torch.equal(h[1], hs[1, min(2, S - 1)])

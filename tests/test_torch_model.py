@@ -133,7 +133,8 @@ def test_pool_denial_appends_nothing():
     assert_pools_equal(js.pool, ts.pool, "denied")
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "llama3.2-1b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "llama3.2-1b", "mamba2-370m",
+                                  "recurrentgemma-2b", "gemma3-27b"])
 def test_param_tree_matches_reference(arch):
     """The port's parameter tree has the reference's keys, shapes and
     dtypes: at full width from the definitions alone (nothing is
@@ -162,18 +163,20 @@ def test_param_tree_matches_reference(arch):
 
 
 def test_slice_rejects_other_layer_kinds():
-    with pytest.raises(NotImplementedError):
-        tmodel.init_params(t_smoke_config(t_get_config("mamba2-370m")),
+    with pytest.raises(NotImplementedError):          # MoE layers
+        tmodel.init_params(t_smoke_config(t_get_config("mixtral-8x7b")),
                            device="cpu")
 
 
 @pytest.mark.parametrize("name", ["ln_nonparam", "rmsnorm", "apply_rope",
                                   "ffn_apply", "embed_apply",
-                                  "logits_apply"])
+                                  "logits_apply", "gelu_ffn_apply",
+                                  "causal_conv"])
 def test_layer_matches_reference(name):
     """Each layer function of the port against the reference's on the
     same seeded inputs (f32, within 1e-5)."""
     from repro.models import layers as jl
+    from repro.models import ssm as jssm
     from repro_torch.models import layers as tl
     cfg, params, tcfg, tparams = _setup("llama3.2-1b")
     rng = np.random.RandomState(7)
@@ -181,7 +184,16 @@ def test_layer_matches_reference(name):
     toks = rng.randint(0, cfg.vocab, (2, 5)).astype(np.int32)
     ffn = params["groups"]["pos0"]["ffn"]
     tffn = tparams["groups"]["pos0"]["ffn"]
+    w4 = rng.randn(4, cfg.d_model).astype(np.float32)
     sel = lambda tree: {k: v[0] for k, v in tree.items()}  # noqa: E731
+
+    def gelu_ffn(port):
+        g_cfg, g_params, g_tcfg, g_tparams = _setup("recurrentgemma-2b")
+        if port:
+            return tl.ffn_apply(g_tcfg, sel(g_tparams["groups"]["pos2"]["ffn"]),
+                                torch.from_numpy(x))
+        return jl.ffn_apply(g_cfg, sel(g_params["groups"]["pos2"]["ffn"]),
+                            jnp.asarray(x))
     cases = {
         "ln_nonparam": (lambda: jl.ln_nonparam(jnp.asarray(x)),
                         lambda: tl.ln_nonparam(torch.from_numpy(x))),
@@ -203,6 +215,15 @@ def test_layer_matches_reference(name):
             lambda: jl.logits_apply(cfg, params["embed"], jnp.asarray(x)),
             lambda: tl.logits_apply(tcfg, tparams["embed"],
                                     torch.from_numpy(x))),
+        # recurrentgemma's FFN: jax.nn.gelu's default tanh form
+        "gelu_ffn_apply": (lambda: gelu_ffn(False), lambda: gelu_ffn(True)),
+        # the recurrent blocks' depthwise conv (all tokens valid)
+        "causal_conv": (
+            lambda: jssm._causal_conv(jnp.asarray(x), jnp.asarray(w4),
+                                      jnp.asarray(x[:, :3]))[0],
+            lambda: tl.causal_conv(torch.from_numpy(x), torch.from_numpy(w4),
+                                   torch.from_numpy(x[:, :3]),
+                                   torch.full((2,), 5))[0]),
     }
     ref, port = cases[name]
     np.testing.assert_allclose(port().numpy(), np.asarray(ref()), atol=1e-5,
