@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--profile]
 
 Phases, each printed on its own line (any failure fails the run):
 
@@ -17,13 +17,22 @@ Phases, each printed on its own line (any failure fails the run):
    pages, also against K1 on the same inputs; K4 (SSD scan, f32 and
    bf16) and K5 (RG-LRU, float32 only) at T = 1 and 64 at full width
    and at smoke width, from a carried state, with inert lanes whose
-   state must stay bit for bit;
+   state must stay bit for bit; K6 (causal flash attention) on strided
+   [B, S, H, hd] views at olmo-1b's and llama3.2-1b's widths in bf16
+   and at smoke width, with a ragged S and bidirectional in f32, and
+   its gradient (the torch-op backward) against autograd through the
+   plain version (f32 within 1e-4, bf16 within 6e-2);
 4. check the port's engine on the card against the same engine on the
    CPU (where every kernel wrapper runs its plain version) on smoke
    configs: identical tokens and status rows, for olmo-1b's plain path
    and, with speculation, the hot-prefix workload of
    ``tests/test_speculative.py``, and for recurrentgemma-2b and
-   mamba2-370m with two size classes;
+   mamba2-370m with two size classes; then training: three steps of
+   ``launch/train.py::build_step`` on the smoke olmo-1b in f32 from the
+   same parameters and ``TokenStream`` batches on both devices (step
+   0's loss and gradients within 1e-4, later losses within 1e-3
+   relative), and the smoke trainer through ``FaultTolerantLoop`` with
+   one injected failure: one restart, the uninterrupted run's losses;
 5. the plain path: serve olmo-1b at full width (16 layers x 2048, 16
    heads, hd 128, vocab 50304, bf16, page size 64) with random weights
    from ``--seed`` through ``ServingEngine.run``: every request
@@ -51,12 +60,25 @@ Phases, each printed on its own line (any failure fails the run):
    max_len 4096, 16 prompts of 64-3,000 tokens, 4 of them past the
    window: K5 ran 18 times per step;
 11. time K4 and K5 at T = 1 and 64 beside their bounds and plain
-   versions, print both families' end-to-end rates, and the kernels
-   line (K1, K3, K4, K5).
+   versions, and print both families' end-to-end rates;
+12. the training path: olmo-1b at full depth and width (bf16
+   parameters, float32 AdamW state), one micro-batch of 4 sequences of
+   2048 tokens from ``TokenStream``, a warm-up step and 5 steps of
+   ``build_step``: finite losses, K6 launched 32 times a step (16
+   global layers, each run forward and again in the backward pass's
+   recomputation) and no other kernel, one device-to-host transfer a
+   step (the loss); ms a step, tokens a second, peak memory, and the
+   model-flops share of the card's bf16 peak;
+13. time K6 at the training shape beside its bound, its plain version,
+   PyTorch's ``scaled_dot_product_attention`` and the torch-op
+   backward, and print the kernels line (K1, K3, K4, K5, K6).
 
-The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
-device, or without the rest of the repository beside it, the script
-exits with a non-zero code and prints no result.
+``--profile`` serves the workloads of phases 5, 9 and 10 again, and
+runs two more training steps in phase 12, under ``torch.profiler``,
+and prints where a step's time goes.  The last line is ``{"ok": true,
+"device": {...}}``.  Without a CUDA device, or without the rest of the
+repository beside it, the script exits with a non-zero code and prints
+no result.
 """
 
 from __future__ import annotations
@@ -680,22 +702,18 @@ def serve_speculative(tengine, k3, ops, cfg, seed, b_local, max_len, chunk):
     return runs["bfloat16", True]
 
 
-def profile_serve(eng, reqs, tag="[p]"):
-    """``--profile``: serve ``reqs`` again on the warm engine under
-    ``torch.profiler`` and print where a step's time goes."""
+def profiled(run, tag="[p]"):
+    """``--profile``: call ``run()``, which returns its step count,
+    under ``torch.profiler`` and print where a step's time goes."""
     from torch.profiler import ProfilerActivity, profile
 
-    steps0 = eng.stats["steps"]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for r in reqs:
-            eng.submit(r)
-        eng.run(max_steps=10_000)
+        steps = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    steps = eng.stats["steps"] - steps0
     kernels, ops = [], []           # device kernels; host-side operators
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -714,6 +732,19 @@ def profile_serve(eng, reqs, tag="[p]"):
     for key, count, t in sorted(ops, key=lambda r: -r[2])[:10]:
         phase(f"{tag} host   {t / 1e3 / steps:8.3f} ms/step {count:7d}x "
               f"{key[:80]}")
+
+
+def profile_serve(eng, reqs, tag="[p]"):
+    """``--profile``: serve ``reqs`` again on the warm engine under the
+    profiler."""
+    def run():
+        steps0 = eng.stats["steps"]
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_steps=10_000)
+        return eng.stats["steps"] - steps0
+
+    profiled(run, tag)
 
 
 def time_kernel(kernel, bound_bytes, plain, rng, cfg, b_local, maxp, P, T,
@@ -772,6 +803,372 @@ def time_kernel(kernel, bound_bytes, plain, rng, cfg, b_local, maxp, P, T,
                 bytes=nbytes, flops=flops)
 
 
+def k6_inputs(rng, B, H, KH, S, hd, dtype, grad=False):
+    """K6's inputs on the card as the training step hands them over: q
+    and k transposed views of [B, S, H, hd] tensors, v contiguous."""
+    f = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.randn(*shape).astype(np.float32)).to("cuda", dtype)
+    q, k = f(B, S, H, hd).transpose(1, 2), f(B, S, KH, hd).transpose(1, 2)
+    return [t.requires_grad_(grad) for t in (q, k, f(B, KH, S, hd))]
+
+
+def check_k6(k6, rng):
+    """Phase 3: K6, through the autograd Function the model calls,
+    against its plain version; then its gradient against autograd
+    through the plain version.  Returns the worst bf16 forward error."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    bf, f32 = torch.bfloat16, torch.float32
+    worst = 0.0
+    for name, dt, B, H, KH, S, hd, causal in (
+            ("olmo-1b bf16", bf, 1, 16, 16, 2048, 128, True),
+            ("llama3.2-1b bf16 (G=4)", bf, 1, 32, 8, 1024, 64, True),
+            ("smoke f32 (G=2)", f32, 2, 4, 2, 64, 16, True),
+            ("S=200 f32 (ragged tile)", f32, 2, 4, 2, 200, 64, True),
+            ("bidirectional f32", f32, 1, 4, 4, 300, 128, False)):
+        q, k, v = k6_inputs(rng, B, H, KH, S, hd, dt)
+        before = k6.flash_attention.launches
+        out = k6.flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        check(k6.flash_attention.launches == before + 1,
+              f"K6 {name}: the dispatcher launched the kernel once")
+        check(bool(torch.isfinite(out.float()).all()), f"K6 {name}: finite")
+        ref = flash_attention_ref(q, k, v, causal).float()
+        torch.testing.assert_close(out.float(), ref, atol=TOL[dt],
+                                   rtol=TOL[dt],
+                                   msg=lambda m, n=name: f"K6 {n}: {m}")
+        tol = f"tol {TOL[dt]:g}"
+        if dt == bf:
+            torch.testing.assert_close(
+                out.float(), ref, atol=BF16_ULP_ATOL, rtol=BF16_ULP_RTOL,
+                msg=lambda m, n=name: f"K6 {n}, one bf16 ulp: {m}")
+            tol += f" and one ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}"
+        err = (out.float() - ref).abs().max().item()
+        phase(f"[3] K6 {name} B={B} H={H} KH={KH} S={S} hd={hd} "
+              f"{'causal' if causal else 'bidirectional'}: max_abs_err "
+              f"{err:.3e}, max|ref| {ref.abs().max().item():.3e} ({tol})")
+        if dt == bf:
+            worst = max(worst, err)
+    # the gradient: the torch-op backward from the kernel's o and lse;
+    # bf16 at 6e-2, since it reads o rounded to bf16 in rowsum(dO * O)
+    for name, dt, B, H, KH, S, hd in (("smoke f32", f32, 2, 4, 2, 64, 16),
+                                      ("S=1024 bf16", bf, 1, 16, 16, 1024,
+                                       128)):
+        q, k, v = k6_inputs(rng, B, H, KH, S, hd, dt, grad=True)
+        do = torch.from_numpy(rng.randn(B, H, S, hd).astype(np.float32)).to(
+            "cuda", dt)
+        before = k6.flash_attention.launches
+        got = torch.autograd.grad(k6.flash_attention(q, k, v), (q, k, v), do)
+        check(k6.flash_attention.launches == before + 1,
+              f"K6 gradient {name}: one forward launch")
+        want = torch.autograd.grad(flash_attention_ref(q, k, v), (q, k, v),
+                                   do)
+        errs = []
+        for what, a, b in zip(("dq", "dk", "dv"), got, want):
+            torch.testing.assert_close(
+                a.float(), b.float(), atol=TOL[dt], rtol=TOL[dt],
+                msg=lambda m, n=name, w=what: f"K6 gradient {n} {w}: {m}")
+            errs.append((a.float() - b.float()).abs().max().item())
+        phase(f"[3] K6 gradient {name} B={B} H={H} KH={KH} S={S} hd={hd}: "
+              f"max_abs_err dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv "
+              f"{errs[2]:.3e} (tol {TOL[dt]:g})")
+    return worst
+
+
+def smoke_batches(cfg_smoke, seed):
+    """The smoke trainer's ``TokenStream``: 4 sequences of 64 tokens."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+
+    return TokenStream(DataConfig(vocab=cfg_smoke.vocab, seq_len=64,
+                                  global_batch=4, seed=seed))
+
+
+def smoke_params(cfg_smoke, seed, device):
+    """The smoke parameters, drawn on the CPU from ``seed``."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import init_params
+
+    return tree_map(lambda a: a.to(device),
+                    init_params(cfg_smoke, seed=seed, device="cpu"))
+
+
+def step0_grads(cfg_smoke, params, seed):
+    """The gradients of the loss of the smoke trainer's first batch."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import loss_fn
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    device = leaves[0].device
+    batch = {k: torch.from_numpy(a).to(device)
+             for k, a in smoke_batches(cfg_smoke, seed).batch_at(0).items()}
+    return torch.autograd.grad(loss_fn(cfg_smoke, params, batch), leaves)
+
+
+def smoke_trainer(cfg_smoke, seed, device, n_steps, failure_at=None,
+                  ckpt_dir=None):
+    """The smoke trainer of ``launch/train.py`` on ``device`` from the
+    same parameters and ``TokenStream`` batches: ``n_steps`` of
+    ``build_step``, through ``FaultTolerantLoop`` when ``ckpt_dir`` is
+    given.  Returns (losses by step, loop stats or None)."""
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.launch.train import build_step
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault import FailureInjector, FaultTolerantLoop
+
+    params = smoke_params(cfg_smoke, seed, device)
+    stream = smoke_batches(cfg_smoke, seed)
+    step_fn = build_step(cfg_smoke, adamw.AdamWConfig(warmup_steps=10,
+                                                      decay_steps=n_steps))
+    losses = {}
+
+    def step(state, batch):
+        i = int(state[1].step)
+        state, metrics = step_fn(state, {
+            k: torch.from_numpy(a).to(device) for k, a in batch.items()})
+        losses[i] = float(metrics["loss"])
+        return state
+
+    state = (params, adamw.init(params), None)
+    if ckpt_dir is None:
+        for i in range(n_steps):
+            state = step(state, stream.batch_at(i))
+        return losses, None
+    injector = (FailureInjector(fail_at={failure_at: RuntimeError(
+        "injected")}) if failure_at is not None else None)
+    loop = FaultTolerantLoop(step, stream.batch_at, Checkpointer(ckpt_dir),
+                             save_every=2, injector=injector)
+    loop.run(state, n_steps)
+    return losses, loop.stats
+
+
+def check_train_vs_cpu(cfg_smoke, seed):
+    """Phase 4: training on the card against the CPU (every kernel
+    wrapper there runs its plain version), f32.  Step 0's gradients:
+    each leaf within 1e-4 of its scale, or within twice what a one-ulp
+    change of every weight moves that leaf on the CPU itself, where
+    float32's own noise on this batch is larger than 1e-4 (the
+    embedding gradient sums many positions of the same frequent
+    token)."""
+    from repro_torch.models.layers import tree_map
+
+    cpu_params = smoke_params(cfg_smoke, seed, "cpu")
+    g_cpu = step0_grads(cfg_smoke, cpu_params, seed)
+    g_card = step0_grads(cfg_smoke, smoke_params(cfg_smoke, seed, "cuda"),
+                         seed)
+    rng = np.random.RandomState(seed)
+    nudged = tree_map(lambda a: torch.nextafter(a.detach(), torch.from_numpy(
+        np.where(rng.rand(*a.shape) < 0.5, -np.inf, np.inf).astype(
+            np.float32))), cpu_params)
+    g_nudged = step0_grads(cfg_smoke, nudged, seed)
+    worst, floor_max, loose = 0.0, 0.0, 0
+    for a, b, c in zip(g_card, g_cpu, g_nudged):
+        a, scale = a.cpu(), b.abs().max().item()
+        floor = ((c - b).abs().max() / scale).item()
+        tol = max(1e-4, 2 * floor)
+        loose += tol > 1e-4
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=tol * scale,
+                                   msg=lambda m: f"step 0 gradients: {m}")
+        worst = max(worst, ((a - b).abs().max() / scale).item())
+        floor_max = max(floor_max, floor)
+    cpu, card = smoke_trainer(cfg_smoke, seed, "cpu", 3), smoke_trainer(
+        cfg_smoke, seed, "cuda", 3)
+    l_card, l_cpu = [card[0][i] for i in range(3)], [cpu[0][i]
+                                                     for i in range(3)]
+    check(all(np.isfinite(l_card)), "finite losses on the card")
+    check(abs(l_card[0] - l_cpu[0]) <= 1e-4 * abs(l_cpu[0]),
+          f"step 0 loss on the card == on the CPU ({l_card[0]}, "
+          f"{l_cpu[0]})")
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-3,
+                               err_msg="losses on the card vs the CPU")
+    phase(f"[4] smoke olmo-1b training on the card == on the CPU: losses "
+          f"{l_card} vs {l_cpu} (step 0 within 1e-4, later 1e-3 relative);"
+          f" step 0 gradients within {worst:.2e} of each leaf's scale "
+          f"(tol 1e-4; {loose} of {len(g_cpu)} leaves at twice their CPU "
+          f"one-ulp noise floor, which reaches {floor_max:.2e})")
+
+
+def check_train_loop(cfg_smoke, seed):
+    """Phase 4: the smoke trainer through ``FaultTolerantLoop`` on the
+    card, with a failure injected before step 3, against an
+    uninterrupted run; the loop counts every exception as a restart, so
+    the count is checked."""
+    import shutil
+
+    root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        clean = smoke_trainer(cfg_smoke, seed, "cuda", 5,
+                              ckpt_dir=str(root / "clean"))
+        failed = smoke_trainer(cfg_smoke, seed, "cuda", 5, failure_at=3,
+                               ckpt_dir=str(root / "failed"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(clean[1].restarts == 0, f"uninterrupted run: no restart "
+                                  f"({clean[1].restarts})")
+    check(failed[1].restarts == 1 and failed[1].completed_steps == 5,
+          f"one restart, five steps ({failed[1]})")
+    check(sorted(failed[0]) == list(range(5)), "a loss for every step")
+    diff = max(abs(failed[0][i] - clean[0][i]) for i in range(5))
+    check(diff == 0.0, f"losses after the restart == the uninterrupted "
+                       f"run's ({failed[0]} vs {clean[0]})")
+    phase(f"[4] smoke trainer through FaultTolerantLoop on the card, "
+          f"failure injected before step 3: {failed[1].restarts} restart, "
+          f"restored from step 2, {failed[1].completed_steps} steps; losses "
+          f"{[failed[0][i] for i in range(5)]} == the uninterrupted run's")
+
+
+def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
+                     profile=False):
+    """Phase 12: olmo-1b at full width through ``build_step``: a warm-up
+    step, then ``steps`` steps with the kernels' launch counts zeroed
+    just before and read just after; with ``profile``, two more steps
+    under the profiler.  Returns the run's numbers."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.launch.train import build_step
+    from repro_torch.models.model import count_params, init_params
+    from repro_torch.optim import adamw
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device="cuda")
+    state = (params, adamw.init(params), None)
+    torch.cuda.synchronize()
+    n_params = count_params(cfg)
+    tag = f"[12] {cfg.name}"
+    phase(f"{tag} params: {n_params} ({cfg.dtype}; AdamW mu, nu and master "
+          f"float32), init {time.perf_counter() - t0:.1f} s; batch {batch} "
+          f"x {seq} tokens (one micro-batch), {cfg.n_layers} layers")
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch, seed=0))
+    # data loading is set-up: every batch on the card before the steps
+    batches = [{k: torch.from_numpy(a).cuda() for k, a in
+                stream.batch_at(i).items()} for i in range(steps + 1)]
+    step_fn = build_step(cfg, adamw.AdamWConfig(warmup_steps=10,
+                                                decay_steps=steps + 1))
+    state, m = step_fn(state, batches[0])           # warm-up, not counted
+    losses = [float(m["loss"])]
+    n_global = sum(1 for k in cfg.layer_kinds if k == "global")
+    expected = 2 * n_global
+    phase(f"{tag}: K6 launches expected {expected} a step = {n_global} "
+          f"global layers x 2 (the forward, and its recomputation in the "
+          f"backward pass: remat=True puts each one-layer pattern group "
+          f"under torch.utils.checkpoint)")
+    # the main path's run: counts zeroed just before, read just after
+    for fn in counted.values():
+        fn.launches = 0
+    syncs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, steps + 1):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, m = step_fn(state, batches[i])
+                losses.append(float(m["loss"]))     # the one read a step
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs.append([str(w.message).splitlines()[0] for w in caught
+                      if "called a synchronizing" in str(w.message)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated()
+    check(all(np.isfinite(losses)), f"{tag}: finite losses {losses}")
+    check(launches["K6"] == expected * steps
+          and sum(launches.values()) == launches["K6"],
+          f"{tag}: K6 launched {expected} times a step and no other kernel "
+          f"ran ({launches}, {steps} steps)")
+    check(all(len(s) == 1 for s in syncs),
+          f"{tag}: one device-to-host transfer a step (the loss): {syncs}")
+    ms = 1e3 * wall / steps
+    tokens = batch * seq
+    H, hd, L = cfg.n_heads, cfg.hd, n_global
+    # 6 N per token for the matmul parameters (the input embedding is a
+    # lookup), and the causal attention products forward and backward
+    n_mm = n_params - cfg.vocab * cfg.d_model
+    flops = 6 * n_mm * tokens + 6 * batch * H * hd * seq * (seq + 1) * L
+    mfu = flops / (ms / 1e3) / PEAK_OPS[torch.bfloat16]
+    phase(f"{tag}: losses {losses} (the first the warm-up step's); K6 "
+          f"launches {launches['K6']} = {expected} x {steps} steps, other "
+          f"kernels {sum(launches.values()) - launches['K6']}; "
+          f"synchronizing calls a step under sync-debug mode: "
+          f"{[len(s) for s in syncs]} {syncs[0]}")
+    phase(f"{tag} on {smi}: {ms:.1f} ms a step, {tokens / (ms / 1e3):.0f} "
+          f"tokens/s, peak memory {peak / 2**30:.2f} GiB "
+          f"(max_memory_allocated), model flops {flops:.4e} a step "
+          f"(6 N_matmul tokens + attention), {100 * mfu:.1f}% of the card's "
+          f"989 TFLOP/s bf16 peak")
+    if profile:
+        def run():
+            nonlocal state
+            for i in (1, 2):
+                state, m = step_fn(state, batches[i])
+                float(m["loss"])
+            return 2
+
+        profiled(run, f"{tag} [p]")
+    del state, params, batches
+    torch.cuda.empty_cache()
+    return dict(launches=launches["K6"], steps=steps, ms=ms, mfu=mfu,
+                tok_s=tokens / (ms / 1e3), peak=peak, losses=losses)
+
+
+def time_k6(k6, rng, cfg, B=4, S=2048):
+    """Phase 13: K6 at the training shape (bf16, causal, q and k
+    strided views as the training step passes them), its plain version,
+    SDPA and the torch-op backward, beside the bound.  Four sets of
+    inputs (134 MB each) cycle, so each call reads its inputs from HBM
+    as a layer of the step does."""
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_fwd_ref
+
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.randint(2**31)))
+    f = lambda *shape: torch.randn(  # noqa: E731
+        shape, generator=gen, device="cuda").to(torch.bfloat16)
+    sets = [(f(B, S, H, hd).transpose(1, 2), f(B, S, KH, hd).transpose(1, 2),
+             f(B, KH, S, hd)) for _ in range(4)]
+    it = iter(range(10 ** 9))
+
+    def kern():
+        k6.flash_attention_cuda(*sets[next(it) % 4])
+
+    def ref():
+        flash_attention_fwd_ref(*sets[next(it) % 4])
+
+    def lib():
+        torch.nn.functional.scaled_dot_product_attention(
+            *sets[next(it) % 4], is_causal=True)
+
+    saved = []
+    for q, k, v in sets:
+        o, lse = k6.flash_attention_cuda(q, k, v)
+        saved.append((q, k, v, o, lse, torch.randn_like(o)))
+
+    def bwd():
+        k6.flash_attention_bwd(*saved[next(it) % 4])
+
+    ms, host_ms = cuda_ms(kern, iters=32)
+    plain_ms, _ = cuda_ms(ref, iters=4, warmup=1)
+    library_ms, _ = cuda_ms(lib, iters=32)
+    backward_ms, _ = cuda_ms(bwd, iters=4, warmup=1)
+    q, k, _ = sets[0]
+    nbytes = k6.bound_bytes(q, k)
+    nflops = k6.flops(q)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nflops / PEAK_OPS[torch.bfloat16]
+    del sets, saved
+    torch.cuda.empty_cache()
+    return dict(B=B, S=S, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                library_ms=library_ms, backward_ms=backward_ms,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, flops=nflops)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -785,6 +1182,7 @@ def main() -> int:
         return 1
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as k6
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import \
         paged_attention_chunk_ref as plain
@@ -814,7 +1212,8 @@ def main() -> int:
 
     # [2] build the kernels from this checkout's sources, in parallel
     t0 = time.perf_counter()
-    stems = ("paged_attention", "verify_attention", "ssd_scan", "rg_lru")
+    stems = ("paged_attention", "verify_attention", "ssd_scan", "rg_lru",
+             "flash_attention")
     build.load_all(stems)
     for stem in stems:
         for line in build.logs.get(stem, "").splitlines():
@@ -858,6 +1257,7 @@ def main() -> int:
         ("full T=64 f32", (b_local, 64, rgemma.d_model), f32),
         ("smoke T=8 f32", (b_local, 8, rgemma_smoke.d_model), f32),
         ("S=200 d=192 f32", (b_local, 200, 192), f32)], rng)
+    err6 = check_k6(k6, rng)
 
     # [4] the engine on the card vs on the CPU, small input
     check_engine_vs_cpu(tengine, cfg_smoke, args.seed)
@@ -865,10 +1265,12 @@ def main() -> int:
     for c in (rgemma_smoke, mamba_smoke):
         check_engine_vs_cpu(tengine, c, args.seed, name=f"{c.name} engine "
                             f"(two size classes)", size_classes=2)
+    check_train_vs_cpu(cfg_smoke, args.seed)
+    check_train_loop(cfg_smoke, args.seed)
 
     # [5] the plain path at full width
     counted = {"K1": ops.paged_attention_chunk, "K3": k3.verify_attention,
-               "K4": k4.ssd_scan, "K5": k5.rg_lru}
+               "K4": k4.ssd_scan, "K5": k5.rg_lru, "K6": k6.flash_attention}
     run1 = serve_full_width(
         "[5]", tengine, counted, "K1", cfg, args.seed, b_local, max_len,
         chunk, make_requests(tengine, cfg, args.seed),
@@ -970,6 +1372,18 @@ def main() -> int:
         phase(f"[11] end-to-end {name} on {smi}: {r['tok_s']:.1f} generated "
               f"tok/s, {r['ms_step']:.2f} ms/step")
 
+    # [12] the training path at full width, [13] K6 at its shape
+    train = train_full_width(cfg, args.seed, counted, smi,
+                             profile=args.profile)
+    t6 = time_k6(k6, rng, cfg)
+    phase(f"[13] K6 B={t6['B']} H={cfg.n_heads} S={t6['S']} hd={cfg.hd} "
+          f"causal bf16 on {smi}: kernel {t6['ms']:.4f} ms (host "
+          f"{t6['host_ms']:.4f} ms a call), bound {t6['bound_ms']:.4f} ms "
+          f"({t6['bound_by']}: {t6['flops']} flop, {t6['bytes']} B), plain "
+          f"{t6['plain_ms']:.4f} ms, library (SDPA, is_causal) "
+          f"{t6['library_ms']:.4f} ms; backward (torch ops, float32) "
+          f"{t6['backward_ms']:.4f} ms")
+
     def row(name, src, replaces, n, e, t, t_other, shape):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": n, "max_abs_err": e,
@@ -1001,8 +1415,17 @@ def main() -> int:
         row("rg_lru", "src/repro_torch/kernels/rg_lru/csrc/rg_lru.cu",
             "src/repro/kernels/rg_lru/kernel.py:67", run5["launches"], err5,
             *k5_times, f"T=1 B={b_local} d={rgemma.d_model} f32"),
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                   "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
+         "launches": train["launches"], "max_abs_err": err6,
+         **{k: t6[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "host_ms", "backward_ms")},
+         "shape": f"B={t6['B']} H={cfg.n_heads} S={t6['S']} hd={cfg.hd} "
+                  f"causal bf16"},
     ]
-    phase(f"[11] total {time.perf_counter() - t_start:.1f} s")
+    phase(f"[13] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

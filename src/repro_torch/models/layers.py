@@ -2,7 +2,7 @@
 convolution of the recurrent blocks.
 
 Counterpart of the JAX package's ``models/layers.py``, limited to what
-the decode path calls.  Parameters live in nested dicts of
+the decode and training paths call.  Parameters live in nested dicts of
 tensors declared by :class:`ParamDef` trees, with the same tree,
 shapes and dtypes as the reference's.
 """
@@ -14,6 +14,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 class ParamDef(NamedTuple):
@@ -23,11 +24,13 @@ class ParamDef(NamedTuple):
     init: str = "normal"               # normal | zeros | ones
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every leaf of a tree of nested dicts."""
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every leaf of a tree of nested dicts, and to the
+    leaves at the same keys of the trees ``rest``."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree: Any) -> list:
@@ -213,3 +216,28 @@ def logits_argmax_chunked(cfg, params, x, chunk: int = 1024):
         best = torch.where(upd, m, best)
         arg = torch.where(upd, a.to(torch.int32) + off, arg)
     return arg
+
+
+def _xent_sum(xc, yc, w):
+    """Summed cross-entropy of one chunk: logits in float32."""
+    logits = (xc @ w).float()
+    gold = logits.gather(-1, yc[..., None].long())[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def chunked_softmax_xent(cfg, embed_params, x, labels, chunk: int = 512):
+    """Mean cross-entropy over tokens without holding [B, S, V] logits:
+    sequence chunks in order, the ``S % chunk`` remainder last, each
+    under ``torch.utils.checkpoint`` so the backward pass recomputes its
+    float32 logits instead of keeping them."""
+    B, S, _ = x.shape
+    chunk = min(chunk, S)
+    w = embed_params.get("lm_head")
+    if w is None:
+        w = embed_params["tok"].T
+    total = 0.0
+    for off in range(0, S, chunk):
+        total = total + checkpoint(_xent_sum, x[:, off:off + chunk],
+                                   labels[:, off:off + chunk], w,
+                                   use_reentrant=False)
+    return total / (B * S)

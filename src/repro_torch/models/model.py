@@ -1,15 +1,20 @@
-"""Top-level model API of the port: parameters and decode steps.
+"""Top-level model API of the port: parameters, the training loss and
+decode steps.
 
-Counterpart of the JAX package's ``models/model.py`` for the paged
-decode path.
+Counterpart of the JAX package's ``models/model.py`` for the training
+and paged decode paths.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-from .layers import init_tree, logits_apply
-from .transformer import DecodeState, forward_decode_chunk, model_defs
+from .layers import (chunked_softmax_xent, init_tree, logits_apply,
+                     tree_leaves, tree_map)
+from .transformer import (DecodeState, forward_decode_chunk, forward_train,
+                          model_defs)
 
 
 def param_defs(cfg):
@@ -22,6 +27,28 @@ def init_params(cfg, seed: int = 0, device="cuda"):
     gen = torch.Generator(device=device).manual_seed(seed)
     return init_tree(model_defs(cfg), gen, device)
 
+
+def param_shapes(cfg):
+    """The parameter tree as tensors on the ``meta`` device: shapes and
+    dtypes, no allocation."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), model_defs(cfg))
+
+
+def count_params(cfg) -> int:
+    return sum(math.prod(d.shape) for d in tree_leaves(model_defs(cfg)))
+
+
+# ------------------------------------------------------------------- train
+
+def loss_fn(cfg, params, batch, remat: bool = True):
+    """Causal LM loss: the mean cross-entropy of ``batch["labels"]``
+    after ``batch["tokens"]``, chunked (never holds [B, S, V] logits)."""
+    x = forward_train(cfg, params, batch["tokens"], remat=remat)
+    return chunked_softmax_xent(cfg, params["embed"], x, batch["labels"])
+
+
+# ------------------------------------------------------------------- serve
 
 def decode_step(cfg, params, tokens, state: DecodeState, active=None):
     """One decode step: (logits [DP, Bl, V], new state) — a width-1

@@ -1,7 +1,10 @@
-"""Decoder stack, decode state and the chunked decode forward.
+"""Decoder stack, the training forward, decode state and the chunked
+decode forward.
 
 Counterpart of the JAX package's ``models/transformer.py``, limited to
-the slices of the port so far: decoders of global attention over
+the slices of the port so far.  Training (:func:`forward_train`) covers
+decoders of global and local attention layers with a dense FFN; its
+global layers run K6.  Serving covers decoders of global attention over
 **paged KV** (olmo-1b, llama3.2-1b, phi4-mini), sliding-window
 attention over per-slot **ring** slabs (gemma3's local layers,
 recurrentgemma's), and recurrent **SSD** (mamba2) and **RG-LRU**
@@ -33,6 +36,7 @@ from __future__ import annotations
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import base_kind, is_moe_kind
 from ..core import block_pool, classed_pool
@@ -42,8 +46,10 @@ from ..kernels.paged_attention.ops import paged_attention_chunk
 from ..kernels.paged_attention.ref import NEG_INF
 from ..kernels.verify_attention.ops import verify_attention, workspace_numel
 from ..kernels.verify_attention.schedule import build_verify_schedule
+from . import attention as attn
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
+from .attention import _expand_kv
 from .layers import (ParamDef, apply_norm, embed_apply, embed_defs,
                      ffn_apply, ffn_defs, norm_defs, rope_tables, rotate,
                      tree_map)
@@ -113,6 +119,60 @@ def model_defs(cfg):
         defs["rem"] = {f"pos{j}": layer_defs(cfg, k)
                        for j, k in enumerate(cfg.remainder)}
     return defs
+
+
+# ================================================================ train path
+
+def _check_train(cfg) -> None:
+    """Raise for a configuration the training path does not cover yet."""
+    _check_slice(cfg)
+    rec = sorted(set(map(base_kind, cfg.pattern + cfg.remainder))
+                 & {"ssd", "rglru"})
+    if rec:
+        raise NotImplementedError(
+            f"{cfg.name}: the port's training path covers global and local "
+            f"attention layers; the train forms of {rec} layers "
+            f"(ssd_chunked, rglru_scan) wait for their slice (ROADMAP "
+            f"Queue A item 14)")
+
+
+def _mix_train(cfg, lp, x, kind: str):
+    """One layer over the full sequence: returns (x, (k, v))."""
+    h = apply_norm(cfg, lp["norm1"], x)
+    o, cache = attn.attention_train(cfg, lp["attn"], h, base_kind(kind))
+    x = x + o
+    if "ffn" in lp:
+        x = x + ffn_apply(cfg, lp["ffn"], apply_norm(cfg, lp["norm2"], x))
+    return x, cache
+
+
+def forward_train(cfg, params, tokens, remat: bool = True):
+    """tokens [B, S] -> hidden [B, S, d].
+
+    The reference scans the stacked ``groups`` parameters and remats
+    each pattern group (``jax.checkpoint``); here each stacked leaf is
+    split once with ``torch.unbind`` (indexing a stack inside the loop
+    would make every index's backward write a zero tensor as large as
+    the stack) and each group runs under ``torch.utils.checkpoint``,
+    so its activations are recomputed in the backward pass: K6 runs
+    twice a global layer a step."""
+    _check_train(cfg)
+    x = embed_apply(params["embed"], tokens).to(cfg.tdtype)
+
+    def group(x, gp):
+        for j, kind in enumerate(cfg.pattern):
+            x, _ = _mix_train(cfg, gp[f"pos{j}"], x, kind)
+        return x
+
+    if cfg.n_groups:
+        stacks = tree_map(lambda a: a.unbind(0), params["groups"])
+        for g in range(cfg.n_groups):
+            gp = tree_map(lambda t: t[g], stacks)
+            x = (checkpoint(group, x, gp, use_reentrant=False) if remat
+                 else group(x, gp))
+    for j, kind in enumerate(cfg.remainder):
+        x, _ = _mix_train(cfg, params["rem"][f"pos{j}"], x, kind)
+    return apply_norm(cfg, params.get("final_norm", {}), x)
 
 
 # ============================================================== decode state
@@ -432,14 +492,6 @@ def _ring_write_chunk(k_ring, v_ring, k_new, v_new, write) -> None:
     masked tokens on the sink slot W."""
     k_ring.index_put_(write, k_new.to(k_ring.dtype))
     v_ring.index_put_(write, v_new.to(v_ring.dtype))
-
-
-def _expand_kv(k, n_heads: int):
-    """GQA: repeat kv heads to match q heads."""
-    KH = k.shape[2]
-    if KH == n_heads:
-        return k
-    return k.repeat_interleave(n_heads // KH, dim=2)
 
 
 def _ring_attn_chunk(q, k_ring, v_ring, k_chunk, v_chunk, idx: _RingIndex):

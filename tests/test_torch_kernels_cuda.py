@@ -12,6 +12,8 @@ pytest.importorskip("torch")   # the port's tests need PyTorch
 import numpy as np
 import torch
 
+from repro_torch.kernels.flash_attention import ops as k6
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import \
     paged_attention_chunk_ref as plain
@@ -183,3 +185,75 @@ def test_rg_lru_kernel_vs_plain(card, B, S, d):
     hs_ref, h_ref = rg_lru_ref(a, b, h0)
     assert torch.equal(hs, hs_ref) and torch.equal(h, h_ref)
     assert torch.equal(h[1], hs[1, min(2, S - 1)])
+
+
+def _qkv(rng, B, H, KH, S, hd, dtype, grad=False):
+    """q [B, H, S, hd] and k, v [B, KH, S, hd] on the card, q and k as
+    the training step hands them over: transposed views of [B, S, H,
+    hd] tensors."""
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.randn(*s).astype(np.float32)).to("cuda", dtype)
+    q, k = f(B, S, H, hd).transpose(1, 2), f(B, S, KH, hd).transpose(1, 2)
+    v = f(B, KH, S, hd)
+    return [t.requires_grad_(grad) for t in (q, k, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,H,KH,S,hd,causal", [
+    (torch.bfloat16, 1, 16, 16, 2048, 128, True),  # olmo-1b
+    (torch.bfloat16, 1, 32, 8, 1024, 64, True),    # llama3.2-1b, G = 4
+    (torch.float32, 2, 4, 2, 64, 16, True),        # the smoke configs
+    (torch.float32, 2, 4, 2, 200, 64, True),       # a ragged last tile
+    (torch.float32, 1, 4, 4, 300, 128, False),     # bidirectional
+    (torch.bfloat16, 2, 4, 1, 77, 16, False),
+])
+def test_flash_attention_kernel_vs_plain(card, dtype, B, H, KH, S, hd,
+                                         causal):
+    """K6 on strided inputs against its plain version; bf16 within one
+    ulp of it (both compute in float32 from the same inputs and round
+    once)."""
+    rng = np.random.RandomState(S + H)
+    q, k, v = _qkv(rng, B, H, KH, S, hd, dtype)
+    before = k6.flash_attention.launches
+    out = k6.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert k6.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.stride() == q.stride()
+    ref = flash_attention_ref(q, k, v, causal).float()
+    tol = 1e-4 if dtype == torch.float32 else 6e-2
+    torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(out.float(), ref, atol=1e-5,
+                                   rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B,H,KH,S,hd", [
+    (torch.float32, 2, 4, 2, 64, 16),              # the smoke configs
+    (torch.bfloat16, 1, 16, 16, 1024, 128),
+])
+def test_flash_attention_gradient(card, dtype, B, H, KH, S, hd):
+    """dq, dk, dv through K6's Function against autograd through the
+    plain version.  bf16 at 6e-2: the backward reads the forward's
+    output rounded to bf16 in rowsum(dO * O)."""
+    rng = np.random.RandomState(S)
+    q, k, v = _qkv(rng, B, H, KH, S, hd, dtype, grad=True)
+    do = torch.from_numpy(rng.randn(B, H, S, hd).astype(np.float32)).to(
+        "cuda", dtype)
+    got = torch.autograd.grad(k6.flash_attention(q, k, v), (q, k, v), do)
+    want = torch.autograd.grad(flash_attention_ref(q, k, v), (q, k, v), do)
+    tol = 1e-4 if dtype == torch.float32 else 6e-2
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_on_what_it_does_not_take(card):
+    rng = np.random.RandomState(0)
+    q, k, v = _qkv(rng, 1, 4, 2, 64, 32, torch.float32)
+    with pytest.raises(ValueError):
+        k6.flash_attention(q, k, v)              # hd 32
+    q, k, v = _qkv(rng, 1, 4, 2, 64, 16, torch.float16)
+    with pytest.raises(TypeError):
+        k6.flash_attention(q, k, v)
