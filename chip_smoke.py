@@ -12,7 +12,11 @@ Phases, each printed on its own line (any failure fails the run):
    plain PyTorch version on the card, at the serving path's shapes:
    f32 within 1e-4; bf16 within 6e-2 and, since both sides accumulate
    in float32 from the same inputs and round once, within one bf16 ulp
-   (2^-7 relative).  K1 (paged attention) at T = 1 and 64; K3 (verify
+   (2^-7 relative).  K1 (paged attention) at T = 1 and 64; K2 (paged
+   decode) at olmo-1b's, llama3.2-1b's and smoke widths, contexts of
+   96-1,087 tokens, with ``zero_empty`` off (a row without keys gets
+   the uniform mean) and on (zeros), and against K1 at T = 1 over
+   base + 1 positions; K3 (verify
    attention) at T = 5 and 64 on tables whose lanes share their prefix
    pages, also against K1 on the same inputs; K4 (SSD scan, f32 and
    bf16) and K5 (RG-LRU, float32 only) at T = 1 and 64 at full width
@@ -26,7 +30,9 @@ Phases, each printed on its own line (any failure fails the run):
    CPU (where every kernel wrapper runs its plain version) on smoke
    configs: identical tokens and status rows, for olmo-1b's plain path
    and, with speculation, the hot-prefix workload of
-   ``tests/test_speculative.py``, and for recurrentgemma-2b and
+   ``tests/test_speculative.py``, with pinned prefixes and preemption
+   (``SchedConfig(pin_pages=8, page_budget=6)``: pool leaves and pin
+   tables identical too), and for recurrentgemma-2b and
    mamba2-370m with two size classes; then training: three steps of
    ``launch/train.py::build_step`` on the smoke olmo-1b in f32 from the
    same parameters and ``TokenStream`` batches on both devices (step
@@ -36,8 +42,9 @@ Phases, each printed on its own line (any failure fails the run):
 5. the plain path: serve olmo-1b at full width (16 layers x 2048, 16
    heads, hd 128, vocab 50304, bf16, page size 64) with random weights
    from ``--seed`` through ``ServingEngine.run``: every request
-   finishes, the pool drains leak-free, K1 ran 16 times per step and
-   no other kernel ran, and each step made exactly one device-to-host
+   finishes, the pool drains leak-free, K1 ran 16 times on each step
+   with a prompt lane and K2 16 times on each decode-only step, no
+   other kernel ran, and each step made exactly one device-to-host
    transfer;
 6. time K1, its plain version, a PyTorch library call for the same
    attention and the bound, at the serving shapes;
@@ -45,7 +52,8 @@ Phases, each printed on its own line (any failure fails the run):
    serve hot-prefix traffic (4 system prompts of 512 tokens, user tails
    of 32-128 tokens, half of the requests repeating an earlier prompt
    exactly, 32 requests of 64 new tokens) with and without
-   speculation: K3 ran 16 times per speculative step, one transfer per
+   speculation: K3 ran 16 times per speculative step, K2 16 times per
+   decode-only step and K1 16 times per other step, one transfer per
    step, leak-free; in f32 both runs give identical tokens; in bf16 the
    count of identical streams is printed;
 8. time K3 at T = 5 on hot-prefix tables and at T = 64, beside its
@@ -71,7 +79,23 @@ Phases, each printed on its own line (any failure fails the run):
    model-flops share of the card's bf16 peak;
 13. time K6 at the training shape beside its bound, its plain version,
    PyTorch's ``scaled_dot_product_attention`` and the torch-op
-   backward, and print the kernels line (K1, K3, K4, K5, K6).
+   backward;
+14. the serve entry point and preemption at full width (olmo-1b,
+   bf16, dp 1, 8 slots, max_len 2048): (a) ``repro_torch.launch.serve
+   .main`` with a 512-token hot prefix, 32 requests of 64 new tokens, a
+   quarter interactive, 64 pin pages: every request finishes, a pin is
+   created, K1 + K2 launches = 16 x steps, one transfer a step, 0 pages
+   after the drain and ``flush_pins``, a never-dry margin >= 0; (b) the
+   engine driven directly with 128 pin pages, 8 standard requests and
+   after 40 steps 4 interactive ones that preempt: a preemption and a
+   pin hit, every request finishes, one transfer a step, 0 pages after
+   the flush; again in f32 with and without preemption, where every
+   stream must be equal or differ first at a near-tie (top-2 logit gap
+   within 1e-4 of the logit scale);
+15. time K2 and K1 at T = 1 on the same inputs beside K2's bound, its
+   plain version and SDPA; serve phase 5's workload with decode-only
+   steps through K1 and through K2 in turns (K1, K2, K2, K1); print the
+   kernels line (K1-K6).
 
 ``--profile`` serves the workloads of phases 5, 9 and 10 again, and
 runs two more training steps in phase 12, under ``torch.profiler``,
@@ -272,6 +296,75 @@ def check_k3(k3, ops, plain, rng, cfg_full, cfg_smoke, b_local, maxp, P):
     return worst
 
 
+def check_k2(ops, plain2, rng, cfgs, b_local, maxp, P):
+    """Phase 3: K2, through the dispatcher the engine calls, against its
+    plain version with ``zero_empty`` off (lane 1 has no valid key and
+    must get the uniform mean of what it gathers) and on (zeros), and
+    against K1 at T = 1 with ``base + 1`` on the same inputs; contexts
+    of 96-1,087 tokens at full width.  Returns the worst bf16 error
+    against the plain version."""
+    worst = 0.0
+    full, llama, smoke = (dict(H=c.n_heads, KH=c.n_kv_heads, hd=c.hd,
+                               psz=c.page_size) for c in cfgs)
+    full.update(maxp=maxp, P=P)
+    llama.update(maxp=maxp, P=P)
+    smoke.update(maxp=8, P=72)
+    ctx = lambda: rng.randint(64 + 32, 1024 + 64, b_local)  # noqa: E731
+    cases = [("full bf16", full, ctx(), torch.bfloat16),
+             ("full f32", full, ctx(), torch.float32),
+             ("llama3.2-1b widths bf16 (G=4, hd 64)", llama, ctx(),
+              torch.bfloat16),
+             ("smoke f32 (G=2)", smoke, None, torch.float32)]
+    for name, shp, base, dt in cases:
+        q, kp, vp, table, base = attn_case(rng, b_local, 1, dtype=dt,
+                                           base=base, masked=(1,),
+                                           dead=((2, 0),), **shp)
+        q2, lens = q[:, 0].contiguous(), base + 1
+        errs = []
+        for zero_empty in (False, True):
+            before = ops.paged_attention.launches
+            out = ops.paged_attention(q2, kp, vp, table, lens,
+                                      zero_empty=zero_empty)
+            torch.cuda.synchronize()
+            check(ops.paged_attention.launches == before + 1,
+                  f"K2 {name}: the dispatcher launched the kernel once")
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"K2 {name}: finite")
+            refs = [("plain", ops.paged_attention_ref(
+                q2, kp, vp, table, lens, zero_empty=zero_empty))]
+            if zero_empty:
+                check(bool((out[1] == 0).all()),
+                      f"K2 {name}: a row without keys is zero")
+                refs.append(("K1 T=1", ops.paged_attention_chunk(
+                    q, kp, vp, table, base)[:, 0]))
+            else:
+                check(bool((out[1] != 0).any()),
+                      f"K2 {name}: a row without keys is the uniform mean")
+            for what, ref in refs:
+                ref = ref.float()
+                errs.append((out.float() - ref).abs().max().item())
+                torch.testing.assert_close(
+                    out.float(), ref, atol=TOL[dt], rtol=TOL[dt],
+                    msg=lambda m, n=name, w=what: f"K2 {n} vs {w}: {m}")
+                if dt == torch.bfloat16:
+                    torch.testing.assert_close(
+                        out.float(), ref, atol=BF16_ULP_ATOL,
+                        rtol=BF16_ULP_RTOL,
+                        msg=lambda m, n=name, w=what: f"K2 {n} vs {w}, "
+                                                      f"one bf16 ulp: {m}")
+        tol = f"tol {TOL[dt]:g}" + (
+            f" and one ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}"
+            if dt == torch.bfloat16 else "")
+        phase(f"[3] K2 {name}: max_abs_err vs plain {errs[0]:.3e} "
+              f"(zero_empty off, lane 1 the uniform mean), {errs[1]:.3e} "
+              f"(on, lane 1 zeros), vs K1 at T=1 {errs[2]:.3e}; max|ref| "
+              f"{out.float().abs().max().item():.3e} ({tol}); contexts "
+              f"{int(lens.min())}-{int(lens.max())}")
+        if dt == torch.bfloat16:
+            worst = max(worst, errs[0], errs[1])
+    return worst
+
+
 def scan_case(rng, kind, dims, dtype):
     """Inputs of K4 (``kind`` "ssd", dims (B, S, H, P, N)) or K5
     ("rglru", dims (B, S, d)) on the card, with the carried state h0 !=
@@ -418,6 +511,85 @@ def check_spec_engine_vs_cpu(tengine, k3, cfg_smoke, seed):
           f"and status rows")
 
 
+def check_pins_engine_vs_cpu(tengine, cfg_smoke, seed):
+    """Phase 4: pinned prefixes and preemption on the card against the
+    same engine on the CPU, smoke olmo-1b in f32 with
+    ``SchedConfig(pin_pages=8, page_budget=6)``: a standard request on a
+    2-page hot prefix, then an interactive one on the same prefix that
+    finds no page headroom and preempts it (tests/test_sched.py:154);
+    then two sharers of one hot prefix finishing in either order and a
+    re-arrival served from the pin (tests/test_sched.py:225, with
+    ``SchedConfig(pin_pages=8)`` as there).  Tokens, status rows, stats,
+    pool leaves and pin tables must be identical."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.sched import SchedConfig
+    from repro_torch.serving.telemetry import FlightRecorder
+
+    params = init_params(cfg_smoke, seed=seed, device="cpu")
+    rng = np.random.RandomState(seed)
+    hot = list(rng.randint(1, cfg_smoke.vocab, 16))
+    scripts = [
+        (dict(pin_pages=8, page_budget=6),
+         [(0, hot + [11, 12, 13, 14], 8, "standard"), 3,
+          (1, hot + [5, 6], 3, "interactive"), None]),
+        (dict(pin_pages=8),
+         [(0, hot + [90, 91], 6, "standard"), 2,
+          (1, hot + [77, 78, 79], 3, "standard"), None,
+          (2, hot + [50, 51], 3, "standard"), None])]
+    for n, (sched, script) in enumerate(scripts):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            eng = tengine.ServingEngine(
+                cfg_smoke, tree_map(lambda a: a.to(dev), params), dp=1,
+                b_local=2, max_len=64, chunk_size=16, prefix_sharing=True,
+                sched=SchedConfig(**sched), device=dev,
+                flight=FlightRecorder(capacity=4096))
+            reqs = []
+            for op in script:
+                if isinstance(op, tuple):
+                    rid, prompt, max_new, slo = op
+                    reqs.append(tengine.Request(rid, prompt=list(prompt),
+                                                max_new_tokens=max_new,
+                                                slo=slo))
+                    eng.submit(reqs[-1])
+                elif op is None:
+                    eng.run(max_steps=500)
+                else:
+                    for _ in range(op):
+                        eng.step()
+            check(all(r.done for r in reqs), f"pins {n} on {dev}: finished")
+            stats = {k: v for k, v in eng.stats.items()
+                     if k not in ("stragglers", "step_timeouts")}
+            pool = [t.cpu() for hp in eng.state.pool.classes
+                    for t in (hp.shared.free_ids, hp.shared.top,
+                              hp.shared.refcount, hp.private_ids,
+                              hp.private_top)]
+            runs[dev] = dict(
+                tokens=[r.out_tokens for r in reqs],
+                status=[rec["status"] for rec in eng.flight.ring],
+                stats=stats, sched=dict(eng.scheduler.stats), pool=pool,
+                pins=eng.pin_tables.cpu(), flushed=eng.flush_pins(),
+                empty=eng.page_occupancy() == 0.0 and eng.leak_free())
+        a, b = runs["cpu"], runs["cuda"]
+        check(all(a[k] == b[k] for k in ("tokens", "status", "stats",
+                                         "sched", "flushed"))
+              and all(torch.equal(x, y) for x, y in zip(a["pool"],
+                                                        b["pool"]))
+              and torch.equal(a["pins"], b["pins"]) and a["empty"]
+              and b["empty"], f"pins {n}: the card == the CPU")
+        st = b["stats"]
+        check(st["pins_created"] > 0 and st["pin_hit_reqs"] > 0
+              and (n or st["preemptions"] > 0),
+              f"pins {n}: pins created and hit, preemption in the first")
+        phase(f"[4] smoke pins and preemption ({n + 1}/2, {sched}) on the "
+              f"card == on the CPU: {len(b['status'])} steps, preemptions "
+              f"{st['preemptions']}, pins created {st['pins_created']}, "
+              f"pin hits {st['pin_hit_reqs']} ({st['pin_hit_tokens']} "
+              f"tokens); identical tokens, status rows, stats, pool "
+              f"leaves and pin tables; 0 pages after flush_pins")
+
+
 def make_requests(tengine, cfg, seed, n=16, hi=1024, n_long=0, long_lo=0):
     """The smoke workload: ``n`` requests of 64-``hi`` random prompt
     tokens and 32-64 new tokens each, from ``seed``; every (n //
@@ -438,10 +610,11 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     """Phases 5, 9 and 10: one model at full width through
     ``ServingEngine.run``.  ``counted`` maps each kernel's name to its
     dispatcher; ``kernel`` names the one that every layer of its kind
-    must launch once a step, and no other kernel may run.
+    must launch once a step, and no other kernel may run.  For paged
+    attention (``kernel`` K1) a step of width 1 (every lane decoding)
+    runs K2 instead, once per layer.
     ``profile_reqs``, when given, are served again under the profiler.
     Returns the run's numbers."""
-    from repro_torch.core.classed_pool import CLS_KV
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.model import init_params
 
@@ -478,6 +651,7 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
         fn.launches = 0
     steps0, transfers0 = eng.stats["steps"], eng.host_transfers
     tokens0, prompt0 = eng.stats["tokens_out"], eng.stats["prompt_tokens"]
+    width1_0 = eng.stats["chunk_hist"].get(1, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for r in reqs:
@@ -501,25 +675,34 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     transfers = eng.host_transfers - transfers0
     tokens = eng.stats["tokens_out"] - tokens0
     prompt = eng.stats["prompt_tokens"] - prompt0
+    decode_steps = eng.stats["chunk_hist"].get(1, 0) - width1_0
+    # the kernels each step must launch, once per layer of its kind
+    want = {kernel: n_layers * steps}
+    if kernel == "K1":
+        want = {"K1": n_layers * (steps - decode_steps),
+                "K2": n_layers * decode_steps}
     check(all(r.done for r in reqs), f"{tag}: every request finished")
     check(all(0 <= t < cfg.vocab for r in reqs for t in r.out_tokens),
           f"{tag}: tokens inside the vocabulary")
     check([len(r.out_tokens) for r in reqs]
           == [r.max_new_tokens for r in reqs], f"{tag}: every budget "
                                                f"generated")
-    check(launches[kernel] == n_layers * steps > 0
-          and sum(launches.values()) == launches[kernel],
-          f"{tag}: {kernel} launched once per {kind} layer per step and no "
-          f"other kernel ran ({launches}, {steps} steps)")
+    check(all(launches[k] == n > 0 for k, n in want.items())
+          and sum(launches.values()) == sum(want.values()),
+          f"{tag}: {' and '.join(want)} launched once per {kind} layer per "
+          f"step of their width and no other kernel ran ({launches}, "
+          f"{steps} steps, {decode_steps} of width 1)")
     check(transfers == steps, f"{tag}: one transfer per step ({transfers}, "
                               f"{steps})")
     in_use = [eng.blocks_in_use(c) for c in range(eng.n_classes)]
     check(not any(in_use) and eng.leak_free(),
           f"{tag}: no KV page and no state block in use after the drain")
-    phase(f"{tag}: served {len(reqs)} requests: {steps} steps, {tokens} "
-          f"tokens out, {prompt} prompt tokens, wall {wall:.3f} s; "
-          f"{kernel} launches {launches[kernel]} = {n_layers} x {steps} "
-          f"steps, other kernels {sum(launches.values()) - launches[kernel]}"
+    split = "; ".join(f"{k} launches {launches[k]} = {n_layers} x "
+                      f"{n // n_layers} steps" for k, n in want.items())
+    phase(f"{tag}: served {len(reqs)} requests: {steps} steps ("
+          f"{decode_steps} decode-only), {tokens} tokens out, {prompt} "
+          f"prompt tokens, wall {wall:.3f} s; {split}, other kernels "
+          f"{sum(launches.values()) - sum(want.values())}"
           f"; device->host transfers {transfers} (1 per step), "
           f"synchronizing calls in one step under sync-debug mode: "
           f"{len(syncs)} {syncs}; state blocks granted "
@@ -529,7 +712,8 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
           f"{(tokens + prompt) / wall:.1f} total tok/s, "
           f"{1e3 * wall / steps:.2f} ms/step")
     out = dict(launches=launches[kernel], steps=steps, tok_s=tokens / wall,
-               ms_step=1e3 * wall / steps, n_layers=n_layers)
+               ms_step=1e3 * wall / steps, n_layers=n_layers,
+               k2=launches.get("K2", 0), decode_steps=decode_steps)
     if profile_reqs is not None:
         profile_serve(eng, profile_reqs, f"{tag} [p]")
     del eng, params
@@ -610,6 +794,7 @@ def serve_trace(tengine, k3, ops, cfg, params, prompts, speculate, b_local,
     n_rec0 = len(eng.flight.ring)
     # the main path's run: counts zeroed just before, read just after
     ops.paged_attention_chunk.launches = 0
+    ops.paged_attention.launches = 0
     k3.verify_attention.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -619,6 +804,7 @@ def serve_trace(tengine, k3, ops, cfg, params, prompts, speculate, b_local,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1_launches = ops.paged_attention_chunk.launches
+    k2_launches = ops.paged_attention.launches
     k3_launches = k3.verify_attention.launches
     recs = list(eng.flight.ring)[n_rec0:]
     d = {k: eng.stats[k] - st0[k] for k in (
@@ -626,8 +812,9 @@ def serve_trace(tengine, k3, ops, cfg, params, prompts, speculate, b_local,
         "spec_accepted", "spec_pages_rolled_back", "spec_mixed_steps",
         "prefix_shared_tokens", "prefix_shared_reqs", "cow_copies")}
     d.update(
-        wall=wall, k1=k1_launches, k3=k3_launches,
+        wall=wall, k1=k1_launches, k2=k2_launches, k3=k3_launches,
         spec_steps=sum(rec["spec"] for rec in recs), records=len(recs),
+        decode_steps=sum(rec["T"] == 1 and not rec["spec"] for rec in recs),
         transfers=eng.host_transfers - transfers0,
         admission_transfers=eng.admission_transfers - adm0,
         tokens=[r.out_tokens for r in reqs], done=all(r.done for r in reqs),
@@ -667,11 +854,14 @@ def serve_speculative(tengine, k3, ops, cfg, seed, b_local, max_len, chunk):
             check(r["transfers"] == r["steps"],
                   f"{name}: one transfer per step ({r['transfers']}, "
                   f"{r['steps']})")
+            other = r["steps"] - r["spec_steps"] - r["decode_steps"]
             check(r["k3"] == n_layers * r["spec_steps"]
-                  and r["k1"] == n_layers * (r["steps"] - r["spec_steps"]),
+                  and r["k2"] == n_layers * r["decode_steps"] > 0
+                  and r["k1"] == n_layers * other,
                   f"{name}: K3 {r['k3']} launches = {n_layers} x "
-                  f"{r['spec_steps']} speculative steps, K1 {r['k1']} = "
-                  f"{n_layers} x the other steps")
+                  f"{r['spec_steps']} speculative steps, K2 {r['k2']} = "
+                  f"{n_layers} x {r['decode_steps']} decode-only steps, K1 "
+                  f"{r['k1']} = {n_layers} x the other steps")
             check(r["prefix_shared_tokens"] > 0, f"{name}: prefixes shared")
             if spec:
                 check(r["spec_accepted"] > 0 and r["spec_steps"] > 0,
@@ -683,7 +873,8 @@ def serve_speculative(tengine, k3, ops, cfg, seed, b_local, max_len, chunk):
                   f"prefix_shared_tokens {r['prefix_shared_tokens']} "
                   f"({r['prefix_shared_reqs']} requests), cow_copies "
                   f"{r['cow_copies']}; K3 launches {r['k3']} = {n_layers} x "
-                  f"{r['spec_steps']}, K1 launches {r['k1']}; "
+                  f"{r['spec_steps']}, K2 launches {r['k2']} = {n_layers} x "
+                  f"{r['decode_steps']}, K1 launches {r['k1']}; "
                   f"host_transfers {r['transfers']} = steps, "
                   f"admission_transfers {r['admission_transfers']}; pages "
                   f"in use after the drain {r['pages_after']}")
@@ -700,6 +891,255 @@ def serve_speculative(tengine, k3, ops, cfg, seed, b_local, max_len, chunk):
           f"bf16: {same16} of {len(prompts)} streams identical (near-ties "
           f"may flip between kernels and matmul widths)")
     return runs["bfloat16", True]
+
+
+def serve_entry_point(counted, smi):
+    """Phase 14 (a): ``repro_torch.launch.serve.main``, the entry point a
+    user starts a server from, at full width (olmo-1b, bf16, dp 1, 8
+    slots, max_len 2048, its own seed-0 weights and trace): 32 requests
+    on a 512-token hot prefix, 64 new tokens each, a quarter of them
+    interactive, 64 pin pages.  The launch counts are zeroed just
+    before ``main`` and read just after.  Returns the run's numbers."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.launch import serve
+
+    argv = ["--arch", "olmo-1b", "--dp", "1", "--b-local", "8",
+            "--max-len", "2048", "--hot-prefix", "512", "--requests", "32",
+            "--max-new", "64", "--interactive-frac", "0.25",
+            "--pin-pages", "64", "--device", "cuda"]
+    phase(f"[14a] python -m repro_torch.launch.serve {' '.join(argv)}")
+    for fn in counted.values():
+        fn.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        eng = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    for line in out.getvalue().splitlines():
+        phase(f"[14a] | {line}")
+    st = eng.stats
+    steps, decode_steps = st["steps"], st["chunk_hist"].get(1, 0)
+    n_layers = eng.cfg.n_layers
+    tok_s = float(re.search(r"([\d.]+) tok/s\)", out.getvalue()).group(1))
+    lat = eng.latency_quantiles()
+    margin = eng.telemetry.never_dry_margin_min()
+    check(len(eng._latencies) == 32 and not eng.active
+          and eng.scheduler.backlog() == 0
+          and st["tokens_out"] == 32 * 64, "[14a]: every request finished "
+                                           "with 64 tokens")
+    check(st["pins_created"] >= 1, "[14a]: at least one pin created")
+    check(eng.host_transfers == steps, f"[14a]: one transfer per step "
+                                       f"({eng.host_transfers}, {steps})")
+    check(launches["K1"] == n_layers * (steps - decode_steps)
+          and launches["K2"] == n_layers * decode_steps > 0
+          and sum(launches.values()) == n_layers * steps,
+          f"[14a]: K1 + K2 launches = {n_layers} x steps ({launches}, "
+          f"{steps} steps, {decode_steps} decode-only)")
+    check(eng.page_occupancy() == 0.0 and eng.leak_free(),
+          "[14a]: no page in use after the drain and flush_pins")
+    check(margin is not None and margin >= 0, f"[14a]: never-dry margin "
+                                              f"{margin} >= 0")
+    phase(f"[14a] entry point on {smi}: {tok_s:.1f} generated tok/s, p50 "
+          f"latency {1e3 * lat['p50_s']:.0f} ms, p50 time to first token "
+          f"{1e3 * lat['first_token_p50_s']:.0f} ms; {steps} steps "
+          f"({decode_steps} decode-only); K1 launches {launches['K1']}, K2 "
+          f"launches {launches['K2']} (= {n_layers} x {steps}); transfers "
+          f"{eng.host_transfers} = steps, admission_transfers "
+          f"{eng.admission_transfers}; pins created {st['pins_created']}, "
+          f"pin hits {st['pin_hit_reqs']}, preemptions "
+          f"{st['preemptions']}, prefix_shared_reqs "
+          f"{st['prefix_shared_reqs']}; never-dry margin {margin}")
+    out = dict(k2=launches["K2"], k1=launches["K1"], steps=steps,
+               tok_s=tok_s, **lat)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def decode_route_ab(tengine, ops, cfg, seed, b_local, max_len, chunk,
+                    smi):
+    """Phase 15: phase 5's workload served four times on one warm
+    engine, decode-only steps through K1 at T = 1 (the route before K2)
+    and through K2, in turns K1, K2, K2, K1 on one card; generated tok/s
+    and ms/step of each.  K1 at T = 1 over ``base`` is K2 over ``base +
+    1`` with ``zero_empty``, so both routes compute the same function."""
+    from repro_torch.models import transformer
+    from repro_torch.models.model import init_params
+
+    k2 = transformer.paged_attention
+
+    def via_k1(q, kp, vp, table, seq_lens, zero_empty):
+        return ops.paged_attention_chunk(q[:, None].contiguous(), kp, vp,
+                                         table, seq_lens - 1)[:, 0]
+
+    params = init_params(cfg, seed=seed, device="cuda")
+    eng = tengine.ServingEngine(cfg, params, dp=1, b_local=b_local,
+                                max_len=max_len, chunk_size=chunk,
+                                device="cuda")
+    eng.submit(tengine.Request(10**6, prompt=[1] * (chunk + 1),
+                               max_new_tokens=3))
+    eng.run(max_steps=100)
+    rates, tokens = {"K1": [], "K2": []}, {}
+    try:
+        for route in ("K1", "K2", "K2", "K1"):
+            transformer.paged_attention = k2 if route == "K2" else via_k1
+            reqs = make_requests(tengine, cfg, seed)
+            steps0, out0 = eng.stats["steps"], eng.stats["tokens_out"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            eng.run(max_steps=10_000)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps = eng.stats["steps"] - steps0
+            check(all(r.done for r in reqs), f"[15] {route} route finished")
+            rates[route].append(((eng.stats["tokens_out"] - out0) / wall,
+                                 1e3 * wall / steps))
+            tokens[route] = [r.out_tokens for r in reqs]
+    finally:
+        transformer.paged_attention = k2
+    same = sum(a == b for a, b in zip(tokens["K1"], tokens["K2"]))
+    for route, runs in rates.items():
+        phase(f"[15] phase 5's workload, decode-only steps through "
+              f"{route}, on {smi}: "
+              + ", ".join(f"{r:.1f} generated tok/s ({ms:.2f} ms/step)"
+                          for r, ms in runs))
+    phase(f"[15] {same} of {len(tokens['K1'])} streams identical between "
+          f"the routes (bf16: near-ties may flip)")
+    del eng, params
+    torch.cuda.empty_cache()
+    return rates
+
+
+def top2_gap(cfg, params, context):
+    """(top-1 minus top-2 logit, largest |logit|) of the next token
+    after ``context``, from one full forward pass on the card."""
+    from repro_torch.models.layers import logits_apply
+    from repro_torch.models.transformer import forward_train
+
+    with torch.no_grad():
+        x = forward_train(cfg, params, torch.tensor([context], device="cuda"),
+                          remat=False)
+        logits = logits_apply(cfg, params["embed"], x[:, -1])[0].float()
+    top = logits.topk(2).values
+    return (top[0] - top[1]).item(), logits.abs().max().item()
+
+
+def serve_preempting(tengine, counted, cfg, seed, preemption=True):
+    """Phase 14 (b): the engine driven directly at full width with
+    ``SchedConfig(pin_pages=128, pin_rows=16)`` (with the default 4 rows
+    the 4 interactive prompts' own pins evict the victims' pins before
+    readmission): 8 standard requests of 512-1,024
+    prompt tokens and 128 new tokens fill the 8 slots; after 40 steps 4
+    interactive requests of 64-256 prompt tokens and 32 new tokens
+    arrive and preempt standard victims, whose whole pages ``preempt``
+    pins and readmission shares back.  Returns the run's numbers; the
+    engine's parameters stay in ``out["params"]`` for the caller."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.sched import SchedConfig
+
+    params = init_params(cfg, seed=seed, device="cuda")
+    eng = tengine.ServingEngine(
+        cfg, params, dp=1, b_local=8, max_len=2048, chunk_size=64,
+        sched=SchedConfig(pin_pages=128, pin_rows=16,
+                          preemption=preemption),
+        device="cuda")
+    rng = np.random.RandomState(seed + 14)
+    std = [tengine.Request(i, prompt=list(rng.randint(
+        1, cfg.vocab, rng.randint(512, 1025))), max_new_tokens=128)
+        for i in range(8)]
+    inter = [tengine.Request(8 + i, prompt=list(rng.randint(
+        1, cfg.vocab, rng.randint(64, 257))), max_new_tokens=32,
+        slo="interactive") for i in range(4)]
+    for fn in counted.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in std:
+        eng.submit(r)
+    for _ in range(40):
+        eng.step()
+    for r in inter:
+        eng.submit(r)
+    eng.run(max_steps=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    reqs = std + inter
+    st = dict(eng.stats)
+    out = dict(tokens=[r.out_tokens for r in reqs], done=all(
+        r.done for r in reqs), steps=st["steps"], wall=wall,
+        tokens_out=st["tokens_out"], preemptions=st["preemptions"],
+        pins=st["pins_created"], pin_hits=st["pin_hit_reqs"],
+        pin_hit_tokens=st["pin_hit_tokens"],
+        victims=sum(r.preemptions > 0 for r in reqs),
+        transfers=eng.host_transfers, launches=launches,
+        flushed=eng.flush_pins(), prompts=[r.prompt for r in reqs],
+        params=params, n_layers=cfg.n_layers)
+    out["empty"] = eng.page_occupancy() == 0.0 and eng.leak_free()
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_preempting(tengine, counted, cfg, seed, smi):
+    """Phase 14 (b) in bf16 (the model's type), then in f32 with and
+    without preemption: every f32 stream must be the same, or differ
+    first where the top-2 logit gap is within 1e-4 of the logit scale
+    (a near-tie that batch-dependent matmul widths may flip)."""
+    runs = {}
+    for name, dtype, pre in (("bf16", "bfloat16", True),
+                             ("f32", "float32", True),
+                             ("f32 no preemption", "float32", False)):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        r = runs[name] = serve_preempting(tengine, counted, c, seed, pre)
+        n = r["n_layers"]
+        check(r["done"] and r["empty"], f"[14b] {name}: every request "
+              f"finished; 0 pages after the drain and flush_pins")
+        check(r["transfers"] == r["steps"], f"[14b] {name}: one transfer "
+                                            f"per step")
+        check(r["launches"]["K1"] + r["launches"]["K2"] == n * r["steps"]
+              and sum(r["launches"].values()) == n * r["steps"],
+              f"[14b] {name}: K1 + K2 = {n} x steps ({r['launches']})")
+        if pre:
+            check(r["preemptions"] >= 1 and r["pin_hits"] >= 1,
+                  f"[14b] {name}: a preemption and a pin hit")
+        else:
+            check(r["preemptions"] == 0, f"[14b] {name}: no preemption")
+        phase(f"[14b] {name} on {smi}: {r['steps']} steps, "
+              f"{r['tokens_out'] / r['wall']:.1f} generated tok/s, "
+              f"{1e3 * r['wall'] / r['steps']:.2f} ms/step; preemptions "
+              f"{r['preemptions']} ({r['victims']} victims), pins created "
+              f"{r['pins']}, pin hits {r['pin_hits']} "
+              f"({r['pin_hit_tokens']} tokens), pins flushed "
+              f"{r['flushed']}; K1 {r['launches']['K1']} + K2 "
+              f"{r['launches']['K2']} launches = {n} x {r['steps']}; "
+              f"transfers {r['transfers']} = steps")
+        if name != "f32":
+            del r["params"]
+            torch.cuda.empty_cache()
+    a, b = runs["f32"], runs["f32 no preemption"]
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    same = 0
+    for i, (x, y) in enumerate(zip(a["tokens"], b["tokens"])):
+        if x == y:
+            same += 1
+            continue
+        p = next(j for j, (u, v) in enumerate(zip(x, y)) if u != v)
+        gap, scale = top2_gap(c32, a["params"], a["prompts"][i] + x[:p])
+        phase(f"[14b] f32 stream {i} differs first at token {p}: top-2 "
+              f"logit gap {gap:.3e}, logit scale {scale:.3e}")
+        check(gap <= 1e-4 * scale, f"[14b] f32 stream {i}: a divergence "
+                                   f"where the top-2 gap is not a near-tie")
+    phase(f"[14b] f32: {same} of {len(a['tokens'])} streams of the "
+          f"preempting run equal the run without preemption")
+    del a["params"]
+    torch.cuda.empty_cache()
+    return runs["bf16"]
 
 
 def profiled(run, tag="[p]"):
@@ -1186,6 +1626,8 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ref import \
         paged_attention_chunk_ref as plain
+    from repro_torch.kernels.paged_attention.ref import \
+        paged_attention_ref as plain2
     from repro_torch.kernels.rg_lru import ops as k5
     from repro_torch.kernels.rg_lru.ref import rg_lru_ref
     from repro_torch.kernels.ssd_scan import ops as k4
@@ -1212,8 +1654,8 @@ def main() -> int:
 
     # [2] build the kernels from this checkout's sources, in parallel
     t0 = time.perf_counter()
-    stems = ("paged_attention", "verify_attention", "ssd_scan", "rg_lru",
-             "flash_attention")
+    stems = ("paged_attention", "paged_decode", "verify_attention",
+             "ssd_scan", "rg_lru", "flash_attention")
     build.load_all(stems)
     for stem in stems:
         for line in build.logs.get(stem, "").splitlines():
@@ -1232,6 +1674,8 @@ def main() -> int:
     # [3] kernels vs plain versions
     rng = np.random.RandomState(args.seed)
     err = check_kernel(ops, plain, rng, cfg, cfg_smoke, b_local, maxp, P)
+    err2 = check_k2(ops, plain2, rng, (cfg, get_config("llama3.2-1b"),
+                                       cfg_smoke), b_local, maxp, P)
     err3 = check_k3(k3, ops, plain, rng, cfg, cfg_smoke, b_local, maxp, P)
     mamba, mamba_smoke = (get_config("mamba2-370m"),
                           smoke_config(get_config("mamba2-370m")))
@@ -1262,6 +1706,7 @@ def main() -> int:
     # [4] the engine on the card vs on the CPU, small input
     check_engine_vs_cpu(tengine, cfg_smoke, args.seed)
     check_spec_engine_vs_cpu(tengine, k3, cfg_smoke, args.seed)
+    check_pins_engine_vs_cpu(tengine, cfg_smoke, args.seed)
     for c in (rgemma_smoke, mamba_smoke):
         check_engine_vs_cpu(tengine, c, args.seed, name=f"{c.name} engine "
                             f"(two size classes)", size_classes=2)
@@ -1269,8 +1714,9 @@ def main() -> int:
     check_train_loop(cfg_smoke, args.seed)
 
     # [5] the plain path at full width
-    counted = {"K1": ops.paged_attention_chunk, "K3": k3.verify_attention,
-               "K4": k4.ssd_scan, "K5": k5.rg_lru, "K6": k6.flash_attention}
+    counted = {"K1": ops.paged_attention_chunk, "K2": ops.paged_attention,
+               "K3": k3.verify_attention, "K4": k4.ssd_scan,
+               "K5": k5.rg_lru, "K6": k6.flash_attention}
     run1 = serve_full_width(
         "[5]", tengine, counted, "K1", cfg, args.seed, b_local, max_len,
         chunk, make_requests(tengine, cfg, args.seed),
@@ -1384,6 +1830,41 @@ def main() -> int:
           f"{t6['library_ms']:.4f} ms; backward (torch ops, float32) "
           f"{t6['backward_ms']:.4f} ms")
 
+    # [14] the serve entry point at full width, then preemption
+    entry = serve_entry_point(counted, smi)
+    preempting = check_preempting(tengine, counted, cfg, args.seed, smi)
+
+    # [15] K2 and K1 at T = 1 on the same inputs (decode at contexts of
+    # 96-1,087 tokens), beside K2's bound, plain version and SDPA
+    def k2_call(q, kp, vp, table, base):
+        q2, lens = q[:, 0].contiguous(), base + 1
+        return lambda: ops.paged_attention_cuda(q2, kp, vp, table, lens,
+                                                True)
+
+    def k2_plain(q, kp, vp, table, base):
+        return plain2(q[:, 0], kp, vp, table, base + 1, zero_empty=True)
+
+    def k2_bytes(q, kp, table, base):
+        return ops.decode_bound_bytes(q[:, 0], kp, table, base + 1)
+
+    base15 = np.random.RandomState(args.seed + 15).randint(96, 1088, b_local)
+    t2, t2k1 = (time_kernel(call, nbytes, ref, np.random.RandomState(
+        args.seed + 15), cfg, b_local, maxp, P, 1, base15)
+        for call, nbytes, ref in ((k2_call, k2_bytes, k2_plain),
+                                  (k1_call, ops.bound_bytes, plain)))
+    for name, t in (("K2", t2), ("K1 at T=1, same inputs", t2k1)):
+        phase(f"[15] {name} B={b_local} H={cfg.n_heads} hd={cfg.hd} "
+              f"psz={cfg.page_size} bf16 on {smi}: kernel {t['ms']:.4f} ms "
+              f"(host {t['host_ms']:.4f} ms a call), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
+              f"{t['flops']} flop), plain {t['plain_ms']:.4f} ms, library "
+              f"(SDPA, dense K/V) {t['library_ms']:.4f} ms")
+    decode_route_ab(tengine, ops, cfg, args.seed, b_local, max_len, chunk,
+                    smi)
+    phase(f"[15] end-to-end on {smi}: entry point {entry['tok_s']:.1f} "
+          f"generated tok/s; preempting run (bf16) "
+          f"{preempting['tokens_out'] / preempting['wall']:.1f} tok/s")
+
     def row(name, src, replaces, n, e, t, t_other, shape):
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": n, "max_abs_err": e,
@@ -1397,6 +1878,16 @@ def main() -> int:
     shape = (f"B={b_local} H={cfg.n_heads} hd={cfg.hd} psz={cfg.page_size} "
              f"bf16")
     kernels = [
+        {"name": "paged_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                   "paged_decode.cu",
+         "replaces": "src/repro/kernels/paged_attention/kernel.py:227",
+         "launches": entry["k2"], "max_abs_err": err2,
+         **{k: t2[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "host_ms")},
+         "shape": f"T=1 {shape}, contexts 97-1088",
+         "k1_same_inputs": {k: t2k1[k] for k in ("ms", "plain_ms",
+                                                 "bound_ms", "library_ms")}},
         row("paged_attention_chunk",
             "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
             "src/repro/kernels/paged_attention/kernel.py:171",
@@ -1425,7 +1916,7 @@ def main() -> int:
          "shape": f"B={t6['B']} H={cfg.n_heads} S={t6['S']} hd={cfg.hd} "
                   f"causal bf16"},
     ]
-    phase(f"[13] total {time.perf_counter() - t_start:.1f} s")
+    phase(f"[15] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -96,6 +96,14 @@ def addref_dp(pool: ClassedPool, cls: int, ids: torch.Tensor
     return _put(pool, cls, hier_pool.addref_dp(pool.classes[cls], ids))
 
 
+def free_shared_dp(pool: ClassedPool, cls: int, ids: torch.Tensor
+                   ) -> ClassedPool:
+    """ids int32[DP, K]: drop one lane-less reference per valid id, each
+    on its own shard; blocks reaching zero return to the shard's shared
+    stack (pin eviction)."""
+    return _put(pool, cls, hier_pool.free_shared_dp(pool.classes[cls], ids))
+
+
 def rebalance_drain_dp(pool: ClassedPool,
                        cls: Optional[int] = None) -> ClassedPool:
     if cls is not None:

@@ -1,9 +1,9 @@
-// Device helpers shared by the port's paged-attention kernels (K1 in
-// paged_attention/csrc, K3 in verify_attention/csrc): conversions
-// between the storage type and float, 16-byte loads, warp reductions,
-// and the staging of one [psz, hd] page of one kv head into shared
-// memory.  The SSD scan (K4, ssd_scan/csrc) uses the conversions and
-// the warp sum.
+// Device helpers shared by the port's paged-attention kernels (K1 and
+// K2 in paged_attention/csrc, K3 in verify_attention/csrc):
+// conversions between the storage type and float, 16-byte loads, warp
+// reductions, and the staging of one [psz, hd] page of one kv head
+// into shared memory (K1, K3).  The SSD scan (K4, ssd_scan/csrc) uses
+// the conversions and the warp sum.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,20 +1,27 @@
-"""Paged chunk attention (K1): dispatcher between the CUDA kernel and
-its plain PyTorch version.
+"""Paged attention: dispatchers between the CUDA kernels and their
+plain PyTorch versions.
 
-Replaces the JAX package's Pallas TPU kernel
-``kernels/paged_attention/kernel.py::paged_attention_chunk`` (its
-``pallas_call`` at ``kernel.py:171``).  The CUDA C++ kernel for Hopper
-(``csrc/paged_attention.cu``, built for ``sm_90a`` at first use and
-called through ctypes) runs one thread block per (kv head, sequence),
-walks only the sequence's live pages, stages each K/V page in shared
-memory and keeps the online-softmax state in float registers.
+* K1, :func:`paged_attention_chunk`, replaces the JAX package's Pallas
+  TPU kernel ``kernels/paged_attention/kernel.py::paged_attention_chunk``
+  (its ``pallas_call`` at ``kernel.py:171``).  Its CUDA C++ kernel for
+  Hopper (``csrc/paged_attention.cu``) runs one thread block per (kv
+  head, sequence), walks only the sequence's live pages, stages each
+  K/V page in shared memory and keeps the online-softmax state in float
+  registers.
+* K2, :func:`paged_attention`, single-token decode, replaces
+  ``kernel.py::paged_attention`` (its ``pallas_call`` at
+  ``kernel.py:227``).  Its kernel (``csrc/paged_decode.cu``) runs one
+  block per (kv head, sequence) whose warps take the live pages' keys
+  in units of 32, each warp its own online softmax, merged at the end.
 
-Bound on an H100: bytes.  The least time is the bytes of the live K/V
-pages plus q and out over 3.35 TB/s (:func:`bound_bytes`).
+Both kernels are built for ``sm_90a`` at first use and called through
+ctypes.  Bound on an H100: bytes.  The least time is the bytes of the
+live K/V pages plus q and out over 3.35 TB/s (:func:`bound_bytes`,
+:func:`decode_bound_bytes`).
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
-launches the kernel or raises.  ``paged_attention_chunk.launches``
-counts kernel launches.
+launches the kernel or raises.  ``paged_attention_chunk.launches`` and
+``paged_attention.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ import functools
 
 import torch
 
-from .ref import paged_attention_chunk_ref
+from .ref import paged_attention_chunk_ref, paged_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -107,3 +114,77 @@ def bound_bytes(q, k_pages, page_table, base_lens) -> int:
     page_bytes = psz * KH * hd * k_pages.element_size()
     return (2 * q.numel() * q.element_size()
             + 2 * int(live.sum()) * page_bytes)
+
+
+# ---------------------------------------------------------------- K2
+
+@functools.cache
+def _decode_fn():
+    from ..build import load
+    fn = load("paged_decode").paged_decode
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
+                         zero_empty: bool = False):
+    """Launch K2 on PyTorch's current stream (no sync)."""
+    B, H, hd = q.shape
+    P, psz, KH, hd_k = k_pages.shape
+    maxp = page_table.shape[1]
+    tensors = (q, k_pages, v_pages, page_table, seq_lens)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("paged_attention: all inputs on one CUDA device")
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"paged_attention: q/k/v must share float32 or "
+                        f"bfloat16, got {q.dtype}/{k_pages.dtype}/"
+                        f"{v_pages.dtype}")
+    if page_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError("paged_attention: page_table and seq_lens must be "
+                        "int32")
+    if (v_pages.shape != k_pages.shape or hd_k != hd or H % KH
+            or page_table.shape != (B, maxp) or seq_lens.shape != (B,)
+            or hd > 256 or B == 0 or maxp == 0):
+        raise ValueError(f"paged_attention: bad shapes q {q.shape} pages "
+                         f"{k_pages.shape} table {page_table.shape} "
+                         f"seq_lens {seq_lens.shape}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("paged_attention: inputs must be contiguous")
+    out = torch.empty_like(q)
+    err = _decode_fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                       page_table.data_ptr(), seq_lens.data_ptr(),
+                       out.data_ptr(), _DTYPES[q.dtype], B, H, KH, hd, psz,
+                       maxp, int(bool(zero_empty)),
+                       torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed: "
+                           f"cudaError {err} (hd={hd}, H={H}, KH={KH})")
+    return out
+
+
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
+                    zero_empty: bool = False):
+    """q: [B, H, hd]; k/v_pages: [P, psz, KH, hd]; page_table: int32
+    [B, maxp] (< 0 = dead); seq_lens: int32 [B] -> [B, H, hd] (see
+    :func:`.ref.paged_attention_ref`; ``zero_empty`` gives rows without
+    a valid key zeros instead of the uniform mean)."""
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, page_table,
+                                   seq_lens, zero_empty=zero_empty)
+    out = paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
+                               zero_empty)
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0
+
+
+def decode_bound_bytes(q, k_pages, page_table, seq_lens) -> int:
+    """K2's bytes for these inputs: those of K1 at T = 1 over
+    ``seq_lens - 1`` (q read and out written once, the K and V of every
+    page that holds a valid key read once)."""
+    return bound_bytes(q[:, None], k_pages, page_table, seq_lens - 1)

@@ -42,7 +42,8 @@ from ..configs.base import base_kind, is_moe_kind
 from ..core import block_pool, classed_pool
 from ..core.block_pool import I32, NULL
 from ..core.classed_pool import CLS_KV, ClassSpec
-from ..kernels.paged_attention.ops import paged_attention_chunk
+from ..kernels.paged_attention.ops import (paged_attention,
+                                          paged_attention_chunk)
 from ..kernels.paged_attention.ref import NEG_INF
 from ..kernels.verify_attention.ops import verify_attention, workspace_numel
 from ..kernels.verify_attention.schedule import build_verify_schedule
@@ -474,13 +475,19 @@ def _paged_attn_chunk(q, k_pages, v_pages, idx: _PagedIndex):
     into the kernel batch so one kernel launch covers all shards.  A
     verify step (``idx.verify`` set) attends through K3's page-grouped
     schedule: the same function, each hot shared page read once for
-    all the lanes that map it."""
+    all the lanes that map it.  A decode-only step (T = 1) attends
+    through K2 over ``base + 1`` positions, the same function as K1 at
+    T = 1; ``zero_empty`` keeps K1's zeros on lanes without a valid key
+    (idle slots), where K2 would otherwise return the mean of page 0."""
     DP, Bl, T, H, hd = q.shape
     kg = k_pages.reshape((-1,) + k_pages.shape[2:])
     vg = v_pages.reshape((-1,) + v_pages.shape[2:])
     qf = q.reshape(DP * Bl, T, H, hd).contiguous()
     if idx.verify is not None:
         o = verify_attention(qf, kg, vg, idx.tables, idx.base, *idx.verify)
+    elif T == 1:
+        o = paged_attention(qf[:, 0], kg, vg, idx.tables, idx.base + 1,
+                            zero_empty=True)
     else:
         o = paged_attention_chunk(qf, kg, vg, idx.tables, idx.base)
     return o.reshape(DP, Bl, T, H, hd)

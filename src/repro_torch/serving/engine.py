@@ -4,8 +4,9 @@ Counterpart of the JAX package's ``serving/engine.py``, limited to the
 port's slices so far: greedy serving on one device, DP kept as a leading
 axis, of paged, ring and recurrent decoders over one or two size
 classes (paged KV, and the fine bounded-state class), with prefix
-sharing from live donors and greedy speculative decoding over shared
-prefixes for fully paged models.
+sharing from live donors and from pinned prefixes, preemption, and
+greedy speculative decoding over shared prefixes for fully paged
+models.
 
 Two allocator integrations, as in the reference:
 
@@ -30,9 +31,16 @@ inputs go up in one non-blocking copy from pinned memory.  Admission
 with a prefix match reads the share step's ``ok`` flag, a transfer
 outside the step (counted in ``admission_transfers``).
 
-Options of the reference that later slices bring (sampling, pinned
-prefixes, preemption, the expert size class and expert paging, a mesh,
-chaos injection and journaling) raise ``NotImplementedError``.
+The admission scheduler (``serving/sched.py``) owns the policy:
+priority classes, page budgets, preemption of lower classes and the
+pin budget.  The engine carries out its decisions: :meth:`admit`,
+:meth:`preempt` (pin the victim's whole pages, release, requeue) and
+:meth:`evict_pin`, over a device pin table whose rows hold the cache's
+own reference on each pinned page.
+
+Options of the reference that later slices bring (sampling, deadlines,
+the expert size class and expert paging, a mesh, chaos injection and
+journaling) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,7 +63,9 @@ from ..models.layers import logits_apply, logits_argmax_chunked
 from ..models.transformer import (DecodeState, forward_decode_chunk,
                                   pool_class_specs, state_blocks_per_slot)
 from ..runtime.fault import StepWatchdog
-from .prefix_cache import PrefixCache, SpeculationStore, share_prefix_step
+from .prefix_cache import (PinnedPrefixes, PrefixCache, SpeculationStore,
+                           pin_id_of, pin_prefix_step, share_pinned_step,
+                           share_prefix_step, unpin_step)
 from .sched import Admission, AdmissionScheduler, SchedConfig
 from .telemetry import (CTR_ALLOC, CTR_DRAIN, CTR_FREED, CTR_MARGIN,
                         CTR_REFILL, CTR_ROLLBACK, CTR_SHARED_FREE,
@@ -78,6 +88,7 @@ class Request:
     slot: Optional[int] = None
     done: bool = False
     rejected: Optional[str] = None     # typed failure reason, terminal
+    preemptions: int = 0
     submitted_at: float = 0.0
     first_token_at: float = 0.0
     finished_at: float = 0.0
@@ -317,8 +328,6 @@ class ServingEngine:
         self.sched_config = sched or SchedConfig()
         unsupported = {
             "greedy=False": not greedy,
-            "SchedConfig(pin_pages > 0), pinned prefixes":
-                self.sched_config.pin_pages > 0,
             "mesh": mesh is not None,
             "size_classes > 2 (the expert class)": size_classes > 2,
             "expert_paging": expert_paging,
@@ -408,8 +417,24 @@ class ServingEngine:
         self.scheduler = AdmissionScheduler(
             self.sched_config, n_shards=dp, page_budget=b_local * maxp,
             state_budget=b_local * self._state_blocks)
-        self.pins = None                     # pinning: a later slice
+        # pinned prefixes: a device pin table (rows of cache-owned page
+        # ids per shard) and the host LRU ledger; on only when the sched
+        # config grants a pin budget and the model can share at all
+        self.pins: Optional[PinnedPrefixes] = None
+        self.pin_tables: Optional[torch.Tensor] = None
+        if self.prefix_cache is not None and self.sched_config.pin_pages > 0:
+            self.pins = PinnedPrefixes(dp, self.sched_config.pin_rows,
+                                       self.sched_config.pin_pages)
+            self.pin_tables = torch.full(
+                (dp, self.sched_config.pin_rows, maxp), NULL, dtype=I32,
+                device=self.device)
+        self._pinned_slots: set = set()
+        # the status PAGES row (per-shard pages in use, from the step's
+        # one transfer) drives high-water pin eviction; its running sum
+        # and peak per shard feed shard_occupancy()
         self.pages_used_shard: List[int] = [0] * dp
+        self._pages_shard_sum = np.zeros(dp, np.int64)
+        self._pages_shard_peak = np.zeros(dp, np.int64)
 
         # host-side wait-free slot allocator: slots are fixed-size blocks
         n_slots = dp * b_local
@@ -547,11 +572,19 @@ class ServingEngine:
         return self.prefix_cache.match(toks, shard=shard)
 
     def pinned_pages_on(self, shard: int) -> int:
-        return 0
+        return self.pins.pages_on(shard) if self.pins is not None else 0
+
+    def pinned_pages(self) -> int:
+        return self.pins.total_pages() if self.pins is not None else 0
 
     def admit(self, req: Request, match, shard: int) -> int:
         """Place a request on ``shard`` (the scheduler chose the order
-        and the shard and verified budget and slot availability)."""
+        and the shard and verified budget and slot availability).  A
+        preempted request re-enters here carrying its generated tokens:
+        they are fed again (often through the prefix cache) and
+        generation resumes at ``out_count == len(out_tokens)``, so the
+        resumed stream is the one the request would have produced
+        unpreempted."""
         toks = (list(req.prompt) + list(req.out_tokens)) or [1]
         slot = self._host_alloc_slot(shard)
         assert slot is not None, "scheduler admitted without a free slot"
@@ -583,18 +616,98 @@ class ServingEngine:
         self._tr_begin("active", req.rid, slot=slot, shard=d)
         self.tracer.instant("admit", tid=req.rid, slot=slot, shard=d,
                             shared_tokens=shared_n)
+        if req.out_tokens or req.preemptions:
+            self.tracer.instant("resume", tid=req.rid,
+                                tokens_done=len(req.out_tokens))
         return slot
 
     def preempt(self, slot: int) -> Request:
-        """The scheduler preempts for a higher SLO class; preemption
-        (with pinned prefixes) is a later slice of the port."""
-        raise NotImplementedError("preemption: a later slice of the port "
-                                  "(with pinned prefixes)")
+        """Evict a running request: pin its whole-page state when the
+        budget allows (so readmission feeds it again through the
+        cache), release its pages through the refcounted path, free the
+        slot, and hand the request back carrying prompt + generated
+        tokens."""
+        req = self.active.pop(slot)
+        self._maybe_pin(slot, list(req.prompt) + list(req.out_tokens))
+        d, b = divmod(slot, self.bl)
+        mask = np.zeros((self.dp, self.bl), bool)
+        mask[d, b] = True
+        self.state, _ = _release_slots(self.state, self._to_device(mask))
+        self.pending_tokens.pop(slot, None)
+        self._fed.pop(slot, None)
+        self._pinned_slots.discard(slot)
+        if self.prefix_cache is not None:
+            self.prefix_cache.remove(slot)
+        self._host_free_slot(slot)
+        self.scheduler.on_released(slot)
+        req.slot = None
+        req.preemptions += 1
+        self.telemetry.inc("preemptions")
+        self.tracer.instant("preempt", tid=req.rid, slot=slot)
+        self._tr_end("active", req.rid)
+        return req
+
+    # ------------------------------------------------------------ pinning
+    def _maybe_pin(self, slot: int, tokens: List[int]) -> None:
+        """Pin the slot's resident whole pages for ``tokens`` (a prompt
+        at prefill completion, prompt + generated at preemption) under
+        the scheduler's pin policy.  An exact key already pinned only
+        refreshes its LRU place."""
+        if self.pins is None:
+            return
+        d, b = divmod(slot, self.bl)
+        psz = self.cfg.page_size
+        n_pages = min(len(tokens), self._fed.get(slot, 0)) // psz
+        if n_pages < 1:
+            return
+        key_toks = tokens[:n_pages * psz]
+        hit = self.pins.lookup(d, key_toks)
+        if hit is not None:
+            self.pins.touch(hit)
+            return
+        if not self.scheduler.may_pin(self, d, n_pages):
+            return
+        pin_id = self.pins.add(d, key_toks, n_pages)
+        pin_oh = np.zeros((self.dp, self.pins.npin), bool)
+        pin_oh[d, pin_id % self.pins.npin] = True
+        src = np.zeros((self.dp, self.bl), bool)
+        src[d, b] = True
+        pool, self.pin_tables = pin_prefix_step(
+            self.state.pool, self.pin_tables, self.state.page_tables,
+            self._to_device(pin_oh), self._to_device(src), n_pages)
+        self.state = self.state._replace(pool=pool)
+        self.prefix_cache.pin_insert(pin_id, d, key_toks)
+        self.telemetry.inc("pins_created")
+        self.tracer.instant("pin", pin_id=pin_id, shard=d,
+                            pages=int(n_pages))
+
+    def evict_pin(self, pin_id: int) -> None:
+        """Drop the cache's references on one pinned row (mechanism;
+        the scheduler picks which and when)."""
+        shard, row = self.pins.remove(pin_id)
+        oh = np.zeros((self.dp, self.pins.npin), bool)
+        oh[shard, row] = True
+        pool, self.pin_tables = unpin_step(self.state.pool, self.pin_tables,
+                                           self._to_device(oh))
+        self.state = self.state._replace(pool=pool)
+        self.prefix_cache.pin_remove(pin_id)
+        self.tracer.instant("unpin", pin_id=pin_id, shard=shard)
+
+    def flush_pins(self) -> int:
+        """Evict every pinned prefix; returns how many.  After a full
+        drain and a flush, page occupancy must be exactly zero."""
+        if self.pins is None:
+            return 0
+        ids = list(self.pins.entries)
+        for pin_id in ids:
+            self.evict_pin(pin_id)
+        return len(ids)
 
     def _try_share(self, slot: int, match, prompt_len: int) -> int:
-        """Map the matched prefix of a live donor onto its pages (one
-        device step, off the per-token path).  Returns the number of
-        tokens now resident in the slot's KV (0 = no sharing)."""
+        """Map the matched prefix onto the donor's pages (one device
+        step, off the per-token path).  The donor is a live slot or a
+        pinned row.  Returns the number of tokens now resident in the
+        slot's KV (0 = no sharing)."""
         assert match.shard == slot // self.bl, (
             "cross-shard donor: page ids never alias across shards; the "
             "scheduler must match shard-locally")
@@ -604,18 +717,32 @@ class ServingEngine:
             return 0
         dst = np.zeros((self.dp, self.bl), bool)
         dst[slot // self.bl, slot % self.bl] = True
-        src = np.zeros((self.dp, self.bl), bool)
-        src[match.slot // self.bl, match.slot % self.bl] = True
-        self.state, ok = share_prefix_step(
-            psz, self.state, self._to_device(dst), self._to_device(src), n)
+        if match.pinned:
+            pin_id = pin_id_of(match.slot)
+            pin_oh = np.zeros((self.dp, self.pins.npin), bool)
+            pin_oh[match.shard, self.pins.entries[pin_id]["row"]] = True
+            self.state, ok = share_pinned_step(
+                psz, self.state, self.pin_tables, self._to_device(dst),
+                self._to_device(pin_oh), n)
+        else:
+            src = np.zeros((self.dp, self.bl), bool)
+            src[match.slot // self.bl, match.slot % self.bl] = True
+            self.state, ok = share_prefix_step(
+                psz, self.state, self._to_device(dst), self._to_device(src),
+                n)
         self.admission_transfers += 1
         if not bool(ok):   # shared pool dry for the COW page: no sharing
             return 0
+        rid = self.active[slot].rid
+        if match.pinned:
+            self.pins.touch(pin_id)
+            self.telemetry.inc("pin_hit_reqs")
+            self.telemetry.inc("pin_hit_tokens", n)
+            self.tracer.instant("pin_hit", tid=rid, tokens=n)
         self.telemetry.inc("prefix_shared_tokens", n)
         self.telemetry.inc("prefix_shared_reqs")
-        rid = self.active[slot].rid
         self.tracer.instant("share", tid=rid, tokens=n, shard=match.shard,
-                            pinned=False)
+                            pinned=bool(match.pinned))
         if n % psz != 0:
             # the slot got a private copy of the donor's partial tail
             # page, counted here at the share step (COW never happens
@@ -744,6 +871,18 @@ class ServingEngine:
                 self.telemetry.inc("prompt_tokens", n)
                 self.tracer.instant("prefill_chunk", tid=req.rid,
                                     tokens=n, fed=self._fed[slot] + n)
+                if (emit[d, b] and self.pins is not None
+                        and slot not in self._pinned_slots
+                        and self._fed[slot]
+                        >= len(req.prompt) // self.cfg.page_size
+                        * self.cfg.page_size):
+                    # the prompt completes this step and its whole pages
+                    # are already resident (this chunk covers only the
+                    # partial tail): pin before dispatch, since a
+                    # request that finishes on this very step releases
+                    # inside it and could never pin after
+                    self._pinned_slots.add(slot)
+                    self._maybe_pin(slot, list(req.prompt))
                 self._fed[slot] += n
             else:
                 dr = drafts.get(slot, [])
@@ -774,6 +913,9 @@ class ServingEngine:
         pages_now = int(pages_row[:, 0].sum())
         self.telemetry.set_max("pages_peak", pages_now)
         self.telemetry.inc("pages_sum", pages_now)
+        row = pages_row[:, 0].astype(np.int64)
+        self._pages_shard_sum += row
+        np.maximum(self._pages_shard_peak, row, out=self._pages_shard_peak)
 
         now = self._clock()
         psz = self.cfg.page_size
@@ -817,6 +959,7 @@ class ServingEngine:
                 self._latencies.append(now - req.submitted_at)
                 self.active.pop(slot)
                 self.pending_tokens.pop(slot, None)
+                self._pinned_slots.discard(slot)
                 if self.prefix_cache is not None:
                     self.prefix_cache.remove(slot)
                 if self.spec_store is not None and req._spec_key:
@@ -831,10 +974,20 @@ class ServingEngine:
                                     tokens=len(req.out_tokens))
                 self._tr_end("active", req.rid)
                 self._tr_end("request", req.rid)
-            elif self.prefix_cache is not None:
-                # this step's feed is in device KV now: the slot can
-                # donate that much of its prompt
-                self.prefix_cache.update_progress(slot, self._fed[slot])
+            else:
+                if self.prefix_cache is not None:
+                    # this step's feed is in device KV now: the slot can
+                    # donate that much of its prompt
+                    self.prefix_cache.update_progress(slot,
+                                                      self._fed[slot])
+                if (self.pins is not None
+                        and slot not in self._pinned_slots
+                        and not self.pending_tokens[slot]):
+                    # the prompt is resident (this step's pages too: the
+                    # pin runs after the step that allocated them): keep
+                    # its whole pages past the request's lifetime
+                    self._pinned_slots.add(slot)
+                    self._maybe_pin(slot, list(req.prompt))
         # the gate's per-step cost model: an EWMA of wall time keyed by
         # (lane width, spec); the first sample of a key is discarded
         dt = time.perf_counter() - t0
@@ -886,6 +1039,16 @@ class ServingEngine:
 
     def page_occupancy(self) -> float:
         return self.pages_in_use() / (self.pages_local * self.dp)
+
+    def shard_occupancy(self) -> Dict[str, list]:
+        """Per-shard pages in use over the run, from the status row's
+        PAGES entries (no extra transfer)."""
+        steps = max(self.stats["steps"], 1)
+        return {
+            "pages_mean_shard": [round(float(x) / steps, 1)
+                                 for x in self._pages_shard_sum],
+            "pages_peak_shard": [int(x) for x in self._pages_shard_peak],
+        }
 
     def leak_free(self) -> bool:
         """Zero live blocks of every class on every shard (the

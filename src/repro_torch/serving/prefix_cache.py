@@ -17,15 +17,23 @@ per slot.
 * :class:`SpeculationStore` — the continuation history of hot
   prefixes, the host-side draft model of speculative decoding.
 
-Pinned prefixes (``PinnedPrefixes``, ``pin_prefix_step``,
-``unpin_step``, ``share_pinned_step``) are a later slice of the port.
+Pinned prefixes keep a finished prefix's pages alive by giving the
+cache its own reference on each page: :func:`pin_prefix_step` copies
+the first ``n_pages`` of a live slot's table into a device pin-table
+row and adds one reference to each, so the slot's release drops them
+to refcount 1 (cache-owned) instead of 0.  The trie holds pinned rows
+as donors under negative pseudo-slot ids, and :func:`share_pinned_step`
+maps one into a new slot exactly as :func:`share_prefix_step` maps a
+live donor, COW copy included.  :func:`unpin_step` drops the cache's
+references (eviction); :class:`PinnedPrefixes` is the host ledger (LRU
+order, per-shard page budget, row assignment) the scheduler drives.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,11 +44,29 @@ from ..core.classed_pool import CLS_KV
 
 # ------------------------------------------------------------- host trie
 
+#: Pinned entries live in the same trie as live slots, keyed by
+#: negative pseudo-slot ids: pin_id 0, 1, 2, ... <-> -2, -3, -4, ...
+#: (-1 reads as NULL on the device).
+PIN_BASE = -2
+
+
+def pin_pseudo_slot(pin_id: int) -> int:
+    return PIN_BASE - pin_id
+
+
+def pin_id_of(pseudo_slot: int) -> int:
+    return PIN_BASE - pseudo_slot
+
+
 @dataclasses.dataclass
 class Match:
-    slot: int        # donor slot (engine-global index)
+    slot: int        # donor slot (engine-global index; < 0 = pinned row)
     shard: int       # DP shard both slots must live on
     n_tokens: int    # shareable prefix length (tokens, host-verified)
+
+    @property
+    def pinned(self) -> bool:
+        return self.slot < 0
 
 
 class _Node:
@@ -112,6 +138,18 @@ class PrefixCache:
     def live_slots(self) -> int:
         return len(self.tokens)
 
+    def pin_insert(self, pin_id: int, shard: int,
+                   tokens: Sequence[int]) -> None:
+        """Register a pinned prefix as a donor.  ``tokens`` is the exact
+        whole-page prefix the pin row holds, resident by construction,
+        so its completion is its length."""
+        pseudo = pin_pseudo_slot(pin_id)
+        self.insert(pseudo, shard, tokens)
+        self.completed[pseudo] = len(tokens)
+
+    def pin_remove(self, pin_id: int) -> None:
+        self.remove(pin_pseudo_slot(pin_id))
+
     def match(self, tokens: Sequence[int],
               shard: Optional[int] = None) -> Optional[Match]:
         """Longest shareable prefix of ``tokens`` among live prompts.
@@ -151,7 +189,10 @@ class PrefixCache:
                 while n < len(tokens) and n < len(ent) and tokens[n] == ent[n]:
                     n += 1
                 n = min(n, self.completed[s], limit)
-                if best is None or n > best.n_tokens:
+                if (best is None or n > best.n_tokens
+                        or (n == best.n_tokens and best.slot < 0 <= s)):
+                    # a tie prefers a live donor over a pinned row (the
+                    # same pages either way)
                     best = Match(slot=s, shard=shard, n_tokens=n)
         if best is None or best.n_tokens < self.psz:
             if self.telemetry is not None:
@@ -254,6 +295,97 @@ class SpeculationStore:
         return []
 
 
+# --------------------------------------------------- pinned host ledger
+
+class PinnedPrefixes:
+    """Host ledger of cache-owned (pinned) prefixes.
+
+    Bookkeeping only: the pages live behind the device pin table and the
+    pool's refcounts.  It answers the scheduler's policy questions (a
+    free row, the LRU pin, the pages the cache holds on a shard) when it
+    pins, evicts under the per-shard ``budget_pages``, or sheds pins on
+    pool pressure.  pin_id = shard * rows_per_shard + row, unique and
+    stable for a pin's lifetime.
+    """
+
+    def __init__(self, n_shards: int, rows_per_shard: int,
+                 budget_pages: int):
+        self.n_shards = n_shards
+        self.npin = int(rows_per_shard)
+        self.budget = int(budget_pages)
+        self.entries: Dict[int, dict] = {}          # pin_id -> entry
+        self.free_rows = {s: set(range(self.npin)) for s in range(n_shards)}
+        self.by_key: Dict[Tuple[int, tuple], int] = {}
+        self._clock = itertools.count()
+
+    def pages_on(self, shard: int) -> int:
+        return sum(e["pages"] for e in self.entries.values()
+                   if e["shard"] == shard)
+
+    def total_pages(self) -> int:
+        return sum(e["pages"] for e in self.entries.values())
+
+    def lookup(self, shard: int, tokens: Sequence[int]) -> Optional[int]:
+        return self.by_key.get((shard, tuple(tokens)))
+
+    def lru(self, shard: int) -> Optional[int]:
+        cands = [(e["used"], pid) for pid, e in self.entries.items()
+                 if e["shard"] == shard]
+        return min(cands)[1] if cands else None
+
+    def fits(self, shard: int, pages: int) -> bool:
+        return self.pages_on(shard) + pages <= self.budget
+
+    def add(self, shard: int, tokens: Sequence[int], pages: int) -> int:
+        row = min(self.free_rows[shard])            # caller checked free
+        self.free_rows[shard].discard(row)
+        pin_id = shard * self.npin + row
+        self.entries[pin_id] = {"shard": shard, "row": row,
+                                "tokens": tuple(tokens), "pages": pages,
+                                "used": next(self._clock)}
+        self.by_key[(shard, tuple(tokens))] = pin_id
+        return pin_id
+
+    def has_free_row(self, shard: int) -> bool:
+        return bool(self.free_rows[shard])
+
+    def remove(self, pin_id: int) -> Tuple[int, int]:
+        e = self.entries.pop(pin_id)
+        self.free_rows[e["shard"]].add(e["row"])
+        self.by_key.pop((e["shard"], e["tokens"]), None)
+        return e["shard"], e["row"]
+
+    def touch(self, pin_id: int) -> None:
+        if pin_id in self.entries:
+            self.entries[pin_id]["used"] = next(self._clock)
+
+    def to_state(self) -> list:
+        """JSON-able snapshot, LRU-coldest entry first."""
+        ents = sorted(self.entries.items(), key=lambda kv: kv[1]["used"])
+        return [{"pin_id": int(pid), "shard": int(e["shard"]),
+                 "row": int(e["row"]),
+                 "tokens": [int(t) for t in e["tokens"]],
+                 "pages": int(e["pages"])} for pid, e in ents]
+
+    def load_state(self, entries: list) -> None:
+        """Rebuild the ledger at its exact rows: a restored pin table
+        references those rows, so a pin comes back where its pages
+        are."""
+        self.entries.clear()
+        self.by_key.clear()
+        self.free_rows = {s: set(range(self.npin))
+                          for s in range(self.n_shards)}
+        for e in entries:                       # LRU-coldest first
+            shard, row = int(e["shard"]), int(e["row"])
+            toks = tuple(int(t) for t in e["tokens"])
+            pid = shard * self.npin + row
+            self.free_rows[shard].discard(row)
+            self.entries[pid] = {"shard": shard, "row": row,
+                                 "tokens": toks, "pages": int(e["pages"]),
+                                 "used": next(self._clock)}
+            self.by_key[(shard, toks)] = pid
+
+
 # --------------------------------------------------------- device steps
 
 def share_prefix_step(psz: int, state, dst_oh, src_oh, n_tokens: int):
@@ -277,6 +409,19 @@ def share_prefix_step(psz: int, state, dst_oh, src_oh, n_tokens: int):
          of the prompt.
     """
     src_row = torch.where(src_oh[..., None], state.page_tables, 0).sum(
+        (0, 1), dtype=I32)                                        # [maxp]
+    return _share_from_row(psz, state, dst_oh, src_row, n_tokens)
+
+
+def share_pinned_step(psz: int, state, pin_tables, dst_oh, pin_oh,
+                      n_tokens: int):
+    """:func:`share_prefix_step` with a pinned row as the donor.
+
+    pin_oh: bool [DP, Npin] one-hot on the dst shard.  The row's pages
+    are live (cache-owned refcount >= 1) with their KV resident, and the
+    row is NULL beyond its pinned pages, so the same protocol applies,
+    COW copy included."""
+    src_row = torch.where(pin_oh[..., None], pin_tables, 0).sum(
         (0, 1), dtype=I32)                                        # [maxp]
     return _share_from_row(psz, state, dst_oh, src_row, n_tokens)
 
@@ -328,3 +473,41 @@ def _share_from_row(psz: int, state, dst_oh, src_row, n_tokens: int):
     seq_lens = torch.where(dst_oh & ok, n, state.seq_lens)
     return state._replace(page_tables=page_tables, seq_lens=seq_lens,
                           pool=pool), ok
+
+
+def pin_prefix_step(pool, pin_tables, page_tables, pin_oh, src_oh,
+                    n_pages: int):
+    """Pin the first ``n_pages`` of a live slot's table into a pin row.
+
+    pin_oh: bool [DP, Npin] one-hot naming the (free) destination row;
+    src_oh: bool [DP, Bl] one-hot naming the live source slot on the
+    same shard; n_pages >= 1, whole pages only (a partial page is still
+    appended into).  The cache takes one reference per pinned page, so
+    the slot's later release leaves them at refcount 1: alive, content
+    intact, donatable.  Returns ``(pool, pin_tables)``."""
+    maxp = pin_tables.shape[2]
+    k = torch.arange(maxp, dtype=I32, device=pin_tables.device)
+    src_row = torch.where(src_oh[..., None], page_tables, 0).sum(
+        (0, 1), dtype=I32)                                        # [maxp]
+    row = torch.where(k < int(n_pages), src_row, NULL)
+    shard_mask = pin_oh.any(1)                                    # [DP]
+    ids_dp = torch.where(shard_mask[:, None], row[None, :], NULL)
+    pool = classed_pool.addref_dp(pool, CLS_KV, ids_dp)
+    pin_tables = torch.where(pin_oh[..., None], row[None, None, :],
+                             pin_tables)
+    return pool, pin_tables
+
+
+def unpin_step(pool, pin_tables, pin_oh):
+    """Evict pinned rows: drop the cache's references, clear the rows.
+
+    pin_oh: bool [DP, Npin] (any rows, any shards).  Pages reaching
+    refcount zero return to the shard's SHARED stack (pin rows belong to
+    no lane; the per-step rebalance redistributes); pages a live sharer
+    still maps just lose the cache's reference.  Returns ``(pool,
+    pin_tables)``."""
+    DP = pin_tables.shape[0]
+    ids = torch.where(pin_oh[..., None], pin_tables, NULL)
+    pool = classed_pool.free_shared_dp(pool, CLS_KV, ids.reshape(DP, -1))
+    pin_tables = torch.where(pin_oh[..., None], NULL, pin_tables)
+    return pool, pin_tables

@@ -52,13 +52,11 @@ def engine_setup(arch):
     return cfg, params, tcfg, tparams
 
 
-def serve(setup, port, prompts, max_new, prepare=None, submit_at=None,
-          **kw):
-    """Run one workload through one package's engine with a counting
-    clock; returns (engine, requests).  ``prepare(engine)`` runs before
-    the first submission; ``submit_at[i]`` is the number of steps taken
-    before request i is submitted (all at once by default).  The
-    engine options ``kw`` go to both packages alike."""
+def _engine(setup, port, **kw):
+    """One package's engine on ``setup`` with a counting clock and a
+    flight ring long enough for a test's every step; returns (engine,
+    its Request class).  The engine options ``kw`` go to both packages
+    alike."""
     import itertools
 
     from repro.serving import engine as jengine
@@ -69,15 +67,22 @@ def serve(setup, port, prompts, max_new, prepare=None, submit_at=None,
     cfg, params, tcfg, tparams = setup
     clock = itertools.count()
     if port:
-        eng = tengine.ServingEngine(
+        return tengine.ServingEngine(
             tcfg, tparams, flight=TFlight(capacity=4096),
-            clock=lambda: float(next(clock)), device="cpu", **kw)
-        Req = tengine.Request
-    else:
-        eng = jengine.ServingEngine(
-            cfg, params, flight=JFlight(capacity=4096),
-            clock=lambda: float(next(clock)), **kw)
-        Req = jengine.Request
+            clock=lambda: float(next(clock)), device="cpu",
+            **kw), tengine.Request
+    return jengine.ServingEngine(
+        cfg, params, flight=JFlight(capacity=4096),
+        clock=lambda: float(next(clock)), **kw), jengine.Request
+
+
+def serve(setup, port, prompts, max_new, prepare=None, submit_at=None,
+          **kw):
+    """Run one workload through one package's engine; returns (engine,
+    requests).  ``prepare(engine)`` runs before the first submission;
+    ``submit_at[i]`` is the number of steps taken before request i is
+    submitted (all at once by default)."""
+    eng, Req = _engine(setup, port, **kw)
     if prepare is not None:
         prepare(eng)
     reqs = [Req(i, prompt=list(p), max_new_tokens=max_new)
@@ -93,15 +98,32 @@ def serve(setup, port, prompts, max_new, prepare=None, submit_at=None,
     return eng, reqs
 
 
-def assert_same(setup, prompts, max_new, **kw):
-    """The port's engine against the reference's on one workload:
-    identical tokens, every step's packed status rows, counter blocks,
-    lane widths, drafts and active sets, identical non-timing stats and
-    per-shard telemetry, exactly one counted transfer per step and a
-    leak-free drain.  Returns (port requests, port engine, reference
-    engine)."""
-    je, jr = serve(setup, False, prompts, max_new, **kw)
-    te, tr = serve(setup, True, prompts, max_new, **kw)
+def drive(setup, port, script, **kw):
+    """Run ``script`` through one package's engine:
+    ``("submit", rid, prompt, max_new, slo)`` submits a request,
+    ``("step", n)`` takes n steps, ``("run",)`` steps until idle.
+    Returns (engine, requests in submission order)."""
+    eng, Req = _engine(setup, port, **kw)
+    reqs = []
+    for op, *args in script:
+        if op == "submit":
+            rid, prompt, max_new, slo = args
+            reqs.append(Req(rid, prompt=list(prompt),
+                            max_new_tokens=max_new, slo=slo))
+            eng.submit(reqs[-1])
+        elif op == "step":
+            for _ in range(args[0]):
+                eng.step()
+        else:
+            eng.run(max_steps=500)
+    return eng, reqs
+
+
+def assert_engines_equal(je, jr, te, tr, drained=True):
+    """Identical tokens, every step's packed status rows, counter
+    blocks, lane widths, drafts and active sets, identical non-timing
+    stats, per-shard telemetry and latencies, exactly one counted
+    transfer per step; with ``drained``, a leak-free drain."""
     assert all(r.done for r in tr)
     assert [r.out_tokens for r in tr] == [r.out_tokens for r in jr]
     jrec, trec = list(je.flight.ring), list(te.flight.ring)
@@ -115,6 +137,16 @@ def assert_same(setup, prompts, max_new, **kw):
         je.telemetry.snapshot()["per_shard"]
     assert te.latency_quantiles() == je.latency_quantiles()
     assert te.host_transfers == te.stats["steps"]
-    assert te.page_occupancy() == je.page_occupancy() == 0.0
-    assert te.leak_free()
+    if drained:
+        assert te.page_occupancy() == je.page_occupancy() == 0.0
+        assert te.leak_free()
+
+
+def assert_same(setup, prompts, max_new, **kw):
+    """The port's engine against the reference's on one workload (see
+    :func:`assert_engines_equal`).  Returns (port requests, port
+    engine, reference engine)."""
+    je, jr = serve(setup, False, prompts, max_new, **kw)
+    te, tr = serve(setup, True, prompts, max_new, **kw)
+    assert_engines_equal(je, jr, te, tr)
     return tr, te, je

@@ -15,7 +15,6 @@ import numpy as np
 
 from _torch_helpers import assert_same, engine_setup, serve
 from repro_torch.serving import engine as tengine
-from repro_torch.serving.sched import SchedConfig
 
 #: the plain path of the first slice: no prefix sharing in either engine
 PLAIN = dict(prefix_sharing=False)
@@ -90,14 +89,9 @@ def test_token_identity_across_lane_widths(setup):
     assert outs[1] == outs[4] == outs[16]
 
 
-def _preempt(eng):
-    """A batch request holds the only slot; an interactive one arrives:
-    the scheduler preempts the batch request."""
-    eng.submit(tengine.Request(0, prompt=[1, 2, 3], max_new_tokens=8,
-                               slo="batch"))
-    eng.step()
-    eng.submit(tengine.Request(1, prompt=[4, 5], slo="interactive"))
-    eng.step()
+def _deadline(eng):
+    """A request with a deadline (deadlines come with fault tolerance)."""
+    eng.submit(tengine.Request(0, prompt=[1, 2, 3], deadline_s=1.0))
 
 
 def _sampled_under_speculation(eng):
@@ -105,8 +99,8 @@ def _sampled_under_speculation(eng):
 
 
 @pytest.mark.parametrize("option,drive", [
-    (dict(sched=SchedConfig(pin_pages=4)), None),
-    (dict(), _preempt),
+    (dict(journal=object()), None),
+    (dict(), _deadline),
     (dict(speculate=True), _sampled_under_speculation),
     (dict(size_classes=3), None), (dict(expert_paging=True), None),
     (dict(greedy=False), None), (dict(mesh="auto"), None)])

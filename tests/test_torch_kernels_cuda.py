@@ -17,6 +17,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import \
     paged_attention_chunk_ref as plain
+from repro_torch.kernels.paged_attention.ref import \
+    paged_attention_ref as plain2
 from repro_torch.kernels.rg_lru import ops as k5
 from repro_torch.kernels.rg_lru.ref import rg_lru_ref
 from repro_torch.kernels.ssd_scan import ops as k4
@@ -122,6 +124,43 @@ def test_verify_attention_kernel_vs_plain_and_k1(card, dtype, T, H, KH, hd,
         if dtype == torch.bfloat16:
             torch.testing.assert_close(out.float(), ref, atol=1e-5,
                                        rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,H,KH,hd,psz", [
+    (torch.float32, 4, 2, 16, 8),             # smoke widths, G = 2
+    (torch.float32, 16, 16, 128, 64),         # olmo-1b widths
+    (torch.bfloat16, 16, 16, 128, 64),
+    (torch.bfloat16, 32, 8, 64, 64),          # llama3.2-1b widths, G = 4
+    (torch.bfloat16, 24, 8, 128, 16),         # G = 3, a head group of 4
+    (torch.float32, 32, 2, 256, 16),          # G = 16: two head groups
+    (torch.float32, 4, 2, 18, 8),             # rows off 16-byte loads
+])
+def test_paged_decode_kernel_vs_plain_and_k1(card, dtype, H, KH, hd, psz):
+    """K2 against its plain version with ``zero_empty`` off (lane 1 has
+    no valid key: the uniform mean) and on (zeros), and against K1 at
+    T = 1 over ``base + 1`` positions, with a dead page in lane 2."""
+    rng = np.random.RandomState(H + hd + psz)
+    q, kp, vp, table, base = _case(rng, 8, 1, H, KH, hd, psz, 8, 96, dtype)
+    q2, lens = q[:, 0].contiguous(), base + 1
+    tol = 1e-4 if dtype == torch.float32 else 6e-2
+    for zero_empty in (False, True):
+        before = ops.paged_attention.launches
+        out = ops.paged_attention(q2, kp, vp, table, lens,
+                                  zero_empty=zero_empty)
+        torch.cuda.synchronize()
+        assert ops.paged_attention.launches == before + 1
+        refs = [plain2(q2, kp, vp, table, lens, zero_empty=zero_empty)]
+        if zero_empty:
+            assert (out[1] == 0).all()
+            refs.append(ops.paged_attention_chunk(q, kp, vp, table,
+                                                  base)[:, 0])
+        for ref in refs:
+            ref = ref.float()
+            torch.testing.assert_close(out.float(), ref, atol=tol, rtol=tol)
+            if dtype == torch.bfloat16:
+                torch.testing.assert_close(out.float(), ref, atol=1e-5,
+                                           rtol=2.0 ** -7)
 
 
 @pytest.mark.cuda

@@ -4,7 +4,11 @@ Seeded random op traces run through ``block_pool`` (one pool),
 ``hier_pool`` and ``classed_pool`` (C = 1, the ``*_dp`` variants over
 DP = 2 shards) of both packages.  After every op the grants, the free
 stacks, the tops, the refcounts and the lane stacks must be exactly
-equal.  Frees are always of references the trace holds.
+equal.  Frees are always of references the trace holds.  The
+reference's host witness ``repro.core.refpool`` (plain Python lists, no
+jax) runs the ``*_dp`` traces as a third executor: the same grants per
+op and, through ``refpool.conforms``, the same stacks, tops and
+refcounts on every shard.
 """
 
 import pytest
@@ -23,6 +27,7 @@ from _torch_helpers import assert_pools_equal
 from repro.core import block_pool as jbp
 from repro.core import classed_pool as jcp
 from repro.core import hier_pool as jhp
+from repro.core import refpool
 from repro_torch.core import block_pool as tbp
 from repro_torch.core import classed_pool as tcp
 from repro_torch.core import hier_pool as thp
@@ -225,6 +230,120 @@ def test_hier_and_classed_pool_dp_trace(seed):
         assert (free + live == BLOCKS).all(), what
     assert tcp.lane_ell(tc, 0) == jcp.lane_ell(jc, 0) == ELL
     assert tcp.pages_local(tc, 0) == jcp.pages_local(jc, 0) == BLOCKS
+
+
+def _conforms(refs, hp, what):
+    """refpool's witness of each shard against a port HierPool."""
+    for d in range(DP):
+        msg = refpool.conforms(
+            refs[d], hp.shared.free_ids[d].numpy(), hp.shared.top[d].numpy(),
+            hp.private_ids[d].numpy(), hp.private_top[d].numpy(),
+            hp.shared.refcount[d].numpy())
+        assert msg is None, f"{what} shard {d}: {msg}"
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_dp_trace_conforms_to_refpool(seed):
+    """Three executors of one ``*_dp`` trace: the reference's jax ops,
+    the port's ``hier_pool`` and ``classed_pool``, and the sequential
+    witness ``refpool`` (lane-local ``alloc_n``, bulk grants from the
+    shared stack, extra references, lane frees with spill, lane-less
+    frees to the shared stack, drain, refill, rebalance).  Grants agree
+    per op; after every op each port shard conforms to its witness.
+    Each free gives back a reference the trace holds: a base reference
+    or an extra one, counted apart."""
+    rng = random.Random(1000 + seed)
+    jh = jhp.create_dp(DP, BLOCKS, LANES, ELL)
+    th = thp.create_dp(DP, BLOCKS, LANES, ELL, device="cpu")
+    tc = tcp.create_dp(DP, (tcp.ClassSpec(8, BLOCKS, LANES, ELL),),
+                       device="cpu")
+    refs = refpool.create_dp(DP, BLOCKS, LANES, ELL)
+    crefs = refpool.create_classed_dp(DP, [(BLOCKS, LANES, ELL)])
+    _conforms(refs, th, f"seed {seed} create")
+    held = [[] for _ in range(DP)]          # base references
+    extra = [[] for _ in range(DP)]         # references added by addref
+    for step in range(40):
+        op = rng.choice(["alloc_n", "alloc_shared", "addref", "free_n",
+                         "free_n", "free_shared", "drain", "refill",
+                         "rebalance"])
+        what = f"seed {seed} step {step} {op}"
+        if op in ("alloc_n", "alloc_shared"):
+            hi = KMAX if op == "alloc_n" else 2
+            counts = np.array([[rng.randint(0, hi) for _ in range(LANES)]
+                               for _ in range(DP)], np.int32)
+            if op == "alloc_n":
+                jh, jids = jhp.alloc_n_dp(jh, jnp.asarray(counts), KMAX)
+                th, tids = thp.alloc_n_dp(th, _t(counts), KMAX)
+                hp, cids = thp.alloc_n_dp(tc.classes[0], _t(counts), KMAX)
+                tc = tc._replace(classes=(hp,))
+            else:
+                jh, jids = jhp.alloc_from_shared_dp(jh, jnp.asarray(counts),
+                                                    KMAX)
+                th, tids = thp.alloc_from_shared_dp(th, _t(counts), KMAX)
+                tc, cids = tcp.alloc_from_shared_dp(tc, tcp.CLS_KV,
+                                                    _t(counts), KMAX)
+            _eq(jids, tids, what)
+            _eq(tids, cids, what)
+            for d in range(DP):
+                fn = "alloc_n" if op == "alloc_n" else "alloc_from_shared"
+                rows = getattr(refs[d], fn)(counts[d], KMAX)
+                getattr(crefs[d], fn)(0, counts[d], KMAX)
+                for lane, row in enumerate(rows):
+                    want = row + [-1] * (KMAX - len(row))
+                    assert tids[d, lane].tolist() == want, what
+                    held[d] += row
+        elif op == "addref":
+            ids = np.full((DP, 2), -1, np.int32)
+            for d in range(DP):
+                if held[d] and rng.random() < 0.8:
+                    ids[d, 0] = rng.choice(held[d])
+                    extra[d].append(int(ids[d, 0]))
+                refs[d].addref(ids[d].tolist())
+                crefs[d].addref(0, ids[d].tolist())
+            jh = jhp.addref_dp(jh, jnp.asarray(ids))
+            th = thp.addref_dp(th, _t(ids))
+            tc = tcp.addref_dp(tc, tcp.CLS_KV, _t(ids))
+        elif op == "free_n":
+            rows = np.full((DP, LANES, KMAX), -1, np.int32)
+            for d in range(DP):
+                for lane in range(LANES):
+                    got = _pick(rng, held[d], rng.randint(0, 2))
+                    rows[d, lane, :len(got)] = got
+            jh, js = jhp.free_n_metered_dp(jh, jnp.asarray(rows))
+            th, ts = thp.free_n_metered_dp(th, _t(rows))
+            tc, cs = tcp.free_n_metered_dp(tc, tcp.CLS_KV, _t(rows))
+            _eq(js, ts, what)
+            _eq(ts, cs, what)
+            for d in range(DP):
+                spill = refs[d].free_n(rows[d].tolist())
+                crefs[d].free_n(0, rows[d].tolist())
+                assert int(ts[d]) == spill, what
+        elif op == "free_shared":
+            ids = np.full((DP, 2), -1, np.int32)
+            for d in range(DP):
+                got = _pick(rng, extra[d], 2)
+                ids[d, :len(got)] = got
+                refs[d].free_shared(ids[d].tolist())
+                crefs[d].free_shared(0, ids[d].tolist())
+            jh = jhp.free_shared_dp(jh, jnp.asarray(ids))
+            th = thp.free_shared_dp(th, _t(ids))
+            tc = tcp.free_shared_dp(tc, tcp.CLS_KV, _t(ids))
+        else:
+            fn = {"drain": "rebalance_drain", "refill": "rebalance_refill",
+                  "rebalance": "rebalance"}[op]
+            jh = getattr(jhp, fn + "_dp")(jh)
+            th = getattr(thp, fn + "_dp")(th)
+            tc = getattr(tcp, fn + "_dp")(tc)
+            for d in range(DP):
+                getattr(refs[d], fn)()
+                getattr(crefs[d], fn)()
+        assert_pools_equal(jh, th, what)
+        assert_pools_equal(th, tc, what)
+        _conforms(refs, th, what)
+        for d in range(DP):
+            msg = refpool.conforms_classed(crefs[d], tc, d)
+            assert msg is None, f"{what} shard {d}: {msg}"
+            assert refs[d].free_total() + refs[d].num_live() == BLOCKS
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -1,0 +1,118 @@
+"""The port's serving driver (``repro_torch.launch.serve``) against the
+reference's (``repro.launch.serve``) on the same argv, with the
+reference's seed-0 weights bridged into the port: identical engine
+stats and identical tokens for every request of the synthetic trace,
+pins, preemption budget and interactive class included.  The flags of
+later slices raise; the telemetry outputs are written and readable.
+"""
+
+import pytest
+
+pytest.importorskip("torch")   # the port's tests need PyTorch
+
+import json
+
+import jax
+import numpy as np
+
+import _torch_helpers  # noqa: F401  (caps torch's CPU threads)
+from _torch_helpers import TIMING
+from repro import models as jmodels
+from repro.configs import get_config, smoke_config
+from repro.launch import serve as jserve
+from repro_torch.bridge import params_from_numpy
+from repro_torch.launch import serve as tserve
+from repro_torch.serving.telemetry import parse_prom
+from repro_torch.serving.trace import validate_chrome
+
+
+@pytest.fixture(scope="module")
+def jparams():
+    cfg = smoke_config(get_config("olmo-1b"))
+    return jax.tree.map(np.asarray,
+                        jmodels.init_params(cfg, jax.random.PRNGKey(0)))
+
+
+def _main(mod, argv, monkeypatch, jparams=None):
+    """Run one package's ``main`` and keep every request it builds."""
+    made = []
+    base = mod.Request
+
+    def request(*a, **kw):
+        made.append(base(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(mod, "Request", request)
+    if jparams is not None:
+        monkeypatch.setattr(mod, "init_params", lambda c, seed, device:
+                            params_from_numpy(jparams, device))
+    return mod.main(argv), made
+
+
+@pytest.mark.parametrize("extra", [
+    ["--pin-pages", "8", "--page-budget", "6", "--interactive-frac", "0.5",
+     "--hot-prefix", "8"],
+    ["--pin-pages", "4", "--interactive-frac", "0.25", "--hot-prefix", "16",
+     "--dp", "1", "--b-local", "3", "--max-new", "6"],
+    ["--hot-prefix", "16", "--repeat-frac", "0.5", "--speculate",
+     "--no-spec-gate", "--chunk-buckets", "1,4", "--requests", "8"],
+])
+def test_main_matches_reference_main(jparams, monkeypatch, extra):
+    argv = ["--smoke"] + extra
+    je, jreqs = _main(jserve, argv, monkeypatch)
+    te, treqs = _main(tserve, argv + ["--device", "cpu"], monkeypatch,
+                      jparams)
+    assert all(r.done for r in treqs) and len(treqs) == len(jreqs)
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    assert [r.slo for r in treqs] == [r.slo for r in jreqs]
+    assert ({k: v for k, v in te.stats.items() if k not in TIMING}
+            == {k: v for k, v in je.stats.items() if k not in TIMING})
+    assert te.scheduler.stats == je.scheduler.stats
+    assert te.shard_occupancy()["pages_peak_shard"] == \
+        je.shard_occupancy()["pages_peak_shard"]
+    keys = ("T", "spec", "drafts", "status", "ctr", "rids")
+    assert [[r[k] for k in keys] for r in te.flight.ring] == \
+        [[r[k] for k in keys] for r in je.flight.ring]
+    assert te.host_transfers == te.stats["steps"]
+    assert te.page_occupancy() == je.page_occupancy() == 0.0
+    assert te.telemetry.never_dry_margin_min() == \
+        je.telemetry.never_dry_margin_min() >= 0
+    assert te.stats["pins_created"] >= ("--pin-pages" in extra)
+
+
+def test_telemetry_outputs(jparams, monkeypatch, tmp_path):
+    """--metrics-path, --trace-path and --flight-recorder write readable
+    files: a Prometheus snapshot with the never-dry margin, a valid
+    chrome trace, and a flight dump of the last steps."""
+    monkeypatch.setattr(tserve, "install_signal_dump", lambda flight: None)
+    prom, trace, flight = (tmp_path / n for n in ("m.prom", "t.json",
+                                                  "f.json"))
+    te, _ = _main(tserve, [
+        "--smoke", "--device", "cpu", "--requests", "6", "--max-new", "4",
+        "--pin-pages", "8", "--hot-prefix", "8", "--metrics-path",
+        str(prom), "--trace-path", str(trace), "--flight-recorder",
+        str(flight), "--flight-sync", "4"], monkeypatch, jparams)
+    m = parse_prom(prom.read_text())
+    assert m["repro_never_dry_margin_min_all"][()] >= 0
+    validate_chrome(json.loads(trace.read_text()))
+    names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]}
+    assert {"submit", "admit", "finish", "pin", "unpin"} <= names
+    dump = json.loads(flight.read_text())
+    assert dump["reason"] == "periodic" and dump["records"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--inject-fault", "crash@3:post_sync"], ["--deadline-s", "1.0"],
+    ["--expert-paging"], ["--size-classes", "3"], ["--expert-budget", "4"]])
+def test_flags_of_later_slices_raise(jparams, monkeypatch, flags):
+    with pytest.raises(NotImplementedError):
+        _main(tserve, ["--smoke", "--device", "cpu", "--requests", "2"]
+              + flags, monkeypatch, jparams)
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    """The driver never falls back to the CPU: without a card it serves
+    only when ``--device cpu`` is asked for."""
+    monkeypatch.setattr(tserve.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        tserve.main(["--smoke", "--requests", "1"])
