@@ -22,10 +22,13 @@ Phases, each printed on its own line (any failure fails the run):
    bf16) and K5 (RG-LRU, float32 only) at T = 1 and 64 at full width
    and at smoke width, from a carried state, with inert lanes whose
    state must stay bit for bit; K6 (causal flash attention) on strided
-   [B, S, H, hd] views at olmo-1b's and llama3.2-1b's widths in bf16
-   and at smoke width, with a ragged S and bidirectional in f32, and
-   its gradient (the torch-op backward) against autograd through the
-   plain version (f32 within 1e-4, bf16 within 6e-2);
+   [B, S, H, hd] views, each of its forward kernels: the wgmma/TMA one
+   (bf16, hd 64 and 128) at olmo-1b's and llama3.2-1b's widths, with a
+   ragged S and bidirectional, the mma.sync one (bf16, hd 16) and the
+   float32 one at smoke width, with a ragged S and bidirectional; its
+   backward kernels against autograd through the plain version (f32
+   within 1e-4, bf16 within 6e-2, S up to 2048, a ragged S), and two
+   backward calls on the same inputs bit-equal;
 4. check the port's engine on the card against the same engine on the
    CPU (where every kernel wrapper runs its plain version) on smoke
    configs: identical tokens and status rows, for olmo-1b's plain path
@@ -72,14 +75,16 @@ Phases, each printed on its own line (any failure fails the run):
 12. the training path: olmo-1b at full depth and width (bf16
    parameters, float32 AdamW state), one micro-batch of 4 sequences of
    2048 tokens from ``TokenStream``, a warm-up step and 5 steps of
-   ``build_step``: finite losses, K6 launched 32 times a step (16
-   global layers, each run forward and again in the backward pass's
-   recomputation) and no other kernel, one device-to-host transfer a
-   step (the loss); ms a step, tokens a second, peak memory, and the
-   model-flops share of the card's bf16 peak;
-13. time K6 at the training shape beside its bound, its plain version,
-   PyTorch's ``scaled_dot_product_attention`` and the torch-op
-   backward;
+   ``build_step``: finite losses, K6's forward launched 32 times a step
+   (16 global layers, each run forward and again in the backward pass's
+   recomputation) and its backward 16 times, and no other kernel, one
+   device-to-host transfer a step (the loss); ms a step, tokens a
+   second, peak memory, and the model-flops share of the card's bf16
+   peak;
+13. time K6's forward and backward kernels at the training shape, each
+   beside its bound, its plain version and PyTorch's
+   ``scaled_dot_product_attention`` (forward, and backward through
+   ``torch.autograd.grad``);
 14. the serve entry point and preemption at full width (olmo-1b,
    bf16, dp 1, 8 slots, max_len 2048): (a) ``repro_torch.launch.serve
    .main`` with a 512-token hot prefix, 32 requests of 64 new tokens, a
@@ -95,7 +100,8 @@ Phases, each printed on its own line (any failure fails the run):
 15. time K2 and K1 at T = 1 on the same inputs beside K2's bound, its
    plain version and SDPA; serve phase 5's workload with decode-only
    steps through K1 and through K2 in turns (K1, K2, K2, K1); print the
-   kernels line (K1-K6).
+   kernels line (K1-K6, K6's forward and backward on rows of their
+   own).
 
 ``--profile`` serves the workloads of phases 5, 9 and 10 again, and
 runs two more training steps in phase 12, under ``torch.profiler``,
@@ -1254,19 +1260,27 @@ def k6_inputs(rng, B, H, KH, S, hd, dtype, grad=False):
 
 def check_k6(k6, rng):
     """Phase 3: K6, through the autograd Function the model calls,
-    against its plain version; then its gradient against autograd
-    through the plain version.  Returns the worst bf16 forward error."""
+    against its plain version, on each of its forward kernels (the
+    route ``ops.forward_route`` picks by dtype and hd); then its
+    backward kernels against autograd through the plain version, and
+    twice on the same inputs.  Returns the worst bf16 forward and
+    backward errors."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     bf, f32 = torch.bfloat16, torch.float32
-    worst = 0.0
+    worst, worst_bwd = 0.0, 0.0
+    routes = dict(k6.flash_attention.routes)
     for name, dt, B, H, KH, S, hd, causal in (
             ("olmo-1b bf16", bf, 1, 16, 16, 2048, 128, True),
             ("llama3.2-1b bf16 (G=4)", bf, 1, 32, 8, 1024, 64, True),
+            ("S=77 bf16 (ragged tile, G=2)", bf, 2, 4, 2, 77, 128, True),
+            ("S=200 bf16 bidirectional", bf, 2, 4, 1, 200, 64, False),
+            ("hd=16 bf16 bidirectional", bf, 2, 4, 1, 77, 16, False),
             ("smoke f32 (G=2)", f32, 2, 4, 2, 64, 16, True),
             ("S=200 f32 (ragged tile)", f32, 2, 4, 2, 200, 64, True),
             ("bidirectional f32", f32, 1, 4, 4, 300, 128, False)):
         q, k, v = k6_inputs(rng, B, H, KH, S, hd, dt)
+        route = k6.forward_route(dt, hd)
         before = k6.flash_attention.launches
         out = k6.flash_attention(q, k, v, causal)
         torch.cuda.synchronize()
@@ -1285,34 +1299,56 @@ def check_k6(k6, rng):
             tol += f" and one ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}"
         err = (out.float() - ref).abs().max().item()
         phase(f"[3] K6 {name} B={B} H={H} KH={KH} S={S} hd={hd} "
-              f"{'causal' if causal else 'bidirectional'}: max_abs_err "
-              f"{err:.3e}, max|ref| {ref.abs().max().item():.3e} ({tol})")
+              f"{'causal' if causal else 'bidirectional'}, {route} kernel: "
+              f"max_abs_err {err:.3e}, max|ref| {ref.abs().max().item():.3e} "
+              f"({tol})")
         if dt == bf:
             worst = max(worst, err)
-    # the gradient: the torch-op backward from the kernel's o and lse;
-    # bf16 at 6e-2, since it reads o rounded to bf16 in rowsum(dO * O)
-    for name, dt, B, H, KH, S, hd in (("smoke f32", f32, 2, 4, 2, 64, 16),
-                                      ("S=1024 bf16", bf, 1, 16, 16, 1024,
-                                       128)):
+    ran = {r: n - routes[r] for r, n in k6.flash_attention.routes.items()}
+    check(all(n > 0 for n in ran.values()),
+          f"K6: every forward kernel launched ({ran})")
+    # the backward kernels against the gradient of the plain version;
+    # bf16 at 6e-2: the kernels round P and dS to bf16 as the A operand
+    # of their products, and both read o rounded to bf16 in rowsum(dO *
+    # O)
+    for name, dt, B, H, KH, S, hd, causal in (
+            ("smoke f32", f32, 2, 4, 2, 64, 16, True),
+            ("S=200 f32 bidirectional", f32, 2, 4, 2, 200, 64, False),
+            ("S=1024 bf16", bf, 1, 16, 16, 1024, 128, True),
+            ("S=2048 bf16", bf, 1, 16, 16, 2048, 128, True),
+            ("S=77 bf16 (ragged tile, G=2)", bf, 2, 4, 2, 77, 128, True),
+            ("hd=16 bf16 bidirectional", bf, 2, 4, 1, 77, 16, False)):
         q, k, v = k6_inputs(rng, B, H, KH, S, hd, dt, grad=True)
         do = torch.from_numpy(rng.randn(B, H, S, hd).astype(np.float32)).to(
             "cuda", dt)
-        before = k6.flash_attention.launches
-        got = torch.autograd.grad(k6.flash_attention(q, k, v), (q, k, v), do)
-        check(k6.flash_attention.launches == before + 1,
-              f"K6 gradient {name}: one forward launch")
-        want = torch.autograd.grad(flash_attention_ref(q, k, v), (q, k, v),
-                                   do)
+        before = (k6.flash_attention.launches,
+                  k6.flash_attention_bwd.launches)
+        got = torch.autograd.grad(k6.flash_attention(q, k, v, causal),
+                                  (q, k, v), do)
+        torch.cuda.synchronize()
+        check((k6.flash_attention.launches, k6.flash_attention_bwd.launches)
+              == (before[0] + 1, before[1] + 1),
+              f"K6 gradient {name}: one forward and one backward launch")
+        want = torch.autograd.grad(flash_attention_ref(q, k, v, causal),
+                                   (q, k, v), do)
         errs = []
         for what, a, b in zip(("dq", "dk", "dv"), got, want):
+            check(a.dtype == dt, f"K6 gradient {name} {what}: dtype")
             torch.testing.assert_close(
                 a.float(), b.float(), atol=TOL[dt], rtol=TOL[dt],
                 msg=lambda m, n=name, w=what: f"K6 gradient {n} {w}: {m}")
             errs.append((a.float() - b.float()).abs().max().item())
-        phase(f"[3] K6 gradient {name} B={B} H={H} KH={KH} S={S} hd={hd}: "
-              f"max_abs_err dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv "
-              f"{errs[2]:.3e} (tol {TOL[dt]:g})")
-    return worst
+        again = torch.autograd.grad(k6.flash_attention(q, k, v, causal),
+                                    (q, k, v), do)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"K6 gradient {name}: two backward calls bit-equal")
+        phase(f"[3] K6 gradient {name} B={B} H={H} KH={KH} S={S} hd={hd} "
+              f"{'causal' if causal else 'bidirectional'}, backward "
+              f"kernels: max_abs_err dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv "
+              f"{errs[2]:.3e} (tol {TOL[dt]:g}); a second call bit-equal")
+        if dt == bf:
+            worst_bwd = max(worst_bwd, *errs)
+    return worst, worst_bwd
 
 
 def smoke_batches(cfg_smoke, seed):
@@ -1494,7 +1530,8 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     phase(f"{tag}: K6 launches expected {expected} a step = {n_global} "
           f"global layers x 2 (the forward, and its recomputation in the "
           f"backward pass: remat=True puts each one-layer pattern group "
-          f"under torch.utils.checkpoint)")
+          f"under torch.utils.checkpoint), and {n_global} K6 backward "
+          f"launches")
     # the main path's run: counts zeroed just before, read just after
     for fn in counted.values():
         fn.launches = 0
@@ -1517,10 +1554,12 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     launches = {k: fn.launches for k, fn in counted.items()}
     peak = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(losses)), f"{tag}: finite losses {losses}")
-    check(launches["K6"] == expected * steps
-          and sum(launches.values()) == launches["K6"],
-          f"{tag}: K6 launched {expected} times a step and no other kernel "
-          f"ran ({launches}, {steps} steps)")
+    k6_bwd = launches["K6 backward"]
+    check(launches["K6"] == expected * steps and k6_bwd == n_global * steps
+          and sum(launches.values()) == launches["K6"] + k6_bwd,
+          f"{tag}: K6 launched {expected} times a step, its backward "
+          f"{n_global} times, and no other kernel ran ({launches}, {steps} "
+          f"steps)")
     check(all(len(s) == 1 for s in syncs),
           f"{tag}: one device-to-host transfer a step (the loss): {syncs}")
     ms = 1e3 * wall / steps
@@ -1532,8 +1571,9 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     flops = 6 * n_mm * tokens + 6 * batch * H * hd * seq * (seq + 1) * L
     mfu = flops / (ms / 1e3) / PEAK_OPS[torch.bfloat16]
     phase(f"{tag}: losses {losses} (the first the warm-up step's); K6 "
-          f"launches {launches['K6']} = {expected} x {steps} steps, other "
-          f"kernels {sum(launches.values()) - launches['K6']}; "
+          f"launches {launches['K6']} = {expected} x {steps} steps, K6 "
+          f"backward {k6_bwd} = {n_global} x {steps}, other kernels "
+          f"{sum(launches.values()) - launches['K6'] - k6_bwd}; "
           f"synchronizing calls a step under sync-debug mode: "
           f"{[len(s) for s in syncs]} {syncs[0]}")
     phase(f"{tag} on {smi}: {ms:.1f} ms a step, {tokens / (ms / 1e3):.0f} "
@@ -1552,18 +1592,21 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
         profiled(run, f"{tag} [p]")
     del state, params, batches
     torch.cuda.empty_cache()
-    return dict(launches=launches["K6"], steps=steps, ms=ms, mfu=mfu,
+    return dict(launches=launches["K6"], bwd_launches=k6_bwd, steps=steps,
+                ms=ms, mfu=mfu,
                 tok_s=tokens / (ms / 1e3), peak=peak, losses=losses)
 
 
 def time_k6(k6, rng, cfg, B=4, S=2048):
-    """Phase 13: K6 at the training shape (bf16, causal, q and k
-    strided views as the training step passes them), its plain version,
-    SDPA and the torch-op backward, beside the bound.  Four sets of
-    inputs (134 MB each) cycle, so each call reads its inputs from HBM
-    as a layer of the step does."""
-    from repro_torch.kernels.flash_attention.ref import \
-        flash_attention_fwd_ref
+    """Phase 13: K6's forward and backward kernels at the training shape
+    (bf16, causal, q and k strided views as the training step passes
+    them), each beside its bound, its plain version and the library
+    call (SDPA with ``is_causal``; its backward through
+    ``torch.autograd.grad``).  Four sets of inputs (134 MB each) cycle,
+    so each call reads its inputs from HBM as a layer of the step
+    does."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
 
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     gen = torch.Generator(device="cuda").manual_seed(int(rng.randint(2**31)))
@@ -1589,24 +1632,44 @@ def time_k6(k6, rng, cfg, B=4, S=2048):
         saved.append((q, k, v, o, lse, torch.randn_like(o)))
 
     def bwd():
-        k6.flash_attention_bwd(*saved[next(it) % 4])
+        k6.flash_attention_bwd_cuda(*saved[next(it) % 4])
+
+    def bwd_ref():
+        flash_attention_bwd_ref(*saved[next(it) % 4])
+
+    # SDPA's backward alone: its graph kept, the gradient asked again
+    graphs = []
+    for q, k, v in sets[:2]:
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        o = torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                             is_causal=True)
+        graphs.append((o, (q, k, v), torch.randn_like(o)))
+
+    def bwd_lib():
+        torch.autograd.grad(*graphs[next(it) % 2], retain_graph=True)
 
     ms, host_ms = cuda_ms(kern, iters=32)
     plain_ms, _ = cuda_ms(ref, iters=4, warmup=1)
     library_ms, _ = cuda_ms(lib, iters=32)
-    backward_ms, _ = cuda_ms(bwd, iters=4, warmup=1)
+    b_ms, b_host_ms = cuda_ms(bwd, iters=16)
+    b_plain_ms, _ = cuda_ms(bwd_ref, iters=4, warmup=1)
+    b_library_ms, _ = cuda_ms(bwd_lib, iters=16)
     q, k, _ = sets[0]
-    nbytes = k6.bound_bytes(q, k)
-    nflops = k6.flops(q)
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * nflops / PEAK_OPS[torch.bfloat16]
-    del sets, saved
+    out = {}
+    for name, t, nbytes, nflops in (
+            ("fwd", (ms, host_ms, plain_ms, library_ms),
+             k6.bound_bytes(q, k), k6.flops(q)),
+            ("bwd", (b_ms, b_host_ms, b_plain_ms, b_library_ms),
+             k6.bound_bytes_bwd(q, k), k6.flops_bwd(q))):
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+        ops_ms = 1e3 * nflops / PEAK_OPS[torch.bfloat16]
+        out[name] = dict(zip(("ms", "host_ms", "plain_ms", "library_ms"), t),
+                         bound_ms=max(bytes_ms, ops_ms),
+                         bound_by="bytes" if bytes_ms >= ops_ms
+                         else "operations", bytes=nbytes, flops=nflops)
+    del sets, saved, graphs
     torch.cuda.empty_cache()
-    return dict(B=B, S=S, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
-                library_ms=library_ms, backward_ms=backward_ms,
-                bound_ms=max(bytes_ms, ops_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                bytes=nbytes, flops=nflops)
+    return dict(B=B, S=S, **out)
 
 
 def main() -> int:
@@ -1655,7 +1718,7 @@ def main() -> int:
     # [2] build the kernels from this checkout's sources, in parallel
     t0 = time.perf_counter()
     stems = ("paged_attention", "paged_decode", "verify_attention",
-             "ssd_scan", "rg_lru", "flash_attention")
+             "ssd_scan", "rg_lru", "flash_attention", "flash_attention_bwd")
     build.load_all(stems)
     for stem in stems:
         for line in build.logs.get(stem, "").splitlines():
@@ -1701,7 +1764,7 @@ def main() -> int:
         ("full T=64 f32", (b_local, 64, rgemma.d_model), f32),
         ("smoke T=8 f32", (b_local, 8, rgemma_smoke.d_model), f32),
         ("S=200 d=192 f32", (b_local, 200, 192), f32)], rng)
-    err6 = check_k6(k6, rng)
+    err6, err6b = check_k6(k6, rng)
 
     # [4] the engine on the card vs on the CPU, small input
     check_engine_vs_cpu(tengine, cfg_smoke, args.seed)
@@ -1716,7 +1779,8 @@ def main() -> int:
     # [5] the plain path at full width
     counted = {"K1": ops.paged_attention_chunk, "K2": ops.paged_attention,
                "K3": k3.verify_attention, "K4": k4.ssd_scan,
-               "K5": k5.rg_lru, "K6": k6.flash_attention}
+               "K5": k5.rg_lru, "K6": k6.flash_attention,
+               "K6 backward": k6.flash_attention_bwd}
     run1 = serve_full_width(
         "[5]", tengine, counted, "K1", cfg, args.seed, b_local, max_len,
         chunk, make_requests(tengine, cfg, args.seed),
@@ -1822,13 +1886,15 @@ def main() -> int:
     train = train_full_width(cfg, args.seed, counted, smi,
                              profile=args.profile)
     t6 = time_k6(k6, rng, cfg)
-    phase(f"[13] K6 B={t6['B']} H={cfg.n_heads} S={t6['S']} hd={cfg.hd} "
-          f"causal bf16 on {smi}: kernel {t6['ms']:.4f} ms (host "
-          f"{t6['host_ms']:.4f} ms a call), bound {t6['bound_ms']:.4f} ms "
-          f"({t6['bound_by']}: {t6['flops']} flop, {t6['bytes']} B), plain "
-          f"{t6['plain_ms']:.4f} ms, library (SDPA, is_causal) "
-          f"{t6['library_ms']:.4f} ms; backward (torch ops, float32) "
-          f"{t6['backward_ms']:.4f} ms")
+    for name, t, lib in (("forward (wgmma/TMA)", t6["fwd"], "SDPA, is_causal"),
+                         ("backward", t6["bwd"], "SDPA's backward through "
+                                                 "torch.autograd.grad")):
+        phase(f"[13] K6 {name} B={t6['B']} H={cfg.n_heads} S={t6['S']} "
+              f"hd={cfg.hd} causal bf16 on {smi}: kernel {t['ms']:.4f} ms "
+              f"(host {t['host_ms']:.4f} ms a call), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']} flop, "
+              f"{t['bytes']} B), plain {t['plain_ms']:.4f} ms, library "
+              f"({lib}) {t['library_ms']:.4f} ms")
 
     # [14] the serve entry point at full width, then preemption
     entry = serve_entry_point(counted, smi)
@@ -1906,15 +1972,20 @@ def main() -> int:
         row("rg_lru", "src/repro_torch/kernels/rg_lru/csrc/rg_lru.cu",
             "src/repro/kernels/rg_lru/kernel.py:67", run5["launches"], err5,
             *k5_times, f"T=1 B={b_local} d={rgemma.d_model} f32"),
-        {"name": "flash_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                   "flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention/kernel.py:80",
-         "launches": train["launches"], "max_abs_err": err6,
-         **{k: t6[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms", "host_ms", "backward_ms")},
-         "shape": f"B={t6['B']} H={cfg.n_heads} S={t6['S']} hd={cfg.hd} "
-                  f"causal bf16"},
+        *({"name": name, "route": "cuda",
+           "source": f"src/repro_torch/kernels/flash_attention/csrc/{src}",
+           "replaces": replaces, "launches": n, "max_abs_err": e,
+           **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "host_ms")},
+           "shape": f"B={t6['B']} H={cfg.n_heads} S={t6['S']} hd={cfg.hd} "
+                    f"causal bf16"}
+          for name, src, replaces, n, e, t in (
+              ("flash_attention", "flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:80",
+               train["launches"], err6, t6["fwd"]),
+              ("flash_attention_bwd", "flash_attention_bwd.cu",
+               "src/repro/models/attention.py:53",
+               train["bwd_launches"], err6b, t6["bwd"]))),
     ]
     phase(f"[15] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -3,10 +3,11 @@
 Each ``*.cu`` source under the package's ``csrc/`` directories is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain
 C interface; headers shared by several kernels live in
-``kernels/csrc/``.  The libraries go to ``build/repro_torch_kernels/``
-at the root of the checkout (listed in ``.gitignore``), named by a hash
-of their source and the shared headers, so an edited kernel is rebuilt
-and a built one is reused.  :func:`load_all` starts one ``nvcc`` per
+``kernels/csrc/``, headers shared by one kernel's sources beside them.
+The libraries go to ``build/repro_torch_kernels/`` at the root of the
+checkout (listed in ``.gitignore``), named by a hash of their source
+and those headers, so an edited kernel is rebuilt and a built one is
+reused.  :func:`load_all` starts one ``nvcc`` per
 source, all at once.
 
 Nothing here runs when a module is imported: the CPU tests import every
@@ -52,7 +53,8 @@ def load(stem: str) -> ctypes.CDLL:
     if lib is None:
         (src,) = PKG.glob(f"kernels/**/csrc/{stem}.cu")
         h = hashlib.sha256(src.read_bytes())
-        for header in sorted(COMMON.glob("*.cuh")):
+        for header in (sorted(COMMON.glob("*.cuh"))
+                       + sorted(src.parent.glob("*.cuh"))):
             h.update(header.read_bytes())
         digest = h.hexdigest()[:16]
         out = BUILD_DIR / f"lib{stem}-{digest}.so"

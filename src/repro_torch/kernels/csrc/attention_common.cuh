@@ -3,7 +3,8 @@
 // conversions between the storage type and float, 16-byte loads, warp
 // reductions, and the staging of one [psz, hd] page of one kv head
 // into shared memory (K1, K3).  The SSD scan (K4, ssd_scan/csrc) uses
-// the conversions and the warp sum.
+// the conversions and the warp sum, flash attention (K6,
+// flash_attention/csrc) the conversions and the warp reductions.
 #pragma once
 
 #include <cuda_runtime.h>

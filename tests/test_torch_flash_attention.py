@@ -3,10 +3,13 @@
 The port's plain version and the CPU path of ``ops.flash_attention``
 against the reference's jnp oracle, its Pallas kernel in interpret mode
 and its ``blockwise_attention`` (causal and not, grouped kv heads, a
-ragged S); the port's gradient (a torch-op backward from the saved
-log-sum-exp) against ``jax.grad`` of ``blockwise_attention``; and the
-port's plain ``blockwise_attention``/``local_attention`` and their
-gradients against the reference's.  Float32 at 1e-4, as ``tests/test_kernels.py::_tol``.
+ragged S); the port's gradient (the plain backward in ``ref.py``, from
+the saved log-sum-exp, which the dispatcher runs on the CPU) and its
+delta = rowsum(dO * O) against ``jax.grad`` of ``blockwise_attention``
+and the reference's oracle; the forward's choice of kernel by dtype and
+hd, and the bounds; and the port's plain
+``blockwise_attention``/``local_attention`` and their gradients against
+the reference's.  Float32 at 1e-4, as ``tests/test_kernels.py::_tol``.
 """
 
 import pytest
@@ -25,7 +28,9 @@ from repro.kernels.flash_attention.ref import \
     flash_attention_ref as j_flash_ref
 from repro.models import attention as jattn
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import (flash_attention_fwd_ref,
+from repro_torch.kernels.flash_attention.ref import (attention_delta_ref,
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_fwd_ref,
                                                      flash_attention_ref)
 from repro_torch.models import attention as tattn
 
@@ -169,3 +174,102 @@ def test_bound_at_the_training_shape():
     assert round(ops.flops(q) / 1e9, 2) == 68.75
     assert round(ops.bound_bytes(q, q) / 1e6) == 135   # 134.2 MB + the lse
     assert ops.bound_bytes(q, q) / 3.35e12 < ops.flops(q) / 989e12
+
+
+@pytest.mark.parametrize("B,H,KH,S,hd,causal", [
+    (1, 4, 1, 300, 16, True),           # ragged against 256-row blocks
+    (2, 4, 2, 64, 16, True),            # the smoke configs
+    (2, 8, 2, 45, 64, False),
+])
+def test_plain_backward_vs_jax_grad(B, H, KH, S, hd, causal):
+    """The plain backward, called directly on the plain forward's o and
+    lse (strided views, as the training step hands them over), against
+    ``jax.grad`` of the reference's ``blockwise_attention``."""
+    q, k, v = _inputs(S + 2 * KH, B, H, KH, S, hd)
+    do = np.random.RandomState(S + 1).randn(B, H, S, hd).astype(np.float32)
+
+    def j_loss(q, k, v):
+        o = jattn.blockwise_attention(
+            q, jattn._expand_kv(k, H), jattn._expand_kv(v, H), causal=causal,
+            block_q=64, block_k=32)
+        return jnp.sum(o * jnp.asarray(_bshd(do)))
+
+    j_g = jax.grad(j_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(_bshd(a)) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(_bshd(a)).transpose(1, 2)
+                  for a in (q, k, v))
+    o, lse = flash_attention_fwd_ref(tq, tk, tv, causal)
+    got = flash_attention_bwd_ref(tq, tk, tv, o, lse, torch.from_numpy(do),
+                                  causal)
+    for g, want in zip(got, j_g):
+        assert g.shape == tq.shape or g.shape == tk.shape
+        _close(g.transpose(1, 2), want)
+
+
+def test_backward_dispatcher_takes_the_plain_route_on_the_cpu():
+    """``ops.flash_attention_bwd`` and the autograd Function's backward
+    run the plain version on CPU tensors and count no launch."""
+    q, k, v = map(torch.from_numpy, _inputs(3, 2, 4, 2, 70, 64))
+    do = torch.from_numpy(
+        np.random.RandomState(4).randn(2, 4, 70, 64).astype(np.float32))
+    o, lse = flash_attention_fwd_ref(q, k, v)
+    launches = (ops.flash_attention.launches, ops.flash_attention_bwd.launches)
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    via_fn = torch.autograd.grad(ops.flash_attention(tq, tk, tv), (tq, tk, tv),
+                                 do)
+    for a, b in zip(via_fn, want):
+        assert torch.equal(a, b)
+    assert (ops.flash_attention.launches,
+            ops.flash_attention_bwd.launches) == launches
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_delta_vs_reference_oracle(causal):
+    """delta = rowsum(dO * O), the backward's first pass, against the
+    same reduction over the reference oracle's output, and against its
+    definition rowsum(P * dP) from the oracle's probabilities."""
+    B, H, S, hd = 2, 4, 50, 16
+    q, k, v = _inputs(7, B, H, H, S, hd)
+    do = np.random.RandomState(8).randn(B, H, S, hd).astype(np.float32)
+    j_o = j_flash_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      causal=causal)
+    o = flash_attention_ref(*map(torch.from_numpy, (q, k, v)), causal)
+    got = attention_delta_ref(o, torch.from_numpy(do))
+    assert got.shape == (B, H, S) and got.dtype == torch.float32
+    _close(got, jnp.sum(jnp.asarray(do) * j_o, axis=-1))
+    s = jnp.einsum("bhqd,bhkd->bhqk", q, k) / hd ** 0.5
+    if causal:
+        s = jnp.where(jnp.tril(jnp.ones((S, S), bool)), s, -1e30)
+    p = jax.nn.softmax(s, axis=-1)
+    dp = jnp.einsum("bhqd,bhkd->bhqk", do, v)
+    _close(got, jnp.sum(p * dp, axis=-1))
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 16, "mma"),
+    (torch.float32, 128, "f32"),
+    (torch.float32, 16, "f32"),
+])
+def test_forward_route_by_dtype_and_hd(dtype, hd, route):
+    assert ops.forward_route(dtype, hd) == route
+    assert hd in ops.HEAD_DIMS
+
+
+def test_backward_bound_at_the_training_shape():
+    """The note in the backward kernel's source: five products, 171.9
+    Gflop, 2.5 times the forward, and 269 MB at olmo-1b, B 4, S 2048,
+    bf16: bounded by its operations (0.174 ms at 989 TFLOP/s)."""
+    q = torch.empty(4, 16, 2048, 128, dtype=torch.bfloat16, device="meta")
+    assert ops.flops_bwd(q) == 10 * 4 * 16 * 128 * 2048 * 2049 // 2
+    assert round(ops.flops_bwd(q) / 1e9, 1) == 171.9
+    assert ops.flops_bwd(q) * 2 == 5 * ops.flops(q)
+    assert round(ops.flops_bwd(q) / 989e12 * 1e3, 3) == 0.174
+    assert round(ops.bound_bytes_bwd(q, q) / 1e6) == 269  # 268.4 MB + lse
+    assert ops.bound_bytes_bwd(q, q) / 3.35e12 < ops.flops_bwd(q) / 989e12
+    assert ops.flops_bwd(q, causal=False) == 10 * 4 * 16 * 128 * 2048 ** 2

@@ -245,18 +245,23 @@ def _qkv(rng, B, H, KH, S, hd, dtype, grad=False):
     (torch.float32, 2, 4, 2, 200, 64, True),       # a ragged last tile
     (torch.float32, 1, 4, 4, 300, 128, False),     # bidirectional
     (torch.bfloat16, 2, 4, 1, 77, 16, False),
+    (torch.bfloat16, 2, 4, 2, 77, 128, True),      # ragged, wgmma
+    (torch.bfloat16, 2, 4, 1, 200, 64, False),
 ])
 def test_flash_attention_kernel_vs_plain(card, dtype, B, H, KH, S, hd,
                                          causal):
-    """K6 on strided inputs against its plain version; bf16 within one
-    ulp of it (both compute in float32 from the same inputs and round
-    once)."""
+    """K6 on strided inputs against its plain version, through the
+    forward kernel its dtype and hd pick; bf16 within one ulp of it
+    (both compute in float32 from the same inputs and round once)."""
     rng = np.random.RandomState(S + H)
     q, k, v = _qkv(rng, B, H, KH, S, hd, dtype)
     before = k6.flash_attention.launches
+    route = k6.forward_route(dtype, hd)
+    on_route = k6.flash_attention.routes[route]
     out = k6.flash_attention(q, k, v, causal)
     torch.cuda.synchronize()
     assert k6.flash_attention.launches == before + 1
+    assert k6.flash_attention.routes[route] == on_route + 1
     assert out.dtype == dtype and out.stride() == q.stride()
     ref = flash_attention_ref(q, k, v, causal).float()
     tol = 1e-4 if dtype == torch.float32 else 6e-2
@@ -267,24 +272,51 @@ def test_flash_attention_kernel_vs_plain(card, dtype, B, H, KH, S, hd,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,B,H,KH,S,hd", [
-    (torch.float32, 2, 4, 2, 64, 16),              # the smoke configs
-    (torch.bfloat16, 1, 16, 16, 1024, 128),
+@pytest.mark.parametrize("dtype,B,H,KH,S,hd,causal", [
+    (torch.float32, 2, 4, 2, 64, 16, True),        # the smoke configs
+    (torch.bfloat16, 1, 16, 16, 1024, 128, True),
+    (torch.bfloat16, 1, 16, 16, 2048, 128, True),  # olmo-1b's S
+    (torch.bfloat16, 2, 4, 2, 77, 128, True),      # ragged, G = 2
+    (torch.bfloat16, 1, 32, 8, 512, 64, True),     # llama3.2-1b, G = 4
+    (torch.bfloat16, 2, 4, 1, 77, 16, False),
+    (torch.float32, 2, 4, 2, 200, 64, False),
 ])
-def test_flash_attention_gradient(card, dtype, B, H, KH, S, hd):
-    """dq, dk, dv through K6's Function against autograd through the
-    plain version.  bf16 at 6e-2: the backward reads the forward's
-    output rounded to bf16 in rowsum(dO * O)."""
+def test_flash_attention_gradient(card, dtype, B, H, KH, S, hd, causal):
+    """dq, dk, dv through K6's Function (its backward kernels, one
+    counted launch) against autograd through the plain version.  bf16
+    at 6e-2: the kernels round P and dS to bf16 as the A operand of
+    their products, and both read the forward's output rounded to bf16
+    in rowsum(dO * O)."""
     rng = np.random.RandomState(S)
     q, k, v = _qkv(rng, B, H, KH, S, hd, dtype, grad=True)
     do = torch.from_numpy(rng.randn(B, H, S, hd).astype(np.float32)).to(
         "cuda", dtype)
-    got = torch.autograd.grad(k6.flash_attention(q, k, v), (q, k, v), do)
-    want = torch.autograd.grad(flash_attention_ref(q, k, v), (q, k, v), do)
+    before = k6.flash_attention_bwd.launches
+    got = torch.autograd.grad(k6.flash_attention(q, k, v, causal), (q, k, v),
+                              do)
+    assert k6.flash_attention_bwd.launches == before + 1
+    want = torch.autograd.grad(flash_attention_ref(q, k, v, causal),
+                               (q, k, v), do)
     tol = 1e-4 if dtype == torch.float32 else 6e-2
     for a, b in zip(got, want):
         assert a.dtype == dtype
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_backward_is_deterministic(card, dtype):
+    """The backward kernels use no atomics: two calls on the same inputs
+    give the same bits (the trainer's restart promise rests on it)."""
+    rng = np.random.RandomState(1)
+    q, k, v = _qkv(rng, 2, 8, 4, 300, 128, dtype)
+    o, lse = k6.flash_attention_cuda(q, k, v)
+    do = torch.from_numpy(rng.randn(*o.shape).astype(np.float32)).to(
+        "cuda", dtype)
+    first = k6.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    second = k6.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -296,3 +328,13 @@ def test_flash_attention_raises_on_what_it_does_not_take(card):
     q, k, v = _qkv(rng, 1, 4, 2, 64, 16, torch.float16)
     with pytest.raises(TypeError):
         k6.flash_attention(q, k, v)
+    # the wgmma kernel's tensor maps: rows on 16-byte boundaries
+    q, k, v = _qkv(rng, 1, 4, 2, 64, 128, torch.bfloat16)
+    qs = torch.empty(1, 4, 64, 129, dtype=torch.bfloat16,
+                     device="cuda")[..., 1:]
+    qs.copy_(q)
+    with pytest.raises(ValueError):
+        k6.flash_attention(qs, k, v)
+    o, lse = k6.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError):                   # lse of another shape
+        k6.flash_attention_bwd_cuda(q, k, v, o, lse[:, :, 1:], o)
