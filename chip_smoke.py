@@ -18,7 +18,14 @@ Phases, each printed on its own line (any failure fails the run):
    the uniform mean) and on (zeros), and against K1 at T = 1 over
    base + 1 positions; K3 (verify
    attention) at T = 5 and 64 on tables whose lanes share their prefix
-   pages, also against K1 on the same inputs; K4 (SSD scan, f32 and
+   pages, also against K1 on the same inputs; the wgmma/TMA routes of
+   K1 and K3 (bf16, hd 64 and 128, pages of 64) at olmo-1b's and
+   llama3.2-1b's widths and T = 5, 8, 16, 64, 100, with bases off the
+   page grid, dead pages inside a run, an idle lane, rows that see no
+   key and a hot prefix page mapped by all 8 lanes: within one ulp of
+   the plain version, K3 within one ulp of K1, two calls bit-equal,
+   and the float32, hd 16 and page-8 shapes on the present kernels; K4
+   (SSD scan, f32 and
    bf16) and K5 (RG-LRU, float32 only) at T = 1 and 64 at full width
    and at smoke width, from a carried state, with inert lanes whose
    state must stay bit for bit; K6 (causal flash attention) on strided
@@ -46,21 +53,25 @@ Phases, each printed on its own line (any failure fails the run):
    heads, hd 128, vocab 50304, bf16, page size 64) with random weights
    from ``--seed`` through ``ServingEngine.run``: every request
    finishes, the pool drains leak-free, K1 ran 16 times on each step
-   with a prompt lane and K2 16 times on each decode-only step, no
-   other kernel ran, and each step made exactly one device-to-host
-   transfer;
-6. time K1, its plain version, a PyTorch library call for the same
+   with a prompt lane (each on its wgmma route) and K2 16 times on
+   each decode-only step, no other kernel ran, and each step made
+   exactly one device-to-host transfer;
+6. time K1 (its wgmma route), the present kernel it replaced on the
+   same inputs, its plain version, a PyTorch library call for the same
    attention and the bound, at the serving shapes;
 7. the speculative path: the same engine settings with draft length 4
    serve hot-prefix traffic (4 system prompts of 512 tokens, user tails
    of 32-128 tokens, half of the requests repeating an earlier prompt
    exactly, 32 requests of 64 new tokens) with and without
-   speculation: K3 ran 16 times per speculative step, K2 16 times per
-   decode-only step and K1 16 times per other step, one transfer per
-   step, leak-free; in f32 both runs give identical tokens; in bf16 the
-   count of identical streams is printed;
-8. time K3 at T = 5 on hot-prefix tables and at T = 64, beside its
-   bound, its plain version and SDPA;
+   speculation: K3 ran 16 times per speculative step (its launches
+   printed by lane width), K2 16 times per decode-only step and K1 16
+   times per other step, K1 and K3 on their wgmma routes in bf16, one
+   transfer per step, leak-free; in f32 both runs give identical
+   tokens; in bf16 the count of identical streams is printed;
+8. time K3 (its wgmma route, with the device time of its partials and
+   merge kernels under the profiler) at T = 5 on hot-prefix tables and
+   at T = 64, beside the present kernel, its bound, its plain version
+   and SDPA;
 9. the SSD path: serve mamba2-370m at full width (48 SSD layers, d_model
    1024, 32 heads of 64, state 128, bf16) with two size classes, the
    workload of phase 5, max_len 2048: every request finishes, K4 ran 48
@@ -299,6 +310,100 @@ def check_k3(k3, ops, plain, rng, cfg_full, cfg_smoke, b_local, maxp, P):
               f"prefix pages")
         if dt == torch.bfloat16:
             worst = max(worst, errs[0])
+    return worst
+
+
+def route_case(rng, T, H, KH, hd, B=10, psz=64, maxp=24, P=224, hot=4):
+    """bf16 inputs of K1's and K3's wgmma routes: the lanes map the
+    same ``hot`` prefix pages (8 lanes map the first: at T = 64 it holds
+    8 x 64 rows, 8 row tiles of K3), then pages of their own; bases off
+    the page grid; lane 1 idle (all rows masked); lane 2 without the
+    second hot page and lane 3 without its first own page (dead pages
+    inside a run); lane 6 at base 3 with its first page dead (rows that
+    see no key)."""
+    base = rng.randint(hot * psz + 1, (maxp - 2) * psz - T, B)
+    base[base % psz == 0] += 1
+    base[1], base[6] = 0, 3
+    table = np.full((B, maxp), -1, np.int32)
+    avail = list(rng.permutation(P))
+    prefix = [avail.pop() for _ in range(hot)]
+    for b in range(B):
+        for i in range(-(-(int(base[b]) + T) // psz)):
+            table[b, i] = prefix[i] if i < hot and b != 6 else avail.pop()
+    table[1] = -1
+    table[2, 1] = -1
+    table[3, hot] = -1
+    table[6, 0] = -1
+    q, kp, vp = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+                 for s in ((B, T, H, hd), (P, psz, KH, hd),
+                           (P, psz, KH, hd)))
+    return [q.to("cuda", torch.bfloat16), kp.to("cuda", torch.bfloat16),
+            vp.to("cuda", torch.bfloat16), torch.from_numpy(table).cuda(),
+            torch.from_numpy(base.astype(np.int32)).cuda()]
+
+
+def check_wgmma_routes(k3, ops, plain, rng, cfgs):
+    """Phase 3: K1's and K3's wgmma/TMA kernels at the widths of
+    ``cfgs`` (olmo-1b, G 1; llama3.2-1b, G 4, hd 64) and T = 5, 8, 16,
+    64, 100 on :func:`route_case` inputs: each within one bf16 ulp of
+    the plain version, K3 within one ulp of K1, rows without a key
+    zero, two calls bit-equal; then float32, hd 16 and pages of 8 still
+    take the present kernels.  Returns the worst error against the
+    plain version of each."""
+    worst = {"K1": 0.0, "K3": 0.0}
+    for cfg in cfgs:
+        H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        for T in (5, 8, 16, 64, 100):
+            name = f"{cfg.name} widths T={T} (H={H} KH={KH} hd={hd})"
+            args = route_case(rng, T, H, KH, hd)
+            check(int((args[3][:, 0] == args[3][0, 0]).sum()) == 8,
+                  f"{name}: 8 lanes map the first hot page")
+            r1 = ops.paged_attention_chunk.routes["wgmma"]
+            r3 = k3.verify_attention.routes["wgmma"]
+            o1 = ops.paged_attention_chunk(*args)
+            o3 = k3.verify_attention(*args)
+            torch.cuda.synchronize()
+            check(ops.paged_attention_chunk.routes["wgmma"] == r1 + 1
+                  and k3.verify_attention.routes["wgmma"] == r3 + 1,
+                  f"{name}: K1 and K3 took their wgmma routes")
+            ref = plain(*args).float()
+            errs = []
+            for what, out, other in (("K1", o1, ref), ("K3", o3, ref),
+                                     ("K3 vs K1", o3, o1.float())):
+                check(bool(torch.isfinite(out.float()).all())
+                      and bool((out[1] == 0).all())
+                      and bool((out[6, :61] == 0).all()),
+                      f"{name} {what}: finite, rows without a key zero")
+                torch.testing.assert_close(
+                    out.float(), other, atol=BF16_ULP_ATOL,
+                    rtol=BF16_ULP_RTOL,
+                    msg=lambda m, n=name, w=what: f"{n} {w}, one bf16 "
+                                                  f"ulp: {m}")
+                errs.append((out.float() - other).abs().max().item())
+            check(torch.equal(o1, ops.paged_attention_chunk(*args))
+                  and torch.equal(o3, k3.verify_attention(*args)),
+                  f"{name}: two calls bit-equal")
+            worst["K1"] = max(worst["K1"], errs[0])
+            worst["K3"] = max(worst["K3"], errs[1])
+            phase(f"[3] wgmma routes, {name}: K1 vs plain {errs[0]:.3e}, "
+                  f"K3 vs plain {errs[1]:.3e}, K3 vs K1 {errs[2]:.3e} "
+                  f"(one ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}); two calls "
+                  f"bit-equal")
+    for dt, T, H, KH, hd, psz in ((torch.float32, 5, 4, 2, 16, 8),
+                                  (torch.float32, 64, 16, 16, 128, 64),
+                                  (torch.bfloat16, 5, 4, 2, 16, 8)):
+        args = attn_case(rng, 8, T, H, KH, hd, psz, 16, 160, dt, hot=2)
+        f1 = ops.paged_attention_chunk.routes["fma"]
+        f3 = k3.verify_attention.routes["fma"]
+        for fn in (ops.paged_attention_chunk, k3.verify_attention):
+            torch.testing.assert_close(fn(*args).float(),
+                                       plain(*args).float(), atol=TOL[dt],
+                                       rtol=TOL[dt])
+        check(ops.paged_attention_chunk.routes["fma"] == f1 + 1
+              and k3.verify_attention.routes["fma"] == f3 + 1,
+              f"{dt} hd={hd} psz={psz}: the present kernels")
+        phase(f"[3] {str(dt)[6:]} hd={hd} psz={psz} T={T}: K1 and K3 took "
+              f"their present (fma) kernels, within {TOL[dt]:g} of plain")
     return worst
 
 
@@ -655,6 +760,8 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     # the main path's run: counts zeroed just before, read just after
     for fn in counted.values():
         fn.launches = 0
+        for route in getattr(fn, "routes", {}):
+            fn.routes[route] = 0
     steps0, transfers0 = eng.stats["steps"], eng.host_transfers
     tokens0, prompt0 = eng.stats["tokens_out"], eng.stats["prompt_tokens"]
     width1_0 = eng.stats["chunk_hist"].get(1, 0)
@@ -700,6 +807,10 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
           f"{steps} steps, {decode_steps} of width 1)")
     check(transfers == steps, f"{tag}: one transfer per step ({transfers}, "
                               f"{steps})")
+    k1_routes = dict(counted["K1"].routes)
+    if kernel == "K1" and cfg.dtype == "bfloat16":
+        check(k1_routes["wgmma"] == launches["K1"],
+              f"{tag}: every K1 launch took the wgmma route ({k1_routes})")
     in_use = [eng.blocks_in_use(c) for c in range(eng.n_classes)]
     check(not any(in_use) and eng.leak_free(),
           f"{tag}: no KV page and no state block in use after the drain")
@@ -707,7 +818,8 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
                       f"{n // n_layers} steps" for k, n in want.items())
     phase(f"{tag}: served {len(reqs)} requests: {steps} steps ("
           f"{decode_steps} decode-only), {tokens} tokens out, {prompt} "
-          f"prompt tokens, wall {wall:.3f} s; {split}, other kernels "
+          f"prompt tokens, wall {wall:.3f} s; {split} (K1 by route "
+          f"{k1_routes}), other kernels "
           f"{sum(launches.values()) - sum(want.values())}"
           f"; device->host transfers {transfers} (1 per step), "
           f"synchronizing calls in one step under sync-debug mode: "
@@ -802,6 +914,10 @@ def serve_trace(tengine, k3, ops, cfg, params, prompts, speculate, b_local,
     ops.paged_attention_chunk.launches = 0
     ops.paged_attention.launches = 0
     k3.verify_attention.launches = 0
+    k3.verify_attention.widths.clear()
+    for fn in (ops.paged_attention_chunk, k3.verify_attention):
+        for route in fn.routes:
+            fn.routes[route] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for r in reqs:
@@ -812,6 +928,9 @@ def serve_trace(tengine, k3, ops, cfg, params, prompts, speculate, b_local,
     k1_launches = ops.paged_attention_chunk.launches
     k2_launches = ops.paged_attention.launches
     k3_launches = k3.verify_attention.launches
+    k3_widths = dict(sorted(k3.verify_attention.widths.items()))
+    routes = {"K1": dict(ops.paged_attention_chunk.routes),
+              "K3": dict(k3.verify_attention.routes)}
     recs = list(eng.flight.ring)[n_rec0:]
     d = {k: eng.stats[k] - st0[k] for k in (
         "steps", "tokens_out", "prompt_tokens", "spec_drafted",
@@ -819,6 +938,7 @@ def serve_trace(tengine, k3, ops, cfg, params, prompts, speculate, b_local,
         "prefix_shared_tokens", "prefix_shared_reqs", "cow_copies")}
     d.update(
         wall=wall, k1=k1_launches, k2=k2_launches, k3=k3_launches,
+        k3_widths=k3_widths, routes=routes,
         spec_steps=sum(rec["spec"] for rec in recs), records=len(recs),
         decode_steps=sum(rec["T"] == 1 and not rec["spec"] for rec in recs),
         transfers=eng.host_transfers - transfers0,
@@ -868,6 +988,13 @@ def serve_speculative(tengine, k3, ops, cfg, seed, b_local, max_len, chunk):
                   f"{r['spec_steps']} speculative steps, K2 {r['k2']} = "
                   f"{n_layers} x {r['decode_steps']} decode-only steps, K1 "
                   f"{r['k1']} = {n_layers} x the other steps")
+            route = "wgmma" if dtype == "bfloat16" else "fma"
+            check(r["routes"]["K1"][route] == r["k1"]
+                  and r["routes"]["K3"][route] == r["k3"],
+                  f"{name}: K1 and K3 took their {route} routes "
+                  f"({r['routes']})")
+            check(sum(r["k3_widths"].values()) == r["k3"],
+                  f"{name}: K3 launches by lane width {r['k3_widths']}")
             check(r["prefix_shared_tokens"] > 0, f"{name}: prefixes shared")
             if spec:
                 check(r["spec_accepted"] > 0 and r["spec_steps"] > 0,
@@ -879,8 +1006,9 @@ def serve_speculative(tengine, k3, ops, cfg, seed, b_local, max_len, chunk):
                   f"prefix_shared_tokens {r['prefix_shared_tokens']} "
                   f"({r['prefix_shared_reqs']} requests), cow_copies "
                   f"{r['cow_copies']}; K3 launches {r['k3']} = {n_layers} x "
-                  f"{r['spec_steps']}, K2 launches {r['k2']} = {n_layers} x "
-                  f"{r['decode_steps']}, K1 launches {r['k1']}; "
+                  f"{r['spec_steps']} (by lane width {r['k3_widths']}), K2 "
+                  f"launches {r['k2']} = {n_layers} x {r['decode_steps']}, "
+                  f"K1 launches {r['k1']} (routes: {r['routes']}); "
                   f"host_transfers {r['transfers']} = steps, "
                   f"admission_transfers {r['admission_transfers']}; pages "
                   f"in use after the drain {r['pages_after']}")
@@ -1193,15 +1321,34 @@ def profile_serve(eng, reqs, tag="[p]"):
     profiled(run, tag)
 
 
+def device_split(fn, n):
+    """Device ms a call of ``fn`` by kernel name, from ``torch.profiler``
+    over ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / n
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def time_kernel(kernel, bound_bytes, plain, rng, cfg, b_local, maxp, P, T,
-                base, hot=0):
+                base, hot=0, present=None, split=False):
     """Phases 6 and 8: a kernel, its plain version, SDPA over
     pre-gathered dense K/V with the same mask, and the bound, at one
     serving shape.  ``kernel(*inputs)`` returns a callable that
     launches the kernel once on those inputs (set-up the engine does
-    once per step happens there, outside the timing).  Each of the
-    model's layers has its own pages, so the timing cycles through that
-    many K/V arrays and reads them cold from HBM, as a step does."""
+    once per step happens there, outside the timing); ``present``, when
+    given, the same for the kernel that route replaced, timed on the
+    same inputs.  Each of the model's layers has its own pages, so the
+    timing cycles through that many K/V arrays and reads them cold from
+    HBM, as a step does.  ``split``: also the device time of each
+    kernel a call launches, under the profiler."""
     H, KH, hd, psz = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.page_size
     dt = cfg.tdtype
     layers = [attn_case(rng, b_local, T, H, KH, hd, psz, maxp, P, dt,
@@ -1211,6 +1358,12 @@ def time_kernel(kernel, bound_bytes, plain, rng, cfg, b_local, maxp, P, T,
 
     def kern():
         calls[next(it) % len(calls)]()
+
+    if present is not None:
+        old = [present(*layer) for layer in layers]
+
+        def kern_present():
+            old[next(it) % len(old)]()
 
     def ref():
         plain(*layers[next(it) % len(layers)])
@@ -1236,6 +1389,12 @@ def time_kernel(kernel, bound_bytes, plain, rng, cfg, b_local, maxp, P, T,
     ms, host_ms = cuda_ms(kern, iters=4 * cfg.n_layers)
     plain_ms, _ = cuda_ms(ref, iters=cfg.n_layers, warmup=1)
     library_ms, _ = cuda_ms(lib, iters=4 * cfg.n_layers)
+    extra = {}
+    if present is not None:
+        p_ms, p_host_ms = cuda_ms(kern_present, iters=4 * cfg.n_layers)
+        extra.update(present_ms=p_ms, present_host_ms=p_host_ms)
+    if split:
+        extra["split"] = device_split(kern, 2 * cfg.n_layers)
     q, kp, vp, table, bl = layers[0]
     nbytes = bound_bytes(q, kp, table, bl)
     pairs = sum(int(b) + t + 1 for b in base for t in range(T))
@@ -1246,7 +1405,7 @@ def time_kernel(kernel, bound_bytes, plain, rng, cfg, b_local, maxp, P, T,
     bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     return dict(T=T, ms=ms, host_ms=host_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-                bytes=nbytes, flops=flops)
+                bytes=nbytes, flops=flops, **extra)
 
 
 def k6_inputs(rng, B, H, KH, S, hd, dtype, grad=False):
@@ -1696,8 +1855,8 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import ops as k4
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
     from repro_torch.kernels.verify_attention import ops as k3
-    from repro_torch.kernels.verify_attention.schedule import \
-        build_verify_schedule
+    from repro_torch.kernels.verify_attention.schedule import (
+        build_verify_schedule, build_verify_units)
     from repro_torch.serving import engine as tengine
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1717,8 +1876,9 @@ def main() -> int:
 
     # [2] build the kernels from this checkout's sources, in parallel
     t0 = time.perf_counter()
-    stems = ("paged_attention", "paged_decode", "verify_attention",
-             "ssd_scan", "rg_lru", "flash_attention", "flash_attention_bwd")
+    stems = ("paged_attention", "paged_attention_wgmma", "paged_decode",
+             "verify_attention", "verify_attention_wgmma", "ssd_scan",
+             "rg_lru", "flash_attention", "flash_attention_bwd")
     build.load_all(stems)
     for stem in stems:
         for line in build.logs.get(stem, "").splitlines():
@@ -1740,6 +1900,11 @@ def main() -> int:
     err2 = check_k2(ops, plain2, rng, (cfg, get_config("llama3.2-1b"),
                                        cfg_smoke), b_local, maxp, P)
     err3 = check_k3(k3, ops, plain, rng, cfg, cfg_smoke, b_local, maxp, P)
+    # a stream of its own: the later phases draw the inputs they drew
+    err_routes = check_wgmma_routes(k3, ops, plain,
+                                    np.random.RandomState(args.seed + 3),
+                                    (cfg, get_config("llama3.2-1b")))
+    err, err3 = max(err, err_routes["K1"]), max(err3, err_routes["K3"])
     mamba, mamba_smoke = (get_config("mamba2-370m"),
                           smoke_config(get_config("mamba2-370m")))
     rgemma, rgemma_smoke = (get_config("recurrentgemma-2b"),
@@ -1792,16 +1957,21 @@ def main() -> int:
     def k1_call(*inputs):
         return lambda: ops.paged_attention_chunk_cuda(*inputs)
 
+    def k1_present(*inputs):
+        return lambda: ops.paged_attention_chunk_cuda(*inputs, route="fma")
+
     base1 = rng.randint(64 + 32, 1024 + 64, b_local)
     base64 = rng.randint(0, 1024 - 64, b_local) // 64 * 64
     t1 = time_kernel(k1_call, ops.bound_bytes, plain, rng, cfg, b_local,
-                     maxp, P, 1, base1)
+                     maxp, P, 1, base1, present=k1_present)
     t64 = time_kernel(k1_call, ops.bound_bytes, plain, rng, cfg, b_local,
-                      maxp, P, 64, base64)
+                      maxp, P, 64, base64, present=k1_present)
     for t in (t1, t64):
         phase(f"[6] K1 T={t['T']} B={b_local} H={cfg.n_heads} hd={cfg.hd} "
-              f"psz={cfg.page_size} bf16 on {smi}: kernel {t['ms']:.4f} ms "
-              f"(host {t['host_ms']:.4f} ms a call), bound "
+              f"psz={cfg.page_size} bf16 on {smi}: kernel (wgmma route) "
+              f"{t['ms']:.4f} ms (host {t['host_ms']:.4f} ms a call), "
+              f"present kernel (fma route) {t['present_ms']:.4f} ms (host "
+              f"{t['present_host_ms']:.4f} ms a call), bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
               f"{t['bytes']} B, {t['flops']} flop), plain "
               f"{t['plain_ms']:.4f} ms, library (SDPA, dense K/V) "
@@ -1818,24 +1988,40 @@ def main() -> int:
     work = torch.empty(k3.workspace_numel(b_local, 64, cfg.n_heads, cfg.hd,
                                           maxp), device="cuda")
 
-    def k3_call(q, kp, vp, table, base):
-        sched = build_verify_schedule(table, base, q.shape[1], kp.shape[1])
-        return lambda: k3.verify_attention_cuda(q, kp, vp, table, base,
-                                                sched, work)
+    def k3_call(route):
+        def make(q, kp, vp, table, base):
+            T, G = q.shape[1], q.shape[2] // kp.shape[2]
+            sched = build_verify_schedule(table, base, T, kp.shape[1])
+            units = (build_verify_units(sched[0], T, G) if route == "wgmma"
+                     else None)
+            return lambda: k3.verify_attention_cuda(q, kp, vp, table, base,
+                                                    sched, work, units, route)
+        return make
 
-    v5 = time_kernel(k3_call, k3.bound_bytes, plain, rng, cfg, b_local,
-                     maxp, P, 5, rng.randint(512 + 32, 512 + 192, b_local),
-                     hot=8)
-    v64 = time_kernel(k3_call, k3.bound_bytes, plain, rng, cfg, b_local,
-                      maxp, P, 64, rng.randint(512, 576, b_local), hot=8)
+    v5 = time_kernel(k3_call("wgmma"), k3.bound_bytes, plain, rng, cfg,
+                     b_local, maxp, P, 5,
+                     rng.randint(512 + 32, 512 + 192, b_local), hot=8,
+                     present=k3_call("fma"), split=True)
+    v64 = time_kernel(k3_call("wgmma"), k3.bound_bytes, plain, rng, cfg,
+                      b_local, maxp, P, 64, rng.randint(512, 576, b_local),
+                      hot=8, present=k3_call("fma"), split=True)
     for t in (v5, v64):
+        partials, merge = (sum(v for k, v in t["split"].items() if name in k)
+                           for name in ("k3_wgmma", "k3_merge"))
+        check(partials > 0 and merge > 0, "K3: the profiler saw its partials "
+                                          "and merge kernels")
+        t["profiled_ms"] = {"partials": partials, "merge": merge}
         phase(f"[8] K3 T={t['T']} B={b_local} H={cfg.n_heads} hd={cfg.hd} "
               f"psz={cfg.page_size} bf16, 8 shared prefix pages, on {smi}: "
-              f"kernel {t['ms']:.4f} ms (host {t['host_ms']:.4f} ms a call), "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} "
-              f"B, distinct pages; "
-              f"{t['flops']} flop), plain {t['plain_ms']:.4f} ms, library "
-              f"(SDPA, dense K/V) {t['library_ms']:.4f} ms")
+              f"kernel (wgmma route) {t['ms']:.4f} ms (host "
+              f"{t['host_ms']:.4f} ms a call; under the profiler the "
+              f"partials kernel {partials:.4f} ms and the merge "
+              f"{merge:.4f} ms a call), present kernel (fma route) "
+              f"{t['present_ms']:.4f} ms (host {t['present_host_ms']:.4f} ms "
+              f"a call), bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+              f"{t['bytes']} B, distinct pages; {t['flops']} flop), plain "
+              f"{t['plain_ms']:.4f} ms, library (SDPA, dense K/V) "
+              f"{t['library_ms']:.4f} ms")
 
     # [9], [10] the recurrent paths at full width: mamba2-370m (K4) and
     # recurrentgemma-2b (K5, and ring attention in plain torch ops)
@@ -1931,15 +2117,25 @@ def main() -> int:
           f"generated tok/s; preempting run (bf16) "
           f"{preempting['tokens_out'] / preempting['wall']:.1f} tok/s")
 
-    def row(name, src, replaces, n, e, t, t_other, shape):
-        return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": n, "max_abs_err": e,
-                **{k: t[k] for k in ("ms", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms")},
-                "shape": shape,
-                f"t{t_other['T']}": {k: t_other[k] for k in (
-                    "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}}
+    def row(name, src, replaces, n, e, t, t_other, shape, present=None):
+        """A kernel's entry; ``present``: the source of the kernel its
+        wgmma route replaced, which still takes the other shapes, with
+        that kernel's times on the same inputs."""
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        out = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": n, "max_abs_err": e,
+               **{k: t[k] for k in keys}, "shape": shape,
+               f"t{t_other['T']}": {k: t_other[k] for k in keys}}
+        if present is not None:
+            out["routes"] = {"wgmma": src, "fma": present}
+            out["present_kernel"] = {
+                "source": present, **{f"t{x['T']}": {
+                    "ms": x["present_ms"], "host_ms": x["present_host_ms"],
+                    "wgmma_host_ms": x["host_ms"]} for x in (t, t_other)}}
+        for x in (t, t_other):
+            if "profiled_ms" in x:
+                out[f"t{x['T']}_profiled_ms"] = x["profiled_ms"]
+        return out
 
     shape = (f"B={b_local} H={cfg.n_heads} hd={cfg.hd} psz={cfg.page_size} "
              f"bf16")
@@ -1955,15 +2151,19 @@ def main() -> int:
          "k1_same_inputs": {k: t2k1[k] for k in ("ms", "plain_ms",
                                                  "bound_ms", "library_ms")}},
         row("paged_attention_chunk",
-            "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+            "src/repro_torch/kernels/paged_attention/csrc/"
+            "paged_attention_wgmma.cu",
             "src/repro/kernels/paged_attention/kernel.py:171",
-            run1["launches"], err,
-            t1, t64, f"T=1 {shape}"),
+            run1["launches"], err, t1, t64, f"T=1 {shape}",
+            "src/repro_torch/kernels/paged_attention/csrc/"
+            "paged_attention.cu"),
         row("verify_attention",
             "src/repro_torch/kernels/verify_attention/csrc/"
-            "verify_attention.cu",
+            "verify_attention_wgmma.cu",
             "src/repro/kernels/verify_attention/kernel.py:173", spec["k3"],
-            err3, v5, v64, f"T=5 {shape}, 8 shared prefix pages"),
+            err3, v5, v64, f"T=5 {shape}, 8 shared prefix pages",
+            "src/repro_torch/kernels/verify_attention/csrc/"
+            "verify_attention.cu"),
         row("ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
             "src/repro/kernels/ssd_scan/kernel.py:93", run4["launches"],
             err4, *k4_times, f"T=1 B={b_local} H={ssd_dims(mamba, 1)[2]} "

@@ -1,9 +1,9 @@
 // Device helpers shared by K6's forward (flash_attention.cu) and
 // backward (flash_attention_bwd.cu): mma.sync m16n8k16 in bf16 with its
-// fragments loaded by ldmatrix, the hi/lo split of a float pair into
-// two bf16 pairs, and 16-byte cp.async copies that fill zeros past the
-// end; the warp reductions and conversions come from the attention
-// kernels' common header.
+// fragments loaded by ldmatrix, and the pairing of two floats into one
+// bf16 pair; the hi/lo split, the cp.async copies and the log constants
+// come from the Hopper header (kernels/csrc), the warp reductions and
+// conversions from the attention kernels' common header.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -12,16 +12,22 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace fa {
 
 using attn::to_f;
 using attn::warp_max;
 using attn::warp_sum;
+using hopper::cp16;
+using hopper::cp_commit;
+using hopper::cp_wait;
+using hopper::kLn2;
+using hopper::kLog2e;
+using hopper::smem_u32;
+using hopper::split2;
 
 constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -33,17 +39,6 @@ __device__ __forceinline__ uint32_t pack2(float x, float y) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// (x, y) as two bf16 pairs, hi = bf16(x, y) and lo = bf16 of what hi
-// leaves over: hi + lo keeps (x, y) to about 2^-17.
-__device__ __forceinline__ void split2(float x, float y, uint32_t& hi,
-                                       uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
 // c += a b for one m16n8k16 tile: a row-major 16x16, b column-major
 // 16x8, both bf16; c float32.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -53,10 +48,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // Four 8x8 bf16 matrices from shared memory; lane l gives the address
@@ -99,21 +90,6 @@ __device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4],
                                           int n0, int k0, int lane) {
   const int mi = lane >> 3;
   ldsm_x4_t(b, s + (k0 + (lane & 7) + (mi & 1) * 8) * ld + n0 + (mi >> 1) * 8);
-}
-
-// 16 bytes global -> shared, asynchronous; zeros when !in.
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool in) {
-  asm volatile(
-      "cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(in ? 16 : 0)
-      : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace fa

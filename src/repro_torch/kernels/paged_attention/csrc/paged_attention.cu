@@ -38,7 +38,9 @@
 //   through a per-warp shared buffer, and each lane adds p_j * V[j, d]
 //   for its dims.
 //
-// A simple kernel that is right; wgmma and TMA are later work.
+// The route of the float32, hd 16 and page-8 shapes (the smoke
+// configs); bf16 at hd 64 and 128 with pages of 64 takes
+// paged_attention_wgmma.cu (ops.py states the dispatch).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

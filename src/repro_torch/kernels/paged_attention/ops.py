@@ -3,11 +3,19 @@ plain PyTorch versions.
 
 * K1, :func:`paged_attention_chunk`, replaces the JAX package's Pallas
   TPU kernel ``kernels/paged_attention/kernel.py::paged_attention_chunk``
-  (its ``pallas_call`` at ``kernel.py:171``).  Its CUDA C++ kernel for
-  Hopper (``csrc/paged_attention.cu``) runs one thread block per (kv
-  head, sequence), walks only the sequence's live pages, stages each
-  K/V page in shared memory and keeps the online-softmax state in float
-  registers.
+  (its ``pallas_call`` at ``kernel.py:171``).  Two CUDA C++ kernels for
+  Hopper, chosen by :func:`chunk_route`:
+
+  - ``"wgmma"`` (``csrc/paged_attention_wgmma.cu``), bf16 at hd 64 and
+    128 with pages of 64 tokens, the serving path of olmo-1b,
+    llama3.2-1b and gemma3-27b: a producer warp keeps a ring of K/V
+    page stages full by TMA, two consumer warpgroups run QK^T and PV on
+    ``wgmma`` over 64-row query tiles and, when one tile holds all of a
+    lane's rows, split its pages between them;
+  - ``"fma"`` (``csrc/paged_attention.cu``), every other shape (float32,
+    hd 16, pages of 8: the smoke configs): one block per (kv head,
+    sequence), each K/V page staged in shared memory as float, scalar
+    float FMAs.
 * K2, :func:`paged_attention`, single-token decode, replaces
   ``kernel.py::paged_attention`` (its ``pallas_call`` at
   ``kernel.py:227``).  Its kernel (``csrc/paged_decode.cu``) runs one
@@ -20,8 +28,10 @@ live K/V pages plus q and out over 3.35 TB/s (:func:`bound_bytes`,
 :func:`decode_bound_bytes`).
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
-launches the kernel or raises.  ``paged_attention_chunk.launches`` and
-``paged_attention.launches`` count kernel launches.
+launches the kernel of its route or raises (nothing falls back from one
+route to the other).  ``paged_attention_chunk.launches`` and
+``paged_attention.launches`` count kernel launches,
+``paged_attention_chunk.routes`` K1's by route.
 """
 
 from __future__ import annotations
@@ -34,6 +44,41 @@ import torch
 from .ref import paged_attention_chunk_ref, paged_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: head dims and page size of the wgmma/TMA routes of K1 and K3 (bf16)
+WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_PAGE = 64
+
+
+def chunk_route(dtype, hd: int, psz: int, T: int, G: int) -> str:
+    """K1's kernel for q of ``dtype`` with head dim ``hd``, pages of
+    ``psz`` tokens, ``T`` tokens a lane and ``G`` query heads a kv head:
+    ``"wgmma"`` for bf16 at hd 64 or 128 with pages of 64, at every T
+    and G, else ``"fma"``.  No width goes to ``"fma"``: on an H100 the
+    wgmma kernel is the faster one at T = 1 too, where one query row
+    fills a 64-row tile (``chip_smoke.py`` phase 6, PERF.md)."""
+    del T, G
+    if (dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+            and psz == WGMMA_PAGE):
+        return "wgmma"
+    return "fma"
+
+
+def check_wgmma(name, q, k_pages, v_pages):
+    """Raise on what the wgmma/TMA kernels of K1 and K3 do not take:
+    they read bf16 pages of 64 tokens at hd 64 or 128 through TMA
+    tensor maps, and q rows with 16-byte copies."""
+    if not all(t.dtype == torch.bfloat16 for t in (q, k_pages, v_pages)):
+        raise TypeError(f"{name}: the wgmma route takes bfloat16 only, got "
+                        f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    if (q.shape[-1] not in WGMMA_HEAD_DIMS or k_pages.dim() != 4
+            or k_pages.shape[1] != WGMMA_PAGE):
+        raise ValueError(f"{name}: the wgmma route takes hd in "
+                         f"{WGMMA_HEAD_DIMS} and pages of {WGMMA_PAGE} "
+                         f"tokens, got q {tuple(q.shape)} pages "
+                         f"{tuple(k_pages.shape)}")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
+        raise ValueError(f"{name}: the wgmma route needs q and the pools "
+                         f"on 16-byte boundaries")
 
 
 @functools.cache
@@ -46,11 +91,29 @@ def _fn():
     return fn
 
 
-def paged_attention_chunk_cuda(q, k_pages, v_pages, page_table, base_lens):
-    """Launch the CUDA kernel on PyTorch's current stream (no sync)."""
+@functools.cache
+def _wgmma_fn():
+    from ..build import load
+    fn = load("paged_attention_wgmma").paged_attention_chunk_wgmma
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def paged_attention_chunk_cuda(q, k_pages, v_pages, page_table, base_lens,
+                               route=None):
+    """Launch the kernel of ``route`` (by default :func:`chunk_route` of
+    these inputs) on PyTorch's current stream (no sync)."""
     B, T, H, hd = q.shape
     P, psz, KH, hd_k = k_pages.shape
     maxp = page_table.shape[1]
+    if route is None:
+        route = chunk_route(q.dtype, hd, psz, T, H // max(KH, 1))
+    if route == "wgmma":
+        check_wgmma("paged_attention_chunk", q, k_pages, v_pages)
+    elif route != "fma":
+        raise ValueError(f"paged_attention_chunk: no route {route!r}")
     tensors = (q, k_pages, v_pages, page_table, base_lens)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("paged_attention_chunk: all inputs on one CUDA "
@@ -72,13 +135,17 @@ def paged_attention_chunk_cuda(q, k_pages, v_pages, page_table, base_lens):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention_chunk: inputs must be contiguous")
     out = torch.empty_like(q)
-    err = _fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                page_table.data_ptr(), base_lens.data_ptr(), out.data_ptr(),
-                _DTYPES[q.dtype], B, T, H, KH, hd, psz, maxp,
-                torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), base_lens.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "wgmma":
+        err = _wgmma_fn()(*ptrs, B, T, H, KH, hd, psz, maxp, P, stream)
+    else:
+        err = _fn()(*ptrs, _DTYPES[q.dtype], B, T, H, KH, hd, psz, maxp,
+                    stream)
     if err != 0:
-        raise RuntimeError(f"paged_attention_chunk kernel launch failed: "
-                           f"cudaError {err} (hd={hd}, psz={psz})")
+        raise RuntimeError(f"paged_attention_chunk kernel ({route}) launch "
+                           f"failed: cudaError {err} (hd={hd}, psz={psz})")
     return out
 
 
@@ -90,13 +157,17 @@ def paged_attention_chunk(q, k_pages, v_pages, page_table, base_lens):
     if q.device.type == "cpu":
         return paged_attention_chunk_ref(q, k_pages, v_pages, page_table,
                                          base_lens)
+    route = chunk_route(q.dtype, q.shape[-1], k_pages.shape[1], q.shape[1],
+                        q.shape[2] // max(k_pages.shape[2], 1))
     out = paged_attention_chunk_cuda(q, k_pages, v_pages, page_table,
-                                     base_lens)
+                                     base_lens, route)
     paged_attention_chunk.launches += 1
+    paged_attention_chunk.routes[route] += 1
     return out
 
 
 paged_attention_chunk.launches = 0
+paged_attention_chunk.routes = {"wgmma": 0, "fma": 0}
 
 
 def bound_bytes(q, k_pages, page_table, base_lens) -> int:

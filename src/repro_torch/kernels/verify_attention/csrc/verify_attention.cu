@@ -40,7 +40,9 @@
 //   ran.  It visits exactly the items the schedule marks live: resident
 //   slots s < ceil((base + T) / psz).
 //
-// A simple kernel that is right; wgmma and TMA are later work.
+// The route of the float32, hd 16 and page-8 shapes (the smoke
+// configs); bf16 at hd 64 and 128 with pages of 64 takes
+// verify_attention_wgmma.cu (ops.py states the dispatch).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -45,8 +45,10 @@ from ..core.classed_pool import CLS_KV, ClassSpec
 from ..kernels.paged_attention.ops import (paged_attention,
                                           paged_attention_chunk)
 from ..kernels.paged_attention.ref import NEG_INF
-from ..kernels.verify_attention.ops import verify_attention, workspace_numel
-from ..kernels.verify_attention.schedule import build_verify_schedule
+from ..kernels.verify_attention.ops import (verify_attention, verify_route,
+                                            workspace_numel)
+from ..kernels.verify_attention.schedule import (build_verify_schedule,
+                                                 build_verify_units)
 from . import attention as attn
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
@@ -358,11 +360,13 @@ def decode_state_defs(cfg, dp: int, b_local: int, max_len: int,
 class _PagedIndex(NamedTuple):
     """The paged layers' share of a step: the KV write coordinates, the
     kernels' DP-folded page table and base lengths, and on a verify
-    step K3's page-sorted schedule and partials workspace."""
+    step K3's page-sorted schedule, partials workspace and, on its
+    wgmma route, its unit list."""
     write: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # [DP, Bl, T]
     tables: torch.Tensor      # int32 [DP*Bl, maxp], shard d offset d*(P+1)
     base: torch.Tensor        # int32 [DP*Bl]
-    verify: Optional[Tuple[Tuple[torch.Tensor, ...], torch.Tensor]]
+    verify: Optional[Tuple[Tuple[torch.Tensor, ...], torch.Tensor,
+                           Optional[torch.Tensor]]]
 
 
 class _RingIndex(NamedTuple):
@@ -406,12 +410,18 @@ def _paged_index(cfg, state: DecodeState, positions, tok_valid, base,
     base = base.reshape(DP * Bl).contiguous()
     vidx = None
     if verify:
-        # every layer attends over the same table: one schedule and one
-        # workspace per step, not per layer
-        vidx = (build_verify_schedule(tables, base, T, psz),
+        # every layer attends over the same table: one schedule, one
+        # workspace and one unit list per step, not per layer
+        sched = build_verify_schedule(tables, base, T, psz)
+        G = cfg.n_heads // cfg.n_kv_heads
+        units = (build_verify_units(sched[0], T, G)
+                 if verify_route(cfg.tdtype, cfg.hd, psz, T, G) == "wgmma"
+                 else None)
+        vidx = (sched,
                 torch.empty(workspace_numel(DP * Bl, T, cfg.n_heads, cfg.hd,
                                             maxp),
-                            dtype=torch.float32, device=tables.device))
+                            dtype=torch.float32, device=tables.device),
+                units)
     return _PagedIndex((d, pid, (positions % psz).long()), tables, base,
                        vidx)
 

@@ -126,6 +126,103 @@ def test_verify_attention_kernel_vs_plain_and_k1(card, dtype, T, H, KH, hd,
                                        rtol=2.0 ** -7)
 
 
+def _route_case(rng, T, H, KH, hd, B=10, psz=64, maxp=24, P=224, hot=4):
+    """bf16 inputs of the wgmma routes: the lanes map the same ``hot``
+    prefix pages (8 lanes map the first: at T = 64 it holds 8 x 64 rows,
+    8 row tiles of K3), then pages of their own; bases off the page
+    grid; lane 1 idle (all rows masked); lane 2 without the second hot
+    page and lane 3 without its first own page (dead pages inside a
+    run); lane 6 at base 3 with its first page dead (rows that see no
+    key)."""
+    base = rng.randint(hot * psz + 1, (maxp - 2) * psz - T, B)
+    base[base % psz == 0] += 1
+    base[1], base[6] = 0, 3
+    table = np.full((B, maxp), -1, np.int32)
+    avail = list(rng.permutation(P))
+    prefix = [avail.pop() for _ in range(hot)]
+    for b in range(B):
+        for i in range(-(-(int(base[b]) + T) // psz)):
+            table[b, i] = prefix[i] if i < hot and b != 6 else avail.pop()
+    table[1] = -1
+    table[2, 1] = -1
+    table[3, hot] = -1
+    table[6, 0] = -1
+    q, kp, vp = (torch.from_numpy(rng.randn(*s).astype(np.float32))
+                 for s in ((B, T, H, hd), (P, psz, KH, hd),
+                           (P, psz, KH, hd)))
+    return [q.to("cuda", torch.bfloat16), kp.to("cuda", torch.bfloat16),
+            vp.to("cuda", torch.bfloat16), torch.from_numpy(table).cuda(),
+            torch.from_numpy(base.astype(np.int32)).cuda()]
+
+
+def _one_ulp(out, ref):
+    """bf16: within one ulp of the other side (both accumulate in
+    float32 from the same inputs and round once)."""
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-5,
+                               rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [5, 8, 16, 64, 100])
+@pytest.mark.parametrize("H,KH,hd", [(16, 16, 128),   # olmo-1b, G = 1
+                                     (32, 8, 64)])    # llama3.2-1b, G = 4
+def test_wgmma_routes_vs_plain(card, T, H, KH, hd):
+    """K1's and K3's wgmma/TMA kernels through the dispatchers: each
+    within one bf16 ulp of the plain version, K3 within one ulp of K1,
+    rows without a key zero, and two calls on the same inputs
+    bit-equal."""
+    rng = np.random.RandomState(1000 + T + hd)
+    args = _route_case(rng, T, H, KH, hd)
+    assert int((args[3][:, 0] == args[3][0, 0]).sum()) == 8
+    assert ops.chunk_route(torch.bfloat16, hd, 64, T, H // KH) == "wgmma"
+    assert k3.verify_route(torch.bfloat16, hd, 64, T, H // KH) == "wgmma"
+    r1, r3 = ops.paged_attention_chunk.routes["wgmma"], \
+        k3.verify_attention.routes["wgmma"]
+    o1 = ops.paged_attention_chunk(*args)
+    o3 = k3.verify_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.paged_attention_chunk.routes["wgmma"] == r1 + 1
+    assert k3.verify_attention.routes["wgmma"] == r3 + 1
+    ref = plain(*args)
+    for out in (o1, o3):
+        assert out.dtype == torch.bfloat16 and (out[1] == 0).all()
+        assert torch.isfinite(out.float()).all()
+        _one_ulp(out, ref)
+    # lane 6's rows that see only its dead first page
+    assert (o1[6, :61] == 0).all() and (o3[6, :61] == 0).all()
+    _one_ulp(o3, o1)
+    assert torch.equal(o1, ops.paged_attention_chunk(*args))
+    assert torch.equal(o3, k3.verify_attention(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,T,H,KH,hd,psz", [
+    (torch.float32, 5, 4, 2, 16, 8),          # the smoke configs
+    (torch.float32, 64, 16, 16, 128, 64),     # f32 at olmo-1b widths
+    (torch.bfloat16, 5, 4, 2, 16, 8),         # hd 16, pages of 8
+])
+def test_present_kernels_keep_their_shapes(card, dtype, T, H, KH, hd, psz):
+    """float32, hd 16 and pages of 8 still take the present kernels of
+    K1 and K3, and the wgmma wrappers refuse them."""
+    rng = np.random.RandomState(T + hd)
+    args = _hot_case(rng, 8, T, H, KH, hd, psz, 16, 160, dtype)
+    f1, f3 = ops.paged_attention_chunk.routes["fma"], \
+        k3.verify_attention.routes["fma"]
+    o1 = ops.paged_attention_chunk(*args)
+    o3 = k3.verify_attention(*args)
+    torch.cuda.synchronize()
+    assert ops.paged_attention_chunk.routes["fma"] == f1 + 1
+    assert k3.verify_attention.routes["fma"] == f3 + 1
+    tol = 1e-4 if dtype == torch.float32 else 6e-2
+    for out in (o1, o3):
+        torch.testing.assert_close(out.float(), plain(*args).float(),
+                                   atol=tol, rtol=tol)
+    with pytest.raises((TypeError, ValueError)):
+        ops.paged_attention_chunk_cuda(*args, route="wgmma")
+    with pytest.raises((TypeError, ValueError)):
+        k3.verify_attention_cuda(*args, route="wgmma")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,H,KH,hd,psz", [
     (torch.float32, 4, 2, 16, 8),             # smoke widths, G = 2

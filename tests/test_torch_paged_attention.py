@@ -141,3 +141,50 @@ def test_dispatcher_takes_plain_version_on_cpu():
     assert torch.equal(out, plain(*t))
     n = ops.bound_bytes(t[0], t[1], t[3], t[4])
     assert n > 2 * t[0].numel() * 4
+
+
+@pytest.mark.parametrize("dtype,hd,psz,T,G,route", [
+    (torch.bfloat16, 128, 64, 64, 1, "wgmma"),    # olmo-1b, prefill chunk
+    (torch.bfloat16, 128, 64, 1, 1, "wgmma"),     # olmo-1b, T = 1
+    (torch.bfloat16, 64, 64, 64, 4, "wgmma"),     # llama3.2-1b
+    (torch.bfloat16, 128, 64, 5, 2, "wgmma"),     # gemma3-27b, verify width
+    (torch.bfloat16, 128, 64, 100, 4, "wgmma"),   # rows beyond one tile
+    (torch.float32, 128, 64, 64, 1, "fma"),       # f32 at full width
+    (torch.float32, 16, 8, 8, 2, "fma"),          # the smoke configs
+    (torch.bfloat16, 16, 8, 8, 2, "fma"),         # hd 16
+    (torch.bfloat16, 128, 16, 64, 1, "fma"),      # pages of 16
+    (torch.bfloat16, 32, 64, 64, 1, "fma"),       # hd 32
+])
+def test_chunk_route(dtype, hd, psz, T, G, route):
+    """K1's route function picks the documented kernel: the wgmma/TMA
+    one for bf16 at hd 64 or 128 with pages of 64, at every width; the
+    present kernel for everything else."""
+    assert ops.chunk_route(dtype, hd, psz, T, G) == route
+
+
+def _pages(dtype, P=4, psz=64, KH=2, hd=128):
+    return torch.zeros(P, psz, KH, hd, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype,hd,psz,exc", [
+    (torch.float32, 128, 64, TypeError),
+    (torch.bfloat16, 16, 64, ValueError),
+    (torch.bfloat16, 128, 8, ValueError),
+    (torch.bfloat16, 128, 64, ValueError),   # right shapes, CPU tensors
+])
+def test_wgmma_wrapper_raises_on_what_it_does_not_take(dtype, hd, psz, exc):
+    """Asked for the wgmma route, the wrapper raises on a dtype, head
+    dim or page size that kernel does not take (and on CPU tensors)
+    before anything launches; it never falls back to the other kernel."""
+    q = torch.zeros(2, 4, 4, hd, dtype=dtype)
+    kp = _pages(dtype, psz=psz, hd=hd)
+    table = torch.zeros(2, 3, dtype=torch.int32)
+    base = torch.zeros(2, dtype=torch.int32)
+    before = dict(ops.paged_attention_chunk.routes)
+    with pytest.raises(exc):
+        ops.paged_attention_chunk_cuda(q, kp, kp.clone(), table, base,
+                                       route="wgmma")
+    with pytest.raises(ValueError):
+        ops.paged_attention_chunk_cuda(q, kp, kp.clone(), table, base,
+                                       route="mma")
+    assert ops.paged_attention_chunk.routes == before

@@ -2,7 +2,9 @@
 the reference's jnp oracle and its Pallas kernel run in interpret mode,
 on the sweep of ``tests/test_spec_perf.py`` (no / prefix / all page
 overlap, GQA 1-4); the port's device schedule item for item against the
-reference's; the dispatcher's CPU path and byte bound; the chunked
+reference's, and the wgmma route's unit list against one built in numpy
+from the reference's schedule; the route function and the wrapper's
+refusals; the dispatcher's CPU path and byte bound; the chunked
 vocabulary argmax.  The CUDA kernel itself is held against the plain
 version on the card (tests/test_torch_kernels_cuda.py, chip_smoke.py).
 """
@@ -32,6 +34,8 @@ from repro_torch.kernels.verify_attention.ref import \
     verify_attention_ref as plain
 from repro_torch.kernels.verify_attention.schedule import \
     build_verify_schedule as t_schedule
+from repro_torch.kernels.verify_attention.schedule import (
+    build_verify_units, units_capacity)
 from repro_torch.models.layers import logits_apply, logits_argmax_chunked
 
 #: tests/test_spec_perf.py::TestVerifyAttentionKernel::test_vs_ref_sweep
@@ -155,6 +159,104 @@ def test_bound_counts_each_distinct_page_once():
     assert ops.bound_bytes(t[0], t[1], t[3], t[4]) == \
         2 * q.nbytes + 2 * distinct * page_bytes
     assert distinct < int((tbl >= 0).sum())
+
+
+def _units_numpy(pages, TG):
+    """The unit list built by hand from a schedule's pages: runs of
+    equal live pages in order, each cut into ceil(n * TG / 64) tiles."""
+    units, i = [], 0
+    while i < len(pages) and pages[i] >= 0:
+        n = 1
+        while i + n < len(pages) and pages[i + n] == pages[i]:
+            n += 1
+        units += [(i, n, tile) for tile in range(-(-n * TG // 64))]
+        i += n
+    return units
+
+
+#: the sweep, then verify steps whose hot runs need several 64-row tiles
+UNIT_CASES = SWEEP + [
+    (8, 64, 16, 16, 128, 64, 6, 64, "all"),   # olmo-1b widths, chunk
+    (8, 64, 32, 8, 64, 64, 5, 48, "prefix"),  # llama3.2-1b widths, G 4
+    (8, 5, 32, 16, 128, 64, 6, 64, "all"),    # gemma3-27b widths, G 2
+]
+
+
+@pytest.mark.parametrize("B,T,H,KH,hd,psz,maxp,P,overlap", UNIT_CASES)
+def test_units_equal_numpy_construction(B, T, H, KH, hd, psz, maxp, P,
+                                        overlap):
+    """The device unit list of the wgmma route: the same runs, tiles and
+    rows as a numpy construction from the reference's schedule, a dead
+    tail of -1 after them, never more units than the capacity, and
+    every query row of every live item in exactly one unit."""
+    _, _, _, tbl, base = _case(B * 7 + T + psz, B, T, H, KH, hd, psz, maxp,
+                               P, overlap)
+    G = H // KH
+    pages = np.asarray(build_verify_schedule(jnp.asarray(tbl),
+                                             jnp.asarray(base), T, psz)[0])
+    want = _units_numpy(pages, T * G)
+    got = build_verify_units(t_schedule(*_torch(tbl, base), T, psz)[0], T,
+                             G)
+    cap = units_capacity(B * maxp, T, G)
+    assert got.dtype == torch.int32 and got.shape == (cap, 3)
+    assert len(want) <= cap
+    np.testing.assert_array_equal(got[:len(want)].numpy(),
+                                  np.asarray(want, np.int32).reshape(-1, 3))
+    assert (got[len(want):] == -1).all()
+    rows = [(first + rho // (T * G), rho % (T * G))
+            for first, n, tile in got[:len(want)].tolist()
+            for rho in range(64 * tile, min(64 * tile + 64, n * T * G))]
+    live = int((pages >= 0).sum())
+    assert sorted(rows) == [(i, r) for i in range(live)
+                            for r in range(T * G)]
+    if overlap == "all" and T == 64:
+        assert max(n for _, n, _ in want) == B    # a run of every lane
+        assert max(t for _, _, t in want) == B - 1  # ... over B tiles
+
+
+def test_units_fill_the_capacity_at_worst():
+    """Every item its own run, T * G one row past a tile: two units an
+    item, exactly the capacity, and no dead tail."""
+    pages = torch.arange(12, dtype=torch.int32)
+    got = build_verify_units(pages, 65, 1)
+    assert got.shape == (units_capacity(12, 65, 1), 3) == (24, 3)
+    assert got.tolist() == [[i, 1, t] for i in range(12) for t in (0, 1)]
+    empty = build_verify_units(torch.full((6,), -1, dtype=torch.int32), 5, 2)
+    assert (empty == -1).all()
+
+
+@pytest.mark.parametrize("dtype,hd,psz,T,G,route", [
+    (torch.bfloat16, 128, 64, 5, 1, "wgmma"),     # olmo-1b, verify step
+    (torch.bfloat16, 128, 64, 64, 1, "wgmma"),    # drafts on a chunk
+    (torch.bfloat16, 64, 64, 5, 4, "wgmma"),      # llama3.2-1b
+    (torch.float32, 128, 64, 5, 1, "fma"),
+    (torch.float32, 16, 8, 5, 2, "fma"),          # the smoke configs
+    (torch.bfloat16, 16, 8, 5, 2, "fma"),
+    (torch.bfloat16, 128, 32, 5, 1, "fma"),
+])
+def test_verify_route(dtype, hd, psz, T, G, route):
+    """K3's route function picks the documented kernel (K1's rule)."""
+    assert ops.verify_route(dtype, hd, psz, T, G) == route
+
+
+@pytest.mark.parametrize("dtype,hd,psz,exc", [
+    (torch.float32, 128, 64, TypeError),
+    (torch.bfloat16, 16, 64, ValueError),
+    (torch.bfloat16, 128, 8, ValueError),
+    (torch.bfloat16, 128, 64, ValueError),   # right shapes, CPU tensors
+])
+def test_wgmma_wrapper_raises_on_what_it_does_not_take(dtype, hd, psz, exc):
+    """Asked for the wgmma route, the wrapper raises before anything
+    launches on what that kernel does not take; no fallback."""
+    q = torch.zeros(2, 5, 4, hd, dtype=dtype)
+    kp = torch.zeros(4, psz, 2, hd, dtype=dtype)
+    table = torch.zeros(2, 3, dtype=torch.int32)
+    base = torch.zeros(2, dtype=torch.int32)
+    before = dict(ops.verify_attention.routes)
+    with pytest.raises(exc):
+        ops.verify_attention_cuda(q, kp, kp.clone(), table, base,
+                                  route="wgmma")
+    assert ops.verify_attention.routes == before
 
 
 @pytest.fixture(scope="module")
