@@ -14,9 +14,10 @@ Phases, each printed on its own line (any failure fails the run):
    in float32 from the same inputs and round once, within one bf16 ulp
    (2^-7 relative).  K1 (paged attention) at T = 1 and 64; K2 (paged
    decode) at olmo-1b's, llama3.2-1b's and smoke widths, contexts of
-   96-1,087 tokens, with ``zero_empty`` off (a row without keys gets
-   the uniform mean) and on (zeros), and against K1 at T = 1 over
-   base + 1 positions; K3 (verify
+   96-1,087 and 1-2,048 tokens, with ``zero_empty`` off (a row without
+   keys gets the uniform mean) and on (zeros), and against K1 at T = 1
+   over base + 1 positions, bf16 at the first two widths on its tma
+   route, two calls bit-equal; K3 (verify
    attention) at T = 5 and 64 on tables whose lanes share their prefix
    pages, also against K1 on the same inputs; the wgmma/TMA routes of
    K1 and K3 (bf16, hd 64 and 128, pages of 64) at olmo-1b's and
@@ -28,7 +29,9 @@ Phases, each printed on its own line (any failure fails the run):
    (SSD scan, f32 and
    bf16) and K5 (RG-LRU, float32 only) at T = 1 and 64 at full width
    and at smoke width, from a carried state, with inert lanes whose
-   state must stay bit for bit; K6 (causal flash attention) on strided
+   state must stay bit for bit, two calls bit-equal, and K4's wgmma
+   route (bf16, P 64) at T = 3, 16, 64, 100 and 200 and at N = 64, the
+   state within 1e-4; K6 (causal flash attention) on strided
    [B, S, H, hd] views, each of its forward kernels: the wgmma/TMA one
    (bf16, hd 64 and 128) at olmo-1b's and llama3.2-1b's widths, with a
    ragged S and bidirectional, the mma.sync one (bf16, hd 16) and the
@@ -54,8 +57,8 @@ Phases, each printed on its own line (any failure fails the run):
    from ``--seed`` through ``ServingEngine.run``: every request
    finishes, the pool drains leak-free, K1 ran 16 times on each step
    with a prompt lane (each on its wgmma route) and K2 16 times on
-   each decode-only step, no other kernel ran, and each step made
-   exactly one device-to-host transfer;
+   each decode-only step (each on its tma route), no other kernel ran,
+   and each step made exactly one device-to-host transfer;
 6. time K1 (its wgmma route), the present kernel it replaced on the
    same inputs, its plain version, a PyTorch library call for the same
    attention and the bound, at the serving shapes;
@@ -75,14 +78,18 @@ Phases, each printed on its own line (any failure fails the run):
 9. the SSD path: serve mamba2-370m at full width (48 SSD layers, d_model
    1024, 32 heads of 64, state 128, bf16) with two size classes, the
    workload of phase 5, max_len 2048: every request finishes, K4 ran 48
-   times per step and no other kernel ran, one transfer per step, no KV
+   times per step (on its wgmma route at T >= SCAN_WGMMA_MIN_S, its fma
+   route below) and no other kernel ran, one transfer per step, no KV
    page and no state block in use after the drain;
 10. the RG-LRU path: the same for recurrentgemma-2b (18 RG-LRU layers
    and 8 sliding-window layers of window 2048, d_model 2560, bf16) at
    max_len 4096, 16 prompts of 64-3,000 tokens, 4 of them past the
    window: K5 ran 18 times per step;
 11. time K4 and K5 at T = 1 and 64 beside their bounds and plain
-   versions, and print both families' end-to-end rates;
+   versions (K4's wgmma route at T = 2, 3, 4, 16 and 64 beside the
+   fma kernel on the same inputs, with the bytes, the dual form's
+   tensor-core operations and the sequential form's float32
+   operations as bounds), and print both families' end-to-end rates;
 12. the training path: olmo-1b at full depth and width (bf16
    parameters, float32 AdamW state), one micro-batch of 4 sequences of
    2048 tokens from ``TokenStream``, a warm-up step and 5 steps of
@@ -108,8 +115,9 @@ Phases, each printed on its own line (any failure fails the run):
    the flush; again in f32 with and without preemption, where every
    stream must be equal or differ first at a near-tie (top-2 logit gap
    within 1e-4 of the logit scale);
-15. time K2 and K1 at T = 1 on the same inputs beside K2's bound, its
-   plain version and SDPA; serve phase 5's workload with decode-only
+15. time K2 (its tma route, with splits of 1, 2, 4 and 8 pages, and
+   its present fma kernel) and K1 at T = 1 on the same inputs beside
+   K2's bound, its plain version and SDPA; serve phase 5's workload with decode-only
    steps through K1 and through K2 in turns (K1, K2, K2, K1); print the
    kernels line (K1-K6, K6's forward and backward on rows of their
    own).
@@ -146,6 +154,9 @@ os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
+#: the kernels of the port's CUDA sources, by name prefix
+PORT_KERNELS = ("k1_", "k2_", "k3_", "k4_", "fa_", "paged_", "verify_",
+                "ssd_scan_", "rg_lru_")
 #: bf16: kernel and plain version may differ by one ulp of the output
 BF16_ULP_RTOL, BF16_ULP_ATOL = 2.0 ** -7, 1e-5
 
@@ -160,13 +171,15 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def cuda_ms(fn, iters: int = 40, warmup: int = 3):
+def cuda_ms(fn, iters: int = 40, warmup: int = 3, enqueue=False):
     """(device ms, host ms) of one call of ``fn``.  The device time is
     taken by CUDA events around ``iters`` back-to-back calls that the
     host enqueued while a sleep kernel held the card, so the host's
     cost per call (the Python wrapper, the launches) does not show in
     it; the host time is the wall time per call of the same loop run
-    plainly, which is what a caller that waits for it pays."""
+    plainly, which is what a caller that waits for it pays.  With
+    ``enqueue``, also the host's own time per call: the wall time of
+    that enqueue, which the sleeping card does not hold up."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -180,11 +193,14 @@ def cuda_ms(fn, iters: int = 40, warmup: int = 3):
     # at most 2 GHz: the sleep outlasts the enqueue at any SM clock
     torch.cuda._sleep(int(2e9 * (2 * host_s + 1e-3)))
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    enqueue_s = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters, 1e3 * host_s / iters
+    out = (start.elapsed_time(end) / iters, 1e3 * host_s / iters)
+    return out + (1e3 * enqueue_s / iters,) if enqueue else out
 
 
 def attn_case(rng, B, T, H, KH, hd, psz, maxp, P, dtype, base=None,
@@ -412,8 +428,10 @@ def check_k2(ops, plain2, rng, cfgs, b_local, maxp, P):
     plain version with ``zero_empty`` off (lane 1 has no valid key and
     must get the uniform mean of what it gathers) and on (zeros), and
     against K1 at T = 1 with ``base + 1`` on the same inputs; contexts
-    of 96-1,087 tokens at full width.  Returns the worst bf16 error
-    against the plain version."""
+    of 96-1,087 tokens at full width, and of 1-2,048 tokens; bf16 at
+    olmo-1b's and llama3.2-1b's widths on the tma route, float32 and the
+    smoke widths on the fma kernel; two calls bit-equal.  Returns the
+    worst bf16 error against the plain version."""
     worst = 0.0
     full, llama, smoke = (dict(H=c.n_heads, KH=c.n_kv_heads, hd=c.hd,
                                psz=c.page_size) for c in cfgs)
@@ -421,24 +439,37 @@ def check_k2(ops, plain2, rng, cfgs, b_local, maxp, P):
     llama.update(maxp=maxp, P=P)
     smoke.update(maxp=8, P=72)
     ctx = lambda: rng.randint(64 + 32, 1024 + 64, b_local)  # noqa: E731
+    wide = rng.randint(0, 2048, b_local)       # contexts of 1-2,048 tokens
+    wide[0], wide[4] = 0, 2047
     cases = [("full bf16", full, ctx(), torch.bfloat16),
              ("full f32", full, ctx(), torch.float32),
              ("llama3.2-1b widths bf16 (G=4, hd 64)", llama, ctx(),
               torch.bfloat16),
-             ("smoke f32 (G=2)", smoke, None, torch.float32)]
+             ("smoke f32 (G=2)", smoke, None, torch.float32),
+             ("full bf16, contexts 1-2048", full, wide, torch.bfloat16),
+             ("llama3.2-1b widths bf16, contexts 1-2048", llama, wide,
+              torch.bfloat16)]
     for name, shp, base, dt in cases:
         q, kp, vp, table, base = attn_case(rng, b_local, 1, dtype=dt,
                                            base=base, masked=(1,),
                                            dead=((2, 0),), **shp)
         q2, lens = q[:, 0].contiguous(), base + 1
+        route = ops.decode_route(dt, shp["hd"], shp["psz"],
+                                 shp["H"] // shp["KH"])
         errs = []
         for zero_empty in (False, True):
             before = ops.paged_attention.launches
+            on_route = ops.paged_attention.routes[route]
             out = ops.paged_attention(q2, kp, vp, table, lens,
                                       zero_empty=zero_empty)
             torch.cuda.synchronize()
-            check(ops.paged_attention.launches == before + 1,
-                  f"K2 {name}: the dispatcher launched the kernel once")
+            check(ops.paged_attention.launches == before + 1
+                  and ops.paged_attention.routes[route] == on_route + 1,
+                  f"K2 {name}: the dispatcher launched the kernel of the "
+                  f"{route} route once")
+            check(torch.equal(out, ops.paged_attention_cuda(
+                q2, kp, vp, table, lens, zero_empty, route)),
+                f"K2 {name}: two calls bit-equal")
             check(bool(torch.isfinite(out.float()).all()),
                   f"K2 {name}: finite")
             refs = [("plain", ops.paged_attention_ref(
@@ -466,11 +497,12 @@ def check_k2(ops, plain2, rng, cfgs, b_local, maxp, P):
         tol = f"tol {TOL[dt]:g}" + (
             f" and one ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}"
             if dt == torch.bfloat16 else "")
-        phase(f"[3] K2 {name}: max_abs_err vs plain {errs[0]:.3e} "
-              f"(zero_empty off, lane 1 the uniform mean), {errs[1]:.3e} "
-              f"(on, lane 1 zeros), vs K1 at T=1 {errs[2]:.3e}; max|ref| "
-              f"{out.float().abs().max().item():.3e} ({tol}); contexts "
-              f"{int(lens.min())}-{int(lens.max())}")
+        phase(f"[3] K2 {name} ({route} route): max_abs_err vs plain "
+              f"{errs[0]:.3e} (zero_empty off, lane 1 the uniform mean), "
+              f"{errs[1]:.3e} (on, lane 1 zeros), vs K1 at T=1 "
+              f"{errs[2]:.3e}; max|ref| {out.float().abs().max().item():.3e}"
+              f" ({tol}); contexts {int(lens.min())}-{int(lens.max())}; "
+              f"two calls bit-equal")
         if dt == torch.bfloat16:
             worst = max(worst, errs[0], errs[1])
     return worst
@@ -502,20 +534,31 @@ def scan_case(rng, kind, dims, dtype):
     return [a, b], f(B, d)
 
 
-def check_scan(name, fn, plain, kind, cases, rng):
+def check_scan(name, fn, plain, kind, cases, rng, route_of=None):
     """Phase 3: K4 or K5, through the dispatcher the engine calls, from a
     carried state and with inert lanes, against its plain version on
-    the card.  Returns the worst error of the output over the cases."""
-    worst = 0.0
+    the card; two calls on the same inputs bit-equal.  ``route_of(dims,
+    dtype)``, for a kernel with routes, names the one each case must
+    take.  Returns the worst error of the output over the cases, by
+    route when it has routes."""
+    worst = {}
     for label, dims, dt in cases:
         args, h0 = scan_case(rng, kind, dims, dt)
         h = h0.clone()
         before = fn.launches
+        route = route_of(dims, dt) if route_of else None
+        on_route = fn.routes[route] if route else 0
         out, h_out = fn(*args, h)
         torch.cuda.synchronize()
         check(fn.launches == before + 1 and h_out is h,
               f"{name} {label}: the dispatcher launched the kernel once and "
               f"updated the state in place")
+        if route:
+            check(fn.routes[route] == on_route + 1,
+                  f"{name} {label}: the {route} route")
+        h2 = h0.clone()
+        check(torch.equal(fn(*args, h2)[0], out) and torch.equal(h2, h),
+              f"{name} {label}: two calls bit-equal")
         ref, h_ref = plain(*args, h0)
         check(bool(torch.isfinite(out.float()).all())
               and bool(torch.isfinite(h).all()), f"{name} {label}: finite")
@@ -536,11 +579,12 @@ def check_scan(name, fn, plain, kind, cases, rng):
             tol += f" and one ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}"
         err = (out.float() - ref.float()).abs().max().item()
         herr = (h - h_ref).abs().max().item()
-        phase(f"[3] {name} {label}: max_abs_err {err:.3e} (state "
+        via = f" ({route} route)" if route else ""
+        phase(f"[3] {name} {label}{via}: max_abs_err {err:.3e} (state "
               f"{herr:.3e}), max|ref| {ref.float().abs().max().item():.3e} "
-              f"({tol}); inert lane bit-equal")
-        worst = max(worst, err)
-    return worst
+              f"({tol}); inert lane bit-equal; two calls bit-equal")
+        worst[route] = max(worst.get(route, 0.0), err)
+    return worst if route_of else worst[None]
 
 
 def check_engine_vs_cpu(tengine, cfg_smoke, seed, name="smoke engine",
@@ -726,6 +770,7 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     runs K2 instead, once per layer.
     ``profile_reqs``, when given, are served again under the profiler.
     Returns the run's numbers."""
+    from repro_torch.kernels.ssd_scan.ops import SCAN_WGMMA_MIN_S
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.model import init_params
 
@@ -765,6 +810,7 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     steps0, transfers0 = eng.stats["steps"], eng.host_transfers
     tokens0, prompt0 = eng.stats["tokens_out"], eng.stats["prompt_tokens"]
     width1_0 = eng.stats["chunk_hist"].get(1, 0)
+    hist0 = dict(eng.stats["chunk_hist"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for r in reqs:
@@ -808,9 +854,23 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     check(transfers == steps, f"{tag}: one transfer per step ({transfers}, "
                               f"{steps})")
     k1_routes = dict(counted["K1"].routes)
+    k2_routes, k4_routes = dict(counted["K2"].routes), dict(
+        counted["K4"].routes)
     if kernel == "K1" and cfg.dtype == "bfloat16":
         check(k1_routes["wgmma"] == launches["K1"],
               f"{tag}: every K1 launch took the wgmma route ({k1_routes})")
+        check(k2_routes["tma"] == launches["K2"],
+              f"{tag}: every K2 launch took the tma route ({k2_routes})")
+    if kernel == "K4" and cfg.dtype == "bfloat16":
+        # steps by width T: T >= SCAN_WGMMA_MIN_S on the wgmma route
+        hist = {w: n - hist0.get(w, 0)
+                for w, n in eng.stats["chunk_hist"].items()}
+        wide = sum(n for w, n in hist.items() if w >= SCAN_WGMMA_MIN_S)
+        check(k4_routes["wgmma"] == n_layers * wide > 0
+              and k4_routes["fma"] == launches["K4"] - n_layers * wide,
+              f"{tag}: every K4 launch at T >= SCAN_WGMMA_MIN_S took the "
+              f"wgmma route, the others the fma route ({k4_routes}, steps "
+              f"by width {hist})")
     in_use = [eng.blocks_in_use(c) for c in range(eng.n_classes)]
     check(not any(in_use) and eng.leak_free(),
           f"{tag}: no KV page and no state block in use after the drain")
@@ -818,8 +878,8 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
                       f"{n // n_layers} steps" for k, n in want.items())
     phase(f"{tag}: served {len(reqs)} requests: {steps} steps ("
           f"{decode_steps} decode-only), {tokens} tokens out, {prompt} "
-          f"prompt tokens, wall {wall:.3f} s; {split} (K1 by route "
-          f"{k1_routes}), other kernels "
+          f"prompt tokens, wall {wall:.3f} s; {split} (by route: K1 "
+          f"{k1_routes}, K2 {k2_routes}, K4 {k4_routes}), other kernels "
           f"{sum(launches.values()) - sum(want.values())}"
           f"; device->host transfers {transfers} (1 per step), "
           f"synchronizing calls in one step under sync-debug mode: "
@@ -831,7 +891,8 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
           f"{1e3 * wall / steps:.2f} ms/step")
     out = dict(launches=launches[kernel], steps=steps, tok_s=tokens / wall,
                ms_step=1e3 * wall / steps, n_layers=n_layers,
-               k2=launches.get("K2", 0), decode_steps=decode_steps)
+               k2=launches.get("K2", 0), decode_steps=decode_steps,
+               k4_routes=k4_routes)
     if profile_reqs is not None:
         profile_serve(eng, profile_reqs, f"{tag} [p]")
     del eng, params
@@ -840,37 +901,52 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
 
 
 def time_scan(kind, fn_cuda, plain, bound_bytes, flops, dims, n_layers, rng,
-              dtype):
+              dtype, present=None, tensor_flops=None, with_plain=True):
     """Phase 11: K4 or K5 (``fn_cuda`` launches it on inputs and a state)
     and its plain version at one serving shape, beside the bound.  Each
     layer has its own state, so the timing cycles through ``n_layers``
     inputs and states and reads them cold, as a step does.  No single
-    PyTorch call computes either recurrence: no library time."""
+    PyTorch call computes either recurrence: no library time.
+    ``present``, when given, launches the kernel a route replaced, timed
+    on the same inputs.  ``flops`` counts float32 operations (at the
+    card's float32 peak), ``tensor_flops``, when given, the kernel's
+    bf16 tensor-core ones instead (the bound then takes those)."""
     layers = []
     for _ in range(n_layers):
         args, h = scan_case(rng, kind, dims, dtype)
         layers.append((args, h))
     it = iter(range(10 ** 9))
 
-    def kern():
-        args, h = layers[next(it) % n_layers]
-        fn_cuda(*args, h)
+    def timed(fn):
+        def call():
+            args, h = layers[next(it) % n_layers]
+            fn(*args, h)
+        return call
 
-    def ref():
-        args, h = layers[next(it) % n_layers]
-        plain(*args, h)
-
-    ms, host_ms = cuda_ms(kern, iters=4 * n_layers)
-    plain_ms, _ = cuda_ms(ref, iters=n_layers, warmup=1)
+    ms, host_ms, enq = cuda_ms(timed(fn_cuda), iters=4 * n_layers,
+                               enqueue=True)
+    extra = {"enqueue_ms": enq}
+    if present is not None:
+        (extra["present_ms"], extra["present_host_ms"],
+         extra["present_enqueue_ms"]) = cuda_ms(
+            timed(present), iters=4 * n_layers, enqueue=True)
+    plain_ms = (cuda_ms(timed(plain), iters=n_layers, warmup=1)[0]
+                if with_plain else None)
     args, h = layers[0]
     nbytes = bound_bytes(args, h)
     nflops = flops(args)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * nflops / PEAK_OPS[torch.float32]
+    f32_ms = 1e3 * nflops / PEAK_OPS[torch.float32]
+    ops_ms = f32_ms
+    if tensor_flops is not None:
+        extra["tensor_flops"] = tensor_flops(args)
+        ops_ms = 1e3 * extra["tensor_flops"] / PEAK_OPS[torch.bfloat16]
+    extra["bounds"] = {"bytes_ms": bytes_ms, "f32_ops_ms": f32_ms,
+                       "ops_ms": ops_ms}
     return dict(T=dims[1], ms=ms, host_ms=host_ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                bytes=nbytes, flops=nflops)
+                bytes=nbytes, flops=nflops, **extra)
 
 
 def hot_prefix_prompts(cfg, seed, n=32):
@@ -1047,11 +1123,14 @@ def serve_entry_point(counted, smi):
     phase(f"[14a] python -m repro_torch.launch.serve {' '.join(argv)}")
     for fn in counted.values():
         fn.launches = 0
+        for route in getattr(fn, "routes", {}):
+            fn.routes[route] = 0
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         eng = serve.main(argv)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counted.items()}
+    k2_routes = dict(counted["K2"].routes)
     for line in out.getvalue().splitlines():
         phase(f"[14a] | {line}")
     st = eng.stats
@@ -1072,6 +1151,8 @@ def serve_entry_point(counted, smi):
           and sum(launches.values()) == n_layers * steps,
           f"[14a]: K1 + K2 launches = {n_layers} x steps ({launches}, "
           f"{steps} steps, {decode_steps} decode-only)")
+    check(k2_routes["tma"] == launches["K2"],
+          f"[14a]: every K2 launch took the tma route ({k2_routes})")
     check(eng.page_occupancy() == 0.0 and eng.leak_free(),
           "[14a]: no page in use after the drain and flush_pins")
     check(margin is not None and margin >= 0, f"[14a]: never-dry margin "
@@ -1080,7 +1161,8 @@ def serve_entry_point(counted, smi):
           f"latency {1e3 * lat['p50_s']:.0f} ms, p50 time to first token "
           f"{1e3 * lat['first_token_p50_s']:.0f} ms; {steps} steps "
           f"({decode_steps} decode-only); K1 launches {launches['K1']}, K2 "
-          f"launches {launches['K2']} (= {n_layers} x {steps}); transfers "
+          f"launches {launches['K2']} (= {n_layers} x {steps}; K2 by route "
+          f"{k2_routes}); transfers "
           f"{eng.host_transfers} = steps, admission_transfers "
           f"{eng.admission_transfers}; pins created {st['pins_created']}, "
           f"pin hits {st['pin_hit_reqs']}, preemptions "
@@ -1093,33 +1175,25 @@ def serve_entry_point(counted, smi):
     return out
 
 
-def decode_route_ab(tengine, ops, cfg, seed, b_local, max_len, chunk,
-                    smi):
-    """Phase 15: phase 5's workload served four times on one warm
-    engine, decode-only steps through K1 at T = 1 (the route before K2)
-    and through K2, in turns K1, K2, K2, K1 on one card; generated tok/s
-    and ms/step of each.  K1 at T = 1 over ``base`` is K2 over ``base +
-    1`` with ``zero_empty``, so both routes compute the same function."""
-    from repro_torch.models import transformer
+def route_ab(tag, tengine, cfg, seed, b_local, max_len, chunk, smi,
+             routes, order, size_classes=1):
+    """Phase 5's workload served once for each name of ``order`` on one
+    warm engine, ``routes[name]()`` first choosing how a kernel of the
+    step runs (``routes[None]()`` restores the default after); generated
+    tok/s and ms/step of each run, the names in turns on one card."""
     from repro_torch.models.model import init_params
-
-    k2 = transformer.paged_attention
-
-    def via_k1(q, kp, vp, table, seq_lens, zero_empty):
-        return ops.paged_attention_chunk(q[:, None].contiguous(), kp, vp,
-                                         table, seq_lens - 1)[:, 0]
 
     params = init_params(cfg, seed=seed, device="cuda")
     eng = tengine.ServingEngine(cfg, params, dp=1, b_local=b_local,
                                 max_len=max_len, chunk_size=chunk,
-                                device="cuda")
+                                size_classes=size_classes, device="cuda")
     eng.submit(tengine.Request(10**6, prompt=[1] * (chunk + 1),
                                max_new_tokens=3))
     eng.run(max_steps=100)
-    rates, tokens = {"K1": [], "K2": []}, {}
+    rates, tokens = {name: [] for name in order}, {}
     try:
-        for route in ("K1", "K2", "K2", "K1"):
-            transformer.paged_attention = k2 if route == "K2" else via_k1
+        for name in order:
+            routes[name]()
             reqs = make_requests(tengine, cfg, seed)
             steps0, out0 = eng.stats["steps"], eng.stats["tokens_out"]
             torch.cuda.synchronize()
@@ -1130,23 +1204,54 @@ def decode_route_ab(tengine, ops, cfg, seed, b_local, max_len, chunk,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             steps = eng.stats["steps"] - steps0
-            check(all(r.done for r in reqs), f"[15] {route} route finished")
-            rates[route].append(((eng.stats["tokens_out"] - out0) / wall,
-                                 1e3 * wall / steps))
-            tokens[route] = [r.out_tokens for r in reqs]
+            check(all(r.done for r in reqs), f"{tag} {name}: finished")
+            rates[name].append(((eng.stats["tokens_out"] - out0) / wall,
+                                1e3 * wall / steps))
+            tokens[name] = [r.out_tokens for r in reqs]
     finally:
-        transformer.paged_attention = k2
-    same = sum(a == b for a, b in zip(tokens["K1"], tokens["K2"]))
-    for route, runs in rates.items():
-        phase(f"[15] phase 5's workload, decode-only steps through "
-              f"{route}, on {smi}: "
-              + ", ".join(f"{r:.1f} generated tok/s ({ms:.2f} ms/step)"
-                          for r, ms in runs))
-    phase(f"[15] {same} of {len(tokens['K1'])} streams identical between "
-          f"the routes (bf16: near-ties may flip)")
+        routes[None]()
+    for name, runs in rates.items():
+        phase(f"{tag} {cfg.name}, phase 5's workload through {name}, on "
+              f"{smi}: " + ", ".join(f"{r:.1f} generated tok/s ({ms:.2f} "
+                                     f"ms/step)" for r, ms in runs))
+    first = tokens[order[0]]
+    for name in rates:
+        same = sum(a == b for a, b in zip(first, tokens[name]))
+        phase(f"{tag} {same} of {len(first)} streams identical between "
+              f"{order[0]} and {name} (bf16: near-ties may flip)")
     del eng, params
     torch.cuda.empty_cache()
     return rates
+
+
+def decode_route_ab(tengine, ops, cfg, seed, b_local, max_len, chunk,
+                    smi):
+    """Phase 15: decode-only steps through K1 at T = 1 (the route before
+    K2), through K2's tma route and through its fma kernel, in turns
+    (:func:`route_ab`).  K1 at T = 1 over ``base`` is K2 over ``base +
+    1`` with ``zero_empty``, so all compute the same function."""
+    from repro_torch.models import transformer
+
+    k2 = transformer.paged_attention
+
+    def via_k1(q, kp, vp, table, seq_lens, zero_empty):
+        return ops.paged_attention_chunk(q[:, None].contiguous(), kp, vp,
+                                         table, seq_lens - 1)[:, 0]
+
+    def via_fma(q, kp, vp, table, seq_lens, zero_empty):
+        return ops.paged_attention_cuda(q, kp, vp, table, seq_lens,
+                                        zero_empty, "fma")
+
+    def use(fn):
+        def set_():
+            transformer.paged_attention = fn
+        return set_
+
+    return route_ab("[15]", tengine, cfg, seed, b_local, max_len, chunk, smi,
+                    {"K1": use(via_k1), "K2 (tma)": use(k2),
+                     "K2 (fma)": use(via_fma), None: use(k2)},
+                    ("K1", "K2 (tma)", "K2 (fma)", "K2 (fma)", "K2 (tma)",
+                     "K1"))
 
 
 def top2_gap(cfg, params, context):
@@ -1300,9 +1405,13 @@ def profiled(run, tag="[p]"):
           f"({1e3 * wall / steps:.2f} ms/step), kernels "
           f"{busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}% of "
           f"wall), {launches / steps:.0f} kernels/step")
-    for key, count, t in sorted(kernels, key=lambda r: -r[2])[:10]:
-        phase(f"{tag} device {t / 1e3 / steps:8.3f} ms/step {count:7d}x "
-              f"{key[:80]}")
+    ranked = sorted(kernels, key=lambda r: -r[2])
+    # the ten largest, and every kernel of the port's own sources
+    for i, (key, count, t) in enumerate(ranked):
+        if i < 10 or any(f"(anonymous namespace)::{k}" in key
+                         for k in PORT_KERNELS):
+            phase(f"{tag} device {t / 1e3 / steps:8.3f} ms/step {count:7d}x "
+                  f"{key[:80]}")
     for key, count, t in sorted(ops, key=lambda r: -r[2])[:10]:
         phase(f"{tag} host   {t / 1e3 / steps:8.3f} ms/step {count:7d}x "
               f"{key[:80]}")
@@ -1322,8 +1431,10 @@ def profile_serve(eng, reqs, tag="[p]"):
 
 
 def device_split(fn, n):
-    """Device ms a call of ``fn`` by kernel name, from ``torch.profiler``
-    over ``n`` calls."""
+    """Device ms a launch by kernel name, from ``torch.profiler`` over
+    ``n`` calls of ``fn``.  Averaged over the launches the profiler saw:
+    after an earlier profiler run in the same process (``--profile``)
+    it has been seen to miss some of them."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1332,13 +1443,14 @@ def device_split(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / n
+    return {e.key: e.self_device_time_total / 1e3 / e.count
             for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.count > 0}
 
 
 def time_kernel(kernel, bound_bytes, plain, rng, cfg, b_local, maxp, P, T,
-                base, hot=0, present=None, split=False):
+                base, hot=0, present=None, split=False, variants=None):
     """Phases 6 and 8: a kernel, its plain version, SDPA over
     pre-gathered dense K/V with the same mask, and the bound, at one
     serving shape.  ``kernel(*inputs)`` returns a callable that
@@ -1348,7 +1460,8 @@ def time_kernel(kernel, bound_bytes, plain, rng, cfg, b_local, maxp, P, T,
     same inputs.  Each of the model's layers has its own pages, so the
     timing cycles through that many K/V arrays and reads them cold from
     HBM, as a step does.  ``split``: also the device time of each
-    kernel a call launches, under the profiler."""
+    kernel a call launches, under the profiler.  ``variants``: more
+    makers like ``kernel``, by name, timed on the same inputs."""
     H, KH, hd, psz = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.page_size
     dt = cfg.tdtype
     layers = [attn_case(rng, b_local, T, H, KH, hd, psz, maxp, P, dt,
@@ -1386,15 +1499,21 @@ def time_kernel(kernel, bound_bytes, plain, rng, cfg, b_local, maxp, P, T,
         torch.nn.functional.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=KH != H)
 
-    ms, host_ms = cuda_ms(kern, iters=4 * cfg.n_layers)
+    ms, host_ms, enq = cuda_ms(kern, iters=4 * cfg.n_layers, enqueue=True)
     plain_ms, _ = cuda_ms(ref, iters=cfg.n_layers, warmup=1)
     library_ms, _ = cuda_ms(lib, iters=4 * cfg.n_layers)
-    extra = {}
+    extra = {"enqueue_ms": enq}
     if present is not None:
-        p_ms, p_host_ms = cuda_ms(kern_present, iters=4 * cfg.n_layers)
-        extra.update(present_ms=p_ms, present_host_ms=p_host_ms)
+        p_ms, p_host_ms, p_enq = cuda_ms(kern_present,
+                                         iters=4 * cfg.n_layers, enqueue=True)
+        extra.update(present_ms=p_ms, present_host_ms=p_host_ms,
+                     present_enqueue_ms=p_enq)
     if split:
-        extra["split"] = device_split(kern, 2 * cfg.n_layers)
+        extra["split"] = device_split(kern, 8 * cfg.n_layers)
+    for name, maker in (variants or {}).items():
+        made = [maker(*layer) for layer in layers]
+        extra.setdefault("variants", {})[name] = cuda_ms(
+            lambda: made[next(it) % len(made)](), iters=4 * cfg.n_layers)
     q, kp, vp, table, bl = layers[0]
     nbytes = bound_bytes(q, kp, table, bl)
     pairs = sum(int(b) + t + 1 for b in base for t in range(T))
@@ -1877,8 +1996,9 @@ def main() -> int:
     # [2] build the kernels from this checkout's sources, in parallel
     t0 = time.perf_counter()
     stems = ("paged_attention", "paged_attention_wgmma", "paged_decode",
-             "verify_attention", "verify_attention_wgmma", "ssd_scan",
-             "rg_lru", "flash_attention", "flash_attention_bwd")
+             "paged_decode_tma", "verify_attention", "verify_attention_wgmma",
+             "ssd_scan", "ssd_scan_wgmma", "rg_lru", "flash_attention",
+             "flash_attention_bwd")
     build.load_all(stems)
     for stem in stems:
         for line in build.logs.get(stem, "").splitlines():
@@ -1916,13 +2036,20 @@ def main() -> int:
                 c.ssd_state)
 
     bf, f32 = torch.bfloat16, torch.float32
+    n64 = ssd_dims(mamba, 64)[:4] + (64,)
     err4 = check_scan("K4", k4.ssd_scan, ssd_scan_ref, "ssd", [
         ("full T=1 bf16", ssd_dims(mamba, 1), bf),
         ("full T=64 bf16", ssd_dims(mamba, 64), bf),
         ("full T=1 f32", ssd_dims(mamba, 1), f32),
         ("full T=64 f32", ssd_dims(mamba, 64), f32),
         ("smoke T=8 f32", ssd_dims(mamba_smoke, 8), f32),
-        ("smoke T=1 f32", ssd_dims(mamba_smoke, 1), f32)], rng)
+        ("smoke T=1 f32", ssd_dims(mamba_smoke, 1), f32),
+        ("full T=3 bf16", ssd_dims(mamba, 3), bf),
+        ("full T=16 bf16", ssd_dims(mamba, 16), bf),
+        ("full T=100 bf16 (a masked last chunk)", ssd_dims(mamba, 100), bf),
+        ("full T=200 bf16 (four chunks)", ssd_dims(mamba, 200), bf),
+        ("T=64 N=64 bf16", n64, bf)], rng,
+        route_of=lambda d, dt: k4.scan_route(dt, d[1], d[3], d[4]))
     # K5's a and b are float32 in a bf16 model too
     err5 = check_scan("K5", k5.rg_lru, rg_lru_ref, "rglru", [
         ("full T=1 f32", (b_local, 1, rgemma.d_model), f32),
@@ -2045,25 +2172,80 @@ def main() -> int:
     def k4_bytes(a, h):
         return k4.bound_bytes(a[0], a[1], a[3], h)
 
-    k4_times = [time_scan("ssd", k4.ssd_scan_cuda, ssd_scan_ref, k4_bytes,
-                          lambda a: k4.flops(a[0], a[3]), ssd_dims(mamba, T),
-                          mamba.n_layers, rng, bf) for T in (1, 64)]
+    def k4_route(route):
+        return lambda *a: k4.ssd_scan_cuda(*a, route=route)
+
+    def k4_time(T, route, present=None, with_plain=True):
+        return time_scan(
+            "ssd", k4_route(route), ssd_scan_ref, k4_bytes,
+            lambda a: k4.flops(a[0], a[3]), ssd_dims(mamba, T),
+            mamba.n_layers, rng, bf, present=present,
+            tensor_flops=(lambda a: k4.dual_flops(a[0], a[3]))
+            if route == "wgmma" else None, with_plain=with_plain)
+
+    check(k4.scan_route(bf, 1, mamba.ssd_head_dim, mamba.ssd_state) == "fma"
+          and k4.scan_route(bf, 64, mamba.ssd_head_dim,
+                            mamba.ssd_state) == "wgmma",
+          "K4: T = 1 on the fma route, T = 64 on the wgmma route")
+    k4_times = [k4_time(1, "fma"),
+                k4_time(64, "wgmma", present=k4_route("fma"))]
+    check(k4_times[1]["ms"] < k4_times[1]["present_ms"],
+          "K4 at T = 64: the wgmma route faster than the fma kernel on the "
+          "same inputs")
+    # both routes at a few widths: where the wgmma route starts to pay
+    k4_sweep = [k4_time(T, "wgmma", present=k4_route("fma"),
+                        with_plain=False) for T in (2, 3, 4, 16)]
     k5_times = [time_scan("rglru", k5.rg_lru_cuda, rg_lru_ref,
                           lambda a, h: k5.bound_bytes(a[0], h),
                           lambda a: k5.flops(a[0]),
                           (b_local, T, rgemma.d_model), run5["n_layers"], rng,
                           f32) for T in (1, 64)]
-    for name, shape, ts in (
-            ("K4", f"B={b_local} H={ssd_dims(mamba, 1)[2]} "
-                   f"P={mamba.ssd_head_dim} N={mamba.ssd_state} bf16 x",
-             k4_times),
-            ("K5", f"B={b_local} d={rgemma.d_model} f32", k5_times)):
-        for t in ts:
-            phase(f"[11] {name} T={t['T']} {shape} on {smi}: kernel "
-                  f"{t['ms']:.4f} ms (host {t['host_ms']:.4f} ms a call), "
-                  f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
-                  f"{t['bytes']} B, {t['flops']} flop), plain "
-                  f"{t['plain_ms']:.4f} ms, library: no single PyTorch call")
+    k4_shape = (f"B={b_local} H={ssd_dims(mamba, 1)[2]} "
+                f"P={mamba.ssd_head_dim} N={mamba.ssd_state} bf16 x")
+    t = k4_times[0]
+    phase(f"[11] K4 T=1 {k4_shape} on {smi}: kernel (fma route) "
+          f"{t['ms']:.4f} ms (host {t['host_ms']:.4f} ms a call, its "
+          f"enqueue {t['enqueue_ms']:.4f} ms), bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
+          f"{t['flops']} float32 flop), plain {t['plain_ms']:.4f} ms, "
+          f"library: no single PyTorch call")
+    for t in k4_times[1:] + k4_sweep:
+        b = t["bounds"]
+        plain_txt = (f", plain {t['plain_ms']:.4f} ms"
+                     if t["plain_ms"] is not None else "")
+        phase(f"[11] K4 T={t['T']} {k4_shape} on {smi}: kernel (wgmma "
+              f"route) {t['ms']:.4f} ms (host {t['host_ms']:.4f} ms a "
+              f"call, its enqueue {t['enqueue_ms']:.4f} ms), present "
+              f"kernel (fma route) {t['present_ms']:.4f} ms (host "
+              f"{t['present_host_ms']:.4f} ms a call, its enqueue "
+              f"{t['present_enqueue_ms']:.4f} ms); bounds: bytes "
+              f"{b['bytes_ms']:.4f} ms ({t['bytes']} B), the dual form's "
+              f"tensor-core operations {b['ops_ms']:.4f} ms "
+              f"({t['tensor_flops']} flop), the sequential form's float32 "
+              f"operations {b['f32_ops_ms']:.4f} ms ({t['flops']} flop): "
+              f"{t['bound_by']} bind the wgmma route at "
+              f"{t['bound_ms']:.4f} ms{plain_txt}; library: no single "
+              f"PyTorch call")
+    for t in k5_times:
+        phase(f"[11] K5 T={t['T']} B={b_local} d={rgemma.d_model} f32 on "
+              f"{smi}: kernel {t['ms']:.4f} ms (host {t['host_ms']:.4f} ms "
+              f"a call), bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
+              f"{t['bytes']} B, {t['flops']} flop), plain "
+              f"{t['plain_ms']:.4f} ms, library: no single PyTorch call")
+    # end to end: K4 from SCAN_WGMMA_MIN_S tokens through the fma kernel
+    # and through the wgmma route, in turns on one warm engine
+    def k4_min_s(n):
+        def set_():
+            k4.SCAN_WGMMA_MIN_S = n
+        return set_
+
+    wgmma_from = f"K4 (wgmma from T={k4.SCAN_WGMMA_MIN_S})"
+    route_ab("[11]", tengine, mamba, args.seed, b_local, 2048, chunk, smi,
+             {"K4 (fma)": k4_min_s(10 ** 9),
+              wgmma_from: k4_min_s(k4.SCAN_WGMMA_MIN_S),
+              None: k4_min_s(k4.SCAN_WGMMA_MIN_S)},
+             ("K4 (fma)", wgmma_from, wgmma_from, "K4 (fma)"),
+             size_classes=2)
     for name, r in (("mamba2-370m", run4), ("recurrentgemma-2b", run5)):
         phase(f"[11] end-to-end {name} on {smi}: {r['tok_s']:.1f} generated "
               f"tok/s, {r['ms_step']:.2f} ms/step")
@@ -2088,10 +2270,12 @@ def main() -> int:
 
     # [15] K2 and K1 at T = 1 on the same inputs (decode at contexts of
     # 96-1,087 tokens), beside K2's bound, plain version and SDPA
-    def k2_call(q, kp, vp, table, base):
-        q2, lens = q[:, 0].contiguous(), base + 1
-        return lambda: ops.paged_attention_cuda(q2, kp, vp, table, lens,
-                                                True)
+    def k2_route(route, pages_per_split=ops.PAGES_PER_SPLIT):
+        def make(q, kp, vp, table, base):
+            q2, lens = q[:, 0].contiguous(), base + 1
+            return lambda: ops.paged_attention_cuda(
+                q2, kp, vp, table, lens, True, route, pages_per_split)
+        return make
 
     def k2_plain(q, kp, vp, table, base):
         return plain2(q[:, 0], kp, vp, table, base + 1, zero_empty=True)
@@ -2100,17 +2284,35 @@ def main() -> int:
         return ops.decode_bound_bytes(q[:, 0], kp, table, base + 1)
 
     base15 = np.random.RandomState(args.seed + 15).randint(96, 1088, b_local)
-    t2, t2k1 = (time_kernel(call, nbytes, ref, np.random.RandomState(
-        args.seed + 15), cfg, b_local, maxp, P, 1, base15)
-        for call, nbytes, ref in ((k2_call, k2_bytes, k2_plain),
-                                  (k1_call, ops.bound_bytes, plain)))
-    for name, t in (("K2", t2), ("K1 at T=1, same inputs", t2k1)):
+    check(ops.decode_route(bf, cfg.hd, cfg.page_size,
+                           cfg.n_heads // cfg.n_kv_heads) == "tma",
+          "K2: olmo-1b's decode on the tma route")
+    t2 = time_kernel(k2_route("tma"), k2_bytes, k2_plain,
+                     np.random.RandomState(args.seed + 15), cfg, b_local,
+                     maxp, P, 1, base15, present=k2_route("fma"),
+                     variants={f"pages_per_split={n}": k2_route("tma", n)
+                               for n in (1, 2, 8)})
+    check(t2["ms"] < t2["present_ms"], "K2: the tma route faster than the "
+                                       "fma kernel on the same inputs")
+    t2k1 = time_kernel(k1_call, ops.bound_bytes, plain,
+                       np.random.RandomState(args.seed + 15), cfg, b_local,
+                       maxp, P, 1, base15)
+    for name, t in (("K2 (tma route)", t2), ("K1 at T=1, same inputs "
+                                             "(wgmma route)", t2k1)):
         phase(f"[15] {name} B={b_local} H={cfg.n_heads} hd={cfg.hd} "
               f"psz={cfg.page_size} bf16 on {smi}: kernel {t['ms']:.4f} ms "
-              f"(host {t['host_ms']:.4f} ms a call), bound "
+              f"(host {t['host_ms']:.4f} ms a call, its enqueue "
+              f"{t['enqueue_ms']:.4f} ms), bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
               f"{t['flops']} flop), plain {t['plain_ms']:.4f} ms, library "
               f"(SDPA, dense K/V) {t['library_ms']:.4f} ms")
+    phase(f"[15] K2 on the same inputs on {smi}: present kernel (fma "
+          f"route) {t2['present_ms']:.4f} ms (host "
+          f"{t2['present_host_ms']:.4f} ms a call, its enqueue "
+          f"{t2['present_enqueue_ms']:.4f} ms); tma route with "
+          f"pages_per_split={ops.PAGES_PER_SPLIT} {t2['ms']:.4f} ms, "
+          + ", ".join(f"{n} {ms:.4f} ms" for n, (ms, _) in
+                      t2["variants"].items()))
     decode_route_ab(tengine, ops, cfg, args.seed, b_local, max_len, chunk,
                     smi)
     phase(f"[15] end-to-end on {smi}: entry point {entry['tok_s']:.1f} "
@@ -2139,15 +2341,23 @@ def main() -> int:
 
     shape = (f"B={b_local} H={cfg.n_heads} hd={cfg.hd} psz={cfg.page_size} "
              f"bf16")
+    pa_src = "src/repro_torch/kernels/paged_attention/csrc/"
+    ssd_src = "src/repro_torch/kernels/ssd_scan/csrc/"
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "host_ms")
     kernels = [
         {"name": "paged_attention", "route": "cuda",
-         "source": "src/repro_torch/kernels/paged_attention/csrc/"
-                   "paged_decode.cu",
+         "source": pa_src + "paged_decode_tma.cu",
          "replaces": "src/repro/kernels/paged_attention/kernel.py:227",
          "launches": entry["k2"], "max_abs_err": err2,
-         **{k: t2[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                               "library_ms", "host_ms")},
+         **{k: t2[k] for k in keys},
          "shape": f"T=1 {shape}, contexts 97-1088",
+         "routes": {"tma": pa_src + "paged_decode_tma.cu",
+                    "fma": pa_src + "paged_decode.cu"},
+         "pages_per_split": ops.PAGES_PER_SPLIT,
+         "present_kernel": {"source": pa_src + "paged_decode.cu",
+                            "ms": t2["present_ms"],
+                            "host_ms": t2["present_host_ms"]},
          "k1_same_inputs": {k: t2k1[k] for k in ("ms", "plain_ms",
                                                  "bound_ms", "library_ms")}},
         row("paged_attention_chunk",
@@ -2164,11 +2374,20 @@ def main() -> int:
             err3, v5, v64, f"T=5 {shape}, 8 shared prefix pages",
             "src/repro_torch/kernels/verify_attention/csrc/"
             "verify_attention.cu"),
-        row("ssd_scan", "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
-            "src/repro/kernels/ssd_scan/kernel.py:93", run4["launches"],
-            err4, *k4_times, f"T=1 B={b_local} H={ssd_dims(mamba, 1)[2]} "
-                             f"P={mamba.ssd_head_dim} N={mamba.ssd_state} "
-                             f"bf16"),
+        *({"name": name, "route": "cuda", "source": ssd_src + src,
+           "replaces": "src/repro/kernels/ssd_scan/kernel.py:93",
+           "launches": run4["k4_routes"][route], "max_abs_err": err4[route],
+           **{k: t[k] for k in keys}, "bounds": t["bounds"],
+           "scan_route": route,
+           "shape": f"T={t['T']} B={b_local} H={ssd_dims(mamba, 1)[2]} "
+                    f"P={mamba.ssd_head_dim} N={mamba.ssd_state} bf16",
+           **({"present_kernel": {"source": ssd_src + "ssd_scan.cu",
+                                  "ms": t["present_ms"],
+                                  "host_ms": t["present_host_ms"]}}
+              if "present_ms" in t else {})}
+          for name, src, route, t in (
+              ("ssd_scan_wgmma", "ssd_scan_wgmma.cu", "wgmma", k4_times[1]),
+              ("ssd_scan", "ssd_scan.cu", "fma", k4_times[0]))),
         row("rg_lru", "src/repro_torch/kernels/rg_lru/csrc/rg_lru.cu",
             "src/repro/kernels/rg_lru/kernel.py:67", run5["launches"], err5,
             *k5_times, f"T=1 B={b_local} d={rgemma.d_model} f32"),

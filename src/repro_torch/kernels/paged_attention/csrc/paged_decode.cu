@@ -35,8 +35,10 @@
 //   dims of the accumulator in float registers; the warps merge through
 //   shared memory at the end.
 //
-// A simple kernel that is right; a split of long rows over several
-// blocks, wgmma and TMA are later work.
+// The split of a lane's pages over several blocks, fed by TMA, is the
+// tma route (paged_decode_tma.cu), which ops.py::decode_route picks for
+// bf16 at hd 64 and 128 with pages of 64; this kernel keeps float32,
+// hd 16, pages of 8 and the other shapes.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -18,20 +18,31 @@ plain PyTorch versions.
     float FMAs.
 * K2, :func:`paged_attention`, single-token decode, replaces
   ``kernel.py::paged_attention`` (its ``pallas_call`` at
-  ``kernel.py:227``).  Its kernel (``csrc/paged_decode.cu``) runs one
-  block per (kv head, sequence) whose warps take the live pages' keys
-  in units of 32, each warp its own online softmax, merged at the end.
+  ``kernel.py:227``).  Two CUDA C++ kernels, chosen by
+  :func:`decode_route`:
 
-Both kernels are built for ``sm_90a`` at first use and called through
+  - ``"tma"`` (``csrc/paged_decode_tma.cu``), bf16 at hd 64 and 128
+    with pages of 64 tokens and G of 1, 2, 4 or 8, the decode-only
+    steps of olmo-1b, llama3.2-1b and gemma3-27b: each lane's pages
+    cut into splits of :data:`PAGES_PER_SPLIT` (:func:`.ref.decode_splits`),
+    a block per (kv head, lane, split) fed by TMA from a producer warp,
+    then a merge of each lane's splits in split order;
+  - ``"fma"`` (``csrc/paged_decode.cu``), every other shape: one block
+    per (kv head, sequence) whose warps take the live pages' keys in
+    units of 32, each warp its own online softmax, merged at the end.
+
+All kernels are built for ``sm_90a`` at first use and called through
 ctypes.  Bound on an H100: bytes.  The least time is the bytes of the
 live K/V pages plus q and out over 3.35 TB/s (:func:`bound_bytes`,
-:func:`decode_bound_bytes`).
+:func:`decode_bound_bytes`).  The TMA routes encode their tensor maps
+on every call (their host time a call: PERF.md §6).
 
 Dispatch: a tensor on the CPU takes the plain version; a CUDA tensor
 launches the kernel of its route or raises (nothing falls back from one
 route to the other).  ``paged_attention_chunk.launches`` and
-``paged_attention.launches`` count kernel launches,
-``paged_attention_chunk.routes`` K1's by route.
+``paged_attention.launches`` count kernel launches (K2's split kernel
+and merge together as one), ``paged_attention_chunk.routes`` and
+``paged_attention.routes`` the same by route.
 """
 
 from __future__ import annotations
@@ -189,6 +200,44 @@ def bound_bytes(q, k_pages, page_table, base_lens) -> int:
 
 # ---------------------------------------------------------------- K2
 
+#: pages of a lane that one block of K2's TMA route reads: at phase 15's
+#: contexts (96-1,087 tokens, 2-17 pages) olmo-1b's 16 kv heads x 8
+#: lanes then give about three blocks with bytes an SM, and the route
+#: its least time of splits of 1, 2, 4 and 8 pages (chip_smoke.py phase
+#: 15; PERF.md)
+PAGES_PER_SPLIT = 4
+#: G = H / KH that K2's TMA route takes
+TMA_GROUPS = (1, 2, 4, 8)
+
+
+def decode_route(dtype, hd: int, psz: int, G: int) -> str:
+    """K2's kernel for q of ``dtype`` with head dim ``hd``, pages of
+    ``psz`` tokens and ``G`` query heads a kv head: ``"tma"`` for bf16
+    at hd 64 or 128 with pages of 64 and G in :data:`TMA_GROUPS`, else
+    ``"fma"``."""
+    if (dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+            and psz == WGMMA_PAGE and G in TMA_GROUPS):
+        return "tma"
+    return "fma"
+
+
+def decode_workspace_numel(B: int, H: int, hd: int, maxp: int,
+                           pages_per_split: int = PAGES_PER_SPLIT) -> int:
+    """Floats of the TMA route's workspace: every (lane, head, split)'s
+    partial acc [hd], m and l."""
+    return B * H * -(-maxp // pages_per_split) * (hd + 2)
+
+
+@functools.cache
+def _decode_tma_fn():
+    from ..build import load
+    fn = load("paged_decode_tma").paged_decode_tma
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    return fn
+
+
 @functools.cache
 def _decode_fn():
     from ..build import load
@@ -200,11 +249,22 @@ def _decode_fn():
 
 
 def paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
-                         zero_empty: bool = False):
-    """Launch K2 on PyTorch's current stream (no sync)."""
+                         zero_empty: bool = False, route=None,
+                         pages_per_split: int = PAGES_PER_SPLIT):
+    """Launch K2's kernel of ``route`` (by default :func:`decode_route`
+    of these inputs) on PyTorch's current stream (no sync)."""
     B, H, hd = q.shape
     P, psz, KH, hd_k = k_pages.shape
     maxp = page_table.shape[1]
+    if route is None:
+        route = decode_route(q.dtype, hd, psz, H // max(KH, 1))
+    if route == "tma":
+        check_wgmma("paged_attention", q, k_pages, v_pages)
+        if H % KH or H // KH not in TMA_GROUPS:
+            raise ValueError(f"paged_attention: the tma route takes G in "
+                             f"{TMA_GROUPS}, got H {H} KH {KH}")
+    elif route != "fma":
+        raise ValueError(f"paged_attention: no route {route!r}")
     tensors = (q, k_pages, v_pages, page_table, seq_lens)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("paged_attention: all inputs on one CUDA device")
@@ -225,14 +285,23 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention: inputs must be contiguous")
     out = torch.empty_like(q)
-    err = _decode_fn()(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                       page_table.data_ptr(), seq_lens.data_ptr(),
-                       out.data_ptr(), _DTYPES[q.dtype], B, H, KH, hd, psz,
-                       maxp, int(bool(zero_empty)),
-                       torch.cuda.current_stream(q.device).cuda_stream)
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "tma":
+        work = torch.empty(decode_workspace_numel(B, H, hd, maxp,
+                                                  pages_per_split),
+                           dtype=torch.float32, device=q.device)
+        err = _decode_tma_fn()(*ptrs, work.data_ptr(), B, H, KH, hd, psz,
+                               maxp, P, pages_per_split,
+                               int(bool(zero_empty)), stream)
+    else:
+        err = _decode_fn()(*ptrs, _DTYPES[q.dtype], B, H, KH, hd, psz, maxp,
+                           int(bool(zero_empty)), stream)
     if err != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: "
-                           f"cudaError {err} (hd={hd}, H={H}, KH={KH})")
+        raise RuntimeError(f"paged_attention kernel ({route}) launch "
+                           f"failed: cudaError {err} (hd={hd}, H={H}, "
+                           f"KH={KH})")
     return out
 
 
@@ -245,13 +314,17 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, page_table,
                                    seq_lens, zero_empty=zero_empty)
+    route = decode_route(q.dtype, q.shape[-1], k_pages.shape[1],
+                         q.shape[1] // max(k_pages.shape[2], 1))
     out = paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
-                               zero_empty)
+                               zero_empty, route)
     paged_attention.launches += 1
+    paged_attention.routes[route] += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.routes = {"tma": 0, "fma": 0}
 
 
 def decode_bound_bytes(q, k_pages, page_table, seq_lens) -> int:

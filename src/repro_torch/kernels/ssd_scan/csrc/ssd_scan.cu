@@ -35,8 +35,10 @@
 //   no block barrier;
 // * y_t[p] is a warp sum of the lanes' partial dot products over n.
 //
-// A simple kernel that is right; the chunked dual form on tensor cores
-// is later work.
+// The chunked dual form on tensor cores is the wgmma route
+// (ssd_scan_wgmma.cu), which ops.py::scan_route picks for bf16 at P 64
+// from SCAN_WGMMA_MIN_S tokens on; this kernel keeps T = 1, float32 and
+// the other widths.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -241,12 +241,15 @@ def test_paged_decode_kernel_vs_plain_and_k1(card, dtype, H, KH, hd, psz):
     q, kp, vp, table, base = _case(rng, 8, 1, H, KH, hd, psz, 8, 96, dtype)
     q2, lens = q[:, 0].contiguous(), base + 1
     tol = 1e-4 if dtype == torch.float32 else 6e-2
+    route = ops.decode_route(dtype, hd, psz, H // KH)
     for zero_empty in (False, True):
         before = ops.paged_attention.launches
+        on_route = ops.paged_attention.routes[route]
         out = ops.paged_attention(q2, kp, vp, table, lens,
                                   zero_empty=zero_empty)
         torch.cuda.synchronize()
         assert ops.paged_attention.launches == before + 1
+        assert ops.paged_attention.routes[route] == on_route + 1
         refs = [plain2(q2, kp, vp, table, lens, zero_empty=zero_empty)]
         if zero_empty:
             assert (out[1] == 0).all()
@@ -258,6 +261,53 @@ def test_paged_decode_kernel_vs_plain_and_k1(card, dtype, H, KH, hd, psz):
             if dtype == torch.bfloat16:
                 torch.testing.assert_close(out.float(), ref, atol=1e-5,
                                            rtol=2.0 ** -7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KH,hd", [(16, 16, 128),   # olmo-1b, G = 1
+                                     (32, 8, 64),     # llama3.2-1b, G = 4
+                                     (32, 16, 128),   # gemma3-27b, G = 2
+                                     (64, 8, 128)])   # G = 8
+@pytest.mark.parametrize("hi", [64, 1088, 2048])
+def test_paged_decode_tma_route_vs_plain_and_k1(card, H, KH, hd, hi):
+    """K2's TMA route at contexts of 1 to ``hi`` tokens (lane 0 has one
+    token, lane 4 ``hi``), maxp 32 pages of 64, lane 1 idle, a dead
+    page in lane 2: within one bf16 ulp of the plain version with
+    ``zero_empty`` off and on, and of K1 at T = 1 over base + 1 (its
+    wgmma route), two calls bit-equal."""
+    rng = np.random.RandomState(hi + hd)
+    B, maxp, P = 8, 32, 300
+    base = rng.randint(0, hi, B).astype(np.int32)
+    base[0], base[4] = 0, hi - 1
+    table = np.full((B, maxp), -1, np.int32)
+    avail = list(rng.permutation(P))
+    for b in range(B):
+        for i in range(-(-(int(base[b]) + 1) // 64)):
+            table[b, i] = avail.pop()
+    table[1] = -1
+    table[2, 0] = -1
+    q, kp, vp = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+        "cuda", torch.bfloat16) for s in ((B, 1, H, hd), (P, 64, KH, hd),
+                                          (P, 64, KH, hd)))
+    table, base = torch.from_numpy(table).cuda(), torch.from_numpy(base).cuda()
+    q2, lens = q[:, 0].contiguous(), base + 1
+    assert ops.decode_route(torch.bfloat16, hd, 64, H // KH) == "tma"
+    for zero_empty in (False, True):
+        before = ops.paged_attention.routes["tma"]
+        out = ops.paged_attention(q2, kp, vp, table, lens,
+                                  zero_empty=zero_empty)
+        torch.cuda.synchronize()
+        assert ops.paged_attention.routes["tma"] == before + 1
+        assert torch.isfinite(out.float()).all()
+        refs = [plain2(q2, kp, vp, table, lens, zero_empty=zero_empty)]
+        if zero_empty:
+            assert (out[1] == 0).all()
+            refs.append(ops.paged_attention_chunk(q, kp, vp, table,
+                                                  base)[:, 0])
+        for ref in refs:
+            _one_ulp(out, ref)
+        assert torch.equal(out, ops.paged_attention_cuda(
+            q2, kp, vp, table, lens, zero_empty, route="tma"))
 
 
 @pytest.mark.cuda
@@ -286,9 +336,12 @@ def test_ssd_scan_kernel_vs_plain(card, dtype, B, S, H, P, N):
     h0 = f(B, H, P, N).cuda()
     h = h0.clone()
     before = k4.ssd_scan.launches
+    route = k4.scan_route(dtype, S, P, N)
+    on_route = k4.ssd_scan.routes[route]
     y, h_out = k4.ssd_scan(*args, h)
     torch.cuda.synchronize()
     assert k4.ssd_scan.launches == before + 1 and h_out is h
+    assert k4.ssd_scan.routes[route] == on_route + 1
     y_ref, h_ref = ssd_scan_ref(*args, h0)
     assert y.dtype == dtype and torch.equal(h[2], h0[2])
     torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
@@ -297,6 +350,46 @@ def test_ssd_scan_kernel_vs_plain(card, dtype, B, S, H, P, N):
     if dtype == torch.bfloat16:
         torch.testing.assert_close(y.float(), y_ref.float(), atol=1e-5,
                                    rtol=2.0 ** -7)
+
+
+def _ssd_args(rng, B, S, H, P, N, dtype):
+    """K4's inputs on the card from a carried state h0 != 0: lane 1 with
+    dt = 0 from token 2 on, lane 2 with dt = 0 throughout."""
+    dt = rng.rand(B, S, H).astype(np.float32) * 0.5 + 0.1
+    dt[1, 2:] = 0.0
+    dt[2] = 0.0
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))  # noqa
+    x, Bm, Cm = f(B, S, H, P) * 0.5, f(B, S, N) * 0.3, f(B, S, N) * 0.3
+    args = [x.to("cuda", dtype), torch.from_numpy(dt).cuda(),
+            (-f(H).abs() * 0.5).cuda(), Bm.to("cuda", dtype),
+            Cm.to("cuda", dtype), (f(H) * 0.1).cuda()]
+    return args, f(B, H, P, N).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,N", [(3, 128), (16, 128), (64, 128),
+                                 (100, 128), (200, 128), (64, 64)])
+def test_ssd_scan_wgmma_route_vs_plain(card, S, N):
+    """K4's wgmma route (the chunked dual form) at mamba2-370m's widths,
+    one chunk, a masked last chunk and several: y within one bf16 ulp
+    of the sequential plain version, the state within 1e-4, the inert
+    lane's state bit for bit, two calls bit-equal."""
+    rng = np.random.RandomState(S + N + 1)
+    args, h0 = _ssd_args(rng, 8, S, 32, 64, N, torch.bfloat16)
+    assert k4.scan_route(torch.bfloat16, S, 64, N) == "wgmma"
+    h = h0.clone()
+    before = k4.ssd_scan.routes["wgmma"]
+    y, _ = k4.ssd_scan(*args, h)
+    torch.cuda.synchronize()
+    assert k4.ssd_scan.routes["wgmma"] == before + 1
+    y_ref, h_ref = ssd_scan_ref(*args, h0)
+    assert torch.isfinite(h).all() and torch.equal(h[2], h0[2])
+    torch.testing.assert_close(h, h_ref, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=1e-5,
+                               rtol=2.0 ** -7)
+    h2 = h0.clone()
+    y2 = k4.ssd_scan_cuda(*args, h2, route="wgmma")
+    assert torch.equal(y, y2) and torch.equal(h, h2)
 
 
 @pytest.mark.cuda

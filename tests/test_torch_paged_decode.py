@@ -4,7 +4,9 @@ interpret mode (the four cases of ``tests/test_kernels.py`` and a
 seeded sweep of random tables), rows without a valid key under both
 conventions, the serving convention against K1's plain version at
 T = 1, the dispatcher's CPU path, and the engine's routing of
-decode-only steps.  The CUDA kernel itself is held against the plain
+decode-only steps; the TMA route's choice (``decode_route``), its
+schedule (``decode_splits``) and its split-then-merge arithmetic
+(``paged_attention_split_ref``) against the same oracle.  The CUDA kernel itself is held against the plain
 version on the card (tests/test_torch_kernels_cuda.py, chip_smoke.py).
 """
 
@@ -22,7 +24,8 @@ from repro.kernels.paged_attention.kernel import paged_attention as pallas
 from repro.kernels.paged_attention.ref import paged_attention_ref as jref
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import (
-    paged_attention_chunk_ref as k1_plain, paged_attention_ref as plain)
+    decode_splits, paged_attention_chunk_ref as k1_plain,
+    paged_attention_ref as plain, paged_attention_split_ref as split_plain)
 from repro_torch.models import transformer
 
 TORCH_DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -195,3 +198,91 @@ def test_engine_routes_decode_only_steps_to_k2(monkeypatch):
     n_layers = setup[2].n_layers
     assert calls["K2"] == n_layers * widths.count(1) > 0
     assert calls["K1"] == n_layers * (len(widths) - widths.count(1)) > 0
+
+
+# ------------------------------------------------------ K2's TMA route
+
+@pytest.mark.parametrize("dtype,hd,psz,G,route", [
+    (torch.bfloat16, 128, 64, 1, "tma"),       # olmo-1b
+    (torch.bfloat16, 64, 64, 4, "tma"),        # llama3.2-1b
+    (torch.bfloat16, 128, 64, 2, "tma"),       # gemma3-27b
+    (torch.bfloat16, 128, 64, 8, "tma"),
+    (torch.bfloat16, 128, 64, 3, "fma"),       # a G the route lacks
+    (torch.bfloat16, 128, 64, 16, "fma"),
+    (torch.float32, 128, 64, 1, "fma"),
+    (torch.float32, 16, 8, 2, "fma"),          # the smoke configs
+    (torch.bfloat16, 16, 8, 2, "fma"),
+    (torch.bfloat16, 128, 16, 1, "fma"),
+])
+def test_decode_route(dtype, hd, psz, G, route):
+    assert ops.decode_route(dtype, hd, psz, G) == route
+
+
+def test_decode_splits_schedule():
+    """The TMA route's schedule on a table with a live lane, a lane past
+    its table, an idle lane, a lane whose only live page is dead and a
+    zero length: pages walked, splits and the lanes without a key, under
+    both conventions for those."""
+    psz, maxp = 8, 7
+    table = torch.tensor([[3, 4, 5, -1, -1, -1, -1],
+                          [1, 2, 6, 7, 8, 9, 10],
+                          [-1] * 7,
+                          [-1, 11, -1, -1, -1, -1, -1],
+                          [12, -1, -1, -1, -1, -1, -1]], dtype=torch.int32)
+    lens = torch.tensor([17, 200, 0, 5, 0], dtype=torch.int32)
+    for zero_empty, idle in ((False, 7), (True, 0)):
+        n, splits, empty = decode_splits(table, lens, psz, zero_empty, 2)
+        assert empty.tolist() == [False, False, True, True, True]
+        assert n.tolist() == [3, 7, idle, idle, idle]
+        assert splits.tolist() == [2, 4] + [-(-idle // 2)] * 3
+    n, splits, _ = decode_splits(table, lens, psz, False, 1)
+    assert splits.tolist() == n.tolist()
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("pages_per_split", [1, 2, 3])
+def test_split_form_vs_ref(seed, pages_per_split):
+    """The TMA route's arithmetic (splits, each a partial softmax state
+    in log2 units, merged in split order) over random tables with dead
+    pages, an idle lane and a lane whose pages are all dead: against the
+    JAX oracle with ``zero_empty`` off, and with it on, zeros on the
+    lanes without a key and the oracle elsewhere."""
+    rng = np.random.RandomState(200 + seed)
+    G, KH = [1, 4, 2, 8][seed], [2, 1][seed % 2]
+    psz, maxp = 8, int(rng.randint(3, 7))
+    B = 6
+    lens = rng.randint(1, maxp * psz + 10, B)
+    q, kp, vp, table, lens = _case(rng, B, G * KH, KH, 64, psz, maxp, 64,
+                                   lens)
+    table[1] = -1                              # idle
+    table[2, :] = -1                           # every live page dead
+    table[3, 0] = -1                           # a dead page in a live run
+    lens[1] = 0
+    for dt in (jnp.float32, jnp.bfloat16):
+        j, t = _both(q, kp, vp, table, lens, dt)
+        ref = np.asarray(jref(*j), np.float32)
+        out = split_plain(*t, False, pages_per_split)
+        _close(out, ref, _tol(dt))
+        z = split_plain(*t, True, pages_per_split)
+        assert (z[1] == 0).all() and (z[2] == 0).all()
+        _close(z[[0, 3, 4, 5]], ref[[0, 3, 4, 5]], _tol(dt))
+
+
+@pytest.mark.parametrize("dtype,H,KH,hd,psz,route,err", [
+    (torch.float32, 16, 16, 128, 64, "tma", TypeError),     # float32
+    (torch.bfloat16, 4, 2, 16, 8, "tma", ValueError),       # hd 16, psz 8
+    (torch.bfloat16, 48, 16, 128, 64, "tma", ValueError),   # G = 3
+    (torch.bfloat16, 16, 16, 128, 64, "wgmma", ValueError),  # no such route
+])
+def test_wrapper_raises_on_what_the_route_does_not_take(dtype, H, KH, hd,
+                                                        psz, route, err):
+    """K2's kernel wrapper refuses the tma route for inputs it does not
+    take, before it looks for a card (nothing falls back to the fma
+    kernel)."""
+    q = torch.zeros(2, H, hd, dtype=dtype)
+    pages = torch.zeros(8, psz, KH, hd, dtype=dtype)
+    table = torch.zeros(2, 4, dtype=torch.int32)
+    lens = torch.ones(2, dtype=torch.int32)
+    with pytest.raises(err):
+        ops.paged_attention_cuda(q, pages, pages.clone(), table, lens,
+                                 route=route)
