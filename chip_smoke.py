@@ -31,14 +31,23 @@ Phases, each printed on its own line (any failure fails the run):
    and at smoke width, from a carried state, with inert lanes whose
    state must stay bit for bit, two calls bit-equal, and K4's wgmma
    route (bf16, P 64) at T = 3, 16, 64, 100 and 200 and at N = 64, the
-   state within 1e-4; K6 (causal flash attention) on strided
+   state within 1e-4; K5 bit-equal to its plain version on the route
+   ``ops.lru_route`` picks, and its tma route at T = 3, 16, 64, 100 and
+   200 and d = 2560 and 192, bit-equal, inert lanes bit for bit, two
+   calls bit-equal; K6 (causal flash attention) on strided
    [B, S, H, hd] views, each of its forward kernels: the wgmma/TMA one
    (bf16, hd 64 and 128) at olmo-1b's and llama3.2-1b's widths, with a
    ragged S and bidirectional, the mma.sync one (bf16, hd 16) and the
    float32 one at smoke width, with a ragged S and bidirectional; its
-   backward kernels against autograd through the plain version (f32
-   within 1e-4, bf16 within 6e-2, S up to 2048, a ragged S), and two
-   backward calls on the same inputs bit-equal;
+   backward kernels against autograd through the plain version, each
+   on the route ``ops.backward_route`` picks: the wgmma/TMA route (bf16,
+   hd 64 and 128) at olmo-1b's and llama3.2-1b's widths, S up to 2048
+   (at B 4, the training shape, too), a ragged S and bidirectional,
+   within 6e-2, and against its walk with bf16 P and dS each row within
+   2^-5 of its own scale, where two controls of the walk (a late tile
+   pair dropped, delta left out) must lie beyond it; the mma.sync
+   kernels at hd 16 and the float32 ones within 1e-4, and two backward
+   calls on the same inputs bit-equal;
 4. check the port's engine on the card against the same engine on the
    CPU (where every kernel wrapper runs its plain version) on smoke
    configs: identical tokens and status rows, for olmo-1b's plain path
@@ -84,25 +93,31 @@ Phases, each printed on its own line (any failure fails the run):
 10. the RG-LRU path: the same for recurrentgemma-2b (18 RG-LRU layers
    and 8 sliding-window layers of window 2048, d_model 2560, bf16) at
    max_len 4096, 16 prompts of 64-3,000 tokens, 4 of them past the
-   window: K5 ran 18 times per step;
+   window: K5 ran 18 times per step (on its tma route at T >=
+   LRU_TMA_MIN_S, its seq route below);
 11. time K4 and K5 at T = 1 and 64 beside their bounds and plain
    versions (K4's wgmma route at T = 2, 3, 4, 16 and 64 beside the
    fma kernel on the same inputs, with the bytes, the dual form's
    tensor-core operations and the sequential form's float32
-   operations as bounds), and print both families' end-to-end rates;
+   operations as bounds; K5's tma route beside its seq kernel on the
+   same inputs at T = 1, 2, 4, 8, 16 and 64, which sets
+   LRU_TMA_MIN_S), and print both families' end-to-end rates;
 12. the training path: olmo-1b at full depth and width (bf16
    parameters, float32 AdamW state), one micro-batch of 4 sequences of
    2048 tokens from ``TokenStream``, a warm-up step and 5 steps of
    ``build_step``: finite losses, K6's forward launched 32 times a step
    (16 global layers, each run forward and again in the backward pass's
-   recomputation) and its backward 16 times, and no other kernel, one
+   recomputation) and its backward 16 times, each on its wgmma route,
+   and no other kernel, one
    device-to-host transfer a step (the loss); ms a step, tokens a
    second, peak memory, and the model-flops share of the card's bf16
-   peak;
+   peak; then the steps again with the backward on its wgmma route and
+   on the mma.sync kernels it replaced, in turns;
 13. time K6's forward and backward kernels at the training shape, each
    beside its bound, its plain version and PyTorch's
    ``scaled_dot_product_attention`` (forward, and backward through
-   ``torch.autograd.grad``);
+   ``torch.autograd.grad``), and the backward's wgmma route beside the
+   mma.sync kernels it replaced, on the same inputs, in turns;
 14. the serve entry point and preemption at full width (olmo-1b,
    bf16, dp 1, 8 slots, max_len 2048): (a) ``repro_torch.launch.serve
    .main`` with a 512-token hot prefix, 32 requests of 64 new tokens, a
@@ -119,8 +134,8 @@ Phases, each printed on its own line (any failure fails the run):
    its present fma kernel) and K1 at T = 1 on the same inputs beside
    K2's bound, its plain version and SDPA; serve phase 5's workload with decode-only
    steps through K1 and through K2 in turns (K1, K2, K2, K1); print the
-   kernels line (K1-K6, K6's forward and backward on rows of their
-   own).
+   kernels line (K1-K6; K4's and K5's routes, and K6's forward and
+   backward, on rows of their own).
 
 ``--profile`` serves the workloads of phases 5, 9 and 10 again, and
 runs two more training steps in phase 12, under ``torch.profiler``,
@@ -534,13 +549,15 @@ def scan_case(rng, kind, dims, dtype):
     return [a, b], f(B, d)
 
 
-def check_scan(name, fn, plain, kind, cases, rng, route_of=None):
+def check_scan(name, fn, plain, kind, cases, rng, route_of=None,
+               exact=False):
     """Phase 3: K4 or K5, through the dispatcher the engine calls, from a
     carried state and with inert lanes, against its plain version on
     the card; two calls on the same inputs bit-equal.  ``route_of(dims,
     dtype)``, for a kernel with routes, names the one each case must
-    take.  Returns the worst error of the output over the cases, by
-    route when it has routes."""
+    take; ``exact`` holds the output and the state bit-equal to the
+    plain version's.  Returns the worst error of the output over the
+    cases, by route when it has routes."""
     worst = {}
     for label, dims, dt in cases:
         args, h0 = scan_case(rng, kind, dims, dt)
@@ -577,6 +594,10 @@ def check_scan(name, fn, plain, kind, cases, rng, route_of=None):
                 rtol=BF16_ULP_RTOL,
                 msg=lambda m, n=label: f"{name} {n}, one bf16 ulp: {m}")
             tol += f" and one ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}"
+        if exact:
+            check(torch.equal(out, ref) and torch.equal(h, h_ref),
+                  f"{name} {label}: bit-equal to the plain version")
+            tol += " and bit-equal"
         err = (out.float() - ref.float()).abs().max().item()
         herr = (h - h_ref).abs().max().item()
         via = f" ({route} route)" if route else ""
@@ -585,6 +606,30 @@ def check_scan(name, fn, plain, kind, cases, rng, route_of=None):
               f"({tol}); inert lane bit-equal; two calls bit-equal")
         worst[route] = max(worst.get(route, 0.0), err)
     return worst if route_of else worst[None]
+
+
+def check_k5_tma(k5, plain, rng, cases, B=8):
+    """Phase 3: K5's tma route at each (T, d) of ``cases``, whatever the
+    dispatcher picks at that T: from a carried state with inert lanes,
+    hs and the state bit-equal to the plain version, the inert lane's
+    state bit for bit, two calls bit-equal."""
+    for T, d in cases:
+        (a, b), h0 = scan_case(rng, "rglru", (B, T, d), torch.float32)
+        h, h2 = h0.clone(), h0.clone()
+        out = k5.rg_lru_cuda(a, b, h, route="tma")
+        again = k5.rg_lru_cuda(a, b, h2, route="tma")
+        torch.cuda.synchronize()
+        ref, h_ref = plain(a, b, h0)
+        check(torch.equal(out, ref) and torch.equal(h, h_ref),
+              f"K5 tma route T={T} d={d}: bit-equal to the plain version")
+        check(torch.equal(h[2], h0[2]),
+              f"K5 tma route T={T} d={d}: the inert lane keeps its state")
+        check(torch.equal(again, out) and torch.equal(h2, h),
+              f"K5 tma route T={T} d={d}: two calls bit-equal")
+        phase(f"[3] K5 tma route T={T} B={B} d={d} f32: hs and the state "
+              f"bit-equal to the plain version, max|ref| "
+              f"{ref.abs().max().item():.3e}; the inert lane's state bit for "
+              f"bit; two calls bit-equal")
 
 
 def check_engine_vs_cpu(tengine, cfg_smoke, seed, name="smoke engine",
@@ -770,6 +815,7 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     runs K2 instead, once per layer.
     ``profile_reqs``, when given, are served again under the profiler.
     Returns the run's numbers."""
+    from repro_torch.kernels.rg_lru.ops import LRU_TMA_MIN_S
     from repro_torch.kernels.ssd_scan.ops import SCAN_WGMMA_MIN_S
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.model import init_params
@@ -856,21 +902,30 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     k1_routes = dict(counted["K1"].routes)
     k2_routes, k4_routes = dict(counted["K2"].routes), dict(
         counted["K4"].routes)
+    k5_routes = dict(counted["K5"].routes)
+    # steps by width T
+    hist = {w: n - hist0.get(w, 0) for w, n in eng.stats["chunk_hist"].items()}
     if kernel == "K1" and cfg.dtype == "bfloat16":
         check(k1_routes["wgmma"] == launches["K1"],
               f"{tag}: every K1 launch took the wgmma route ({k1_routes})")
         check(k2_routes["tma"] == launches["K2"],
               f"{tag}: every K2 launch took the tma route ({k2_routes})")
     if kernel == "K4" and cfg.dtype == "bfloat16":
-        # steps by width T: T >= SCAN_WGMMA_MIN_S on the wgmma route
-        hist = {w: n - hist0.get(w, 0)
-                for w, n in eng.stats["chunk_hist"].items()}
+        # T >= SCAN_WGMMA_MIN_S on the wgmma route
         wide = sum(n for w, n in hist.items() if w >= SCAN_WGMMA_MIN_S)
         check(k4_routes["wgmma"] == n_layers * wide > 0
               and k4_routes["fma"] == launches["K4"] - n_layers * wide,
               f"{tag}: every K4 launch at T >= SCAN_WGMMA_MIN_S took the "
               f"wgmma route, the others the fma route ({k4_routes}, steps "
               f"by width {hist})")
+    if kernel == "K5" and cfg.d_model % 4 == 0:
+        # T >= LRU_TMA_MIN_S on the tma route
+        wide = sum(n for w, n in hist.items() if w >= LRU_TMA_MIN_S)
+        check(k5_routes["tma"] == n_layers * wide > 0
+              and k5_routes["seq"] == launches["K5"] - n_layers * wide,
+              f"{tag}: every K5 launch at T >= LRU_TMA_MIN_S took the tma "
+              f"route, the others the seq route ({k5_routes}, steps by "
+              f"width {hist})")
     in_use = [eng.blocks_in_use(c) for c in range(eng.n_classes)]
     check(not any(in_use) and eng.leak_free(),
           f"{tag}: no KV page and no state block in use after the drain")
@@ -879,7 +934,8 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     phase(f"{tag}: served {len(reqs)} requests: {steps} steps ("
           f"{decode_steps} decode-only), {tokens} tokens out, {prompt} "
           f"prompt tokens, wall {wall:.3f} s; {split} (by route: K1 "
-          f"{k1_routes}, K2 {k2_routes}, K4 {k4_routes}), other kernels "
+          f"{k1_routes}, K2 {k2_routes}, K4 {k4_routes}, K5 {k5_routes}), "
+          f"other kernels "
           f"{sum(launches.values()) - sum(want.values())}"
           f"; device->host transfers {transfers} (1 per step), "
           f"synchronizing calls in one step under sync-debug mode: "
@@ -892,7 +948,7 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     out = dict(launches=launches[kernel], steps=steps, tok_s=tokens / wall,
                ms_step=1e3 * wall / steps, n_layers=n_layers,
                k2=launches.get("K2", 0), decode_steps=decode_steps,
-               k4_routes=k4_routes)
+               k4_routes=k4_routes, k5_routes=k5_routes)
     if profile_reqs is not None:
         profile_serve(eng, profile_reqs, f"{tag} [p]")
     del eng, params
@@ -1536,17 +1592,61 @@ def k6_inputs(rng, B, H, KH, S, hd, dtype, grad=False):
     return [t.requires_grad_(grad) for t in (q, k, f(B, KH, S, hd))]
 
 
+def check_k6_twin(k6, q, k, v, do, causal, got, name):
+    """Phase 3: the wgmma backward's gradients ``got`` against its walk
+    in float32 with P and dS rounded to bf16 where the kernels round
+    them (``ref.flash_attention_bwd_tiled_ref``), each row held to its
+    own scale (``ref.row_scaled_err``) within ``ref.BWD_ROW_TOL``; and
+    two controls of the walk, the last query tile's pair with the key
+    tile before it dropped and delta left out, above that limit, so a
+    fault confined to late tiles would fail the check.  Returns the
+    worst reading and the smaller control's."""
+    from repro_torch.kernels.flash_attention.ref import (
+        BWD_ROW_TOL, TILE, flash_attention_bwd_tiled_ref, row_scaled_err)
+
+    q, k, v = (t.detach() for t in (q, k, v))
+    o, lse = k6.flash_attention_cuda(q, k, v, causal)
+    twin = flash_attention_bwd_tiled_ref(q, k, v, o, lse, do, causal)
+    sound = [row_scaled_err(a, b) for a, b in zip(got, twin)]
+    n = -(-q.shape[2] // TILE)
+    pair = (n - 1, max(n - 2, 0))
+    controls = {
+        f"query tile {pair[0]} x key tile {pair[1]} dropped":
+            flash_attention_bwd_tiled_ref(q, k, v, o, lse, do, causal,
+                                          drop=pair),
+        "delta left out": flash_attention_bwd_tiled_ref(
+            q, k, v, torch.zeros_like(o), lse, do, causal)}
+    ctrl = {c: max(row_scaled_err(a, b) for a, b in zip(grads, twin))
+            for c, grads in controls.items()}
+    check(max(sound) < BWD_ROW_TOL,
+          f"K6 gradient {name}: each row within {BWD_ROW_TOL:g} of its "
+          f"scale from the walk with bf16 P and dS ({sound})")
+    check(min(ctrl.values()) > BWD_ROW_TOL,
+          f"K6 gradient {name}: the walk's controls lie beyond "
+          f"{BWD_ROW_TOL:g} ({ctrl})")
+    phase(f"[3] K6 gradient {name}, wgmma route vs its walk with bf16 P "
+          f"and dS, row-scaled: dq {sound[0]:.3e}, dk {sound[1]:.3e}, dv "
+          f"{sound[2]:.3e} (limit {BWD_ROW_TOL:g}); controls: "
+          + ", ".join(f"{c} {e:.3e}" for c, e in ctrl.items()))
+    del twin, controls
+    torch.cuda.empty_cache()
+    return max(sound), min(ctrl.values())
+
+
 def check_k6(k6, rng):
     """Phase 3: K6, through the autograd Function the model calls,
     against its plain version, on each of its forward kernels (the
     route ``ops.forward_route`` picks by dtype and hd); then its
-    backward kernels against autograd through the plain version, and
-    twice on the same inputs.  Returns the worst bf16 forward and
-    backward errors."""
+    backward kernels against autograd through the plain version, the
+    wgmma route also against its walk (:func:`check_k6_twin`), and
+    twice on the same inputs, each on the route ``ops.backward_route``
+    picks.  Returns the worst bf16 forward error, the worst error of
+    the backward's wgmma route, and its worst row-scaled reading
+    against the walk with the smallest control's."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     bf, f32 = torch.bfloat16, torch.float32
-    worst, worst_bwd = 0.0, 0.0
+    worst, worst_bwd, row, ctrl = 0.0, 0.0, 0.0, float("inf")
     routes = dict(k6.flash_attention.routes)
     for name, dt, B, H, KH, S, hd, causal in (
             ("olmo-1b bf16", bf, 1, 16, 16, 2048, 128, True),
@@ -1588,25 +1688,37 @@ def check_k6(k6, rng):
     # the backward kernels against the gradient of the plain version;
     # bf16 at 6e-2: the kernels round P and dS to bf16 as the A operand
     # of their products, and both read o rounded to bf16 in rowsum(dO *
-    # O)
+    # O).  bf16 at hd 64 and 128 takes the wgmma route, hd 16 the
+    # mma.sync kernels, float32 the FMA kernels.
+    bwd_routes = dict(k6.flash_attention_bwd.routes)
     for name, dt, B, H, KH, S, hd, causal in (
             ("smoke f32", f32, 2, 4, 2, 64, 16, True),
             ("S=200 f32 bidirectional", f32, 2, 4, 2, 200, 64, False),
             ("S=1024 bf16", bf, 1, 16, 16, 1024, 128, True),
-            ("S=2048 bf16", bf, 1, 16, 16, 2048, 128, True),
+            ("olmo-1b S=2048 bf16", bf, 1, 16, 16, 2048, 128, True),
+            ("olmo-1b B=4 S=2048 bf16 (the training shape)", bf, 4, 16, 16,
+             2048, 128, True),
+            ("llama3.2-1b S=1024 bf16 (G=4)", bf, 1, 32, 8, 1024, 64, True),
             ("S=77 bf16 (ragged tile, G=2)", bf, 2, 4, 2, 77, 128, True),
+            ("S=200 bf16 bidirectional (G=4)", bf, 2, 4, 1, 200, 64, False),
+            ("S=130 bf16 (a key tile past 128)", bf, 1, 2, 2, 130, 128,
+             True),
             ("hd=16 bf16 bidirectional", bf, 2, 4, 1, 77, 16, False)):
         q, k, v = k6_inputs(rng, B, H, KH, S, hd, dt, grad=True)
         do = torch.from_numpy(rng.randn(B, H, S, hd).astype(np.float32)).to(
             "cuda", dt)
+        route = k6.backward_route(dt, hd)
         before = (k6.flash_attention.launches,
-                  k6.flash_attention_bwd.launches)
+                  k6.flash_attention_bwd.launches,
+                  k6.flash_attention_bwd.routes[route])
         got = torch.autograd.grad(k6.flash_attention(q, k, v, causal),
                                   (q, k, v), do)
         torch.cuda.synchronize()
-        check((k6.flash_attention.launches, k6.flash_attention_bwd.launches)
-              == (before[0] + 1, before[1] + 1),
-              f"K6 gradient {name}: one forward and one backward launch")
+        check((k6.flash_attention.launches, k6.flash_attention_bwd.launches,
+               k6.flash_attention_bwd.routes[route])
+              == (before[0] + 1, before[1] + 1, before[2] + 1),
+              f"K6 gradient {name}: one forward and one backward launch, "
+              f"the backward on its {route} route")
         want = torch.autograd.grad(flash_attention_ref(q, k, v, causal),
                                    (q, k, v), do)
         errs = []
@@ -1622,11 +1734,20 @@ def check_k6(k6, rng):
               f"K6 gradient {name}: two backward calls bit-equal")
         phase(f"[3] K6 gradient {name} B={B} H={H} KH={KH} S={S} hd={hd} "
               f"{'causal' if causal else 'bidirectional'}, backward "
-              f"kernels: max_abs_err dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv "
-              f"{errs[2]:.3e} (tol {TOL[dt]:g}); a second call bit-equal")
-        if dt == bf:
+              f"kernels ({route} route): max_abs_err dq {errs[0]:.3e}, dk "
+              f"{errs[1]:.3e}, dv {errs[2]:.3e} (tol {TOL[dt]:g}); a second "
+              f"call bit-equal")
+        if route == "wgmma":
             worst_bwd = max(worst_bwd, *errs)
-    return worst, worst_bwd
+            r, c = check_k6_twin(k6, q, k, v, do, causal, got, name)
+            row, ctrl = max(row, r), min(ctrl, c)
+        del got, want, again
+    ran = {r: n - bwd_routes[r]
+           for r, n in k6.flash_attention_bwd.routes.items()}
+    check(all(n > 0 for n in ran.values()),
+          f"K6: every backward route launched ({ran})")
+    torch.cuda.empty_cache()
+    return worst, worst_bwd, row, ctrl
 
 
 def smoke_batches(cfg_smoke, seed):
@@ -1813,6 +1934,8 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     # the main path's run: counts zeroed just before, read just after
     for fn in counted.values():
         fn.launches = 0
+        for route in getattr(fn, "routes", {}):
+            fn.routes[route] = 0
     syncs = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1838,6 +1961,10 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
           f"{tag}: K6 launched {expected} times a step, its backward "
           f"{n_global} times, and no other kernel ran ({launches}, {steps} "
           f"steps)")
+    bwd_routes = dict(counted["K6 backward"].routes)
+    check(bwd_routes["wgmma"] == k6_bwd,
+          f"{tag}: every K6 backward launch on the wgmma route "
+          f"({bwd_routes})")
     check(all(len(s) == 1 for s in syncs),
           f"{tag}: one device-to-host transfer a step (the loss): {syncs}")
     ms = 1e3 * wall / steps
@@ -1850,7 +1977,8 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     mfu = flops / (ms / 1e3) / PEAK_OPS[torch.bfloat16]
     phase(f"{tag}: losses {losses} (the first the warm-up step's); K6 "
           f"launches {launches['K6']} = {expected} x {steps} steps, K6 "
-          f"backward {k6_bwd} = {n_global} x {steps}, other kernels "
+          f"backward {k6_bwd} = {n_global} x {steps} (by route "
+          f"{bwd_routes}), other kernels "
           f"{sum(launches.values()) - launches['K6'] - k6_bwd}; "
           f"synchronizing calls a step under sync-debug mode: "
           f"{[len(s) for s in syncs]} {syncs[0]}")
@@ -1859,6 +1987,30 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
           f"(max_memory_allocated), model flops {flops:.4e} a step "
           f"(6 N_matmul tokens + attention), {100 * mfu:.1f}% of the card's "
           f"989 TFLOP/s bf16 peak")
+    # the backward on each of its bf16 routes in turns (wgmma, mma, mma,
+    # wgmma), ``steps`` steps a turn, after the counted run: the step's
+    # share of the kernel's gain, read on one card
+    from repro_torch.kernels.flash_attention import ops as k6
+
+    backward_route, turns = k6.backward_route, []
+    try:
+        for route in ("wgmma", "mma", "mma", "wgmma"):
+            k6.backward_route = lambda dtype, hd, r=route: r
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(1, steps + 1):
+                state, m = step_fn(state, batches[i])
+                check(np.isfinite(float(m["loss"])),
+                      f"{tag} ({route} backward): finite loss")
+            turns.append(1e3 * (time.perf_counter() - t0) / steps)
+    finally:
+        k6.backward_route = backward_route
+    ab = {"wgmma": (turns[0] + turns[3]) / 2, "mma": (turns[1] + turns[2]) / 2}
+    phase(f"{tag} on {smi}, the backward's routes in turns wgmma, mma, mma, "
+          f"wgmma ({steps} steps each): "
+          f"{', '.join(f'{t:.1f}' for t in turns)} ms a step; wgmma "
+          f"{ab['wgmma']:.1f}, mma {ab['mma']:.1f}, difference "
+          f"{ab['mma'] - ab['wgmma']:.1f} ms a step")
     if profile:
         def run():
             nonlocal state
@@ -1871,7 +2023,7 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     del state, params, batches
     torch.cuda.empty_cache()
     return dict(launches=launches["K6"], bwd_launches=k6_bwd, steps=steps,
-                ms=ms, mfu=mfu,
+                ms=ms, mfu=mfu, turns_ms=turns,
                 tok_s=tokens / (ms / 1e3), peak=peak, losses=losses)
 
 
@@ -1912,6 +2064,10 @@ def time_k6(k6, rng, cfg, B=4, S=2048):
     def bwd():
         k6.flash_attention_bwd_cuda(*saved[next(it) % 4])
 
+    def bwd_present():
+        # the mma.sync kernels the wgmma route replaced, same inputs
+        k6.flash_attention_bwd_cuda(*saved[next(it) % 4], True, "mma")
+
     def bwd_ref():
         flash_attention_bwd_ref(*saved[next(it) % 4])
 
@@ -1929,7 +2085,13 @@ def time_k6(k6, rng, cfg, B=4, S=2048):
     ms, host_ms = cuda_ms(kern, iters=32)
     plain_ms, _ = cuda_ms(ref, iters=4, warmup=1)
     library_ms, _ = cuda_ms(lib, iters=32)
-    b_ms, b_host_ms = cuda_ms(bwd, iters=16)
+    # the backward's two routes in turns: wgmma, mma, mma, wgmma
+    turns = [cuda_ms(fn, iters=16) for fn in (bwd, bwd_present, bwd_present,
+                                              bwd)]
+    b_ms, b_host_ms = (sum(x) / 2 for x in zip(turns[0], turns[3]))
+    present = {"present_ms": (turns[1][0] + turns[2][0]) / 2,
+               "present_host_ms": (turns[1][1] + turns[2][1]) / 2,
+               "turns_ms": [t[0] for t in turns]}
     b_plain_ms, _ = cuda_ms(bwd_ref, iters=4, warmup=1)
     b_library_ms, _ = cuda_ms(bwd_lib, iters=16)
     q, k, _ = sets[0]
@@ -1945,6 +2107,7 @@ def time_k6(k6, rng, cfg, B=4, S=2048):
                          bound_ms=max(bytes_ms, ops_ms),
                          bound_by="bytes" if bytes_ms >= ops_ms
                          else "operations", bytes=nbytes, flops=nflops)
+    out["bwd"].update(present)
     del sets, saved, graphs
     torch.cuda.empty_cache()
     return dict(B=B, S=S, **out)
@@ -1997,8 +2160,9 @@ def main() -> int:
     t0 = time.perf_counter()
     stems = ("paged_attention", "paged_attention_wgmma", "paged_decode",
              "paged_decode_tma", "verify_attention", "verify_attention_wgmma",
-             "ssd_scan", "ssd_scan_wgmma", "rg_lru", "flash_attention",
-             "flash_attention_bwd")
+             "ssd_scan", "ssd_scan_wgmma", "rg_lru", "rg_lru_tma",
+             "flash_attention", "flash_attention_bwd",
+             "flash_attention_bwd_wgmma")
     build.load_all(stems)
     for stem in stems:
         for line in build.logs.get(stem, "").splitlines():
@@ -2055,8 +2219,13 @@ def main() -> int:
         ("full T=1 f32", (b_local, 1, rgemma.d_model), f32),
         ("full T=64 f32", (b_local, 64, rgemma.d_model), f32),
         ("smoke T=8 f32", (b_local, 8, rgemma_smoke.d_model), f32),
-        ("S=200 d=192 f32", (b_local, 200, 192), f32)], rng)
-    err6, err6b = check_k6(k6, rng)
+        ("S=200 d=192 f32", (b_local, 200, 192), f32)], rng,
+        route_of=lambda d, dt: k5.lru_route(d[1], d[2]), exact=True)
+    # a stream of its own: the later phases draw the inputs they drew
+    check_k5_tma(k5, rg_lru_ref, np.random.RandomState(args.seed + 5),
+                 [(T, d) for d in (rgemma.d_model, 192)
+                  for T in (3, 16, 64, 100, 200)])
+    err6, err6b, row6b, ctrl6b = check_k6(k6, rng)
 
     # [4] the engine on the card vs on the CPU, small input
     check_engine_vs_cpu(tengine, cfg_smoke, args.seed)
@@ -2195,11 +2364,22 @@ def main() -> int:
     # both routes at a few widths: where the wgmma route starts to pay
     k4_sweep = [k4_time(T, "wgmma", present=k4_route("fma"),
                         with_plain=False) for T in (2, 3, 4, 16)]
-    k5_times = [time_scan("rglru", k5.rg_lru_cuda, rg_lru_ref,
+    def k5_route(route):
+        return lambda *a: k5.rg_lru_cuda(*a, route=route)
+
+    # K5's two routes on the same inputs at each T: the seq kernel (T = 1
+    # on the serving path) and the tma route (T >= LRU_TMA_MIN_S); the
+    # first and the last with the plain version
+    k5_times = [time_scan("rglru", k5_route("tma"), rg_lru_ref,
                           lambda a, h: k5.bound_bytes(a[0], h),
                           lambda a: k5.flops(a[0]),
                           (b_local, T, rgemma.d_model), run5["n_layers"], rng,
-                          f32) for T in (1, 64)]
+                          f32, present=k5_route("seq"),
+                          with_plain=T in (1, 64))
+                for T in (1, 2, 4, 8, 16, 64)]
+    check(k5_times[-1]["ms"] < k5_times[-1]["present_ms"],
+          "K5 at T = 64: the tma route faster than the seq kernel on the "
+          "same inputs")
     k4_shape = (f"B={b_local} H={ssd_dims(mamba, 1)[2]} "
                 f"P={mamba.ssd_head_dim} N={mamba.ssd_state} bf16 x")
     t = k4_times[0]
@@ -2227,11 +2407,18 @@ def main() -> int:
               f"{t['bound_ms']:.4f} ms{plain_txt}; library: no single "
               f"PyTorch call")
     for t in k5_times:
+        plain_txt = (f", plain {t['plain_ms']:.4f} ms"
+                     if t["plain_ms"] is not None else "")
+        takes = k5.lru_route(t["T"], rgemma.d_model)
         phase(f"[11] K5 T={t['T']} B={b_local} d={rgemma.d_model} f32 on "
-              f"{smi}: kernel {t['ms']:.4f} ms (host {t['host_ms']:.4f} ms "
-              f"a call), bound {t['bound_ms']:.4f} ms ({t['bound_by']}: "
-              f"{t['bytes']} B, {t['flops']} flop), plain "
-              f"{t['plain_ms']:.4f} ms, library: no single PyTorch call")
+              f"{smi}: tma route {t['ms']:.4f} ms (host {t['host_ms']:.4f} "
+              f"ms a call, its enqueue {t['enqueue_ms']:.4f} ms), present "
+              f"kernel (seq route) {t['present_ms']:.4f} ms (host "
+              f"{t['present_host_ms']:.4f} ms a call) on the same inputs; "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} "
+              f"B, {t['flops']} flop){plain_txt}, library: no single PyTorch "
+              f"call; the dispatcher takes the {takes} route here "
+              f"(LRU_TMA_MIN_S = {k5.LRU_TMA_MIN_S})")
     # end to end: K4 from SCAN_WGMMA_MIN_S tokens through the fma kernel
     # and through the wgmma route, in turns on one warm engine
     def k4_min_s(n):
@@ -2255,14 +2442,20 @@ def main() -> int:
                              profile=args.profile)
     t6 = time_k6(k6, rng, cfg)
     for name, t, lib in (("forward (wgmma/TMA)", t6["fwd"], "SDPA, is_causal"),
-                         ("backward", t6["bwd"], "SDPA's backward through "
-                                                 "torch.autograd.grad")):
+                         ("backward (wgmma/TMA)", t6["bwd"],
+                          "SDPA's backward through torch.autograd.grad")):
         phase(f"[13] K6 {name} B={t6['B']} H={cfg.n_heads} S={t6['S']} "
               f"hd={cfg.hd} causal bf16 on {smi}: kernel {t['ms']:.4f} ms "
               f"(host {t['host_ms']:.4f} ms a call), bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']} flop, "
               f"{t['bytes']} B), plain {t['plain_ms']:.4f} ms, library "
               f"({lib}) {t['library_ms']:.4f} ms")
+    t = t6["bwd"]
+    phase(f"[13] K6 backward on the same inputs on {smi}: wgmma route "
+          f"{t['ms']:.4f} ms, present kernel (mma.sync, "
+          f"flash_attention_bwd.cu) {t['present_ms']:.4f} ms (host "
+          f"{t['present_host_ms']:.4f} ms a call); in turns wgmma, mma, "
+          f"mma, wgmma: {', '.join(f'{x:.4f}' for x in t['turns_ms'])} ms")
 
     # [14] the serve entry point at full width, then preemption
     entry = serve_entry_point(counted, smi)
@@ -2343,6 +2536,8 @@ def main() -> int:
              f"bf16")
     pa_src = "src/repro_torch/kernels/paged_attention/csrc/"
     ssd_src = "src/repro_torch/kernels/ssd_scan/csrc/"
+    lru_src = "src/repro_torch/kernels/rg_lru/csrc/"
+    fa_src = "src/repro_torch/kernels/flash_attention/csrc/"
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "host_ms")
     kernels = [
@@ -2388,23 +2583,45 @@ def main() -> int:
           for name, src, route, t in (
               ("ssd_scan_wgmma", "ssd_scan_wgmma.cu", "wgmma", k4_times[1]),
               ("ssd_scan", "ssd_scan.cu", "fma", k4_times[0]))),
-        row("rg_lru", "src/repro_torch/kernels/rg_lru/csrc/rg_lru.cu",
-            "src/repro/kernels/rg_lru/kernel.py:67", run5["launches"], err5,
-            *k5_times, f"T=1 B={b_local} d={rgemma.d_model} f32"),
-        *({"name": name, "route": "cuda",
-           "source": f"src/repro_torch/kernels/flash_attention/csrc/{src}",
+        *({"name": name, "route": "cuda", "source": lru_src + src,
+           "replaces": "src/repro/kernels/rg_lru/kernel.py:67",
+           "launches": run5["k5_routes"][route], "max_abs_err": err5[route],
+           **t, "bound_ms": t5["bound_ms"], "bound_by": t5["bound_by"],
+           "library_ms": None, "lru_route": route,
+           "shape": f"T={t5['T']} B={b_local} d={rgemma.d_model} f32",
+           **extra}
+          for name, src, route, t5, t, extra in (
+              ("rg_lru_tma", "rg_lru_tma.cu", "tma", k5_times[-1],
+               {k: k5_times[-1][k] for k in ("ms", "plain_ms", "host_ms")},
+               {"present_kernel": {"source": lru_src + "rg_lru.cu",
+                                   "ms": k5_times[-1]["present_ms"],
+                                   "host_ms":
+                                       k5_times[-1]["present_host_ms"]}}),
+              ("rg_lru", "rg_lru.cu", "seq", k5_times[0],
+               {"ms": k5_times[0]["present_ms"],
+                "plain_ms": k5_times[0]["plain_ms"],
+                "host_ms": k5_times[0]["present_host_ms"]}, {}))),
+        *({"name": name, "route": "cuda", "source": fa_src + src,
            "replaces": replaces, "launches": n, "max_abs_err": e,
            **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "host_ms")},
            "shape": f"B={t6['B']} H={cfg.n_heads} S={t6['S']} hd={cfg.hd} "
-                    f"causal bf16"}
-          for name, src, replaces, n, e, t in (
+                    f"causal bf16", **extra}
+          for name, src, replaces, n, e, t, extra in (
               ("flash_attention", "flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:80",
-               train["launches"], err6, t6["fwd"]),
-              ("flash_attention_bwd", "flash_attention_bwd.cu",
+               train["launches"], err6, t6["fwd"], {}),
+              ("flash_attention_bwd", "flash_attention_bwd_wgmma.cu",
                "src/repro/models/attention.py:53",
-               train["bwd_launches"], err6b, t6["bwd"]))),
+               train["bwd_launches"], err6b, t6["bwd"],
+               {"routes": {"wgmma": fa_src + "flash_attention_bwd_wgmma.cu",
+                           "mma": fa_src + "flash_attention_bwd.cu",
+                           "f32": fa_src + "flash_attention_bwd.cu"},
+                "row_scaled_err": row6b, "control_row_scaled_err": ctrl6b,
+                "present_kernel": {
+                    "source": fa_src + "flash_attention_bwd.cu",
+                    "ms": t6["bwd"]["present_ms"],
+                    "host_ms": t6["bwd"]["present_host_ms"]}}))),
     ]
     phase(f"[15] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -23,8 +23,8 @@
 // Design (FlashAttention-2's, simple first), three kernels a call, no
 // atomics, so the gradient is the same bit for bit from run to run:
 //
-// fa_bwd_delta: delta = rowsum(do * o) in float32 [B, H, S], one warp a
-// row.
+// fa_bwd_delta (flash_common.cuh): delta = rowsum(do * o) in float32
+// [B, H, S], one warp a row.
 //
 // fa_bwd_dkdv: one block of four warps per (batch, kv head, 64-key
 // tile), the heaviest causal tiles first.  K_j and V_j stay in shared
@@ -65,30 +65,7 @@ using namespace fa;
 constexpr int kT = 64;           // rows of a query or key tile (bf16)
 constexpr int kThreads = 128;
 
-struct Shape {
-  // strides of (b, h, s), in elements, of q, k, v, o, do, dq, dk, dv
-  int64_t q[3], k[3], v[3], o[3], dO[3], dq[3], dk[3], dv[3];
-  int B, H, KH, S, causal;
-  float scale;
-};
-
-// ----------------------------------------------------------------- delta
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(256)
-fa_bwd_delta(const T* __restrict__ o, const T* __restrict__ dO,
-             float* __restrict__ delta, Shape sh) {
-  const int64_t row = (int64_t)blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= (int64_t)sh.B * sh.H * sh.S) return;
-  const int s = row % sh.S, bh = row / sh.S, b = bh / sh.H, h = bh % sh.H;
-  const T* orow = o + b * sh.o[0] + h * sh.o[1] + s * sh.o[2];
-  const T* drow = dO + b * sh.dO[0] + h * sh.dO[1] + s * sh.dO[2];
-  float acc = 0.f;
-  for (int d = lane; d < HD; d += 32) acc += to_f(orow[d]) * to_f(drow[d]);
-  acc = warp_sum(acc);
-  if (lane == 0) delta[row] = acc;
-}
+using Shape = BwdShape;     // flash_common.cuh, with fa_bwd_delta
 
 // ------------------------------------------------------------ bf16 tiles
 

@@ -3,7 +3,10 @@
 // fragments loaded by ldmatrix, and the pairing of two floats into one
 // bf16 pair; the hi/lo split, the cp.async copies and the log constants
 // come from the Hopper header (kernels/csrc), the warp reductions and
-// conversions from the attention kernels' common header.
+// conversions from the attention kernels' common header.  Last, what the
+// backward's two sources (flash_attention_bwd.cu and
+// flash_attention_bwd_wgmma.cu) share: their arguments' shape and the
+// delta kernel.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -90,6 +93,33 @@ __device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4],
                                           int n0, int k0, int lane) {
   const int mi = lane >> 3;
   ldsm_x4_t(b, s + (k0 + (lane & 7) + (mi & 1) * 8) * ld + n0 + (mi >> 1) * 8);
+}
+
+// ------------------------------------------------------------- backward
+
+struct BwdShape {
+  // strides of (b, h, s), in elements, of q, k, v, o, do, dq, dk, dv
+  int64_t q[3], k[3], v[3], o[3], dO[3], dq[3], dk[3], dv[3];
+  int B, H, KH, S, causal;
+  float scale;
+};
+
+// delta = rowsum(do * o) in float32 [B, H, S], one warp a row: the
+// first of the backward's three kernels on every route.
+template <typename T, int HD>
+__global__ void __launch_bounds__(256)
+fa_bwd_delta(const T* __restrict__ o, const T* __restrict__ dO,
+             float* __restrict__ delta, BwdShape sh) {
+  const int64_t row = (int64_t)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (int64_t)sh.B * sh.H * sh.S) return;
+  const int s = row % sh.S, bh = row / sh.S, b = bh / sh.H, h = bh % sh.H;
+  const T* orow = o + b * sh.o[0] + h * sh.o[1] + s * sh.o[2];
+  const T* drow = dO + b * sh.dO[0] + h * sh.dO[1] + s * sh.dO[2];
+  float acc = 0.f;
+  for (int d = lane; d < HD; d += 32) acc += to_f(orow[d]) * to_f(drow[d]);
+  acc = warp_sum(acc);
+  if (lane == 0) delta[row] = acc;
 }
 
 }  // namespace fa

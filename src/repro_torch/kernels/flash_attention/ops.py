@@ -16,12 +16,19 @@ dtype and hd (:func:`forward_route`):
 - ``"f32"``, float32 at any of :data:`HEAD_DIMS`: plain float32 FMAs.
 
 Each walks the K/V tiles up to the diagonal with an online softmax and
-writes the output and the float32 log-sum-exp.  The backward
-(``csrc/flash_attention_bwd.cu``) is three kernels a call: delta =
-rowsum(dO * O), then dK/dV per key tile and dQ per query tile
-(FlashAttention-2's split, no atomics, so two calls agree bit for bit),
-on ``mma.sync`` in bf16 and float32 FMAs in float32.  The JAX package
-has no backward kernel (it differentiates the jnp
+writes the output and the float32 log-sum-exp.  The backward is three
+kernels a call: delta = rowsum(dO * O), then dK/dV per key tile and dQ
+per query tile (FlashAttention-2's split, no atomics, so two calls
+agree bit for bit), chosen by dtype and hd (:func:`backward_route`):
+
+- ``"wgmma"`` (``csrc/flash_attention_bwd_wgmma.cu``), bf16 at hd 64
+  and 128 (the training path): producer warps keep rings of (Q, dO) or
+  (K, V) tiles full by TMA and consumer warpgroups run all seven
+  products on ``wgmma``;
+- ``"mma"`` and ``"f32"`` (``csrc/flash_attention_bwd.cu``), bf16 at
+  hd 16 on ``mma.sync`` and float32 on FMAs.
+
+The JAX package has no backward kernel (it differentiates the jnp
 ``blockwise_attention``); the backward computes that gradient.
 
 Bounds on an H100 at the training shape (B 4, H 16, S 2048, hd 128,
@@ -34,7 +41,8 @@ tensor its forward and backward launch their kernels or raise; on a
 CPU tensor they run the plain versions in :mod:`.ref`.
 ``flash_attention.launches`` counts forward launches (the recomputation
 of a checkpointed forward included) and ``flash_attention.routes`` the
-same by kernel; ``flash_attention_bwd.launches`` counts backward calls.
+same by kernel; ``flash_attention_bwd.launches`` counts backward calls
+and ``flash_attention_bwd.routes`` the same by route.
 """
 
 from __future__ import annotations
@@ -60,6 +68,15 @@ def forward_route(dtype, hd: int) -> str:
     return "f32"
 
 
+def backward_route(dtype, hd: int) -> str:
+    """The backward's kernels for (dtype, hd): ``"wgmma"`` for bf16 at hd
+    64 or 128, ``"mma"`` for bf16 at hd 16, ``"f32"`` for float32.  It is
+    :func:`forward_route`'s rule, on purpose: each direction has its
+    kernel of each kind at the same (dtype, hd), so one rule serves
+    both; a kind added to one direction only splits them."""
+    return forward_route(dtype, hd)
+
+
 @functools.cache
 def _lib():
     from ..build import load
@@ -73,11 +90,14 @@ def _lib():
 
 
 @functools.cache
-def _bwd_fn():
+def _bwd_fn(stem):
+    """The backward's entry point of ``csrc/<stem>.cu``: the mma.sync and
+    f32 kernels take the dtype as one more int."""
     from ..build import load
-    fn = load("flash_attention_bwd").flash_attention_bwd
+    fn = getattr(load(stem), stem)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
+    n_ints = 6 if stem.endswith("wgmma") else 7
+    fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * n_ints
                    + [ctypes.c_void_p])
     return fn
 
@@ -140,13 +160,26 @@ def flash_attention_cuda(q, k, v, causal: bool = True):
     return o, lse
 
 
-def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True):
-    """Launch the backward kernels on PyTorch's current stream (no
-    sync): (dq, dk, dv) like (q, k, v), from the forward's o and lse
-    and the output's gradient do."""
+def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
+                             route=None):
+    """Launch the backward kernels of ``route`` (by default
+    :func:`backward_route` of q's dtype and hd) on PyTorch's current
+    stream (no sync): (dq, dk, dv) like (q, k, v), from the forward's o
+    and lse and the output's gradient do."""
     _check("flash_attention_bwd", q, k, v)
     B, H, S, hd = q.shape
     KH = k.shape[1]
+    if route is None:
+        route = backward_route(q.dtype, hd)
+    if route == "wgmma":
+        if q.dtype != torch.bfloat16 or hd not in WGMMA_HEAD_DIMS:
+            raise ValueError(f"flash_attention_bwd: the wgmma route takes "
+                             f"bfloat16 at hd in {WGMMA_HEAD_DIMS}, got "
+                             f"{q.dtype}, hd {hd}")
+    elif route not in ("mma", "f32") or (route == "f32") != (
+            q.dtype == torch.float32):
+        raise ValueError(f"flash_attention_bwd: no route {route!r} for "
+                         f"{q.dtype}")
     if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
             or do.dtype != q.dtype or lse.shape != (B, H, S)
             or lse.dtype != torch.float32 or not lse.is_contiguous()):
@@ -164,15 +197,18 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True):
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, o, do, dq, dk, dv)
                                       for s in t.stride()[:3]))
-    err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                    ctypes.addressof(strides), _DTYPES[q.dtype], B, H, KH,
-                    S, hd, int(causal),
-                    torch.cuda.current_stream(q.device).cuda_stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides))
+    tail = (B, H, KH, S, hd, int(causal),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if route == "wgmma":
+        err = _bwd_fn("flash_attention_bwd_wgmma")(*args, *tail)
+    else:
+        err = _bwd_fn("flash_attention_bwd")(*args, _DTYPES[q.dtype], *tail)
     if err != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: "
-                           f"cudaError {err} (hd={hd}, S={S})")
+        raise RuntimeError(f"flash_attention_bwd kernel ({route}) launch "
+                           f"failed: cudaError {err} (hd={hd}, S={S})")
     return dq, dk, dv
 
 
@@ -192,12 +228,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     once a call), the plain version on a CPU tensor."""
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
-    out = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    route = backward_route(q.dtype, q.shape[-1])
+    out = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, route)
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.routes[route] += 1
     return out
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = {"wgmma": 0, "mma": 0, "f32": 0}
 
 
 class _FlashAttention(torch.autograd.Function):

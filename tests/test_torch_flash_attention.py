@@ -28,10 +28,10 @@ from repro.kernels.flash_attention.ref import \
     flash_attention_ref as j_flash_ref
 from repro.models import attention as jattn
 from repro_torch.kernels.flash_attention import ops
-from repro_torch.kernels.flash_attention.ref import (attention_delta_ref,
-                                                     flash_attention_bwd_ref,
-                                                     flash_attention_fwd_ref,
-                                                     flash_attention_ref)
+from repro_torch.kernels.flash_attention.ref import (
+    BWD_ROW_TOL, TILE, attention_delta_ref, flash_attention_bwd_ref,
+    flash_attention_bwd_tiled_ref, flash_attention_fwd_ref,
+    flash_attention_ref, row_scaled_err)
 from repro_torch.models import attention as tattn
 
 TOL = 1e-4
@@ -273,3 +273,90 @@ def test_backward_bound_at_the_training_shape():
     assert round(ops.bound_bytes_bwd(q, q) / 1e6) == 269  # 268.4 MB + lse
     assert ops.bound_bytes_bwd(q, q) / 3.35e12 < ops.flops_bwd(q) / 989e12
     assert ops.flops_bwd(q, causal=False) == 10 * 4 * 16 * 128 * 2048 ** 2
+
+
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 16, "mma"),
+    (torch.float32, 128, "f32"),
+    (torch.float32, 16, "f32"),
+])
+def test_backward_route_by_dtype_and_hd(dtype, hd, route):
+    assert ops.backward_route(dtype, hd) == route
+
+
+@pytest.mark.parametrize("B,H,KH,S,hd,causal", [
+    (2, 4, 2, 77, 64, True),            # a ragged last tile, G = 2
+    (1, 8, 2, 130, 64, True),           # G = 4, a key tile past 128
+    (2, 4, 1, 100, 128, False),         # bidirectional
+])
+def test_tiled_backward_walk(B, H, KH, S, hd, causal):
+    """The wgmma backward's walk (64-key and 64-query tiles, the G heads
+    of a kv head in order, tiles above the diagonal skipped, P rebuilt
+    in base 2) against autograd through the plain version and
+    ``jax.grad`` of the reference's ``blockwise_attention``: at 1e-4 in
+    float32; with P and dS rounded to bf16 where the kernels round them,
+    at 2e-2 (absolute and relative): each rounding moves a term by up
+    to 2^-9 of itself, and a gradient sums up to S such terms with
+    random signs (these cases' largest error is 1.4e-2, on a dv entry
+    near 9)."""
+    q, k, v = _inputs(S + H, B, H, KH, S, hd)
+    do = np.random.RandomState(S + 3).randn(B, H, S, hd).astype(np.float32)
+
+    def j_loss(q, k, v):
+        o = jattn.blockwise_attention(
+            q, jattn._expand_kv(k, H), jattn._expand_kv(v, H), causal=causal,
+            block_q=64, block_k=32)
+        return jnp.sum(o * jnp.asarray(_bshd(do)))
+
+    j_g = jax.grad(j_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(_bshd(a)) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tdo = torch.from_numpy(do)
+    t_g = torch.autograd.grad(flash_attention_ref(tq, tk, tv, causal),
+                              (tq, tk, tv), tdo)
+    o, lse = flash_attention_fwd_ref(tq.detach(), tk.detach(), tv.detach(),
+                                     causal)
+    args = (tq.detach(), tk.detach(), tv.detach(), o, lse, tdo, causal)
+    exact = flash_attention_bwd_tiled_ref(*args, bf16_operands=False)
+    rounded = flash_attention_bwd_tiled_ref(*args)
+    for got, want, jwant in zip(exact, t_g, j_g):
+        _close(got, want)
+        _close(got.transpose(1, 2), jwant)
+    for got, want, jwant in zip(rounded, t_g, j_g):
+        _close(got, want, tol=2e-2)
+        _close(got.transpose(1, 2), jwant, tol=2e-2)
+        assert not torch.equal(got, want)    # the rounding is there
+
+
+@pytest.mark.parametrize("B,H,KH,S,hd,causal", [
+    (2, 4, 2, 77, 64, True),            # a ragged last tile, G = 2
+    (1, 8, 2, 130, 64, True),           # G = 4, a key tile past 128
+    (2, 4, 1, 200, 128, False),         # bidirectional
+])
+def test_tiled_backward_controls_lie_beyond_the_row_limit(B, H, KH, S, hd,
+                                                          causal):
+    """The measure the card holds the wgmma backward to against its walk
+    (``row_scaled_err`` within ``BWD_ROW_TOL``) sees a fault confined to
+    one late tile: the walk with the last query tile's pair with the key
+    tile before it dropped, and with delta left out, lie beyond the
+    limit; the walk's gradients written in bf16, as the kernels write
+    them, lie within a bf16 rounding (2^-8) of it."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(S + hd, B, H, KH, S,
+                                                    hd))
+    do = torch.from_numpy(
+        np.random.RandomState(S + 5).randn(B, H, S, hd).astype(np.float32))
+    o, lse = flash_attention_fwd_ref(q, k, v, causal)
+    twin = flash_attention_bwd_tiled_ref(q, k, v, o, lse, do, causal)
+    n = -(-S // TILE)
+    dropped = flash_attention_bwd_tiled_ref(q, k, v, o, lse, do, causal,
+                                            drop=(n - 1, n - 2))
+    no_delta = flash_attention_bwd_tiled_ref(q, k, v, torch.zeros_like(o),
+                                             lse, do, causal)
+    for control in (dropped, no_delta):
+        assert max(row_scaled_err(a, b)
+                   for a, b in zip(control, twin)) > 4 * BWD_ROW_TOL
+    for a in twin:
+        assert row_scaled_err(a, a) == 0.0
+        assert row_scaled_err(a.to(torch.bfloat16), a) <= 2.0 ** -8

@@ -13,7 +13,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import ops as k6
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    BWD_ROW_TOL, flash_attention_bwd_tiled_ref, flash_attention_ref,
+    row_scaled_err)
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import \
     paged_attention_chunk_ref as plain
@@ -416,6 +418,59 @@ def test_rg_lru_kernel_vs_plain(card, B, S, d):
     assert torch.equal(h[1], hs[1, min(2, S - 1)])
 
 
+def _lru_args(rng, B, S, d):
+    """a, b [B, S, d] and h0 [B, d] on the card; lane 1 inert (a = 1, b
+    = 0) from token 3 on, lane 2 throughout."""
+    a = rng.rand(B, S, d).astype(np.float32) * 0.9
+    b = rng.randn(B, S, d).astype(np.float32) * 0.5
+    a[1, 3:], b[1, 3:] = 1.0, 0.0
+    a[2], b[2] = 1.0, 0.0
+    return [torch.from_numpy(x).cuda() for x in
+            (a, b, rng.randn(B, d).astype(np.float32))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [3, 16, 64, 100, 200])
+@pytest.mark.parametrize("d", [2560, 192])    # recurrentgemma-2b; tiles of 64
+def test_rg_lru_tma_route_vs_plain(card, S, d):
+    """K5's tma route (S past ``LRU_TMA_MIN_S``, 8-token stages, a ring
+    over S > 64): bit-equal to the plain version, inert lanes keep their
+    state bit for bit, two calls bit-equal."""
+    a, b, h0 = _lru_args(np.random.RandomState(S + d), 4, S, d)
+    route = "tma" if S >= k5.LRU_TMA_MIN_S else "seq"
+    assert k5.lru_route(S, d) == route
+    on_route = k5.rg_lru.routes[route]
+    h = h0.clone()
+    hs, _ = k5.rg_lru(a, b, h)
+    torch.cuda.synchronize()
+    assert k5.rg_lru.routes[route] == on_route + 1
+    hs_ref, h_ref = rg_lru_ref(a, b, h0)
+    assert torch.equal(hs, hs_ref) and torch.equal(h, h_ref)
+    assert torch.equal(h[2], h0[2])
+    h2 = h0.clone()
+    assert torch.equal(k5.rg_lru_cuda(a, b, h2, "tma"), hs_ref)
+    assert torch.equal(h2, h_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,d", [(1, 2560), (64, 2560), (13, 100), (9, 6)])
+def test_rg_lru_present_kernel_keeps_its_shapes(card, S, d):
+    """The seq route (T = 1 on the serving path; d not a multiple of 4)
+    still bit-equal to the plain version, and the tma route refuses what
+    its tensor map cannot stride."""
+    a, b, h0 = _lru_args(np.random.RandomState(S), 3, S, d)
+    h = h0.clone()
+    hs = k5.rg_lru_cuda(a, b, h, "seq")
+    hs_ref, h_ref = rg_lru_ref(a, b, h0)
+    assert torch.equal(hs, hs_ref) and torch.equal(h, h_ref)
+    if d % 4:
+        assert k5.lru_route(S, d) == "seq"
+        with pytest.raises(ValueError):
+            k5.rg_lru_cuda(a, b, h0.clone(), "tma")
+    with pytest.raises(ValueError):
+        k5.rg_lru_cuda(a, b, h0.clone(), "wgmma")
+
+
 def _qkv(rng, B, H, KH, S, hd, dtype, grad=False):
     """q [B, H, S, hd] and k, v [B, KH, S, hd] on the card, q and k as
     the training step hands them over: transposed views of [B, S, H,
@@ -507,6 +562,72 @@ def test_flash_attention_backward_is_deterministic(card, dtype):
     second = k6.flash_attention_bwd_cuda(q, k, v, o, lse, do)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KH,S,hd,causal", [
+    (1, 16, 16, 2048, 128, True),   # olmo-1b
+    (4, 16, 16, 2048, 128, True),   # olmo-1b's training shape
+    (1, 32, 8, 1024, 64, True),     # llama3.2-1b, G = 4
+    (2, 4, 2, 77, 128, True),       # a ragged last tile, G = 2
+    (2, 4, 1, 200, 64, False),      # bidirectional, G = 4
+    (1, 2, 2, 130, 128, True),      # a key tile of one key past 128
+])
+def test_flash_attention_backward_wgmma_route(card, B, H, KH, S, hd, causal):
+    """The wgmma/TMA backward (bf16, hd 64 and 128) against autograd
+    through the plain version at 6e-2 (P and dS enter their products
+    rounded to bf16), and against its walk with P and dS so rounded,
+    each row within ``BWD_ROW_TOL`` of its own scale (the limit a
+    dropped late tile lies beyond: test_torch_flash_attention.py's
+    control test); counted on its route; two calls bit-equal."""
+    rng = np.random.RandomState(S + hd)
+    q, k, v = _qkv(rng, B, H, KH, S, hd, torch.bfloat16, grad=True)
+    do = torch.from_numpy(rng.randn(B, H, S, hd).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    assert k6.backward_route(torch.bfloat16, hd) == "wgmma"
+    before = k6.flash_attention_bwd.routes["wgmma"]
+    got = torch.autograd.grad(k6.flash_attention(q, k, v, causal), (q, k, v),
+                              do)
+    assert k6.flash_attention_bwd.routes["wgmma"] == before + 1
+    want = torch.autograd.grad(flash_attention_ref(q, k, v, causal),
+                               (q, k, v), do)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a.float(), b.float(), atol=6e-2,
+                                   rtol=6e-2)
+    q, k, v = (t.detach() for t in (q, k, v))
+    o, lse = k6.flash_attention_cuda(q, k, v, causal)
+    twin = flash_attention_bwd_tiled_ref(q, k, v, o, lse, do, causal)
+    for a, b in zip(got, twin):
+        assert row_scaled_err(a, b) < BWD_ROW_TOL
+    first = k6.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    second = k6.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,hd,route", [
+    (torch.bfloat16, 16, "mma"), (torch.float32, 64, "f32"),
+    (torch.float32, 128, "f32")])
+def test_flash_attention_backward_present_routes(card, dtype, hd, route):
+    """hd 16 and float32 keep the kernels of flash_attention_bwd.cu,
+    counted on their routes; the wgmma route refuses them."""
+    rng = np.random.RandomState(hd)
+    q, k, v = _qkv(rng, 2, 4, 2, 77, hd, dtype, grad=True)
+    do = torch.from_numpy(rng.randn(2, 4, 77, hd).astype(np.float32)).to(
+        "cuda", dtype)
+    assert k6.backward_route(dtype, hd) == route
+    before = k6.flash_attention_bwd.routes[route]
+    got = torch.autograd.grad(k6.flash_attention(q, k, v), (q, k, v), do)
+    assert k6.flash_attention_bwd.routes[route] == before + 1
+    want = torch.autograd.grad(flash_attention_ref(q, k, v), (q, k, v), do)
+    tol = 1e-4 if dtype == torch.float32 else 6e-2
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+    o, lse = k6.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError):
+        k6.flash_attention_bwd_cuda(q, k, v, o, lse, do, route="wgmma")
 
 
 @pytest.mark.cuda

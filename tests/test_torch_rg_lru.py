@@ -21,7 +21,7 @@ import _torch_helpers  # noqa: F401  (caps torch's CPU threads)
 from repro.kernels.rg_lru.kernel import rg_lru as pallas_rg_lru
 from repro.kernels.rg_lru.ref import rg_lru_ref as j_rg_lru_ref
 from repro_torch.kernels.rg_lru import ops
-from repro_torch.kernels.rg_lru.ref import rg_lru_ref
+from repro_torch.kernels.rg_lru.ref import rg_lru_ref, rg_lru_tiled_ref
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 
@@ -121,3 +121,56 @@ def test_dispatcher_updates_state_in_place_on_cpu():
     assert torch.equal(hs0, rg_lru_ref(a, b)[0]) and torch.equal(
         h0, hs0[:, -1])
     assert ops.rg_lru.launches == before
+
+
+@pytest.mark.parametrize("S,d,route", [
+    (1, 2560, "seq"),                     # a decode step
+    (ops.LRU_TMA_MIN_S - 1, 2560, "seq"),
+    (ops.LRU_TMA_MIN_S, 2560, "tma"),
+    (64, 2560, "tma"),                    # a prefill chunk
+    (200, 192, "tma"),
+    (200, 98, "seq"),                     # rows the tensor map cannot stride
+])
+def test_lru_route_by_length_and_width(S, d, route):
+    assert ops.lru_route(S, d) == route
+
+
+@pytest.mark.parametrize("B,S,d", [
+    (2, 128, 256),      # where the TPU kernel writes every row
+    (3, 200, 192),      # a ring over S > 64, three channel tiles
+    (2, 37, 100),       # a ragged last chunk and a ragged last tile
+    (8, 64, 2560),      # recurrentgemma-2b's prefill chunk
+])
+def test_tiled_walk_bit_equal_to_plain(B, S, d):
+    """The tma kernel's walk (channel tiles of 64, a ring of eight
+    8-token buffers refilled in turn, zeros past S and d) is the plain
+    version bit for bit; it matches the reference's sequential oracle,
+    and its Pallas kernel in interpret mode where that kernel writes
+    every row, at the reference's 1e-4."""
+    a, b, h = _inputs(np.random.RandomState(B + S + d), B, S, d)
+    a[1, 5:], b[1, 5:] = 1.0, 0.0         # an inert tail
+    targs = [torch.from_numpy(x) for x in (a, b, h)]
+    hs_t, hf_t = rg_lru_tiled_ref(*targs)
+    hs, hf = rg_lru_ref(*targs)
+    assert torch.equal(hs_t, hs) and torch.equal(hf_t, hf)
+    assert torch.equal(hf_t[1], hs_t[1, 4])
+    jargs = [jnp.asarray(x) for x in (a, b, h)]
+    refs = [("oracle", j_rg_lru_ref(*jargs))]
+    if S % 128 == 0 and d <= 256:
+        refs.append(("pallas", pallas_rg_lru(*jargs, interpret=True)))
+    for name, (rs, rf) in refs:
+        np.testing.assert_allclose(hs_t.numpy(), np.asarray(rs), **TOL,
+                                   err_msg=name)
+        np.testing.assert_allclose(hf_t.numpy(), np.asarray(rf), **TOL,
+                                   err_msg=name)
+
+
+def test_dispatcher_counts_no_route_on_cpu():
+    """A CPU tensor takes the plain version under either route's
+    shapes: no launch and no route is counted."""
+    routes = dict(ops.rg_lru.routes)
+    for S in (1, 64):
+        a, b, h = map(torch.from_numpy,
+                      _inputs(np.random.RandomState(S), 2, S, 64))
+        ops.rg_lru(a, b, h)
+    assert ops.rg_lru.routes == routes
