@@ -135,7 +135,31 @@ Phases, each printed on its own line (any failure fails the run):
    K2's bound, its plain version and SDPA; serve phase 5's workload with decode-only
    steps through K1 and through K2 in turns (K1, K2, K2, K1); print the
    kernels line (K1-K6; K4's and K5's routes, and K6's forward and
-   backward, on rows of their own).
+   backward, on rows of their own);
+16. sampled serving and crash recovery at full width (olmo-1b, bf16
+   unless said): (a) phase 5's workload with three requests in four
+   sampled (temperature 0.8, top-k 50, seeds 1000 + rid), twice: the
+   checks of phase 5, the two runs' streams bit for bit equal, ms/step
+   and tok/s beside phase 5's greedy run, and the sampler's kernels
+   and device time a step under the profiler; (b) in f32, phase 7's
+   hot-prefix traffic with and without speculation and phase 14b's
+   preempting traffic with and without preemption, sampled as in (a):
+   every stream equal, or first different at a near-tie (top-2 gap of
+   ``logits / T + g`` within 1e-4 of its scale); (c)
+   ``repro_torch.launch.serve.main`` at dp 2 with pins, deadlines and
+   an ``--inject-fault`` schedule of every kind (poison, straggler, a
+   crash at post_sync, shard loss, a torn crash at dispatched, a step
+   error): every fault fires, the journal drains, each reconcile is
+   conserved and never-dry, no block in use on the surviving shard, one
+   transfer a step but the step a torn crash cut, K1 + K2 = 16 x steps,
+   and ``recoveries`` equals the injected step errors; (d) the engine
+   in f32 with a crash at post_sync and a torn crash at dispatched
+   through ``chaos.recover_engine``: every stream equal to the
+   uninterrupted run's or first different at a near-tie (1e-4).  Phase
+   4 also holds, on the card against the CPU, sampled requests with
+   speculation and preemption, and the two crashes recovered through
+   ``recover_engine`` (identical streams up to a near-tie of 1e-5,
+   status rows, reconcile reports and pool leaves).
 
 ``--profile`` serves the workloads of phases 5, 9 and 10 again, and
 runs two more training steps in phase 12, under ``torch.profiler``,
@@ -790,6 +814,228 @@ def check_pins_engine_vs_cpu(tengine, cfg_smoke, seed):
               f"leaves and pin tables; 0 pages after flush_pins")
 
 
+def sample_reqs(reqs, temp, top_k):
+    """Sample three requests in four (temperature ``temp``, top-k
+    ``top_k``, seed 1000 + rid); every fourth stays greedy."""
+    for r in reqs:
+        if r.rid % 4:
+            r.temperature, r.top_k, r.seed = temp, top_k, 1000 + r.rid
+    return reqs
+
+
+def choice_gap(cfg, params, req, p, device):
+    """(top-2 gap, scale) of the scores that chose output token ``p`` of
+    ``req`` (its prompt and first ``p`` tokens as the context), from one
+    forward pass: ``logits / T + g`` after top-k for a sampled request,
+    the logits for a greedy one."""
+    from repro_torch.models.layers import logits_apply
+    from repro_torch.models.transformer import forward_train
+    from repro_torch.serving.sampling import perturbed_scores
+
+    context = list(req.prompt) + list(req.out_tokens[:p])
+    with torch.no_grad():
+        x = forward_train(cfg, params, torch.tensor([context], device=device),
+                          remat=False)
+        scores = logits_apply(cfg, params["embed"], x[:, -1])[0].float()
+    if req.temperature > 0:
+        def reg(v, dt):
+            return torch.tensor(v, dtype=dt, device=device)
+        scores = perturbed_scores(
+            scores, reg(req.temperature, torch.float32),
+            reg(req.top_k, torch.int32), reg(req.seed, torch.int32),
+            reg(p, torch.int32))
+    finite = scores[torch.isfinite(scores)]
+    top = finite.topk(2).values
+    return (top[0] - top[1]).item(), finite.abs().max().item()
+
+
+def check_streams(tag, cfg, params, device, ref, got, tol):
+    """Every stream of ``got`` equals the one of ``ref`` (same requests,
+    in order) or differs first at a near-tie: the top-2 gap of the
+    scores of ``ref``'s choice (:func:`choice_gap`, ``params`` on
+    ``device``) within ``tol`` of their scale.  Returns (identical
+    streams, near-ties)."""
+    same = ties = 0
+    for a, b in zip(ref, got):
+        if a.out_tokens == b.out_tokens:
+            same += 1
+            continue
+        p = next((j for j, (u, v) in enumerate(zip(a.out_tokens,
+                                                   b.out_tokens)) if u != v),
+                 min(len(a.out_tokens), len(b.out_tokens)))
+        gap, scale = choice_gap(cfg, params, a, p, device)
+        phase(f"{tag} stream {a.rid} (temperature {a.temperature}) differs "
+              f"first at token {p}: top-2 gap {gap:.3e}, scale {scale:.3e}")
+        check(p < min(len(a.out_tokens), len(b.out_tokens))
+              and gap <= tol * scale,
+              f"{tag} stream {a.rid}: a divergence that is not a near-tie")
+        ties += 1
+    return same, ties
+
+
+def pool_state(eng):
+    """The engine's pool leaves on the CPU, every class."""
+    return [t.cpu() for hp in eng.state.pool.classes
+            for t in (hp.shared.free_ids, hp.shared.top, hp.shared.refcount,
+                      hp.private_ids, hp.private_top)]
+
+
+def same_tensors(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def check_sampled_engine_vs_cpu(tengine, cfg_smoke, seed):
+    """Phase 4: sampled requests (temperature 0.9, top-k 8, seeds 1000 +
+    rid, a quarter greedy) through the smoke olmo-1b engine with
+    speculation (draft length 4, the gate off) and preemption
+    (``SchedConfig(page_budget=6)``), on the card against the CPU: two
+    requests on a 16-token hot prefix, an interactive arrival that
+    preempts, then three more on the prefix that draft from the
+    finished streams.  Identical tokens, status rows, stats and pool
+    leaves; a token may differ only at a near-tie of the CPU run (top-2
+    gap of ``logits / T + g`` within 1e-5 of its scale), and then the
+    rest is not compared."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.sched import SchedConfig
+    from repro_torch.serving.telemetry import FlightRecorder
+
+    params = init_params(cfg_smoke, seed=seed, device="cpu")
+    rng = np.random.RandomState(seed + 4)
+    hot = list(rng.randint(1, cfg_smoke.vocab, 16))
+    tails = [list(rng.randint(1, cfg_smoke.vocab, 4)) for _ in range(3)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = tengine.ServingEngine(
+            cfg_smoke, tree_map(lambda a: a.to(dev), params), dp=1,
+            b_local=2, max_len=64, chunk_size=8, prefix_sharing=True,
+            speculate=True, draft_len=4, spec_gate=False,
+            sched=SchedConfig(page_budget=6), device=dev,
+            flight=FlightRecorder(capacity=4096))
+        reqs = sample_reqs([tengine.Request(
+            i, prompt=hot + tails[i % 3], max_new_tokens=6,
+            slo="interactive" if i == 2 else "standard")
+            for i in range(6)], 0.9, 8)
+        eng.submit(reqs[0])
+        eng.submit(reqs[1])
+        for _ in range(3):
+            eng.step()
+        eng.submit(reqs[2])
+        eng.run(max_steps=500)
+        for r in reqs[3:]:
+            eng.submit(r)
+        eng.run(max_steps=500)
+        check(all(r.done for r in reqs) and eng.leak_free(),
+              f"sampled smoke engine on {dev} drained")
+        runs[dev] = dict(
+            reqs=reqs, status=[rec["status"] for rec in eng.flight.ring],
+            stats={k: v for k, v in eng.stats.items()
+                   if k not in ("stragglers", "step_timeouts")},
+            pool=pool_state(eng))
+    a, b = runs["cpu"], runs["cuda"]
+    same, ties = check_streams("[4] sampled smoke engine", cfg_smoke, params,
+                               "cpu", a["reqs"], b["reqs"], 1e-5)
+    if not ties:
+        check(a["status"] == b["status"] and a["stats"] == b["stats"]
+              and same_tensors(a["pool"], b["pool"]),
+              "sampled smoke engine: status rows, stats and pool leaves on "
+              "the card == on the CPU")
+    st = a["stats"]
+    check(st["preemptions"] >= 1 and st["spec_lanes"] >= 1,
+          f"sampled smoke engine: a preemption and a speculative lane "
+          f"({st['preemptions']}, {st['spec_lanes']})")
+    phase(f"[4] sampled smoke engine (speculation, preemption) on the card "
+          f"== on the CPU: {len(b['status'])} steps, preemptions "
+          f"{st['preemptions']}, speculative lanes {st['spec_lanes']}, "
+          f"drafts accepted {st['spec_accepted']}; {same} of 6 streams "
+          f"identical, near-ties {ties}; status rows, stats and pool leaves "
+          f"identical{' (not compared after a near-tie)' if ties else ''}")
+
+
+def check_crash_engine_vs_cpu(tengine, cfg_smoke, seed):
+    """Phase 4: a host crash at ``post_sync`` and a torn crash (drained,
+    never refilled) at ``dispatched``, each recovered through
+    ``chaos.recover_engine``, on the card against the CPU: the smoke
+    olmo-1b at dp 2 with pins, 9 requests, a quarter greedy.  Identical
+    streams, status rows, reconcile reports, pool leaves after the
+    recovery and after the drain."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import chaos
+    from repro_torch.serving.sched import SchedConfig
+    from repro_torch.serving.telemetry import FlightRecorder
+
+    params = init_params(cfg_smoke, seed=seed, device="cpu")
+    rng = np.random.RandomState(seed + 5)
+    hot = list(rng.randint(1, cfg_smoke.vocab, 16))
+    prompts = [hot + list(rng.randint(1, cfg_smoke.vocab, rng.randint(2, 9)))
+               if i % 2 else list(rng.randint(1, cfg_smoke.vocab,
+                                              rng.randint(3, 30)))
+               for i in range(9)]
+    for fault in ("post_sync", "dispatched"):
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            dparams = tree_map(lambda a: a.to(dev), params)
+            journal = chaos.ServingJournal()
+            injector = chaos.ServingFailureInjector([chaos.Fault(
+                step=5, phase=fault, kind="crash", torn=fault == "dispatched")])
+
+            def build():
+                return tengine.ServingEngine(
+                    cfg_smoke, dparams, dp=2, b_local=2, max_len=64,
+                    chunk_size=8, prefix_sharing=True,
+                    sched=SchedConfig(pin_pages=8), journal=journal,
+                    injector=injector, device=dev,
+                    flight=FlightRecorder(capacity=4096))
+
+            eng = build()
+            reqs = sample_reqs([tengine.Request(i, prompt=p, max_new_tokens=6)
+                                for i, p in enumerate(prompts)], 0.9, 8)
+            for r in reqs:
+                eng.submit(r)
+            try:
+                eng.run(max_steps=500)
+                check(False, f"crash at {fault} on {dev}: fired")
+            except chaos.HostCrash:
+                pass
+            eng2, report = chaos.recover_engine(build, eng, journal)
+            recovered = pool_state(eng2)
+            eng2.run(max_steps=500)
+            eng2.flush_pins()
+            check(journal.finished() == set(range(9))
+                  and not journal.in_flight() and eng2.leak_free()
+                  and report["conserved"] and report["never_dry"],
+                  f"crash at {fault} on {dev}: recovered and drained")
+            outs = journal.outputs()
+            runs[dev] = dict(
+                reqs=[dataclasses.replace(r, out_tokens=outs[r.rid])
+                      for r in reqs],
+                report={k: v for k, v in report.items() if k != "requests"},
+                recovered=recovered, pool=pool_state(eng2),
+                status=[rec["status"] for rec in eng2.flight.ring])
+        a, b = runs["cpu"], runs["cuda"]
+        same, ties = check_streams(f"[4] crash at {fault}", cfg_smoke, params,
+                                   "cpu", a["reqs"], b["reqs"], 1e-5)
+        check(a["report"] == b["report"]
+              and same_tensors(a["recovered"], b["recovered"]),
+              f"crash at {fault}: reconcile reports and recovered pool "
+              f"leaves on the card == on the CPU")
+        if not ties:
+            check(a["status"] == b["status"]
+                  and same_tensors(a["pool"], b["pool"]),
+                  f"crash at {fault}: status rows and drained pool leaves "
+                  f"on the card == on the CPU")
+        rep = b["report"]
+        phase(f"[4] smoke crash at {fault}{' (torn)' if fault == 'dispatched' else ''}"
+              f", recovered through recover_engine, on the card == on the "
+              f"CPU: reconcile reclaimed {rep['reclaimed']}, resurrected "
+              f"{rep['resurrected']}, requeued {rep['requeued']}, pins "
+              f"restored {rep['pins_restored']}, conserved "
+              f"{rep['conserved']}, never_dry {rep['never_dry']}; "
+              f"{len(b['status'])} steps; {same} of 9 streams identical, "
+              f"near-ties {ties}; 0 pages after the drain")
+
+
 def make_requests(tengine, cfg, seed, n=16, hi=1024, n_long=0, long_lo=0):
     """The smoke workload: ``n`` requests of 64-``hi`` random prompt
     tokens and 32-64 new tokens each, from ``seed``; every (n //
@@ -948,7 +1194,8 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     out = dict(launches=launches[kernel], steps=steps, tok_s=tokens / wall,
                ms_step=1e3 * wall / steps, n_layers=n_layers,
                k2=launches.get("K2", 0), decode_steps=decode_steps,
-               k4_routes=k4_routes, k5_routes=k5_routes)
+               k4_routes=k4_routes, k5_routes=k5_routes,
+               tokens=[r.out_tokens for r in reqs])
     if profile_reqs is not None:
         profile_serve(eng, profile_reqs, f"{tag} [p]")
     del eng, params
@@ -1022,11 +1269,12 @@ def hot_prefix_prompts(cfg, seed, n=32):
 
 
 def serve_trace(tengine, k3, ops, cfg, params, prompts, speculate, b_local,
-                max_len, chunk, max_new=64):
+                max_len, chunk, max_new=64, sampled=False):
     """Serve ``prompts`` on a fresh engine (after a warm-up that runs a
     prefill chunk, plain decode and, with speculation, a verify step),
     with the kernels' launch counts zeroed just before and read just
-    after.  Returns the run's numbers."""
+    after; ``sampled`` samples three requests in four as phase 16 does.
+    Returns the run's numbers."""
     from repro_torch.serving.telemetry import FlightRecorder
 
     eng = tengine.ServingEngine(
@@ -1039,6 +1287,8 @@ def serve_trace(tengine, k3, ops, cfg, params, prompts, speculate, b_local,
         eng.run(max_steps=100)
     reqs = [tengine.Request(i, prompt=list(p), max_new_tokens=max_new)
             for i, p in enumerate(prompts)]
+    if sampled:
+        sample_reqs(reqs, 0.8, 50)
     st0 = dict(eng.stats)
     transfers0, adm0 = eng.host_transfers, eng.admission_transfers
     n_rec0 = len(eng.flight.ring)
@@ -1076,7 +1326,7 @@ def serve_trace(tengine, k3, ops, cfg, params, prompts, speculate, b_local,
         transfers=eng.host_transfers - transfers0,
         admission_transfers=eng.admission_transfers - adm0,
         tokens=[r.out_tokens for r in reqs], done=all(r.done for r in reqs),
-        pages_after=eng.pages_in_use(), leak_free=eng.leak_free())
+        pages_after=eng.pages_in_use(), leak_free=eng.leak_free(), reqs=reqs)
     del eng
     torch.cuda.empty_cache()
     return d
@@ -1324,7 +1574,8 @@ def top2_gap(cfg, params, context):
     return (top[0] - top[1]).item(), logits.abs().max().item()
 
 
-def serve_preempting(tengine, counted, cfg, seed, preemption=True):
+def serve_preempting(tengine, counted, cfg, seed, preemption=True,
+                     sampled=False):
     """Phase 14 (b): the engine driven directly at full width with
     ``SchedConfig(pin_pages=128, pin_rows=16)`` (with the default 4 rows
     the 4 interactive prompts' own pins evict the victims' pins before
@@ -1332,8 +1583,9 @@ def serve_preempting(tengine, counted, cfg, seed, preemption=True):
     prompt tokens and 128 new tokens fill the 8 slots; after 40 steps 4
     interactive requests of 64-256 prompt tokens and 32 new tokens
     arrive and preempt standard victims, whose whole pages ``preempt``
-    pins and readmission shares back.  Returns the run's numbers; the
-    engine's parameters stay in ``out["params"]`` for the caller."""
+    pins and readmission shares back; ``sampled`` samples three requests
+    in four as phase 16 does.  Returns the run's numbers; the engine's
+    parameters stay in ``out["params"]`` for the caller."""
     from repro_torch.models.model import init_params
     from repro_torch.serving.sched import SchedConfig
 
@@ -1350,6 +1602,8 @@ def serve_preempting(tengine, counted, cfg, seed, preemption=True):
     inter = [tengine.Request(8 + i, prompt=list(rng.randint(
         1, cfg.vocab, rng.randint(64, 257))), max_new_tokens=32,
         slo="interactive") for i in range(4)]
+    if sampled:
+        sample_reqs(std + inter, 0.8, 50)
     for fn in counted.values():
         fn.launches = 0
     torch.cuda.synchronize()
@@ -1374,7 +1628,7 @@ def serve_preempting(tengine, counted, cfg, seed, preemption=True):
         victims=sum(r.preemptions > 0 for r in reqs),
         transfers=eng.host_transfers, launches=launches,
         flushed=eng.flush_pins(), prompts=[r.prompt for r in reqs],
-        params=params, n_layers=cfg.n_layers)
+        params=params, n_layers=cfg.n_layers, reqs=reqs)
     out["empty"] = eng.page_occupancy() == 0.0 and eng.leak_free()
     del eng
     torch.cuda.empty_cache()
@@ -1435,6 +1689,300 @@ def check_preempting(tengine, counted, cfg, seed, smi):
     del a["params"]
     torch.cuda.empty_cache()
     return runs["bf16"]
+
+
+def launch_count(fn, n=10):
+    """(device kernels a call, device ms a call) of ``fn`` over ``n``
+    calls under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    # the first profiler session of a process has been seen to miss
+    # kernels: a throwaway session first
+    for _ in range(2):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in ev) / n,
+            sum(e.self_device_time_total for e in ev) / 1e3 / n)
+
+
+def sampler_cost(cfg, b_local, n_verify, smi):
+    """Phase 16 (a): the device kernels and device time of one sampled
+    step's sampler (``sample_tokens`` over [1, b_local, vocab] logits;
+    ``sample_lane`` over ``n_verify`` positions on a speculative step)
+    beside the greedy argmax the all-greedy step runs instead."""
+    from repro_torch.serving.sampling import sample_lane, sample_tokens
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    logits = torch.randn(1, b_local, cfg.vocab, device="cuda", generator=g)
+    lane = torch.randn(1, b_local, n_verify, cfg.vocab, device="cuda",
+                       generator=g)
+    temps = torch.full((1, b_local), 0.8, device="cuda")
+    topks = torch.full((1, b_local), 50, dtype=torch.int32, device="cuda")
+    seeds = 1000 + torch.arange(b_local, dtype=torch.int32,
+                                device="cuda")[None]
+    counts = torch.arange(b_local, dtype=torch.int32, device="cuda")[None]
+    cnt = counts[..., None] + torch.arange(n_verify, dtype=torch.int32,
+                                           device="cuda")
+    out = {
+        "greedy": launch_count(lambda: logits.argmax(-1).to(torch.int32)),
+        "sample_tokens": launch_count(
+            lambda: sample_tokens(logits, temps, topks, seeds, counts)),
+        "sample_lane": launch_count(
+            lambda: sample_lane(lane, temps, topks, seeds, cnt)),
+    }
+    for name, (k, ms) in out.items():
+        phase(f"[16a] sampler on {smi}: {name} over "
+              f"{'[1, %d, %d, %d]' % (b_local, n_verify, cfg.vocab) if name == 'sample_lane' else '[1, %d, %d]' % (b_local, cfg.vocab)}"
+              f" logits: {k:.0f} device kernels a call, {ms:.4f} ms device "
+              f"time a call")
+    return out
+
+
+def serve_sampled(tengine, counted, cfg, seed, b_local, max_len, chunk,
+                  greedy_run, smi):
+    """Phase 16 (a): phase 5's workload, three quarters sampled
+    (temperature 0.8, top-k 50, seeds 1000 + rid), through
+    ``serve_full_width`` twice: the checks of phase 5, and the two runs'
+    streams bit for bit equal; ms/step and tok/s beside phase 5's greedy
+    run; the sampler's launches a step."""
+    runs, reqs = [], []
+    for _ in range(2):
+        reqs.append(sample_reqs(make_requests(tengine, cfg, seed), 0.8, 50))
+        runs.append(serve_full_width("[16a]", tengine, counted, "K1", cfg,
+                                     seed, b_local, max_len, chunk,
+                                     reqs[-1]))
+    check([r.out_tokens for r in reqs[0]] == [r.out_tokens for r in reqs[1]],
+          "[16a]: a second run of the sampled workload gives the same "
+          "streams bit for bit")
+    greedy_same = sum(r.out_tokens == g for r, g in zip(
+        reqs[0], greedy_run["tokens"]) if r.temperature == 0)
+    cost = sampler_cost(cfg, b_local, 5, smi)
+    r = runs[0]
+    phase(f"[16a] {cfg.name} sampled on {smi}: {r['ms_step']:.2f} ms/step, "
+          f"{r['tok_s']:.1f} generated tok/s (second run "
+          f"{runs[1]['ms_step']:.2f} ms/step, {runs[1]['tok_s']:.1f} tok/s); "
+          f"phase 5 greedy {greedy_run['ms_step']:.2f} ms/step, "
+          f"{greedy_run['tok_s']:.1f} tok/s; the two sampled runs' "
+          f"{len(reqs[0])} streams identical; {greedy_same} of "
+          f"{sum(x.temperature == 0 for x in reqs[0])} greedy streams equal "
+          f"to phase 5's; sampler "
+          f"{cost['sample_tokens'][0]:.0f} kernels and "
+          f"{cost['sample_tokens'][1]:.4f} ms a sampled step (greedy argmax "
+          f"{cost['greedy'][0]:.0f} kernels, {cost['greedy'][1]:.4f} ms)")
+    return dict(runs=runs, cost=cost)
+
+
+def check_sampled_f32(tengine, k3, ops, counted, cfg, seed, b_local,
+                      max_len, chunk, smi):
+    """Phase 16 (b): in f32 at full width, phase 7's hot-prefix traffic
+    with and without speculation and phase 14b's preempting traffic with
+    and without preemption, both sampled as in (a): every stream equal,
+    or first different at a near-tie (top-2 gap of ``logits / T + g``
+    within 1e-4 of its scale)."""
+    from repro_torch.models.model import init_params
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(c32, seed=seed, device="cuda")
+    prompts = hot_prefix_prompts(cfg, seed)
+    traces = {spec: serve_trace(tengine, k3, ops, c32, params, prompts, spec,
+                                b_local, max_len, chunk, sampled=True)
+              for spec in (True, False)}
+    a, b = traces[False], traces[True]
+    check(a["done"] and b["done"] and a["leak_free"] and b["leak_free"]
+          and b["spec_steps"] > 0,
+          "[16b] sampled hot-prefix traffic finished, speculative steps ran")
+    same, ties = check_streams("[16b] speculation", c32, params, "cuda",
+                               a["reqs"], b["reqs"], 1e-4)
+    phase(f"[16b] f32 sampled hot-prefix traffic on {smi}: speculative "
+          f"{b['steps']} steps ({b['spec_steps']} speculative, drafted "
+          f"{b['spec_drafted']}, accepted {b['spec_accepted']}), plain "
+          f"{a['steps']} steps; {same} of {len(prompts)} streams equal, "
+          f"near-ties {ties}")
+    del params
+    torch.cuda.empty_cache()
+    pre = {p: serve_preempting(tengine, counted, c32, seed, p, sampled=True)
+           for p in (True, False)}
+    a, b = pre[False], pre[True]
+    check(a["done"] and b["done"] and a["empty"] and b["empty"]
+          and b["preemptions"] >= 1 and a["preemptions"] == 0,
+          "[16b] sampled preempting traffic finished, with and without "
+          "preemption")
+    same2, ties2 = check_streams("[16b] preemption", c32, b["params"], "cuda",
+                                 a["reqs"], b["reqs"], 1e-4)
+    phase(f"[16b] f32 sampled preempting traffic on {smi}: preemptions "
+          f"{b['preemptions']} ({b['victims']} victims), pin hits "
+          f"{b['pin_hits']}; {same2} of {len(b['reqs'])} streams equal to "
+          f"the run without preemption, near-ties {ties2}")
+    del a["params"], b["params"]
+    torch.cuda.empty_cache()
+    return dict(spec_same=same, spec_ties=ties, pre_same=same2,
+                pre_ties=ties2)
+
+
+def serve_chaos_entry_point(counted, smi):
+    """Phase 16 (c): ``repro_torch.launch.serve.main`` at full width in
+    bf16, two shards of 4 slots, a 512-token hot prefix, 64 pin pages,
+    deadlines, and a fault schedule that fires each kind: a poisoned
+    request, a straggler, a crash at ``post_sync``, the loss of shard 1,
+    a torn crash at ``dispatched`` and, after the last crash, a step
+    error recovered in place.  Every fault fires, the journal drains,
+    each reconcile is conserved and never-dry, no block of any class is
+    in use on the surviving shard, one transfer a step but the step a
+    torn crash cut, K1 + K2 = 16 x steps, and telemetry ``recoveries``
+    equals the injected step errors (so a real failure recovered in
+    place fails the run)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve
+    from repro_torch.serving import chaos
+
+    faults = ("poison@2:feed:5,straggler@4:pre_tick:0.05,"
+              "crash@8:post_sync,shard_loss@14:post_admission:1,"
+              "crash@20:dispatched:torn,error@26:post_sync")
+    argv = ["--arch", "olmo-1b", "--dp", "2", "--b-local", "4",
+            "--max-len", "2048", "--hot-prefix", "512", "--requests", "24",
+            "--max-new", "32", "--pin-pages", "64", "--deadline-s", "900",
+            "--inject-fault", faults, "--device", "cuda"]
+    phase(f"[16c] python -m repro_torch.launch.serve {' '.join(argv)}")
+    for fn in counted.values():
+        fn.launches = 0
+        for route in getattr(fn, "routes", {}):
+            fn.routes[route] = 0
+    lives, reports = [], []
+    recover = chaos.recover_engine
+
+    def recording(build, crashed, journal):
+        lives.append((crashed.stats["steps"], crashed.host_transfers,
+                      crashed.stats["recoveries"]))
+        eng, report = recover(build, crashed, journal)
+        reports.append(report)
+        return eng, report
+
+    out = io.StringIO()
+    chaos.recover_engine = recording
+    try:
+        with contextlib.redirect_stdout(out):
+            eng = serve.main(argv)
+    finally:
+        chaos.recover_engine = recover
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    for line in out.getvalue().splitlines():
+        phase(f"[16c] | {line}")
+    st, inj = eng.stats, eng._injector
+    lives.append((st["steps"], eng.host_transfers, st["recoveries"]))
+    steps = sum(x[0] for x in lives)
+    transfers = sum(x[1] for x in lives)
+    kinds = [k for _, _, k in inj.log]
+    last_crash = max(s for s, _, k in inj.log if k == "crash")
+    errors_after = sum(s > last_crash for s, _, k in inj.log if k == "error")
+    torn = sum(f.torn for f in inj.faults if f.kind == "crash")
+    n_layers = eng.cfg.n_layers
+    check(not inj.pending() and sorted(set(kinds)) == sorted(
+        {"poison", "straggler", "crash", "shard_loss", "error"})
+          and len(reports) == 2,
+          f"[16c]: every fault fired ({inj.log})")
+    check(not eng._journal.in_flight(), "[16c]: the journal drained")
+    check(all(r["conserved"] and r["never_dry"] for r in reports),
+          "[16c]: every reconcile conserved and never-dry")
+    live = [int(eng.state.pool.classes[c].shared.refcount[0].gt(0).sum())
+            for c in range(eng.n_classes)]
+    check(eng.lost_shards == {1} and live == [0] * eng.n_classes
+          and eng.leak_free(),
+          f"[16c]: no block in use on the surviving shard ({live})")
+    check(transfers + torn == steps,
+          f"[16c]: one transfer a step but the step a torn crash cut "
+          f"({transfers} transfers, {steps} steps)")
+    check(launches["K1"] + launches["K2"] == n_layers * steps
+          and sum(launches.values()) == n_layers * steps,
+          f"[16c]: K1 + K2 = {n_layers} x steps ({launches}, {steps})")
+    check(errors_after >= 1 and st["recoveries"] == errors_after,
+          f"[16c]: telemetry recoveries {st['recoveries']} == injected step "
+          f"errors since the last crash {errors_after}")
+    phase(f"[16c] entry point with faults on {smi}: {steps} steps over "
+          f"{len(lives)} engine lives, transfers {transfers}; faults fired "
+          f"{inj.log}; reconciles: " + "; ".join(
+              f"reclaimed {r['reclaimed']}, resurrected {r['resurrected']}, "
+              f"requeued {r['requeued']}, pins restored {r['pins_restored']}"
+              for r in reports) + f"; recoveries {st['recoveries']}; "
+          f"finished {len(eng._journal.finished())}, blocks in use on shard "
+          f"0 by class {live}; K1 {launches['K1']} + K2 {launches['K2']} "
+          f"launches")
+    out = dict(k1=launches["K1"], k2=launches["K2"], steps=steps)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_crash_f32(tengine, cfg, seed, b_local, max_len, chunk, smi):
+    """Phase 16 (d): the engine driven directly in f32 at full width, 8
+    requests of 64-512 prompt tokens (a quarter greedy, the rest sampled
+    as in (a)), uninterrupted and with a crash at ``post_sync`` and a
+    torn crash at ``dispatched``, both recovered through
+    ``chaos.recover_engine``: every stream equal to the uninterrupted
+    run's or first different at a near-tie (1e-4), each reconcile
+    conserved and never-dry, leak-free after the drain."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import chaos
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    params = init_params(c32, seed=seed, device="cuda")
+    runs, reports = {}, []
+    for faulty in (False, True):
+        journal = chaos.ServingJournal()
+        injector = chaos.ServingFailureInjector(
+            [chaos.Fault(step=12, phase="post_sync", kind="crash"),
+             chaos.Fault(step=30, phase="dispatched", kind="crash",
+                         torn=True)] if faulty else [])
+
+        def build():
+            return tengine.ServingEngine(
+                c32, params, dp=1, b_local=b_local, max_len=max_len,
+                chunk_size=chunk, journal=journal, injector=injector,
+                device="cuda")
+
+        reqs = sample_reqs(make_requests(tengine, c32, seed + 16, n=8,
+                                         hi=512), 0.8, 50)
+        eng = build()
+        for r in reqs:
+            eng.submit(r)
+        while True:
+            try:
+                eng.run(max_steps=10_000)
+                break
+            except chaos.HostCrash:
+                eng, report = chaos.recover_engine(build, eng, journal)
+                reports.append(report)
+        outs = journal.outputs()
+        check(journal.finished() == {r.rid for r in reqs}
+              and not journal.in_flight() and eng.leak_free(),
+              f"[16d] {'crashed' if faulty else 'uninterrupted'} run drained")
+        runs[faulty] = [dataclasses.replace(r, out_tokens=outs[r.rid])
+                        for r in reqs]
+        del eng
+    check(len(reports) == 2 and all(r["conserved"] and r["never_dry"]
+                                    for r in reports),
+          "[16d]: two recoveries, conserved and never-dry")
+    same, ties = check_streams("[16d]", c32, params, "cuda", runs[False],
+                               runs[True], 1e-4)
+    phase(f"[16d] f32 crash at post_sync and torn crash at dispatched on "
+          f"{smi}: reconciles " + "; ".join(
+              f"reclaimed {r['reclaimed']}, resurrected {r['resurrected']}, "
+              f"requeued {r['requeued']}, never_dry {r['never_dry']}"
+              for r in reports)
+          + f"; {same} of {len(runs[True])} streams equal to the "
+            f"uninterrupted run, near-ties {ties}")
+    del params
+    torch.cuda.empty_cache()
+    return dict(same=same, ties=ties)
 
 
 def profiled(run, tag="[p]"):
@@ -2231,6 +2779,8 @@ def main() -> int:
     check_engine_vs_cpu(tengine, cfg_smoke, args.seed)
     check_spec_engine_vs_cpu(tengine, k3, cfg_smoke, args.seed)
     check_pins_engine_vs_cpu(tengine, cfg_smoke, args.seed)
+    check_sampled_engine_vs_cpu(tengine, cfg_smoke, args.seed)
+    check_crash_engine_vs_cpu(tengine, cfg_smoke, args.seed)
     for c in (rgemma_smoke, mamba_smoke):
         check_engine_vs_cpu(tengine, c, args.seed, name=f"{c.name} engine "
                             f"(two size classes)", size_classes=2)
@@ -2512,6 +3062,22 @@ def main() -> int:
           f"generated tok/s; preempting run (bf16) "
           f"{preempting['tokens_out'] / preempting['wall']:.1f} tok/s")
 
+    # [16] sampled serving and crash recovery at full width
+    t16 = time.perf_counter()
+    sampled = serve_sampled(tengine, counted, cfg, args.seed, b_local,
+                            max_len, chunk, run1, smi)
+    check_sampled_f32(tengine, k3, ops, counted, cfg, args.seed, b_local,
+                      max_len, chunk, smi)
+    chaos16 = serve_chaos_entry_point(counted, smi)
+    check_crash_f32(tengine, cfg, args.seed, b_local, max_len, chunk, smi)
+    phase(f"[16] sampled serving and recovery in "
+          f"{time.perf_counter() - t16:.1f} s")
+    s16 = sampled["runs"][0]
+    sampled_launches = {
+        "K1": s16["launches"], "K2": s16["k2"],
+        "entry_point_with_faults": {"K1": chaos16["k1"],
+                                    "K2": chaos16["k2"]}}
+
     def row(name, src, replaces, n, e, t, t_other, shape, present=None):
         """A kernel's entry; ``present``: the source of the kernel its
         wgmma route replaced, which still takes the other shapes, with
@@ -2554,7 +3120,8 @@ def main() -> int:
                             "ms": t2["present_ms"],
                             "host_ms": t2["present_host_ms"]},
          "k1_same_inputs": {k: t2k1[k] for k in ("ms", "plain_ms",
-                                                 "bound_ms", "library_ms")}},
+                                                 "bound_ms", "library_ms")},
+         "sampled_launches": sampled_launches["K2"]},
         row("paged_attention_chunk",
             "src/repro_torch/kernels/paged_attention/csrc/"
             "paged_attention_wgmma.cu",
@@ -2623,7 +3190,8 @@ def main() -> int:
                     "ms": t6["bwd"]["present_ms"],
                     "host_ms": t6["bwd"]["present_host_ms"]}}))),
     ]
-    phase(f"[15] total {time.perf_counter() - t_start:.1f} s")
+    kernels[1]["sampled_launches"] = sampled_launches["K1"]
+    phase(f"[16] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,6 +8,8 @@ Layout: ``<dir>/step_<N>/``
   * ``shard_<k>.npz``  — flat {path: array} for this host's shard, the
     path the keys of nested dicts and the field names or indices of
     tuples, joined by ``/``; bfloat16 stored as float32 (lossless)
+  * ``aux.json``       — an optional JSON sidecar (the serving plane's
+    host ledgers for a warm restart), read back by ``restore_aux``
   * ``INDEX.json``     — written LAST (atomic rename); a checkpoint
     without INDEX is incomplete and ignored on restore
 
@@ -89,34 +91,40 @@ class Checkpointer:
         self._thread: Optional[threading.Thread] = None
 
     # ------------------------------------------------------------- save
-    def save(self, step: int, state: Any, async_: bool = False) -> None:
+    def save(self, step: int, state: Any, async_: bool = False,
+             aux: Any = None) -> None:
         flat = _flatten(state)
         if async_:
             self.wait()
             self._thread = threading.Thread(
-                target=self._write, args=(step, flat), daemon=True)
+                target=self._write, args=(step, flat, aux), daemon=True)
             self._thread.start()
         else:
-            self._write(step, flat)
+            self._write(step, flat, aux)
 
     def wait(self) -> None:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
 
-    def _write(self, step: int, flat: Dict[str, np.ndarray]) -> None:
+    def _write(self, step: int, flat: Dict[str, np.ndarray],
+               aux: Any = None) -> None:
         d = self.dir / f"step_{step:08d}"
         d.mkdir(parents=True, exist_ok=True)
         tmp_npz = d / f".shard_{self.shard_id}.npz.tmp"
         with open(tmp_npz, "wb") as f:
             np.savez(f, **flat)
         os.replace(tmp_npz, d / f"shard_{self.shard_id}.npz")
+        if aux is not None:
+            tmp_aux = d / ".aux.json.tmp"
+            tmp_aux.write_text(json.dumps(aux, default=int))
+            os.replace(tmp_aux, d / "aux.json")
         tmp = d / ".INDEX.tmp"
         tmp.write_text(json.dumps({
             "step": step,
             "shards": [self.shard_id],
             "keys": sorted(flat),
-            "aux": False,           # the reference's serving sidecar flag
+            "aux": aux is not None,
         }))
         os.replace(tmp, d / "INDEX.json")       # atomic completion marker
         self._gc()
@@ -142,3 +150,12 @@ class Checkpointer:
         with np.load(d / f"shard_{self.shard_id}.npz") as npz:
             flat = dict(npz)
         return _unflatten_into(like, flat)
+
+    def restore_aux(self, step: int) -> Any:
+        """The JSON sidecar saved with ``step`` (None if there is
+        none)."""
+        d = self.dir / f"step_{step:08d}"
+        if not (d / "INDEX.json").exists():
+            raise FileNotFoundError(f"incomplete checkpoint {d}")
+        p = d / "aux.json"
+        return json.loads(p.read_text()) if p.exists() else None

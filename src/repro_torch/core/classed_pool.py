@@ -148,3 +148,38 @@ def pages_local(pool: ClassedPool, cls: int) -> int:
 def total_free(pool: ClassedPool) -> torch.Tensor:
     """Free blocks summed over ALL classes (and shards)."""
     return sum(hier_pool.total_free(hp) for hp in pool.classes)
+
+
+def num_live(pool: ClassedPool) -> torch.Tensor:
+    """Live blocks summed over ALL classes (and shards)."""
+    return sum(hier_pool.num_live(hp) for hp in pool.classes)
+
+
+# ------------------------------------------------------ crash recovery
+
+def audit_and_reconcile(pool: ClassedPool, keep_tables=None,
+                        pin_tables=None) -> Tuple[ClassedPool, dict]:
+    """Per-class :func:`hier_pool.audit_and_reconcile`, merged report.
+
+    ``keep_tables`` / ``pin_tables`` are per-class sequences (or None
+    for none anywhere); entry c holds class c's keeping rows (None
+    allowed per class: pins exist only in the KV class).  The merged
+    report carries the per-class reports under ``"classes"`` and the
+    single-pool form's top-level keys, conservation and never-dry ANDed
+    over the classes."""
+    new_classes, reports = [], []
+    for c, hp in enumerate(pool.classes):
+        hp, rep = hier_pool.audit_and_reconcile(
+            hp, keep_tables=None if keep_tables is None else keep_tables[c],
+            pin_tables=None if pin_tables is None else pin_tables[c])
+        new_classes.append(hp)
+        reports.append(rep)
+    merged = {
+        "classes": reports,
+        "reclaimed": sum(r["reclaimed"] for r in reports),
+        "resurrected": sum(r["resurrected"] for r in reports),
+        "clamped": sum(r["clamped"] for r in reports),
+        "never_dry": all(r["never_dry"] for r in reports),
+        "conserved": all(r["conserved"] for r in reports),
+    }
+    return ClassedPool(classes=tuple(new_classes)), merged

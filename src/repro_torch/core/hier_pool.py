@@ -19,14 +19,16 @@ batched over the leading axes of the pool's leaves (see
 :mod:`.block_pool`), so a pool created by :func:`create_dp` carries one
 independent pool per DP shard and the ``*_dp`` names below are the same
 functions: block ids stay shard-local by construction, no vmap needed.
-Crash reconciliation (``audit_and_reconcile``) waits for the port's
-fault-tolerance slice.
+Crash reconciliation (:func:`audit_and_reconcile`) is host-side numpy,
+as in the reference, and puts the rebuilt pool back on the pool's own
+device.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from . import block_pool
@@ -94,6 +96,31 @@ def validate_plan(num_blocks: int, num_lanes: int, ell: int,
     if not degraded_ok:
         raise ValueError(msg)
     return False
+
+
+def alloc(pool: HierPool, want: torch.Tensor
+          ) -> Tuple[HierPool, torch.Tensor]:
+    """Per-lane allocate: want bool[..., L] -> ids int32[..., L] (NULL
+    where denied).  Touches only the lane's private stack; granted
+    blocks are stamped refcount 1."""
+    take = want & (pool.private_top > 0)
+    idx = (pool.private_top - 1).clamp(min=0)
+    ids = block_pool.take(pool.private_ids, idx[..., None])[..., 0]
+    ids = torch.where(take, ids, NULL)
+    shared = pool.shared._replace(
+        refcount=block_pool._set_ref(pool.shared.refcount, ids, 1))
+    return pool._replace(shared=shared,
+                         private_top=pool.private_top - take.to(I32)), ids
+
+
+def alloc_or_shared(pool: HierPool, want: torch.Tensor
+                    ) -> Tuple[HierPool, torch.Tensor]:
+    """Lane-first allocate with a synchronous shared-pool fallback: a
+    lane whose private stack is empty pulls from the shared stack."""
+    pool, ids = alloc(pool, want)
+    miss = want & (ids < 0)
+    shared, got = block_pool.alloc(pool.shared, miss)
+    return pool._replace(shared=shared), torch.where(miss, got, ids)
 
 
 def alloc_n(pool: HierPool, counts: torch.Tensor,
@@ -175,6 +202,12 @@ def free_n(pool: HierPool, ids: torch.Tensor) -> HierPool:
     return pool
 
 
+def free(pool: HierPool, ids: torch.Tensor) -> HierPool:
+    """Per-lane free: ids int32[..., L] (NULL = no-op for that lane),
+    the one-column case of :func:`free_n`."""
+    return free_n(pool, ids[..., None])
+
+
 def free_shared(pool: HierPool, ids: torch.Tensor) -> HierPool:
     """Release lane-less references straight to the SHARED stack (the
     cache-owner release path; ids [..., K])."""
@@ -234,8 +267,16 @@ def total_free(pool: HierPool) -> torch.Tensor:
     return pool.shared.top.sum(dtype=I32) + pool.private_top.sum(dtype=I32)
 
 
+def num_live(pool: HierPool) -> torch.Tensor:
+    """Blocks with at least one reference (each counted once), summed
+    over shards."""
+    return (pool.shared.refcount > 0).sum(dtype=I32)
+
+
 # The DP-sharded names of the reference: the ops above already run per
 # shard over the leading [DP] axis of the leaves.
+alloc_dp = alloc
+alloc_or_shared_dp = alloc_or_shared
 alloc_n_dp = alloc_n
 alloc_n_or_shared_dp = alloc_n_or_shared
 alloc_from_shared_dp = alloc_from_shared
@@ -246,3 +287,123 @@ free_shared_dp = free_shared
 rebalance_dp = rebalance
 rebalance_drain_dp = rebalance_drain
 rebalance_refill_dp = rebalance_refill
+
+
+# ----------------------------------------------------------- crash recovery
+#
+# After a host crash the free stacks and the host's shadow of lane
+# occupancy are untrusted: the crash may have landed anywhere, inside
+# the rebalance's torn drain/refill window too.  What stays trustworthy
+# is reachability: the page-table rows recovery keeps and the journaled
+# pin rows.  Reconciliation recounts references from those rows alone
+# and rebuilds the whole pool, host-side, off the hot path.
+
+
+def _reconcile_shard(refcount: np.ndarray, L: int, cap: int,
+                     keep_rows: Optional[np.ndarray],
+                     pin_rows: Optional[np.ndarray]) -> Tuple[tuple, dict]:
+    """One shard's rebuilt leaves (free_ids, top, refcount, private_ids,
+    private_top) as numpy arrays in the pool's dtypes, and its report."""
+    m = refcount.shape[0]
+    ell = cap // 3
+
+    refs = np.zeros(m, np.int64)
+    for rows in (keep_rows, pin_rows):
+        if rows is None:
+            continue
+        ids = np.asarray(rows).reshape(-1)
+        ids = ids[(ids >= 0) & (ids < m)]
+        np.add.at(refs, ids, 1)
+
+    # pages a dead episode held that no keeping row reaches any more,
+    # and referenced pages the torn state thought free
+    reclaimed = np.nonzero((refcount > 0) & (refs == 0))[0]
+    resurrected = int(np.sum((refcount <= 0) & (refs > 0)))
+
+    # the recount runs in int64, the pool stores a narrow refcount: clamp
+    # to its dtype's max and report (a clamped page stays live; releases
+    # decrement, so the count errs toward never freeing early)
+    ref_cap = np.iinfo(refcount.dtype).max
+    clamped = np.nonzero(refs > ref_cap)[0]
+    refs = np.minimum(refs, ref_cap)
+
+    free_list = np.nonzero(refs == 0)[0]           # ascending ids
+    # lanes first, exactly ell ids each while supply lasts, so the §4.2
+    # never-dry floor holds by construction whenever slack allows
+    new_lanes = np.full((L, cap), NULL, np.int32)
+    new_tops = np.zeros(L, np.int32)
+    pos = 0
+    for i in range(L):
+        take = min(ell, len(free_list) - pos)
+        if take <= 0:
+            break
+        new_lanes[i, :take] = free_list[pos:pos + take]
+        new_tops[i] = take
+        pos += take
+    rest = free_list[pos:]
+    new_free = np.full(m, NULL, np.int32)
+    new_free[:len(rest)] = rest[::-1]              # pops come off the end
+
+    leaves = (new_free, np.int32(len(rest)), refs.astype(refcount.dtype),
+              new_lanes, new_tops)
+    report = {
+        "reclaimed": [int(b) for b in reclaimed],
+        "resurrected": resurrected,
+        "clamped": [int(b) for b in clamped],
+        "free": int(len(rest)) + int(new_tops.sum()),
+        "live": int(np.sum(refs > 0)),
+        "capacity": int(m),
+        "never_dry": bool(new_tops.min() >= ell) if L else True,
+    }
+    if report["free"] + report["live"] != m:
+        raise RuntimeError("reconcile broke conservation")
+    return leaves, report
+
+
+def audit_and_reconcile(pool: HierPool, keep_tables=None, pin_tables=None
+                        ) -> Tuple[HierPool, dict]:
+    """Rebuild a (possibly torn) pool from device-resident references.
+
+    ``keep_tables`` are the page-table rows recovery keeps (``[B,
+    maxp]`` per shard; usually none: in-flight requests requeue through
+    the preemption-resume path) and ``pin_tables`` the journal-trusted
+    pin rows, NULL (-1) for empty entries; tensors or numpy arrays.
+    Every block a keeping row references stays live with a recounted
+    refcount; every other block becomes free, each lane refilled to
+    exactly ``ell``, the rest restacked on the shared pool in a fixed
+    order.
+
+    Accepts a single-shard pool or a DP-stacked one.  Only the
+    refcounts are read to the host (once); the rebuilt leaves go back to
+    the pool's device in its dtypes.  Returns ``(pool, report)``:
+    conservation (free + live == capacity, per shard) is checked,
+    never-dry reported per shard.
+    """
+    refcount = pool.shared.refcount.cpu().numpy()
+    L, cap = pool.private_ids.shape[-2:]
+    dp_form = refcount.ndim == 2
+
+    def rows(tables, s):
+        if tables is None:
+            return None
+        t = tables.cpu().numpy() if torch.is_tensor(tables) else tables
+        return np.asarray(t)[s] if s is not None else np.asarray(t)
+
+    built, reps = [], []
+    for s in (range(refcount.shape[0]) if dp_form else [None]):
+        leaves, rep = _reconcile_shard(
+            refcount[s] if dp_form else refcount, L, cap,
+            rows(keep_tables, s), rows(pin_tables, s))
+        built.append(leaves)
+        reps.append(rep)
+    free_ids, top, ref, private_ids, private_top = (
+        torch.as_tensor(np.stack(xs) if dp_form else xs[0]).to(
+            pool.private_top.device) for xs in zip(*built))
+    new = HierPool(BlockPool(free_ids, top, ref), private_ids, private_top)
+    return new, {
+        "shards": reps,
+        "reclaimed": sum(len(r["reclaimed"]) for r in reps),
+        "resurrected": sum(r["resurrected"] for r in reps),
+        "clamped": sum(len(r["clamped"]) for r in reps),
+        "never_dry": all(r["never_dry"] for r in reps),
+        "conserved": True}

@@ -17,11 +17,18 @@ knobs: ``--chunk-buckets`` (prefill lane widths the scheduler may
 shrink to), ``--speculate``/``--draft-len`` (speculative decoding on
 shared prefixes; ``--repeat-frac`` repeats whole prompts).
 
+Fault knobs: ``--inject-fault kind@step:phase[:extra]`` injects host
+crashes, shard loss, stragglers, step errors and poisoned requests at
+the engine's phase boundaries (serving/chaos.py); ``main`` recovers
+each crash by rebuilding the engine and reconciling the pool from the
+surviving device state and the journal, then asserts that the run
+drained with no page leaked on a surviving shard.  ``--deadline-s``
+gives every request a deadline.
+
 The port serves on one device: ``--mesh auto`` resolves to the
 single-device plane, DP kept as a leading axis, as the reference does
 when fewer than ``dp`` devices exist.  Options of later slices
-(``--inject-fault``, ``--deadline-s``, ``--expert-paging``,
-``--expert-budget``, ``--size-classes 3``) raise
+(``--expert-paging``, ``--expert-budget``, ``--size-classes 3``) raise
 ``NotImplementedError``.
 """
 
@@ -35,6 +42,7 @@ import torch
 
 from ..configs import get_config, smoke_config
 from ..models.model import init_params
+from ..serving import chaos
 from ..serving.engine import Request, ServingEngine
 from ..serving.sched import SchedConfig
 from ..serving.telemetry import FlightRecorder, install_signal_dump
@@ -87,9 +95,10 @@ def main(argv=None):
     ap.add_argument("--mesh", choices=("auto", "off"), default="auto",
                     help="auto and off both serve on one device here")
     ap.add_argument("--inject-fault", default="", metavar="SPEC",
-                    help="deterministic fault schedule (a later slice)")
+                    help="deterministic fault schedule, comma-joined "
+                         "kind@step:phase[:extra] (serving/chaos.py)")
     ap.add_argument("--deadline-s", type=float, default=0.0,
-                    help="per-request deadline in seconds (a later slice)")
+                    help="per-request deadline in seconds (0 = none)")
     ap.add_argument("--metrics-path", default="", metavar="FILE",
                     help="write a Prometheus text-format telemetry "
                          "snapshot here at the end of the run")
@@ -105,12 +114,9 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
-    for flag, on in (("--inject-fault (chaos injection)",
-                      bool(args.inject_fault)),
-                     ("--expert-budget (expert paging)",
-                      args.expert_budget > 0)):
-        if on:
-            raise NotImplementedError(f"{flag}: a later slice of the port")
+    if args.expert_budget > 0:
+        raise NotImplementedError("--expert-budget (expert paging): a later "
+                                  "slice of the port")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("serve: no CUDA device; pass --device cpu to "
                            "serve on the CPU")
@@ -120,21 +126,33 @@ def main(argv=None):
         cfg = smoke_config(cfg)
     params = init_params(cfg, seed=0, device=args.device)
     buckets = tuple(int(b) for b in args.chunk_buckets.split(",") if b)
+    faults = bool(args.inject_fault)
+    journal = chaos.ServingJournal() if faults else None
+    injector = chaos.parse_faults(args.inject_fault) if faults else None
     tracer = Tracer() if args.trace_path else None
-    flight = (FlightRecorder(path=args.flight_recorder or None,
-                             sync_every=args.flight_sync)
-              if args.flight_recorder or args.flight_sync else None)
-    engine = ServingEngine(
-        cfg, params, dp=args.dp, b_local=args.b_local,
-        max_len=args.max_len, speculate=args.speculate,
-        draft_len=args.draft_len, spec_gate=not args.no_spec_gate,
-        size_classes=args.size_classes, expert_paging=args.expert_paging,
-        sched=SchedConfig(pin_pages=args.pin_pages,
-                          page_budget=args.page_budget,
-                          chunk_buckets=buckets),
-        tracer=tracer, flight=flight, device=args.device)
-    if args.flight_recorder:
-        install_signal_dump(engine.flight)
+
+    def build():
+        # a fresh recorder per build: recover_engine adopts the crashed
+        # ring into it, so the forensic window spans the crash
+        flight = (FlightRecorder(path=args.flight_recorder or None,
+                                 sync_every=args.flight_sync)
+                  if args.flight_recorder or args.flight_sync else None)
+        eng = ServingEngine(
+            cfg, params, dp=args.dp, b_local=args.b_local,
+            max_len=args.max_len, speculate=args.speculate,
+            draft_len=args.draft_len, spec_gate=not args.no_spec_gate,
+            size_classes=args.size_classes,
+            expert_paging=args.expert_paging,
+            sched=SchedConfig(pin_pages=args.pin_pages,
+                              page_budget=args.page_budget,
+                              chunk_buckets=buckets),
+            journal=journal, injector=injector, max_restarts=4,
+            tracer=tracer, flight=flight, device=args.device)
+        if args.flight_recorder:
+            install_signal_dump(eng.flight)
+        return eng
+
+    engine = build()
     print(f"allocation plane: single device ({engine.device}, dp="
           f"{engine.dp} shards as a leading axis)")
 
@@ -161,7 +179,19 @@ def main(argv=None):
                               max_new_tokens=args.max_new, slo=slo,
                               deadline_s=args.deadline_s, experts=experts))
     t0 = time.time()
-    engine.run()
+    crashes = 0
+    while True:
+        try:
+            engine.run()
+            break
+        except chaos.HostCrash:
+            crashes += 1
+            engine, report = chaos.recover_engine(build, engine, journal)
+            print(f"[chaos] host crash #{crashes} at step "
+                  f"{injector.step}: reconciled {report['reclaimed']} "
+                  f"leaked pages, requeued {report['requeued']} "
+                  f"requests, restored {report['pins_restored']} pins "
+                  f"(never_dry={report['never_dry']})")
     dt = time.time() - t0
     s = engine.stats
     lat = engine.latency_quantiles()
@@ -191,8 +221,21 @@ def main(argv=None):
     print(f"shard occupancy: mean={occ['pages_mean_shard']} "
           f"peak={occ['pages_peak_shard']} pages per shard")
     engine.flush_pins()
-    print(f"page occupancy after drain+flush: "
-          f"{engine.page_occupancy():.4f}")
+    if faults:
+        print(f"[chaos] fired={injector.log} crashes={crashes} "
+              f"shards_lost={sorted(engine.lost_shards)} "
+              f"retries={s['retries']} failed={s['failed']} "
+              f"deadline_expired={s['deadline_expired']}")
+        assert not injector.pending(), (
+            f"faults never reached: {injector.pending()}")
+        assert engine.leak_free(), "pages leaked on surviving shards"
+        assert not journal.in_flight(), (
+            "requests neither finished nor failed")
+        print(f"[chaos] drained clean: {len(journal.finished())} "
+              f"finished, zero leaked pages on surviving shards")
+    else:
+        print(f"page occupancy after drain+flush: "
+              f"{engine.page_occupancy():.4f}")
     m = engine.telemetry.never_dry_margin_min()
     print(f"never-dry margin (min over shards x steps): {m} "
           f"(>= 0 proves §4.2 held with slack)")

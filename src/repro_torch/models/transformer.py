@@ -136,7 +136,7 @@ def _check_train(cfg) -> None:
             f"{cfg.name}: the port's training path covers global and local "
             f"attention layers; the train forms of {rec} layers "
             f"(ssd_chunked, rglru_scan) wait for their slice (ROADMAP "
-            f"Queue A item 14)")
+            f"Queue A item 1)")
 
 
 def _mix_train(cfg, lp, x, kind: str):

@@ -1,12 +1,12 @@
 """Continuous-batching serving engine on the paper's allocator.
 
 Counterpart of the JAX package's ``serving/engine.py``, limited to the
-port's slices so far: greedy serving on one device, DP kept as a leading
-axis, of paged, ring and recurrent decoders over one or two size
-classes (paged KV, and the fine bounded-state class), with prefix
-sharing from live donors and from pinned prefixes, preemption, and
-greedy speculative decoding over shared prefixes for fully paged
-models.
+port's slices so far: greedy or sampled serving on one device, DP kept
+as a leading axis, of paged, ring and recurrent decoders over one or
+two size classes (paged KV, and the fine bounded-state class), with
+prefix sharing from live donors and from pinned prefixes, preemption,
+speculative decoding over shared prefixes for fully paged models, and
+crash recovery.
 
 Two allocator integrations, as in the reference:
 
@@ -21,7 +21,8 @@ Two allocator integrations, as in the reference:
 Each step feeds a variable-width token lane per active slot (a prefill
 chunk or one decode token read from the device-resident ``last_tok``
 register) through :func:`_serve_step`, which runs the forward pass,
-greedy argmax (or, on a step that carries drafts, draft verification
+greedy argmax or per-request temperature/top-k sampling
+(:mod:`.sampling`; on a step that carries drafts, draft verification
 and the rollback of the rejected tail), EOS/budget/length
 done-detection, page release of finished slots, the rebalance and the
 telemetry counter block, and returns one packed int32 status.  The host
@@ -38,9 +39,17 @@ pin budget.  The engine carries out its decisions: :meth:`admit`,
 :meth:`evict_pin`, over a device pin table whose rows hold the cache's
 own reference on each pinned page.
 
-Options of the reference that later slices bring (sampling, deadlines,
-the expert size class and expert paging, a mesh, chaos injection and
-journaling) raise ``NotImplementedError``.
+Fault tolerance (serving/chaos.py): an optional journal records every
+admission, emission and pin; an optional injector fires faults at the
+named phase boundaries of :meth:`ServingEngine.step`; :meth:`run`
+recovers a failed step in place (pool reconciled, active work
+requeued), and :func:`~repro_torch.serving.chaos.recover_engine`
+rebuilds an engine after a host crash from the surviving device state
+and the journal.  Per-request deadlines and bounded retry parking are
+the scheduler's.
+
+Options of the reference that later slices bring (the expert size
+class and expert paging, a mesh) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,13 +68,15 @@ from ..core.block_pool import I32
 from ..core import hier_pool
 from ..core.classed_pool import CLS_KV, CLS_STATE
 from ..models.decode_init import empty_decode_state, empty_serve_arrays
-from ..models.layers import logits_apply, logits_argmax_chunked
+from ..models.layers import logits_apply, logits_argmax_chunked, tree_map
 from ..models.transformer import (DecodeState, forward_decode_chunk,
                                   pool_class_specs, state_blocks_per_slot)
 from ..runtime.fault import StepWatchdog
+from .chaos import HostCrash, PoisonedRequest
 from .prefix_cache import (PinnedPrefixes, PrefixCache, SpeculationStore,
                            pin_id_of, pin_prefix_step, share_pinned_step,
                            share_prefix_step, unpin_step)
+from .sampling import sample_lane, sample_tokens
 from .sched import Admission, AdmissionScheduler, SchedConfig
 from .telemetry import (CTR_ALLOC, CTR_DRAIN, CTR_FREED, CTR_MARGIN,
                         CTR_REFILL, CTR_ROLLBACK, CTR_SHARED_FREE,
@@ -78,17 +89,24 @@ class Request:
     rid: int
     prompt: List[int]
     max_new_tokens: int = 16
-    # sampling (temperature 0 = greedy, the only mode of this slice)
+    # sampling (the defaults are greedy)
     temperature: float = 0.0
+    top_k: int = 0
+    seed: int = 0
     # scheduling
     slo: str = "standard"
     experts: Optional[Tuple[int, ...]] = None
+    # deadline: seconds from submission (0 = none); the engine stamps
+    # the absolute ``deadline_at`` at the first submission, so that it
+    # survives preemption, crash requeue and warm restart
     deadline_s: float = 0.0
+    deadline_at: float = 0.0
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     slot: Optional[int] = None
     done: bool = False
     rejected: Optional[str] = None     # typed failure reason, terminal
     preemptions: int = 0
+    retries: int = 0                   # fault retries consumed
     submitted_at: float = 0.0
     first_token_at: float = 0.0
     finished_at: float = 0.0
@@ -149,24 +167,33 @@ STATUS_DONE = 1      # + T: 1 iff the slot finished (pages released)
 STATUS_PAGES = 2     # + T: KV pages-in-use on the slot's DP shard
 
 
-def _serve_step(cfg, max_len, eos_id, spec, n_verify, params, state,
-                last_tok, out_count, budget, prompt_toks, feed_lens,
-                is_prompt, emit):
-    """One device-resident greedy token-lane step.
+def _serve_step(cfg, max_len, eos_id, use_sampler, spec, n_verify, params,
+                state, last_tok, out_count, budget, temps, topks, seeds,
+                prompt_toks, feed_lens, is_prompt, emit):
+    """One device-resident token-lane step.
 
     prompt_toks: int32[DP, Bl, T] host-provided lane tokens (a prompt
     chunk; a generating lane reads its first token from ``last_tok``
     and, when ``spec``, carries drafted tokens at positions 1..k);
     feed_lens: tokens fed per slot (0 = idle, 1 = decode, > 1 on a
     generating lane = draft + verify); is_prompt: the slot consumes
-    prompt tokens; emit: the slot emits this step.
+    prompt tokens; emit: the slot emits this step.  temps/topks/seeds:
+    the per-slot sampling registers written at admission (temperature
+    <= 0 is greedy).
+
+    ``use_sampler`` (the host knows whether any active request samples):
+    tokens come from :func:`~.sampling.sample_tokens`, keyed by
+    ``(seed, out_count)``; off, from the plain argmax, so an all-greedy
+    step runs no sort and no Gumbel draw.
 
     ``spec`` (the host knows whether any lane carries drafts): attention
     runs through the verify kernel (K3); only the ``n_verify`` (draft
     length + 1) verify positions of each lane are scored, with the
-    chunked-vocabulary argmax; draft i is accepted iff it equals the
-    candidate of position i - 1 and every earlier draft was accepted,
-    so the accepted stream is the one plain greedy decode would emit.
+    chunked-vocabulary argmax, or with :func:`~.sampling.sample_lane`
+    and key ``out_count + i`` at position i when sampling; draft i is
+    accepted iff it equals the candidate of position i - 1 and every
+    earlier draft was accepted, so the accepted stream is the one plain
+    decode would emit, key for key.
     A lane emits its accepted prefix plus one token, keeps exactly that
     many KV positions, and returns the whole pages of the rejected tail
     to its own lane (:func:`classed_pool.free_n_metered_dp`) before the
@@ -202,7 +229,17 @@ def _serve_step(cfg, max_len, eos_id, spec, n_verify, params, state,
                            j.clamp(max=T - 1)[None, None])   # [DP, Bl, Tv]
         hidden_v = hidden.gather(2, vpos[..., None].long().expand(
             DP, Bl, Tv, hidden.shape[-1]))
-        nxt_all = logits_argmax_chunked(cfg, params["embed"], hidden_v)
+        if use_sampler:
+            # output index of each position: a generating lane emits
+            # from position 0 on (key out_count + i), a prompt lane's
+            # one emitting position is output index 0
+            cnt = out_count[..., None] + torch.where(
+                is_prompt[..., None], 0, j[None, None])
+            nxt_all = sample_lane(
+                logits_apply(cfg, params["embed"], hidden_v), temps, topks,
+                seeds, cnt)
+        else:
+            nxt_all = logits_argmax_chunked(cfg, params["embed"], hidden_v)
         # a prompt lane's rows all hold position idx, so row 0 is its
         # candidate; a generating lane's last fed position is feed - 1
         vidx = torch.where(is_prompt, 0, idx.clamp(max=Tv - 1))
@@ -256,7 +293,10 @@ def _serve_step(cfg, max_len, eos_id, spec, n_verify, params, state,
         h_last = hidden.gather(2, idx[:, :, None, None].long().expand(
             DP, Bl, 1, hidden.shape[-1]))[:, :, 0]
         logits = logits_apply(cfg, params["embed"], h_last)
-        nxt = torch.argmax(logits, dim=-1).to(I32)      # first maximum
+        if use_sampler:
+            nxt = sample_tokens(logits, temps, topks, seeds, out_count)
+        else:
+            nxt = torch.argmax(logits, dim=-1).to(I32)  # first maximum
         out_count = out_count + emit.to(I32)
         seq_full = state.seq_lens >= max_len - 1
         done = active & ((out_count >= budget) | seq_full
@@ -320,19 +360,16 @@ class ServingEngine:
                  expert_paging: bool = False,
                  journal=None, injector=None,
                  watchdog: Optional[StepWatchdog] = None,
-                 clock=None,
+                 clock=None, max_restarts: int = 0,
                  telemetry: Optional[Telemetry] = None,
                  tracer: Optional[Tracer] = None,
                  flight: Optional[FlightRecorder] = None,
                  device="cuda"):
         self.sched_config = sched or SchedConfig()
         unsupported = {
-            "greedy=False": not greedy,
             "mesh": mesh is not None,
             "size_classes > 2 (the expert class)": size_classes > 2,
             "expert_paging": expert_paging,
-            "journal": journal is not None,
-            "injector": injector is not None,
         }
         for name, on in unsupported.items():
             if on:
@@ -366,6 +403,11 @@ class ServingEngine:
         assert self.telemetry.n_classes == self.n_classes
         self.last_tok, self.out_count, self.budget = empty_serve_arrays(
             dp, b_local, self.device)
+        # per-slot sampling registers (written at admission, read by the
+        # step; all zeros is greedy everywhere), and the slots that sample
+        self.temps, self.topks, self.seeds = self._sampling_registers()
+        self._sampling_slots: set = set()
+        self.greedy = greedy
         maxp = self.state.page_tables.shape[2]
         # sequences can never outgrow the page table (a model without
         # paged layers has none to outgrow)
@@ -447,8 +489,15 @@ class ServingEngine:
         self._free_slots = deque(range(n_slots))
         self.lanes = itertools.cycle(range(scheduler_lanes))
 
+        # fault tolerance (serving/chaos.py): the journal, the injector,
+        # the step watchdog, an injectable clock for deadlines, and the
+        # in-place recovery budget of run()
+        self._journal = journal
+        self._injector = injector
         self.watchdog = watchdog or StepWatchdog()
         self._clock = clock or time.time
+        self.max_restarts = max_restarts
+        self.lost_shards: set = set()
         self.active: Dict[int, Request] = {}     # slot -> request
         self.pending_tokens: Dict[int, List[int]] = {}
         self._latencies: List[float] = []
@@ -484,8 +533,42 @@ class ServingEngine:
         self._tr_end("active", req.rid)
         self._tr_end("request", req.rid)
 
+    # --------------------------------------------------- fault tolerance
     def _jrec(self, kind: str, **fields) -> None:
-        """Journaling is a later slice; the scheduler calls this hook."""
+        if self._journal is not None:
+            self._journal.record(kind, **fields)
+
+    def _fire(self, phase: str, **ctx) -> None:
+        if self._injector is not None:
+            self._injector.fire(self, phase, **ctx)
+
+    def _sampling_registers(self):
+        """Zeroed (temps float32, topks int32, seeds int32) [DP, Bl] on
+        the engine's device."""
+        shape = (self.dp, self.bl)
+        return (torch.zeros(shape, dtype=torch.float32, device=self.device),
+                torch.zeros(shape, dtype=I32, device=self.device),
+                torch.zeros(shape, dtype=I32, device=self.device))
+
+    def _forget_slot(self, slot: int) -> None:
+        """Host bookkeeping of a slot that leaves service without a
+        finish: its pending feed, shadows, trie entry, sampling
+        registers and host slot."""
+        self.pending_tokens.pop(slot, None)
+        self._fed.pop(slot, None)
+        self._pinned_slots.discard(slot)
+        self._clear_sampling(slot)
+        if self.prefix_cache is not None:
+            self.prefix_cache.remove(slot)
+        self._host_free_slot(slot)
+        self.scheduler.on_released(slot)
+
+    def _clear_sampling(self, slot: int) -> None:
+        if slot in self._sampling_slots:
+            self._sampling_slots.discard(slot)
+            d, b = divmod(slot, self.bl)
+            for reg in (self.temps, self.topks, self.seeds):
+                reg[d, b] = 0
 
     # ------------------------------------------------------------ control
     def _host_alloc_slot(self, shard: Optional[int] = None
@@ -532,19 +615,29 @@ class ServingEngine:
     def submit(self, req: Request) -> Admission:
         """Enqueue (or reject, with a reason) through the admission
         scheduler.  The return value is the backpressure signal."""
-        for name, on in {"temperature > 0": req.temperature > 0,
-                         "experts": req.experts is not None,
-                         "deadline_s": req.deadline_s > 0}.items():
-            if on:
-                raise NotImplementedError(
-                    f"Request({name}): a later slice of the port")
+        if req.experts is not None:
+            raise NotImplementedError(
+                "Request(experts): a later slice of the port")
         now = self._clock()
         req.submitted_at = now
+        if req.deadline_s > 0 and req.deadline_at == 0.0:
+            req.deadline_at = now + req.deadline_s
+        # write-ahead: the journal sees every request before the
+        # scheduler does, with any resumed token prefix
+        self._jrec("submit", rid=req.rid,
+                   prompt=[int(t) for t in req.prompt],
+                   max_new_tokens=int(req.max_new_tokens),
+                   temperature=float(req.temperature),
+                   top_k=int(req.top_k), seed=int(req.seed), slo=req.slo,
+                   out_tokens=[int(t) for t in req.out_tokens],
+                   preemptions=int(req.preemptions),
+                   deadline_at=float(req.deadline_at))
         self._tr_begin("request", req.rid, slo=req.slo,
                        prompt_len=len(req.prompt))
         self.tracer.instant("submit", tid=req.rid, slo=req.slo)
         adm = self.scheduler.submit(req, self.est_pages(req))
         if not adm.accepted:
+            self._jrec("reject", rid=req.rid, reason=adm.reason)
             self._trace_terminal(req, adm.reason)
         return adm
 
@@ -612,6 +705,11 @@ class ServingEngine:
             req._spec_key = self.spec_store.key_of(req.prompt)
         self.budget[d, b] = int(req.max_new_tokens)
         self.out_count[d, b] = len(req.out_tokens)
+        if req.temperature > 0:
+            self.temps[d, b] = float(req.temperature)
+            self.topks[d, b] = int(req.top_k)
+            self.seeds[d, b] = int(req.seed)
+            self._sampling_slots.add(slot)
         self.telemetry.inc("admitted")
         self._tr_begin("active", req.rid, slot=slot, shard=d)
         self.tracer.instant("admit", tid=req.rid, slot=slot, shard=d,
@@ -619,6 +717,7 @@ class ServingEngine:
         if req.out_tokens or req.preemptions:
             self.tracer.instant("resume", tid=req.rid,
                                 tokens_done=len(req.out_tokens))
+        self._jrec("admit", rid=req.rid, slot=slot, shard=d)
         return slot
 
     def preempt(self, slot: int) -> Request:
@@ -633,19 +732,88 @@ class ServingEngine:
         mask = np.zeros((self.dp, self.bl), bool)
         mask[d, b] = True
         self.state, _ = _release_slots(self.state, self._to_device(mask))
-        self.pending_tokens.pop(slot, None)
-        self._fed.pop(slot, None)
-        self._pinned_slots.discard(slot)
-        if self.prefix_cache is not None:
-            self.prefix_cache.remove(slot)
-        self._host_free_slot(slot)
-        self.scheduler.on_released(slot)
+        self._forget_slot(slot)
         req.slot = None
         req.preemptions += 1
         self.telemetry.inc("preemptions")
         self.tracer.instant("preempt", tid=req.rid, slot=slot)
         self._tr_end("active", req.rid)
+        self._jrec("preempt", rid=req.rid)
         return req
+
+    def fail_active(self, slot: int, reason: str, retry: bool = False
+                    ) -> Request:
+        """Terminate (or retry) a running request that hit a fault or an
+        expired deadline: release its pages through the refcounted
+        path, free the slot, then either park the request for a retry
+        after a bounded backoff or reject it with a typed reason
+        (sched.FAILURE_REASONS)."""
+        req = self.active.pop(slot)
+        d, b = divmod(slot, self.bl)
+        mask = np.zeros((self.dp, self.bl), bool)
+        mask[d, b] = True
+        self.state, _ = _release_slots(self.state, self._to_device(mask))
+        self._forget_slot(slot)
+        req.slot = None
+        self._tr_end("active", req.rid)
+        if retry and req.retries < self.sched_config.retry_limit:
+            req.retries += 1
+            self.telemetry.inc("retries")
+            self.tracer.instant("retry", tid=req.rid, reason=reason,
+                                attempt=req.retries)
+            self._jrec("preempt", rid=req.rid)
+            self.scheduler.park(
+                req, self.sched_config.retry_backoff * req.retries)
+        else:
+            req.rejected = reason
+            self.telemetry.inc("failed")
+            if reason == "deadline":
+                self.telemetry.inc("deadline_expired")
+            self._jrec("reject", rid=req.rid, reason=reason)
+            self._trace_terminal(req, reason)
+        return req
+
+    def _requeue(self, slot: int, reason: str) -> None:
+        """Evacuate a running request host-side only (no device release:
+        its shard is gone, or the device is mid-operation and the pool
+        is reconciled after) and put it back at the head of its class."""
+        req = self.active.pop(slot)
+        self._forget_slot(slot)
+        req.slot = None
+        req.preemptions += 1
+        self.telemetry.inc("preemptions")
+        self.tracer.instant("preempt", tid=req.rid, slot=slot, reason=reason)
+        self._tr_end("active", req.rid)
+        self._jrec("preempt", rid=req.rid)
+        self.scheduler.requeue_front(req)
+
+    def lose_shard(self, shard: int) -> None:
+        """Degrade on shard loss: the dead shard's pages, pins and KV are
+        unreachable and leave the accounting with the shard.  Its
+        running requests are requeued host-side (they prefill again on a
+        survivor, token for token, since generation is a function of
+        prompt + out_count); its slots leave service and admission
+        shrinks to the survivors."""
+        if shard in self.lost_shards:
+            return
+        self.lost_shards.add(shard)
+        self.telemetry.inc("shards_lost")
+        self.tracer.instant("shard_loss", shard=shard)
+        self._jrec("shard_lost", shard=shard)
+        self.scheduler.lose_shard(shard)
+        for slot in [s for s in self.active if s // self.bl == shard]:
+            self._requeue(slot, "shard_loss")
+        self._free_slots = deque(
+            s for s in self._free_slots if s // self.bl != shard)
+        if self.pins is not None:
+            for pid in [p for p, e in self.pins.entries.items()
+                        if e["shard"] == shard]:
+                self.pins.remove(pid)
+                if self.prefix_cache is not None:
+                    self.prefix_cache.pin_remove(pid)
+                self._jrec("unpin", pin_id=pid)
+        if self.prefix_cache is not None:
+            self.prefix_cache.roots.pop(shard, None)
 
     # ------------------------------------------------------------ pinning
     def _maybe_pin(self, slot: int, tokens: List[int]) -> None:
@@ -668,8 +836,9 @@ class ServingEngine:
         if not self.scheduler.may_pin(self, d, n_pages):
             return
         pin_id = self.pins.add(d, key_toks, n_pages)
+        row = pin_id % self.pins.npin
         pin_oh = np.zeros((self.dp, self.pins.npin), bool)
-        pin_oh[d, pin_id % self.pins.npin] = True
+        pin_oh[d, row] = True
         src = np.zeros((self.dp, self.bl), bool)
         src[d, b] = True
         pool, self.pin_tables = pin_prefix_step(
@@ -680,6 +849,11 @@ class ServingEngine:
         self.telemetry.inc("pins_created")
         self.tracer.instant("pin", pin_id=pin_id, shard=d,
                             pages=int(n_pages))
+        # write-behind: journaled after the device op; a crash between
+        # leaves device references the journal never saw, which recovery
+        # reclaims
+        self._jrec("pin", pin_id=pin_id, shard=d, row=row,
+                   tokens=[int(t) for t in key_toks], pages=int(n_pages))
 
     def evict_pin(self, pin_id: int) -> None:
         """Drop the cache's references on one pinned row (mechanism;
@@ -692,6 +866,7 @@ class ServingEngine:
         self.state = self.state._replace(pool=pool)
         self.prefix_cache.pin_remove(pin_id)
         self.tracer.instant("unpin", pin_id=pin_id, shard=shard)
+        self._jrec("unpin", pin_id=pin_id)
 
     def flush_pins(self) -> int:
         """Evict every pinned prefix; returns how many.  After a full
@@ -828,9 +1003,18 @@ class ServingEngine:
 
     def step(self) -> bool:
         """One engine step.  Returns True iff device work was dispatched
-        (False = idle fast-path: nothing active after admission)."""
+        (False = idle fast-path: nothing active after admission).
+
+        The ``_fire`` points are the fault-injection phase boundaries
+        (serving/chaos.py PHASES): ``feed`` fires before any per-slot
+        feed mutation, so a fault there leaves host and device
+        consistent; ``post_sync`` fires after the status download but
+        before the bookkeeping and the journal, so a crash there loses
+        the step's tokens and recovery must draw them again."""
         t0 = time.perf_counter()
+        self._fire("pre_tick")
         self.scheduler.tick(self)
+        self._fire("post_admission")
         if not self.active:
             self.telemetry.inc("idle_steps")
             return False
@@ -850,6 +1034,8 @@ class ServingEngine:
                 drafts = self._build_drafts(min(self._spec_T, T) - 1)
                 if drafts:
                     self.telemetry.inc("spec_mixed_steps")
+        self._fire("feed", rids={req.rid: slot
+                                 for slot, req in self.active.items()})
         # one host buffer, one upload: [DP, Bl, T + 3] holds the lane
         # tokens, then feed_lens, is_prompt and emit
         feed = np.zeros((self.dp, self.bl, T + 3), np.int32)
@@ -896,13 +1082,16 @@ class ServingEngine:
         spec = any(gen_slots.values())
         dev = self._to_device(feed)
         self.state, self.last_tok, self.out_count, status = _serve_step(
-            self.cfg, self.capacity, self._eos, spec, self._spec_T,
-            self.params, self.state, self.last_tok, self.out_count,
-            self.budget, dev[..., :T], dev[..., T], dev[..., T + 1].bool(),
+            self.cfg, self.capacity, self._eos, bool(self._sampling_slots),
+            spec, self._spec_T, self.params, self.state, self.last_tok,
+            self.out_count, self.budget, self.temps, self.topks, self.seeds,
+            dev[..., :T], dev[..., T], dev[..., T + 1].bool(),
             dev[..., T + 2].bool())
         self.telemetry.inc("steps")
         self.telemetry.observe_hist("chunk_hist", T)
+        self._fire("dispatched")
         status = self._status_to_host(status)
+        self._fire("post_sync")
         n_emit = status[T + STATUS_EMITTED]
         done_row = status[T + STATUS_DONE]
         pages_row = status[T + STATUS_PAGES]
@@ -925,6 +1114,7 @@ class ServingEngine:
             if ne:
                 toks = [int(status[j, d, b]) for j in range(ne)]
                 req.out_tokens.extend(toks)
+                self._jrec("tokens", rid=req.rid, toks=toks)
                 self.telemetry.inc("tokens_out", ne)
                 if req.first_token_at == 0.0:
                     req.first_token_at = now
@@ -960,6 +1150,7 @@ class ServingEngine:
                 self.active.pop(slot)
                 self.pending_tokens.pop(slot, None)
                 self._pinned_slots.discard(slot)
+                self._clear_sampling(slot)
                 if self.prefix_cache is not None:
                     self.prefix_cache.remove(slot)
                 if self.spec_store is not None and req._spec_key:
@@ -974,6 +1165,7 @@ class ServingEngine:
                                     tokens=len(req.out_tokens))
                 self._tr_end("active", req.rid)
                 self._tr_end("request", req.rid)
+                self._jrec("finish", rid=req.rid)
             else:
                 if self.prefix_cache is not None:
                     # this step's feed is in device KV now: the slot can
@@ -988,6 +1180,7 @@ class ServingEngine:
                     # its whole pages past the request's lifetime
                     self._pinned_slots.add(slot)
                     self._maybe_pin(slot, list(req.prompt))
+        self._fire("post_step")
         # the gate's per-step cost model: an EWMA of wall time keyed by
         # (lane width, spec); the first sample of a key is discarded
         dt = time.perf_counter() - t0
@@ -1012,19 +1205,198 @@ class ServingEngine:
             drafts={int(s): len(d) for s, d in drafts.items()},
             rids={int(s): int(r.rid) for s, r in self.active.items()},
             watchdog=verdict, dt_ms=round(dt * 1e3, 3))
+        if verdict == "timeout" and self.flight.dump(
+                "watchdog_timeout", {"step": self.stats["steps"]}):
+            self.telemetry.inc("flight_dumps")
+            self.tracer.instant("flight_dump", reason="watchdog_timeout")
         return True
 
     def idle(self) -> bool:
         """Nothing running and nothing admissible."""
         return not self.active and self.scheduler.backlog() == 0
 
-    def run(self, max_steps: int = 10_000) -> None:
-        """Step until idle or ``max_steps``.  A failing step raises: the
-        reference's in-place recovery is a later slice of the port."""
+    def run(self, max_steps: int = 10_000,
+            max_restarts: Optional[int] = None) -> None:
+        """Step until idle or ``max_steps``, surviving faults.
+
+        * :class:`~.chaos.PoisonedRequest` fails exactly the offending
+          request (bounded retry, then ``rejected="poisoned"``);
+        * :class:`~.chaos.HostCrash` re-raises after a flight dump: the
+          host state is gone and only :func:`~.chaos.recover_engine`
+          may rebuild it;
+        * any other exception recovers in place (active work requeued,
+          the pool reconciled), counted in telemetry ``recoveries``, and
+          past the restart budget re-raises after recovering, so the
+          pool is conserved on that path too.
+        """
+        budget = self.max_restarts if max_restarts is None else max_restarts
+        restarts = 0
         for _ in range(max_steps):
             if self.idle():
                 break
-            self.step()
+            try:
+                self.step()
+            except PoisonedRequest as e:
+                if e.slot in self.active:
+                    self.fail_active(e.slot, "poisoned", retry=True)
+            except HostCrash:
+                self.tracer.instant("crash", step=self.stats["steps"])
+                if self.flight.dump("host_crash",
+                                    {"step": self.stats["steps"]}):
+                    self.telemetry.inc("flight_dumps")
+                raise
+            except Exception as e:
+                restarts += 1
+                if self.flight.dump("step_error",
+                                    {"step": self.stats["steps"],
+                                     "error": repr(e)}):
+                    self.telemetry.inc("flight_dumps")
+                    self.tracer.instant("flight_dump", reason="step_error")
+                self._recover_inplace()
+                if restarts > budget:
+                    raise
+
+    # ----------------------------------------------------- crash recovery
+    def adopt_crashed_state(self, dead_state: DecodeState,
+                            pin_np: Optional[np.ndarray]) -> dict:
+        """Install a crashed engine's surviving device state: keep the
+        KV page content (pinned pages' data lives there), rebuild the
+        pool against the trusted pin rows
+        (:func:`classed_pool.audit_and_reconcile`, back on the engine's
+        device), and clear every per-slot mapping and register, since
+        all in-flight work re-enters through the preemption-resume
+        path.  Returns the reconcile report."""
+        assert not self.active, "adopt with active slots"
+        C = len(dead_state.pool.classes)
+        # pins live only in the KV class
+        pins = None if pin_np is None else [pin_np] + [None] * (C - 1)
+        pool, report = classed_pool.audit_and_reconcile(
+            dead_state.pool, keep_tables=None, pin_tables=pins)
+        state = dead_state._replace(
+            pool=pool, page_tables=torch.full_like(dead_state.page_tables,
+                                                   NULL),
+            seq_lens=torch.zeros_like(dead_state.seq_lens),
+            rings={p: tuple(torch.zeros_like(t) for t in kv)
+                   for p, kv in dead_state.rings.items()},
+            rec=tree_map(torch.zeros_like, dead_state.rec))
+        if dead_state.state_tables is not None:
+            state = state._replace(
+                state_tables=torch.full_like(dead_state.state_tables, NULL))
+        self.state = state
+        self.last_tok, self.out_count, self.budget = empty_serve_arrays(
+            self.dp, self.bl, self.device)
+        self.temps, self.topks, self.seeds = self._sampling_registers()
+        if self.pin_tables is not None:
+            self.pin_tables = (
+                torch.as_tensor(pin_np, dtype=I32, device=self.device)
+                if pin_np is not None else torch.full_like(self.pin_tables,
+                                                           NULL))
+        self.pending_tokens.clear()
+        self._fed.clear()
+        self._pinned_slots.clear()
+        self._sampling_slots.clear()
+        self.tracer.instant(
+            "reconcile", reclaimed=int(report["reclaimed"]),
+            resurrected=int(report["resurrected"]),
+            clamped=int(report["clamped"]),
+            never_dry=bool(report["never_dry"]),
+            conserved=bool(report["conserved"]))
+        if self.flight.dump("audit_and_reconcile", {"report": report}):
+            self.telemetry.inc("flight_dumps")
+        return report
+
+    def _trusted_pins(self) -> Optional[np.ndarray]:
+        """The device pin table on the host with every row the pin
+        ledger does not hold set to NULL (None without pins)."""
+        if self.pin_tables is None:
+            return None
+        pin_np = self.pin_tables.cpu().numpy().copy()
+        ok = np.zeros(pin_np.shape[:2], bool)
+        for e in self.pins.entries.values():
+            ok[e["shard"], e["row"]] = True
+        pin_np[~ok] = NULL
+        return pin_np
+
+    def _recover_inplace(self) -> dict:
+        """Restore a consistent engine after a failed step without
+        losing the process: requeue every active request (host
+        bookkeeping only: the device may be mid-operation) and rebuild
+        the pool from the pin rows the ledger trusts; a device pin whose
+        ledger entry never landed is reclaimed, as after a crash."""
+        self.telemetry.inc("recoveries")
+        self.tracer.begin("recover", kind="inplace")
+        for slot in list(self.active):
+            self._requeue(slot, "recovery")
+        report = self.adopt_crashed_state(self.state, self._trusted_pins())
+        self.tracer.end("recover")
+        return report
+
+    # ------------------------------------------------------- warm restart
+    def save_warm(self, ckptr, step: int = 0) -> None:
+        """Persist the serving plane's warm state through the
+        checkpointer: the DecodeState (pool and pinned KV content), the
+        device pin table, and a JSON sidecar with the host ledgers (pin
+        entries, speculation streams, queued requests).  Must be called
+        drained: queued work requeues exactly, but a running slot's KV
+        is not consistent with a host mid-step."""
+        assert not self.active, "drain the engine before a warm save"
+        ckptr.wait()
+        payload = {"state": self.state}
+        if self.pin_tables is not None:
+            payload["pin_tables"] = self.pin_tables
+        aux = {
+            "pins": (self.pins.to_state() if self.pins is not None else []),
+            "spec": (self.spec_store.to_state()
+                     if self.spec_store is not None else None),
+            "queued": [{
+                "rid": int(r.rid),
+                "prompt": [int(t) for t in r.prompt],
+                "max_new_tokens": int(r.max_new_tokens),
+                "temperature": float(r.temperature),
+                "top_k": int(r.top_k), "seed": int(r.seed), "slo": r.slo,
+                "out_tokens": [int(t) for t in r.out_tokens],
+                "preemptions": int(r.preemptions),
+                "deadline_at": float(r.deadline_at),
+            } for r in self.scheduler.pending()],
+        }
+        ckptr.save(step, payload, aux=aux)
+
+    def restore_warm(self, ckptr, step: Optional[int] = None) -> int:
+        """Rebuild a freshly built engine from a warm save: adopt the
+        device arrays (pool, pinned KV pages, pin table) on this
+        engine's device, reload the pin ledger, the trie's pin entries
+        and the speculation store, and resubmit the queued requests.
+        The first hot-prefix request after the restart shares pinned
+        pages and drafts without prefilling again."""
+        if step is None:
+            step = ckptr.latest_step()
+        assert step is not None, "no complete warm checkpoint to restore"
+        like = {"state": self.state}
+        if self.pin_tables is not None:
+            like["pin_tables"] = self.pin_tables
+        got = ckptr.restore(step, like)
+        self.state = got["state"]
+        if self.pin_tables is not None and "pin_tables" in got:
+            self.pin_tables = got["pin_tables"]
+        aux = ckptr.restore_aux(step) or {}
+        if self.pins is not None and aux.get("pins"):
+            self.pins.load_state(aux["pins"])
+            if self.prefix_cache is not None:
+                for pid, e in self.pins.entries.items():
+                    self.prefix_cache.pin_insert(pid, e["shard"],
+                                                 list(e["tokens"]))
+        if self.spec_store is not None and aux.get("spec"):
+            self.spec_store.load_state(aux["spec"])
+        for spec in aux.get("queued", []):
+            req = Request(rid=int(spec["rid"]), prompt=list(spec["prompt"]),
+                          max_new_tokens=int(spec["max_new_tokens"]),
+                          temperature=float(spec["temperature"]),
+                          top_k=int(spec["top_k"]), seed=int(spec["seed"]),
+                          slo=spec["slo"], out_tokens=list(spec["out_tokens"]))
+            req.preemptions = int(spec.get("preemptions", 0))
+            req.deadline_at = float(spec.get("deadline_at", 0.0))
+            self.submit(req)
+        return step
 
     # ------------------------------------------------------------ metrics
     def blocks_in_use(self, cls: int = CLS_KV) -> int:
@@ -1051,10 +1423,13 @@ class ServingEngine:
         }
 
     def leak_free(self) -> bool:
-        """Zero live blocks of every class on every shard (the
-        post-drain invariant)."""
-        return all(bool((classed_pool.live_per_shard(self.state.pool, c)
-                         == 0).all()) for c in range(self.n_classes))
+        """Zero live blocks of every class on every surviving shard (the
+        post-drain invariant; a lost shard's pages left the accounting
+        with the shard)."""
+        live = sum(classed_pool.live_per_shard(self.state.pool, c).cpu()
+                   for c in range(self.n_classes))
+        return all(int(live[s]) == 0 for s in range(self.dp)
+                   if s not in self.lost_shards)
 
     def latency_quantiles(self) -> Dict[str, float]:
         """p50/p99 end-to-end and first-token latency (seconds)."""

@@ -294,6 +294,29 @@ class SpeculationStore:
                         return list(cont[i + g:i + g + k])
         return []
 
+    # -- warm restart (engine.save_warm / restore_warm) ------------------
+    def to_state(self) -> list:
+        """JSON-able snapshot, LRU-coldest key first, so that
+        ``load_state``'s re-recording reproduces the eviction order;
+        carries the accept-rate EWMA, so the gate stays warm."""
+        keys = sorted(self.streams, key=lambda k: self._lru[k])
+        return [[[int(t) for t in k],
+                 [[int(t) for t in c] for c in self.streams[k]],
+                 self._accept.get(k)]
+                for k in keys]
+
+    def load_state(self, rows: list) -> None:
+        self.streams.clear()
+        self._lru.clear()
+        self._accept.clear()
+        for row in rows:
+            key, conts = row[0], row[1]
+            kt = tuple(int(t) for t in key)
+            for c in conts:
+                self.record(kt, tuple(int(t) for t in c))
+            if len(row) > 2 and row[2] is not None:
+                self._accept[kt] = float(row[2])
+
 
 # --------------------------------------------------- pinned host ledger
 

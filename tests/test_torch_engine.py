@@ -14,6 +14,7 @@ pytest.importorskip("torch")   # the port's tests need PyTorch
 import numpy as np
 
 from _torch_helpers import assert_same, engine_setup, serve
+from repro_torch.serving import chaos
 from repro_torch.serving import engine as tengine
 
 #: the plain path of the first slice: no prefix sharing in either engine
@@ -89,21 +90,15 @@ def test_token_identity_across_lane_widths(setup):
     assert outs[1] == outs[4] == outs[16]
 
 
-def _deadline(eng):
-    """A request with a deadline (deadlines come with fault tolerance)."""
-    eng.submit(tengine.Request(0, prompt=[1, 2, 3], deadline_s=1.0))
-
-
-def _sampled_under_speculation(eng):
-    eng.submit(tengine.Request(0, prompt=[1, 2], temperature=0.7))
+def _expert_footprint(eng):
+    """A request restricted to some experts (expert paging comes later)."""
+    eng.submit(tengine.Request(0, prompt=[1, 2, 3], experts=(0, 1)))
 
 
 @pytest.mark.parametrize("option,drive", [
-    (dict(journal=object()), None),
-    (dict(), _deadline),
-    (dict(speculate=True), _sampled_under_speculation),
+    (dict(), _expert_footprint),
     (dict(size_classes=3), None), (dict(expert_paging=True), None),
-    (dict(greedy=False), None), (dict(mesh="auto"), None)])
+    (dict(mesh="auto"), None)])
 def test_options_outside_the_slice_raise(setup, option, drive):
     _, _, tcfg, tparams = setup
     with pytest.raises(NotImplementedError):
@@ -112,9 +107,24 @@ def test_options_outside_the_slice_raise(setup, option, drive):
         drive(eng)
 
 
-def test_sampling_request_raises(setup):
+@pytest.mark.parametrize("option,request_kw", [
+    (dict(greedy=False), dict(temperature=0.7, top_k=5, seed=3)),
+    (dict(speculate=True), dict(temperature=0.7)),
+    (dict(journal=chaos.ServingJournal(),
+          injector=chaos.ServingFailureInjector([])),
+     dict(deadline_s=100.0)),
+    (dict(max_restarts=2), dict(temperature=1.3, seed=-4))])
+def test_options_of_the_sampling_and_recovery_slice_serve(setup, option,
+                                                          request_kw):
+    """What earlier slices refused (sampling, greedy=False, deadlines)
+    now serves to the end and drains; a sampled slot's registers are
+    cleared when it finishes."""
     _, _, tcfg, tparams = setup
-    eng = tengine.ServingEngine(tcfg, tparams, dp=1, b_local=1, max_len=32,
-                                device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.submit(tengine.Request(0, prompt=[1, 2], temperature=0.7))
+    eng = tengine.ServingEngine(tcfg, tparams, dp=1, b_local=1,
+                                max_len=32, device="cpu", **option)
+    req = tengine.Request(0, prompt=[1, 2, 3], max_new_tokens=3,
+                          **request_kw)
+    eng.submit(req)
+    eng.run(max_steps=100)
+    assert req.done and len(req.out_tokens) == 3 and eng.leak_free()
+    assert not eng._sampling_slots and not eng.temps.any()

@@ -28,6 +28,7 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro")
              and sys.modules[m] is not None)
 print(len(mods), bad)
+print(" ".join(mods))
 """
 
 
@@ -36,8 +37,12 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split(" ", 1)
+    head, names = out.stdout.splitlines()
+    n, bad = head.split(" ", 1)
     assert int(n) >= 20 and bad.strip() == "[]", out.stdout
+    # the modules of the sampling and recovery slice are among them
+    assert {"repro_torch.serving.sampling",
+            "repro_torch.serving.chaos"} <= set(names.split()), names
 
 
 def test_sources_name_neither_jax_nor_repro():

@@ -649,3 +649,41 @@ def test_flash_attention_raises_on_what_it_does_not_take(card):
     o, lse = k6.flash_attention_cuda(q, k, v)
     with pytest.raises(ValueError):                   # lse of another shape
         k6.flash_attention_bwd_cuda(q, k, v, o, lse[:, :, 1:], o)
+
+
+@pytest.mark.cuda
+def test_sampler_on_the_card_matches_the_cpu(card):
+    """The sampler (torch ops, no kernel of its own) on the card: its
+    threefry bits and uniforms bit-equal to the CPU's at olmo-1b's
+    vocabulary, the Gumbel noise within 1e-6 of max(1, |g|) (the two
+    ``log``s may differ in the last place), and the sampled tokens equal
+    but where the CPU's top-2 gap of ``logits / T + g`` is within 1e-5
+    of its scale."""
+    from repro_torch.serving import sampling
+
+    V, shape = 50304, (2, 8)
+    rng = np.random.RandomState(21)
+    seeds = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, shape)
+                             .astype(np.int32))
+    counts = torch.from_numpy(rng.randint(0, 2048, shape).astype(np.int32))
+    logits = torch.from_numpy((rng.randn(*shape, V) * 3).astype(np.float32))
+    temp = torch.from_numpy(rng.uniform(0.2, 1.5, shape).astype(np.float32))
+    top_k = torch.from_numpy(rng.choice([0, 1, 50, V], shape)
+                             .astype(np.int32))
+    args = (logits, temp, top_k, seeds, counts)
+    k_cpu = sampling.request_key(seeds, counts)
+    k_gpu = sampling.request_key(seeds.cuda(), counts.cuda())
+    assert torch.equal(sampling.random_bits(*k_gpu, V).cpu(),
+                       sampling.random_bits(*k_cpu, V))
+    assert torch.equal(sampling.uniform(*k_gpu, V).cpu(),
+                       sampling.uniform(*k_cpu, V))
+    g_cpu = sampling.gumbel(seeds, counts, V)
+    g_gpu = sampling.gumbel(seeds.cuda(), counts.cuda(), V).cpu()
+    assert ((g_gpu - g_cpu).abs() / g_cpu.abs().clamp(min=1.0)).max() <= 1e-6
+    got = sampling.sample_tokens(*(a.cuda() for a in args)).cpu()
+    want = sampling.sample_tokens(*args)
+    scores = sampling.perturbed_scores(*args)
+    for idx in zip(*np.nonzero((got != want).numpy())):
+        top = scores[idx].topk(2).values
+        assert top[0] - top[1] <= 1e-5 * scores[idx][
+            scores[idx].isfinite()].abs().max(), idx

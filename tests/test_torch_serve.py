@@ -2,8 +2,10 @@
 reference's (``repro.launch.serve``) on the same argv, with the
 reference's seed-0 weights bridged into the port: identical engine
 stats and identical tokens for every request of the synthetic trace,
-pins, preemption budget and interactive class included.  The flags of
-later slices raise; the telemetry outputs are written and readable.
+pins, preemption budget and interactive class included; with an
+injected fault schedule, the same recoveries and the same clean drain.
+The flags of later slices raise; the telemetry outputs are written and
+readable.
 """
 
 import pytest
@@ -80,6 +82,38 @@ def test_main_matches_reference_main(jparams, monkeypatch, extra):
     assert te.stats["pins_created"] >= ("--pin-pages" in extra)
 
 
+FAULTS = ("shard_loss@3:post_admission:1,crash@6:post_sync:torn,"
+          "poison@1:feed:3,error@4:feed,crash@8:dispatched:torn")
+
+
+def test_fault_schedule_matches_reference_main(jparams, monkeypatch,
+                                               capsys):
+    """--inject-fault (every kind but the straggler, which sleeps) and
+    --deadline-s at dp 2 with pins: the same [chaos] lines (faults fired,
+    crashes, reconciles, a clean drain), the same recovered engine's
+    stats and step records."""
+    argv = ["--smoke", "--requests", "12", "--max-new", "4", "--dp", "2",
+            "--b-local", "2", "--pin-pages", "8", "--deadline-s", "100",
+            "--inject-fault", FAULTS]
+
+    def chaos_lines():
+        return [ln for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("[chaos]")]
+
+    je, _ = _main(jserve, argv, monkeypatch)
+    jlines = chaos_lines()
+    te, _ = _main(tserve, argv + ["--device", "cpu"], monkeypatch, jparams)
+    tlines = chaos_lines()
+    assert tlines == jlines and len(tlines) == 4
+    assert "drained clean: 12 finished" in tlines[-1]
+    assert ({k: v for k, v in te.stats.items() if k not in TIMING}
+            == {k: v for k, v in je.stats.items() if k not in TIMING})
+    keys = ("T", "spec", "status", "rids")
+    assert [[r[k] for k in keys] for r in te.flight.ring] == \
+        [[r[k] for k in keys] for r in je.flight.ring]
+    assert te.lost_shards == {1} and te.leak_free()
+
+
 def test_telemetry_outputs(jparams, monkeypatch, tmp_path):
     """--metrics-path, --trace-path and --flight-recorder write readable
     files: a Prometheus snapshot with the never-dry margin, a valid
@@ -102,7 +136,6 @@ def test_telemetry_outputs(jparams, monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--inject-fault", "crash@3:post_sync"], ["--deadline-s", "1.0"],
     ["--expert-paging"], ["--size-classes", "3"], ["--expert-budget", "4"]])
 def test_flags_of_later_slices_raise(jparams, monkeypatch, flags):
     with pytest.raises(NotImplementedError):
