@@ -160,6 +160,30 @@ Phases, each printed on its own line (any failure fails the run):
    speculation and preemption, and the two crashes recovered through
    ``recover_engine`` (identical streams up to a near-tie of 1e-5,
    status rows, reconcile reports and pool leaves).
+17. expert-paged MoE serving at mixtral-8x7b's full width (d_model
+   4096, 32 heads, 8 KV heads, hd 128, d_ff 14,336, 8 experts top-2,
+   window 4096, vocab 32,000; bf16, capacity factor 64), depth cut from
+   32 to 8 layers (at 32 the experts alone are 90 GB), dp 1, 8 slots,
+   max_len 2048, chunk 64, three size classes (two for the resident
+   engine, whose experts take no class): 24 requests of phase 5's
+   shape under a skewed footprint mix (80% on experts (0, 1), the rest
+   on the cold pairs) and a uniform one (the four disjoint pairs round
+   robin), each through the resident engine, the paged engine at half
+   of full residency (96 of 192 expert pages) and the resident engine
+   again on the paged run's batches: every request finishes, paged
+   streams equal the resident streams on the same batches bit for bit
+   (the count equal to the resident run on its own batches printed), 0
+   in-step misses and 0 dropped tokens, one transfer a step, no kernel
+   of K1-K6 (the expert products are matmuls, as in the reference), on
+   the uniform mix evictions, expert deferrals and a resident peak
+   within the budget, on the skewed mix at least 30% of peak expert HBM
+   saved, every class conserved and empty after ``flush_experts``;
+   ms/step and tok/s of each engine, the hit rate, loads, evictions and
+   peak, one cold footprint's load (48 pages, 5.6 GB) in GB/s, and the
+   device ms of the expert gather and of the MoE products in one
+   profiled prefill and one decode step.  Phase 4 also holds the smoke
+   mixtral-8x7b expert-paged at a budget of one footprint, card against
+   CPU (tokens, status rows, stats, pool leaves and expert tables).
 
 ``--profile`` serves the workloads of phases 5, 9 and 10 again, and
 runs two more training steps in phase 12, under ``torch.profiler``,
@@ -2661,6 +2685,400 @@ def time_k6(k6, rng, cfg, B=4, S=2048):
     return dict(B=B, S=S, **out)
 
 
+def moe_cfg(cfg, **kw):
+    """``cfg`` with capacity factor 64, the reference's serving value
+    (no assignment drops), and ``kw`` replaced."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=64.0), **kw)
+
+
+def check_moe_engine_vs_cpu(tengine, seed):
+    """Phase 4: expert-paged serving on the card against the same engine
+    on the CPU, smoke mixtral-8x7b in f32, dp 1, 2 slots, a budget of
+    one footprint (12 pages), footprints (0, 1) and (2, 3) alternating:
+    LRU eviction churn and deferral.  Tokens, status rows, stats, pool
+    leaves and expert tables must be identical; 0 misses and 0 drops;
+    leak-free after ``flush_experts``."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import init_params
+    from repro_torch.models.transformer import (EXPERT_PPE,
+                                                expert_layer_slots)
+    from repro_torch.serving.telemetry import FlightRecorder
+
+    cfg = moe_cfg(smoke_config(get_config("mixtral-8x7b")))
+    budget = EXPERT_PPE * expert_layer_slots(cfg) * 2
+    params = init_params(cfg, seed=seed, device="cpu")
+    rng = np.random.RandomState(seed)
+    prompts = [list(rng.randint(1, cfg.vocab, rng.randint(3, 20)))
+               for _ in range(8)]
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        eng = tengine.ServingEngine(
+            cfg, tree_map(lambda a: a.to(dev), params), dp=1, b_local=2,
+            max_len=64, chunk_size=8, prefix_sharing=False,
+            expert_paging=True, expert_budget=budget, device=dev,
+            flight=FlightRecorder(capacity=4096))
+        reqs = [tengine.Request(i, prompt=p, max_new_tokens=5,
+                                experts=(0, 1) if i % 2 == 0 else (2, 3))
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_steps=500)
+        check(all(r.done for r in reqs), f"mixtral smoke on {dev}: finished")
+        runs[dev] = dict(
+            tokens=[r.out_tokens for r in reqs],
+            status=[rec["status"] for rec in eng.flight.ring],
+            stats={k: v for k, v in eng.stats.items()
+                   if k not in ("stragglers", "step_timeouts")},
+            sched=dict(eng.scheduler.stats), pool=pool_state(eng),
+            # a copy: flush_experts below changes the tables in place
+            tables=[eng.state.expert_tables[p].to("cpu", copy=True)
+                    for p in sorted(eng.state.expert_tables)],
+            meters=[int(eng.telemetry.shard[k].sum()) for k in (
+                "expert_miss_pages_c2", "moe_dropped_tokens")],
+            flushed=eng.flush_experts(), empty=eng.leak_free())
+        del eng
+    a, b = runs["cpu"], runs["cuda"]
+    differ = [k for k in ("tokens", "status", "stats", "sched", "flushed",
+                          "meters") if a[k] != b[k]]
+    differ += [k for k in ("pool", "tables")
+               if not same_tensors(a[k], b[k])]
+    check(not differ and a["empty"] and b["empty"]
+          and b["meters"] == [0, 0],
+          f"mixtral smoke expert paging: the card == the CPU (differ: "
+          f"{differ}; drained empty {a['empty']}, {b['empty']}; misses "
+          f"and drops {b['meters']})")
+    st = b["stats"]
+    check(st["expert_evictions"] > 0 and b["sched"]["defer_experts"] > 0,
+          "mixtral smoke expert paging: evictions and deferrals")
+    phase(f"[4] smoke mixtral-8x7b expert-paged (budget {budget} pages, "
+          f"alternating footprints) on the card == on the CPU: "
+          f"{len(b['status'])} steps, loads {st['expert_load_pages']} "
+          f"pages, evictions {st['expert_evictions']}, deferrals "
+          f"{b['sched']['defer_experts']}; identical tokens, status rows, "
+          f"stats, pool leaves and expert tables; 0 misses, 0 drops, 0 "
+          f"pages after flush_experts")
+
+
+#: the two footprint mixes of phase 17 over mixtral's 8 experts: the
+#: four disjoint pairs round robin, and 80% on pair (0, 1) with the rest
+#: on the cold pairs (the reference bench's skewed and uniform mixes)
+MOE_PAIRS = ((0, 1), (2, 3), (4, 5), (6, 7))
+
+
+def moe_footprints(mix, n, seed):
+    rng = np.random.RandomState(seed)
+    if mix == "uniform":
+        return [MOE_PAIRS[i % 4] for i in range(n)]
+    return [MOE_PAIRS[0] if rng.random_sample() < 0.8
+            else MOE_PAIRS[1 + rng.randint(3)] for _ in range(n)]
+
+
+def moe_requests(tengine, cfg, seed, footprints):
+    """Phase 5's workload over ``len(footprints)`` requests, each
+    restricted to its footprint."""
+    reqs = make_requests(tengine, cfg, seed, n=len(footprints))
+    for r, fp in zip(reqs, footprints):
+        r.experts = fp
+    return reqs
+
+
+def run_moe(tengine, counted, eng, reqs, schedule=None):
+    """Serve ``reqs`` on ``eng`` to the end.  Without ``schedule`` every
+    request is submitted at once and the admissions are recorded as
+    [(steps before the admitting tick, rid)]; with it each request is
+    submitted just before the tick that admitted it there, so the engine
+    runs the recorded steps' exact batches.  Returns the run's numbers;
+    no kernel of K1-K6 may launch."""
+    admitted = []
+    admit = eng.admit
+
+    def record(req, match, shard):
+        admitted.append((eng.stats["steps"], req.rid))
+        return admit(req, match, shard)
+
+    eng.admit = record
+    by_rid = {r.rid: r for r in reqs}
+    for fn in counted.values():
+        fn.launches = 0
+    steps0, transfers0 = eng.stats["steps"], eng.host_transfers
+    tokens0 = eng.stats["tokens_out"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if schedule is None:
+        for r in reqs:
+            eng.submit(r)
+    pending = list(schedule or [])
+    while True:
+        while pending and pending[0][0] == eng.stats["steps"] - steps0:
+            eng.submit(by_rid[pending.pop(0)[1]])
+        if eng.idle() and not pending:
+            break
+        check(eng.step(), "every step serves a request")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.admit = admit
+    steps = eng.stats["steps"] - steps0
+    tokens = eng.stats["tokens_out"] - tokens0
+    check(all(r.done for r in reqs), "every request finished")
+    check(eng.host_transfers - transfers0 == steps,
+          f"one transfer a step ({eng.host_transfers - transfers0}, "
+          f"{steps})")
+    check(sum(fn.launches for fn in counted.values()) == 0,
+          "no kernel of K1-K6 on mixtral's path")
+    return dict(tokens=[r.out_tokens for r in reqs], steps=steps,
+                wall=wall, ms_step=1e3 * wall / steps,
+                tok_s=tokens / wall,
+                admitted=[(s - steps0, rid) for s, rid in admitted])
+
+
+def profile_moe_steps(eng, tengine, cfg, fp):
+    """Device ms of the expert gather and of the MoE products in one
+    prefill step (8 lanes of 64 prompt tokens) and the decode step
+    after it, on a warm paged engine: 8 requests of 128 prompt tokens
+    restricted to ``fp`` are admitted (and ``fp`` loaded) in an
+    unprofiled step, then the next two steps run under the profiler
+    with the port's ``_gather_expert_pages`` and ``moe._experts`` inside
+    ``record_function`` ranges, each call also between two CUDA events
+    (the device time from the gather's or the products' first kernel
+    to their last)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer
+
+    rng = np.random.RandomState(17)
+    reqs = [tengine.Request(10**6 + i, prompt=list(rng.randint(
+        1, cfg.vocab, 128)), max_new_tokens=4, experts=fp) for i in range(8)]
+    for r in reqs:
+        eng.submit(r)
+    eng.step()
+    originals = (transformer._gather_expert_pages, moe_mod._experts)
+    events = {"expert_gather": [], "moe_products": []}
+
+    def ranged(name, fn):
+        def run(*a):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            with record_function(name):
+                ev[0].record()
+                y = fn(*a)
+                ev[1].record()
+            events[name].append(ev)
+            return y
+        return run
+
+    out = {}
+    transformer._gather_expert_pages = ranged("expert_gather", originals[0])
+    moe_mod._experts = ranged("moe_products", originals[1])
+    try:
+        for name in ("prefill (T=64)", "decode (T=1)"):
+            for v in events.values():
+                v.clear()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.step()
+                torch.cuda.synchronize()
+            ka = prof.key_averages()
+            ev = {e.key: e for e in ka}
+            # device kernels only: the ranges appear as device rows too
+            kernels = sorted(
+                (e for e in ka if e.device_type ==
+                 torch.autograd.DeviceType.CUDA and e.key not in events),
+                key=lambda e: -e.self_device_time_total)
+            busy = sum(e.self_device_time_total for e in kernels)
+            out[name] = {k: ev[k].device_time_total / 1e3 for k in events}
+            out[name]["top"] = [(e.self_device_time_total / 1e3, e.count,
+                                 e.key[:70]) for e in kernels[:6]]
+            out[name]["launches"] = sum(e.count for e in kernels)
+            out[name].update({f"{k} (events)": sum(
+                a.elapsed_time(b) for a, b in v) for k, v in events.items()})
+            out[name]["calls"] = len(events["expert_gather"])
+            out[name]["all kernels"] = busy / 1e3
+    finally:
+        transformer._gather_expert_pages, moe_mod._experts = originals
+    eng.run(max_steps=100)
+    check(all(r.done for r in reqs), "profiled requests finished")
+    return out
+
+
+def serve_moe(tengine, counted, seed, smi, n_layers=8):
+    """Phase 17: expert-paged MoE serving at mixtral-8x7b's full width
+    (d_model 4096, 32 heads, 8 KV heads, hd 128, d_ff 14,336, 8 experts
+    top-2, window 4096, vocab 32,000; bf16, random weights from
+    ``seed``, capacity factor 64), depth cut from 32 to ``n_layers``
+    layers: at 32 the experts alone are 90 GB, and the resident engine
+    the identity check needs would not fit on the card.  dp 1, 8 slots,
+    max_len 2048, chunk 64, two size classes resident and three paged
+    (a third class implies expert paging); 24 requests of phase 5's
+    shape under each footprint mix.  For each mix: the resident engine
+    (all experts in HBM), then the paged engine at half of full
+    residency, then the resident engine again submitting each request
+    just before the step the paged engine admitted it on, so it runs the
+    paged run's exact batches (bf16 products are bit-equal only at equal
+    shapes, and the paged engine's expert deferrals change which
+    requests share a step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import classed_pool
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.model import init_params
+    from repro_torch.models.transformer import (EXPERT_PPE,
+                                                expert_layer_slots)
+
+    cfg = moe_cfg(get_config("mixtral-8x7b"), n_layers=n_layers)
+    b_local, max_len, chunk = 8, 2048, 64
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    E = cfg.moe.num_experts
+    full = expert_layer_slots(cfg) * E * EXPERT_PPE
+    budget = full // 2
+    page_bytes = cfg.d_model * cfg.d_ff * 2
+    phase(f"[17] {cfg.name} cut to {n_layers} layers: "
+          f"{sum(p.numel() for p in tree_leaves(params))} parameters "
+          f"({cfg.dtype}), init {time.perf_counter() - t0:.1f} s; an "
+          f"expert page "
+          f"{cfg.d_model * cfg.d_ff} elements ({page_bytes / 1e6:.1f} MB); "
+          f"full residency {full} pages ({full * page_bytes / 1e9:.2f} GB), "
+          f"budget {budget} pages + {3 * 2 * b_local} of lane stock "
+          f"({(budget + 6 * b_local) * page_bytes / 1e9:.2f} GB in class 2)")
+
+    def engine(paging):
+        return tengine.ServingEngine(
+            cfg, params, dp=1, b_local=b_local, max_len=max_len,
+            chunk_size=chunk, size_classes=3 if paging else 2,
+            expert_paging=paging, expert_budget=budget if paging else None,
+            device="cuda")
+
+    out = {}
+    for mix in ("skewed", "uniform"):
+        fps = moe_footprints(mix, 24, seed + 17)
+
+        def reqs():
+            return moe_requests(tengine, cfg, seed + 17, fps)
+
+        eng = engine(False)
+        check(eng.n_classes == 2 and not eng.expert_paging,
+              "the resident engine: two classes, no expert plane")
+        # warm-up: one short request per lane width (not counted)
+        eng.submit(tengine.Request(-1, prompt=[1] * (chunk + 1),
+                                   max_new_tokens=3, experts=MOE_PAIRS[0]))
+        eng.run(max_steps=100)
+        res = run_moe(tengine, counted, eng, reqs())
+        del eng
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        eng = engine(True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(eng.n_classes == 3 and eng.expert_budget == budget,
+              "the paged engine: three classes at half residency")
+        torch.cuda.reset_peak_memory_stats()
+        paged = run_moe(tengine, counted, eng, reqs())
+        st, sched = dict(eng.stats), dict(eng.scheduler.stats)
+        meters = {k: int(eng.telemetry.shard[k].sum()) for k in (
+            "expert_hit_pages_c2", "expert_miss_pages_c2",
+            "expert_prefetch_pages_c2", "moe_dropped_tokens")}
+        peak = st["expert_pages_resident_peak"]
+        saved = 1 - peak / full
+        hit = eng.telemetry.expert_hit_rate()
+        check(meters["expert_miss_pages_c2"] == 0
+              and meters["moe_dropped_tokens"] == 0,
+              f"{mix}: 0 in-step misses and 0 dropped tokens ({meters})")
+        check(peak <= budget, f"{mix}: resident peak {peak} <= {budget}")
+        if mix == "uniform":
+            check(st["expert_evictions"] > 0
+                  and sched["defer_experts"] > 0,
+                  f"uniform: evictions ({st['expert_evictions']}) and "
+                  f"expert deferrals ({sched['defer_experts']})")
+        else:
+            check(saved >= 0.30, f"skewed: {saved:.1%} of peak expert HBM "
+                                 f"saved against full residency (>= 30%)")
+        prof = (profile_moe_steps(eng, tengine, cfg, MOE_PAIRS[0])
+                if mix == "skewed" else None)
+        # one cold footprint's load: 16 experts x 3 pages from the host
+        load = None
+        if mix == "uniform":
+            eng.flush_experts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for pos, g in eng._elayer_slots:
+                for e in MOE_PAIRS[1]:
+                    eng._load_expert(0, pos, g, e)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n = len(eng._elayer_slots) * 2 * EXPERT_PPE
+            load = dict(pages=n, bytes=n * page_bytes, s=secs,
+                        gbs=n * page_bytes / secs / 1e9)
+        eng.flush_experts()
+        conserved = all(
+            int(classed_pool.free_per_shard(eng.state.pool, c)[0]
+                + classed_pool.live_per_shard(eng.state.pool, c)[0])
+            == classed_pool.pages_local(eng.state.pool, c)
+            for c in range(eng.n_classes))
+        check(eng.leak_free() and conserved
+              and eng.expert_ledger.resident_count() == 0,
+              f"{mix}: leak-free after drain and flush_experts, every "
+              f"class conserved")
+        mem = torch.cuda.max_memory_allocated()
+        del eng
+        torch.cuda.empty_cache()
+
+        eng = engine(False)
+        replay = run_moe(tengine, counted, eng, reqs(),
+                         schedule=paged["admitted"])
+        del eng
+        torch.cuda.empty_cache()
+        check(replay["tokens"] == paged["tokens"],
+              f"{mix}: paged streams == resident streams on the same "
+              f"batches, bit for bit")
+        same_free = sum(a == b for a, b in zip(res["tokens"],
+                                               paged["tokens"]))
+        phase(f"[17] {mix} mix on {smi}: resident {res['ms_step']:.2f} "
+              f"ms/step, {res['tok_s']:.1f} generated tok/s ({res['steps']} "
+              f"steps); paged {paged['ms_step']:.2f} ms/step, "
+              f"{paged['tok_s']:.1f} tok/s ({paged['steps']} steps; engine "
+              f"build with the host store {build_s:.1f} s); resident on "
+              f"the paged run's batches {replay['ms_step']:.2f} ms/step, "
+              f"{replay['tok_s']:.1f} tok/s")
+        phase(f"[17] {mix}: paged == resident on the same batches on all "
+              f"24 streams; {same_free} of 24 equal to the resident run "
+              f"with its own batches; hit rate {hit:.4f}, loads "
+              f"{st['expert_load_pages']} pages, evictions "
+              f"{st['expert_evictions']}, resident peak {peak} of {full} "
+              f"pages ({saved:.1%} saved), expert deferrals "
+              f"{sched['defer_experts']}; meters {meters}; one transfer a "
+              f"step; peak allocated {mem / 2**30:.1f} GiB; 0 pages in "
+              f"every class after flush_experts")
+        if prof is not None:
+            for name, p in prof.items():
+                phase(f"[17] profiled {name} step, paged, on {smi}: expert "
+                      f"gather {p['expert_gather']:.3f} ms (CUDA events "
+                      f"{p['expert_gather (events)']:.3f} ms), MoE products "
+                      f"{p['moe_products']:.3f} ms (CUDA events "
+                      f"{p['moe_products (events)']:.3f} ms) over "
+                      f"{p['calls']} MoE layers; all kernels "
+                      f"{p['all kernels']:.3f} ms (device), "
+                      f"{p['launches']} launches")
+                for ms, n, key in p["top"]:
+                    phase(f"[17]   {ms:8.3f} ms {n:4d}x {key}")
+        if load is not None:
+            phase(f"[17] one cold footprint's load on {smi}: "
+                  f"{load['pages']} pages, {load['bytes'] / 1e9:.2f} GB "
+                  f"host (page-locked) to device in {load['s']:.3f} s, "
+                  f"{load['gbs']:.1f} GB/s")
+        out[mix] = dict(resident=res, paged=paged, replay=replay,
+                        same_free=same_free, hit=hit, peak=peak,
+                        saved=saved, stats=st, sched=sched, meters=meters,
+                        prof=prof, load=load)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2784,6 +3202,7 @@ def main() -> int:
     for c in (rgemma_smoke, mamba_smoke):
         check_engine_vs_cpu(tengine, c, args.seed, name=f"{c.name} engine "
                             f"(two size classes)", size_classes=2)
+    check_moe_engine_vs_cpu(tengine, args.seed)
     check_train_vs_cpu(cfg_smoke, args.seed)
     check_train_loop(cfg_smoke, args.seed)
 
@@ -3072,6 +3491,11 @@ def main() -> int:
     check_crash_f32(tengine, cfg, args.seed, b_local, max_len, chunk, smi)
     phase(f"[16] sampled serving and recovery in "
           f"{time.perf_counter() - t16:.1f} s")
+    # [17] expert-paged MoE serving, mixtral-8x7b at full width
+    t17 = time.perf_counter()
+    serve_moe(tengine, counted, args.seed, smi)
+    phase(f"[17] expert-paged MoE serving in "
+          f"{time.perf_counter() - t17:.1f} s")
     s16 = sampled["runs"][0]
     sampled_launches = {
         "K1": s16["launches"], "K2": s16["k2"],
@@ -3191,7 +3615,7 @@ def main() -> int:
                     "host_ms": t6["bwd"]["present_host_ms"]}}))),
     ]
     kernels[1]["sampled_launches"] = sampled_launches["K1"]
-    phase(f"[16] total {time.perf_counter() - t_start:.1f} s")
+    phase(f"[17] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,8 @@
 A static tuple of independent :class:`~repro_torch.core.hier_pool.HierPool`
 s, one per size class; the §4.2 never-dry argument holds per class
 because the classes never exchange blocks.  Counterpart of the JAX
-package's ``core/classed_pool.py``.  The port serves the coarse KV
-class and the fine bounded-state class (C <= 2); the expert class
-arrives with expert paging.
+package's ``core/classed_pool.py``: the coarse KV class, the fine
+bounded-state class and the read-only expert-weight class (C <= 3).
 
 Every op takes the class index ``cls`` as a Python int and runs the
 single-class op on that class's leaves.
@@ -25,6 +24,12 @@ CLS_KV = 0
 #: class index of the fine bounded-state class (ring windows, recurrent
 #: state) in a two-class pool.
 CLS_STATE = 1
+#: class index of the read-only shared expert-weight class in a
+#: three-class (expert-paged MoE) pool.  Expert pages never enter a
+#: slot's lane: they are granted in bulk from the shared stack at load
+#: time and carry one cache-owned reference plus one per active slot
+#: whose footprint routes through the expert.
+CLS_EXPERT = 2
 
 
 class ClassSpec(NamedTuple):

@@ -25,11 +25,20 @@ surviving device state and the journal, then asserts that the run
 drained with no page leaked on a surviving shard.  ``--deadline-s``
 gives every request a deadline.
 
+Expert knobs (MoE archs): ``--expert-paging`` (or ``--size-classes
+3``) pages the expert weights through the pool's third size class,
+``--expert-budget N`` caps the resident expert pages per shard (0 =
+full residency), ``--expert-frac F`` restricts that fraction of the
+requests to a random half of the experts (the routing skew load-aware
+admission learns).  Expert paging needs ``--dp 1``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
+      --smoke --device cpu --dp 1 --expert-paging --expert-budget 12 \\
+      --expert-frac 0.5
+
 The port serves on one device: ``--mesh auto`` resolves to the
 single-device plane, DP kept as a leading axis, as the reference does
-when fewer than ``dp`` devices exist.  Options of later slices
-(``--expert-paging``, ``--expert-budget``, ``--size-classes 3``) raise
-``NotImplementedError``.
+when fewer than ``dp`` devices exist.
 """
 
 from __future__ import annotations
@@ -84,11 +93,15 @@ def main(argv=None):
                     choices=(1, 2, 3),
                     help="allocation-plane size classes: 1 = paged KV, "
                          "2 = add the fine bounded-state class, 3 = add "
-                         "the expert-weight class (a later slice)")
+                         "the read-only expert-weight class")
     ap.add_argument("--expert-paging", action="store_true",
-                    help="page MoE expert weights (a later slice)")
+                    help="page MoE expert weights through the pool's "
+                         "expert class (implies --size-classes 3; no-op "
+                         "for dense models)")
     ap.add_argument("--expert-budget", type=int, default=0,
-                    help="resident expert pages per shard (a later slice)")
+                    help="resident expert pages per shard (0 = full "
+                         "residency; 3 pages per expert per MoE layer "
+                         "slot)")
     ap.add_argument("--expert-frac", type=float, default=0.0,
                     help="fraction of requests restricted to a random "
                          "half of the experts")
@@ -114,9 +127,6 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = ap.parse_args(argv)
 
-    if args.expert_budget > 0:
-        raise NotImplementedError("--expert-budget (expert paging): a later "
-                                  "slice of the port")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("serve: no CUDA device; pass --device cpu to "
                            "serve on the CPU")
@@ -143,6 +153,7 @@ def main(argv=None):
             draft_len=args.draft_len, spec_gate=not args.no_spec_gate,
             size_classes=args.size_classes,
             expert_paging=args.expert_paging,
+            expert_budget=(args.expert_budget or None),
             sched=SchedConfig(pin_pages=args.pin_pages,
                               page_budget=args.page_budget,
                               chunk_buckets=buckets),
@@ -220,7 +231,17 @@ def main(argv=None):
     occ = engine.shard_occupancy()
     print(f"shard occupancy: mean={occ['pages_mean_shard']} "
           f"peak={occ['pages_peak_shard']} pages per shard")
+    if engine.expert_paging:
+        hr = engine.telemetry.expert_hit_rate()
+        dropped = int(engine.telemetry.shard["moe_dropped_tokens"].sum())
+        print(f"expert paging: budget={engine.expert_budget} pages/shard "
+              f"hit_rate={'n/a' if hr is None else f'{hr:.2f}'} "
+              f"loads={s['expert_load_pages']} "
+              f"evictions={s['expert_evictions']} "
+              f"resident_peak={s['expert_pages_resident_peak']} "
+              f"dropped_tokens={dropped}")
     engine.flush_pins()
+    engine.flush_experts()
     if faults:
         print(f"[chaos] fired={injector.log} crashes={crashes} "
               f"shards_lost={sorted(engine.lost_shards)} "

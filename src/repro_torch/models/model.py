@@ -57,8 +57,9 @@ def decode_step(cfg, params, tokens, state: DecodeState, active=None):
     if active is None:
         active = torch.ones(tokens.shape, dtype=torch.bool,
                             device=tokens.device)
-    x, state = forward_decode_chunk(cfg, params, tokens[:, :, None], state,
-                                    active.to(torch.int32), active=active)
+    x, state, _ = forward_decode_chunk(cfg, params, tokens[:, :, None],
+                                       state, active.to(torch.int32),
+                                       active=active)
     return logits_apply(cfg, params["embed"], x[:, :, 0]), state
 
 
@@ -73,7 +74,7 @@ def decode_step_chunk(cfg, params, tokens, state: DecodeState, lens,
                             device=tokens.device)
     asked = torch.where(active, lens.to(torch.int32).clamp(0, T), 0)
     base = state.seq_lens
-    x, state = forward_decode_chunk(cfg, params, tokens, state, lens,
-                                    active=active)
+    x, state, _ = forward_decode_chunk(cfg, params, tokens, state, lens,
+                                       active=active)
     logits = logits_apply(cfg, params["embed"], x)
     return logits, state, state.seq_lens - base == asked

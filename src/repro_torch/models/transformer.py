@@ -3,17 +3,20 @@ decode forward.
 
 Counterpart of the JAX package's ``models/transformer.py``, limited to
 the slices of the port so far.  Training (:func:`forward_train`) covers
-decoders of global and local attention layers with a dense FFN; its
-global layers run K6.  Serving covers decoders of global attention over
-**paged KV** (olmo-1b, llama3.2-1b, phi4-mini), sliding-window
+decoders of global and local attention layers with a dense or MoE FFN;
+its global layers run K6.  Serving covers decoders of global attention
+over **paged KV** (olmo-1b, llama3.2-1b, phi4-mini), sliding-window
 attention over per-slot **ring** slabs (gemma3's local layers,
-recurrentgemma's), and recurrent **SSD** (mamba2) and **RG-LRU**
-(recurrentgemma) layers over per-slot state slabs, with a dense SwiGLU
-or GeLU FFN.  Pages come from the two-level size-classed pool
+recurrentgemma's, mixtral's), and recurrent **SSD** (mamba2) and
+**RG-LRU** (recurrentgemma) layers over per-slot state slabs, with a
+dense SwiGLU or GeLU FFN or a mixture of experts (:mod:`.moe`).  Pages
+come from the two-level size-classed pool
 (:mod:`repro_torch.core.classed_pool`) exactly as in the reference:
 per-slot private lanes over a per-shard shared stack; a two-class pool
 adds the fine ``CLS_STATE`` class that bounded ring and recurrent state
-is admitted against.
+is admitted against, and a three-class pool the ``CLS_EXPERT`` class
+whose read-only pages hold expert weights (expert-paged MoE serving:
+each MoE layer reads its experts through a per-layer page table).
 
 Decode batch layout is [DP, B_local, ...]; DP stays a leading axis on
 one device, as in the reference's single-device fallback.
@@ -24,11 +27,15 @@ layer's state per step is what a functional update would cost).  Each
 shard's page array carries one extra page, index ``pages_local``, that
 the allocator never grants, and each ring one extra slot, index W:
 masked tokens are written there, which is how this port expresses
-JAX's out-of-range ``mode="drop"`` scatter.  Tables, lengths and the
-pool are replaced, not mutated.  The reference runs a recurrent layer
-over a chunk as T gated single-token updates; the port runs it as one
-chunk pass through the scan kernels K4 and K5, with the ragged tail
-made inert inside the scan (``models/ssm.py``, ``models/rglru.py``).
+JAX's out-of-range ``mode="drop"`` scatter; the expert pages carry a
+sink page too, index NB2, where a load addressed to another shard
+writes.  Page and state tables, lengths and the pool are replaced, not
+mutated; expert pages and expert tables change in place, by loads and
+evictions only (``serving/expert_pages.py``).  The reference runs a
+recurrent layer over a chunk as T gated single-token updates; the port
+runs it as one chunk pass through the scan kernels K4 and K5, with the
+ragged tail made inert inside the scan (``models/ssm.py``,
+``models/rglru.py``).
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import base_kind, is_moe_kind
 from ..core import block_pool, classed_pool
 from ..core.block_pool import I32, NULL
-from ..core.classed_pool import CLS_KV, ClassSpec
+from ..core.classed_pool import CLS_EXPERT, CLS_KV, ClassSpec
 from ..kernels.paged_attention.ops import (paged_attention,
                                           paged_attention_chunk)
 from ..kernels.paged_attention.ref import NEG_INF
@@ -50,6 +57,7 @@ from ..kernels.verify_attention.ops import (verify_attention, verify_route,
 from ..kernels.verify_attention.schedule import (build_verify_schedule,
                                                  build_verify_units)
 from . import attention as attn
+from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .attention import _expand_kv
@@ -62,13 +70,13 @@ from .layers import (ParamDef, apply_norm, embed_apply, embed_defs,
 
 def _check_slice(cfg) -> None:
     """Raise for a configuration outside the port's slices so far."""
-    kinds = set(cfg.pattern) | set(cfg.remainder)
+    kinds = set(map(base_kind, cfg.pattern + cfg.remainder))
     if (not kinds <= {"global", "local", "ssd", "rglru"}
             or cfg.arch_kind != "decoder"):
         raise NotImplementedError(
             f"{cfg.name}: the port serves decoders of global, local, ssd "
-            f"and rglru layers with a dense FFN (pattern {cfg.pattern}, "
-            f"arch_kind {cfg.arch_kind!r})")
+            f"and rglru layers with a dense or MoE FFN (pattern "
+            f"{cfg.pattern}, arch_kind {cfg.arch_kind!r})")
 
 
 def attn_defs(cfg):
@@ -91,7 +99,7 @@ def _stack(defs, n: int):
 
 def layer_defs(cfg, kind: str):
     bk = base_kind(kind)
-    if is_moe_kind(kind) or bk not in ("global", "local", "ssd", "rglru"):
+    if bk not in ("global", "local", "ssd", "rglru"):
         raise NotImplementedError(f"layer kind {kind!r}")
     d = {"norm1": norm_defs(cfg)}
     if bk in ("global", "local"):
@@ -102,7 +110,8 @@ def layer_defs(cfg, kind: str):
         d["rglru"] = rglru_mod.rglru_defs(cfg)
     if bk != "ssd" and cfg.d_ff:
         d["norm2"] = norm_defs(cfg)
-        d["ffn"] = ffn_defs(cfg)
+        d["ffn"] = (moe_mod.moe_defs(cfg) if is_moe_kind(kind)
+                    else ffn_defs(cfg))
     return d
 
 
@@ -140,12 +149,15 @@ def _check_train(cfg) -> None:
 
 
 def _mix_train(cfg, lp, x, kind: str):
-    """One layer over the full sequence: returns (x, (k, v))."""
+    """One layer over the full sequence: returns (x, (k, v)).  An FFN
+    with a router is the mixture of experts."""
     h = apply_norm(cfg, lp["norm1"], x)
     o, cache = attn.attention_train(cfg, lp["attn"], h, base_kind(kind))
     x = x + o
     if "ffn" in lp:
-        x = x + ffn_apply(cfg, lp["ffn"], apply_norm(cfg, lp["norm2"], x))
+        h2 = apply_norm(cfg, lp["norm2"], x)
+        x = x + (moe_mod.moe_apply(cfg, lp["ffn"], h2)
+                 if "router" in lp["ffn"] else ffn_apply(cfg, lp["ffn"], h2))
     return x, cache
 
 
@@ -200,9 +212,18 @@ class DecodeState(NamedTuple):
     state_tables: int32 [DP, Bl, state_blocks_per_slot] CLS_STATE grants
                  of each slot (granted at admission, freed at release),
                  or None in a single-class pool
+    expert_pages: [DP, NB2 + 1, d_model * d_ff] CLS_EXPERT page payloads
+                 (expert-paged MoE): each page holds one expert weight
+                 matrix, flat; page NB2 of each shard is the write sink
+                 of a load addressed to another shard.  Written only by
+                 the expert loader; the step reads them by gathers
+    expert_tables: dict pos -> int32 [stack, DP, E, EXPERT_PPE], the page
+                 ids of each MoE layer slot's experts (w_gate, w_up,
+                 w_down), NULL where not resident; changed only by
+                 loads and evictions.  Both None without expert paging
 
-    The reference's encoder and expert fields belong to layers later
-    slices of the port bring in.
+    The reference's encoder field belongs to layers a later slice of the
+    port brings in.
     """
     kv_pages: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
     rings: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
@@ -211,6 +232,8 @@ class DecodeState(NamedTuple):
     seq_lens: torch.Tensor
     pool: classed_pool.ClassedPool
     state_tables: Optional[torch.Tensor] = None
+    expert_pages: Optional[torch.Tensor] = None
+    expert_tables: Optional[Dict[str, torch.Tensor]] = None
 
 
 class TensorDef(NamedTuple):
@@ -218,6 +241,28 @@ class TensorDef(NamedTuple):
     ``jax.ShapeDtypeStruct``)."""
     shape: Tuple[int, ...]
     dtype: torch.dtype
+
+
+#: pages per expert in the CLS_EXPERT class: one page per weight matrix
+#: (w_gate, w_up, w_down), each exactly d_model * d_ff elements flat.
+EXPERT_PPE = 3
+
+
+def moe_positions(cfg) -> Tuple[list, list]:
+    """(pattern MoE positions, remainder MoE positions) that carry an
+    expert FFN: the layer slots the expert page tables index."""
+    def moe(k):
+        return is_moe_kind(k) and base_kind(k) != "ssd" and cfg.d_ff
+    return ([f"pos{j}" for j, k in enumerate(cfg.pattern) if moe(k)],
+            [f"rem{j}" for j, k in enumerate(cfg.remainder) if moe(k)])
+
+
+def expert_layer_slots(cfg) -> int:
+    """MoE layer slots: scanned groups x pattern MoE positions +
+    remainder MoE positions (each slot owns E experts x EXPERT_PPE
+    potential pages)."""
+    pat, rem = moe_positions(cfg)
+    return cfg.n_groups * len(pat) + len(rem)
 
 
 def _state_kind(kind: str) -> str:
@@ -262,28 +307,42 @@ def state_blocks_per_slot(cfg, max_len: int) -> int:
 
 def pool_class_specs(cfg, b_local: int, max_len: int,
                      chunk: Optional[int] = None,
-                     size_classes: int = 1) -> Tuple[ClassSpec, ...]:
+                     size_classes: int = 1,
+                     expert_budget: Optional[int] = None
+                     ) -> Tuple[ClassSpec, ...]:
     """The class vector.  Class 0 (CLS_KV) is the coarse paged-KV class,
     sized for every local slot at max length PLUS fully-stocked lanes
-    (3*ell per slot), the §4.2 slack.  With ``size_classes`` 2, class 1
-    (CLS_STATE) is the fine bounded-state class with the same slack
-    rule at its own granularity and demand."""
-    if size_classes not in (1, 2):
-        raise NotImplementedError("size_classes > 2: the expert class is a "
-                                  "later slice of the port")
+    (3*ell per slot), the §4.2 slack.  With ``size_classes`` >= 2, class
+    1 (CLS_STATE) is the fine bounded-state class with the same slack
+    rule at its own granularity and demand.  With ``size_classes`` 3,
+    class 2 (CLS_EXPERT) is the read-only expert-weight class:
+    ``expert_budget`` pages of ``d_model * d_ff`` elements (default:
+    full residency, every expert of every MoE layer slot) plus the same
+    3*ell slack."""
+    if size_classes not in (1, 2, 3):
+        raise ValueError(f"size_classes {size_classes}: 1, 2 or 3")
     psz = cfg.page_size
     max_pages = max(max_len // psz, 1)
     ell = pool_ell(cfg, chunk)
     specs = [ClassSpec(page_size=psz,
                        num_blocks=b_local * max_pages + 3 * ell * b_local,
                        num_lanes=b_local, ell=ell)]
-    if size_classes == 2:
+    if size_classes >= 2:
         ell1 = 2       # in-step demand is frees only; keep the floor
         specs.append(ClassSpec(
             page_size=state_page_tokens(cfg),
             num_blocks=(b_local * state_blocks_per_slot(cfg, max_len)
                         + 3 * ell1 * b_local),
             num_lanes=b_local, ell=ell1))
+    if size_classes == 3:
+        if expert_budget is None:
+            expert_budget = (expert_layer_slots(cfg) * cfg.moe.num_experts
+                             * EXPERT_PPE)
+        ell2 = 2       # loads and evictions are host-paced, not in-step
+        specs.append(ClassSpec(
+            page_size=cfg.d_model * cfg.d_ff,
+            num_blocks=int(expert_budget) + 3 * ell2 * b_local,
+            num_lanes=b_local, ell=ell2))
     return tuple(specs)
 
 
@@ -306,12 +365,16 @@ def _rec_state_defs(cfg, kind: str, stack: int, dp: int, b_local: int):
 
 def decode_state_defs(cfg, dp: int, b_local: int, max_len: int,
                       chunk: Optional[int] = None,
-                      size_classes: int = 1) -> DecodeState:
-    """TensorDef tree of the decode state (pool leaves included)."""
+                      size_classes: int = 1,
+                      expert_budget: Optional[int] = None) -> DecodeState:
+    """TensorDef tree of the decode state (pool leaves included); a
+    three-class pool adds the expert pages and tables
+    (``expert_budget`` pages, :func:`pool_class_specs`)."""
     _check_slice(cfg)
     psz, KH, hd, dt = cfg.page_size, cfg.n_kv_heads, cfg.hd, cfg.tdtype
     max_pages = max(max_len // psz, 1)
-    specs = pool_class_specs(cfg, b_local, max_len, chunk, size_classes)
+    specs = pool_class_specs(cfg, b_local, max_len, chunk, size_classes,
+                             expert_budget)
     P = specs[CLS_KV].num_blocks
     W = ring_window(cfg, max_len)
     kv_pages, rings, rec = {}, {}, {}
@@ -343,16 +406,27 @@ def decode_state_defs(cfg, dp: int, b_local: int, max_len: int,
             private_top=TensorDef((dp, L), I32))
 
     state_tables = None
-    if size_classes == 2:
+    if size_classes >= 2:
         sbs = max(state_blocks_per_slot(cfg, max_len), 1)
         state_tables = TensorDef((dp, b_local, sbs), I32)
+    expert_pages = expert_tables = None
+    if size_classes == 3:
+        E = cfg.moe.num_experts
+        expert_pages = TensorDef(
+            (dp, specs[CLS_EXPERT].num_blocks + 1, cfg.d_model * cfg.d_ff),
+            dt)
+        pat, rem = moe_positions(cfg)
+        expert_tables = {
+            pos: TensorDef((cfg.n_groups if pos in pat else 1, dp, E,
+                            EXPERT_PPE), I32) for pos in pat + rem}
     return DecodeState(
         kv_pages=kv_pages, rings=rings, rec=rec,
         page_tables=TensorDef((dp, b_local, max_pages), I32),
         seq_lens=TensorDef((dp, b_local), I32),
         pool=classed_pool.ClassedPool(
             classes=tuple(class_def(s) for s in specs)),
-        state_tables=state_tables)
+        state_tables=state_tables, expert_pages=expert_pages,
+        expert_tables=expert_tables)
 
 
 # ======================================================= chunked decode path
@@ -534,12 +608,21 @@ def _ring_attn_chunk(q, k_ring, v_ring, k_chunk, v_chunk, idx: _RingIndex):
     return o.reshape(DP, Bl, T, H, hd)
 
 
-def _mix_decode_chunk(cfg, lp, x, kind: str, layer_state, idx: _StepIndex):
+def _mix_decode_chunk(cfg, lp, x, kind: str, layer_state, idx: _StepIndex,
+                      expert_buf=None, expert_mask=None):
     """One layer over a chunk of up to T tokens per sequence, x: [DP,
     Bl, T, d].  Attention layers write the chunk's K/V once (pages or
     ring) and attend in one call; recurrent layers run the chunk in one
     scan-kernel launch from the carried state; then the FFN, where the
-    layer has one."""
+    layer has one.  Returns (x, moe_meta): ``moe_meta`` is None for a
+    dense FFN, else ``(dropped [DP], routed [DP, E])``, the valid
+    assignments capacity dropped per shard and kept per expert.
+
+    ``expert_buf`` (EXPERT_PPE tensors [E, d*d_ff], the layer's expert
+    pages gathered, DP == 1) replaces the resident expert weights: the
+    same dispatch on the same values, so paged and resident serving are
+    bit-identical.  ``expert_mask`` (bool [DP, Bl, E]) is each slot's
+    admitted expert footprint."""
     DP, Bl, T, d = x.shape
     h = apply_norm(cfg, lp["norm1"], x)
     sk = _state_kind(kind)
@@ -570,21 +653,65 @@ def _mix_decode_chunk(cfg, lp, x, kind: str, layer_state, idx: _StepIndex):
                   st["h"], st["conv"], idx.lens.reshape(DP * Bl),
                   idx.tok_valid.reshape(DP * Bl, T))
         x = x + o.reshape(DP, Bl, T, d)
+    moe_meta = None
     if "ffn" in lp:
-        h2 = apply_norm(cfg, lp["norm2"], x)
-        f = ffn_apply(cfg, lp["ffn"], h2.reshape(DP * Bl, T, d))
+        h2 = apply_norm(cfg, lp["norm2"], x).reshape(DP * Bl, T, d)
+        if "router" in lp["ffn"]:
+            E, ff = cfg.moe.num_experts, cfg.d_ff
+            eff = lp["ffn"]
+            if expert_buf is not None:
+                # the stacked [E, ...] weights as views of the gathered
+                # CLS_EXPERT pages; a non-resident expert reads page 0
+                # (finite garbage no valid token routes to)
+                wg, wu, wd = expert_buf
+                eff = {"router": eff["router"], "w_gate": wg.view(E, d, ff),
+                       "w_up": wu.view(E, d, ff), "w_down": wd.view(E, ff, d)}
+            mask = (None if expert_mask is None
+                    else expert_mask.reshape(DP * Bl, E))
+            f, dropped, routed = moe_mod.moe_apply(
+                cfg, eff, h2, expert_mask=mask,
+                token_valid=idx.tok_valid.reshape(DP * Bl, T), metered=True)
+            moe_meta = (dropped.reshape(DP, Bl).sum(1, dtype=I32),
+                        routed.reshape(DP, Bl, E).sum(1, dtype=I32))
+        else:
+            f = ffn_apply(cfg, lp["ffn"], h2)
         x = x + f.reshape(DP, Bl, T, d)
-    return x
+    return x, moe_meta
+
+
+def _gather_expert_pages(pages, tab):
+    """One MoE layer slot's expert weights off the CLS_EXPERT pages:
+    pages [DP, NB2 + 1, pe] (DP == 1), tab int32 [DP, E, EXPERT_PPE] ->
+    EXPERT_PPE tensors [E, pe] (w_gate, w_up, w_down), each contiguous.
+    NULL entries clamp to page 0, finite garbage the footprint mask
+    keeps every valid token away from.  Like the reference, this copies
+    every page of the layer's E experts, resident or not."""
+    p = pages[0]
+    ids = tab[0].clamp(0, p.shape[0] - 2).T.long()       # [PPE, E]
+    return p[ids].unbind(0)
 
 
 def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
-                         active=None, verify: bool = False):
+                         active=None, verify: bool = False,
+                         expert_mask=None):
     """Chunked decode/prefill: up to T tokens per sequence per call.
 
     tokens: int32 [DP, Bl, T]; lens: int32 [DP, Bl] — valid tokens per
     sequence this call (ragged tails are inert: written to no page or
     ring slot, and no recurrent state).  Returns (hidden [DP, Bl, T,
-    d], new DecodeState) with seq_lens advanced by lens.
+    d], new DecodeState, meters) with seq_lens advanced by lens;
+    ``meters`` is a dict of int32 [DP] MoE meters (``moe_dropped``,
+    ``expert_hit_pages``, ``expert_miss_pages``,
+    ``expert_prefetch_pages``), zeros for a model without experts.
+
+    ``expert_mask`` (bool [DP, Bl, E]) restricts each slot's routing to
+    its admitted expert footprint, at every MoE layer, paged or
+    resident.  When ``state.expert_tables`` is set (expert-paged
+    serving), each MoE layer gathers its experts' pages before its FFN.
+    The reference gathers group g + 1's pages inside group g's scan
+    iteration, one group ahead (and group 0's again after the last);
+    ``expert_prefetch_pages`` counts those gathers as it does, the
+    mapped entries of every group's tables once a step.
 
     Where the model has paged layers, pages for the whole chunk come
     from each slot's private lane in one
@@ -624,13 +751,43 @@ def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
     tok_valid = torch.arange(T, device=tokens.device) < lens[..., None]
     idx = _step_index(cfg, state, positions, tok_valid, base, lens, verify)
 
+    etabs = state.expert_tables or {}
+    if etabs:
+        # the paged FFN takes the shard's pages as the [E, ...] weights
+        assert DP == 1, "expert paging requires shard-local DP == 1"
+    meters = {k: torch.zeros(DP, dtype=I32, device=tokens.device)
+              for k in ("moe_dropped", "expert_hit_pages",
+                        "expert_miss_pages", "expert_prefetch_pages")}
+    pat_moe, _ = moe_positions(cfg)
+    for pos in pat_moe:
+        if pos in etabs:
+            meters["expert_prefetch_pages"] += (etabs[pos] >= 0).sum(
+                (0, 2, 3), dtype=I32)
+
     def layer(lp, pos, g, kind, x):
         if pos in state.rec:
             ls = {n: t[g] for n, t in state.rec[pos].items()}
         else:
             ls = tuple(t[g] for t in (state.kv_pages.get(pos)
                                       or state.rings[pos]))
-        return _mix_decode_chunk(cfg, lp, x, kind, ls, idx)
+        tab = ebuf = None
+        if pos in etabs:
+            tab = etabs[pos][g]                          # [DP, E, PPE]
+            ebuf = _gather_expert_pages(state.expert_pages, tab)
+        x, meta = _mix_decode_chunk(cfg, lp, x, kind, ls, idx, ebuf,
+                                    expert_mask)
+        if meta is not None:
+            dropped, routed = meta
+            meters["moe_dropped"] += dropped
+            if tab is not None:
+                # an expert is resident iff all its pages are mapped
+                res = (tab >= 0).all(-1)                 # [DP, E]
+                touched = routed > 0
+                meters["expert_hit_pages"] += EXPERT_PPE * (
+                    touched & res).sum(-1, dtype=I32)
+                meters["expert_miss_pages"] += EXPERT_PPE * (
+                    touched & ~res).sum(-1, dtype=I32)
+        return x
 
     for g in range(cfg.n_groups):
         for j, kind in enumerate(cfg.pattern):
@@ -640,4 +797,4 @@ def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
         x = layer(params["rem"][f"pos{j}"], f"rem{j}", 0, kind, x)
 
     state = state._replace(seq_lens=base + lens)
-    return apply_norm(cfg, params.get("final_norm", {}), x), state
+    return apply_norm(cfg, params.get("final_norm", {}), x), state, meters

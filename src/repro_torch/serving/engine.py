@@ -1,10 +1,11 @@
 """Continuous-batching serving engine on the paper's allocator.
 
-Counterpart of the JAX package's ``serving/engine.py``, limited to the
-port's slices so far: greedy or sampled serving on one device, DP kept
-as a leading axis, of paged, ring and recurrent decoders over one or
-two size classes (paged KV, and the fine bounded-state class), with
-prefix sharing from live donors and from pinned prefixes, preemption,
+Counterpart of the JAX package's ``serving/engine.py``: greedy or
+sampled serving on one device, DP kept as a leading axis, of paged,
+ring and recurrent decoders with dense or MoE FFNs over one, two or
+three size classes (paged KV, the fine bounded-state class, and the
+read-only expert-weight class of expert-paged MoE serving), with prefix
+sharing from live donors and from pinned prefixes, preemption,
 speculative decoding over shared prefixes for fully paged models, and
 crash recovery.
 
@@ -39,6 +40,16 @@ pin budget.  The engine carries out its decisions: :meth:`admit`,
 :meth:`evict_pin`, over a device pin table whose rows hold the cache's
 own reference on each pinned page.
 
+Expert-paged MoE (serving/expert_pages.py): each request may carry an
+admitted expert footprint (``Request.experts``), a per-slot router mask
+register applied before the top-k in resident and paged engines alike.
+With ``expert_paging`` the expert weights stay on the host and the card
+holds a budget of them as ``CLS_EXPERT`` pages: admission makes a
+footprint resident (LRU eviction of cold experts for room) and takes
+one reference per expert page for the slot, release drops them after
+the status read, and the scheduler's third budget dimension prices a
+request by the pages it would load on each shard.
+
 Fault tolerance (serving/chaos.py): an optional journal records every
 admission, emission and pin; an optional injector fires faults at the
 named phase boundaries of :meth:`ServingEngine.step`; :meth:`run`
@@ -48,8 +59,8 @@ rebuilds an engine after a host crash from the surviving device state
 and the journal.  Per-request deadlines and bounded retry parking are
 the scheduler's.
 
-Options of the reference that later slices bring (the expert size
-class and expert paging, a mesh) raise ``NotImplementedError``.
+A device mesh, the reference's multi-device plane, raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -66,19 +77,24 @@ import torch
 from ..core import NULL, SimContext, WaitFreeAllocator, classed_pool
 from ..core.block_pool import I32
 from ..core import hier_pool
-from ..core.classed_pool import CLS_KV, CLS_STATE
+from ..core.classed_pool import CLS_EXPERT, CLS_KV, CLS_STATE
 from ..models.decode_init import empty_decode_state, empty_serve_arrays
 from ..models.layers import logits_apply, logits_argmax_chunked, tree_map
-from ..models.transformer import (DecodeState, forward_decode_chunk,
+from ..models.transformer import (EXPERT_PPE, DecodeState,
+                                  expert_layer_slots, forward_decode_chunk,
                                   pool_class_specs, state_blocks_per_slot)
 from ..runtime.fault import StepWatchdog
 from .chaos import HostCrash, PoisonedRequest
+from .expert_pages import (ExpertLedger, build_host_experts,
+                           expert_evict_step, expert_load_step,
+                           expert_ref_step, stub_expert_params)
 from .prefix_cache import (PinnedPrefixes, PrefixCache, SpeculationStore,
                            pin_id_of, pin_prefix_step, share_pinned_step,
                            share_prefix_step, unpin_step)
 from .sampling import sample_lane, sample_tokens
 from .sched import Admission, AdmissionScheduler, SchedConfig
-from .telemetry import (CTR_ALLOC, CTR_DRAIN, CTR_FREED, CTR_MARGIN,
+from .telemetry import (CTR_ALLOC, CTR_DRAIN, CTR_EDROP, CTR_EHIT,
+                        CTR_EMISS, CTR_EPREF, CTR_FREED, CTR_MARGIN,
                         CTR_REFILL, CTR_ROLLBACK, CTR_SHARED_FREE,
                         CTR_SPILL, N_CTR, FlightRecorder, Telemetry)
 from .trace import Tracer
@@ -95,6 +111,10 @@ class Request:
     seed: int = 0
     # scheduling
     slo: str = "standard"
+    # admitted expert footprint (MoE serving): the experts this request
+    # may route to, enforced before the top-k by the router mask in both
+    # resident and expert-paged engines, so the two are token-identical
+    # by construction.  None = all experts
     experts: Optional[Tuple[int, ...]] = None
     # deadline: seconds from submission (0 = none); the engine stamps
     # the absolute ``deadline_at`` at the first submission, so that it
@@ -169,7 +189,7 @@ STATUS_PAGES = 2     # + T: KV pages-in-use on the slot's DP shard
 
 def _serve_step(cfg, max_len, eos_id, use_sampler, spec, n_verify, params,
                 state, last_tok, out_count, budget, temps, topks, seeds,
-                prompt_toks, feed_lens, is_prompt, emit):
+                prompt_toks, feed_lens, is_prompt, emit, expert_mask):
     """One device-resident token-lane step.
 
     prompt_toks: int32[DP, Bl, T] host-provided lane tokens (a prompt
@@ -180,6 +200,14 @@ def _serve_step(cfg, max_len, eos_id, use_sampler, spec, n_verify, params,
     prompt tokens; emit: the slot emits this step.  temps/topks/seeds:
     the per-slot sampling registers written at admission (temperature
     <= 0 is greedy).
+
+    ``expert_mask`` (bool [DP, Bl, E]) is a per-slot register like the
+    sampling ones: each slot's admitted expert footprint, applied before
+    the top-k at every MoE layer (all-True rows are bit-identical to no
+    mask).  The forward's MoE meters (capacity drops, expert page
+    hit/miss/prefetch) ride the counter block: the page rows on the
+    expert class, the drop row on class 0, so resident MoE engines
+    meter drops too.
 
     ``use_sampler`` (the host knows whether any active request samples):
     tokens come from :func:`~.sampling.sample_tokens`, keyed by
@@ -214,8 +242,9 @@ def _serve_step(cfg, max_len, eos_id, use_sampler, spec, n_verify, params,
         return [classed_pool.free_per_shard(pool, c) for c in range(C)]
 
     free_in = free_all(state.pool)
-    hidden, state = forward_decode_chunk(cfg, params, toks, state, feed_lens,
-                                         active=active, verify=spec)
+    hidden, state, fwd_meta = forward_decode_chunk(
+        cfg, params, toks, state, feed_lens, active=active, verify=spec,
+        expert_mask=expert_mask if cfg.moe is not None else None)
     free_fwd = free_all(state.pool)
     ctr_alloc = [free_in[c] - free_fwd[c] for c in range(C)]
     idx = (feed_lens - 1).clamp(min=0)
@@ -338,6 +367,12 @@ def _serve_step(cfg, max_len, eos_id, use_sampler, spec, n_verify, params,
         ctr[CTR_SHARED_FREE] = hp.shared.top
         ctr[CTR_MARGIN] = (hp.private_top.min(-1).values
                            - classed_pool.lane_ell(pool, c))
+        if c == CLS_EXPERT:
+            ctr[CTR_EHIT] = fwd_meta["expert_hit_pages"]
+            ctr[CTR_EMISS] = fwd_meta["expert_miss_pages"]
+            ctr[CTR_EPREF] = fwd_meta["expert_prefetch_pages"]
+        if c == CLS_KV:
+            ctr[CTR_EDROP] = fwd_meta["moe_dropped"]
         ctrs.append(ctr)
     ctr = torch.cat(ctrs)                                # [C * N_CTR, DP]
     status = torch.cat(
@@ -358,6 +393,7 @@ class ServingEngine:
                  sched: Optional[SchedConfig] = None,
                  mesh=None, size_classes: int = 1,
                  expert_paging: bool = False,
+                 expert_budget: Optional[int] = None,
                  journal=None, injector=None,
                  watchdog: Optional[StepWatchdog] = None,
                  clock=None, max_restarts: int = 0,
@@ -366,20 +402,39 @@ class ServingEngine:
                  flight: Optional[FlightRecorder] = None,
                  device="cuda"):
         self.sched_config = sched or SchedConfig()
-        unsupported = {
-            "mesh": mesh is not None,
-            "size_classes > 2 (the expert class)": size_classes > 2,
-            "expert_paging": expert_paging,
-        }
-        for name, on in unsupported.items():
-            if on:
-                raise NotImplementedError(
-                    f"ServingEngine({name}): a later slice of the port")
+        if mesh is not None:
+            raise NotImplementedError(
+                "ServingEngine(mesh): the port serves on one device")
         self.cfg = cfg
         self.params = params
         self.device = torch.device(device)
         self.dp, self.bl = dp, b_local
-        size_classes = max(int(size_classes), 1)
+        # expert-paged MoE serving: expert FFN weights through the pool's
+        # third size class, on an MoE config with expert layer slots; the
+        # class vector widens to three before telemetry and the pool are
+        # built, so every consumer of n_classes sees the expert class
+        self._elayer_n = expert_layer_slots(cfg)
+        self.expert_paging = bool(
+            (expert_paging or int(size_classes) > CLS_EXPERT)
+            and cfg.moe is not None and self._elayer_n > 0)
+        if self.expert_paging:
+            size_classes = CLS_EXPERT + 1
+        else:
+            # the expert class means nothing without paged MoE slots
+            size_classes = min(max(int(size_classes), 1), CLS_EXPERT)
+        # CLS_EXPERT page budget a shard's ledger holds (full residency
+        # when unset); the pool is provisioned at budget + lane stock,
+        # so admission within the budget keeps every bulk grant inside
+        # the §4.2 slack
+        self.expert_budget = 0
+        if self.expert_paging:
+            if dp != 1:
+                raise ValueError("expert paging needs shard-local DP == 1: "
+                                 "on one device, run dp=1")
+            full = self._elayer_n * cfg.moe.num_experts * EXPERT_PPE
+            self.expert_budget = int(expert_budget
+                                     or self.sched_config.expert_budget
+                                     or full)
         if telemetry is None:
             telemetry = Telemetry(dp, tracer=tracer, flight=flight,
                                   n_classes=size_classes)
@@ -395,10 +450,11 @@ class ServingEngine:
         lane_tokens = self.chunk
         if speculate:
             lane_tokens = max(lane_tokens, self.draft_len + 1)
-        self.state = empty_decode_state(cfg, dp, b_local, max_len,
-                                        chunk=lane_tokens,
-                                        size_classes=size_classes,
-                                        device=self.device)
+        self.state = empty_decode_state(
+            cfg, dp, b_local, max_len, chunk=lane_tokens,
+            size_classes=size_classes,
+            expert_budget=self.expert_budget if self.expert_paging else None,
+            device=self.device)
         self.n_classes = len(self.state.pool.classes)
         assert self.telemetry.n_classes == self.n_classes
         self.last_tok, self.out_count, self.budget = empty_serve_arrays(
@@ -407,6 +463,10 @@ class ServingEngine:
         # step; all zeros is greedy everywhere), and the slots that sample
         self.temps, self.topks, self.seeds = self._sampling_registers()
         self._sampling_slots: set = set()
+        # per-slot admitted expert footprint, a register like the
+        # sampling ones; all-True (the reset value) is bit-identical to
+        # no mask
+        self.expert_mask = self._expert_mask_register()
         self.greedy = greedy
         maxp = self.state.page_tables.shape[2]
         # sequences can never outgrow the page table (a model without
@@ -421,11 +481,18 @@ class ServingEngine:
         # plan-time §4.2 validation: every class must carry 3*ell*L
         # slack over its worst-case live blocks, or lanes can run dry
         # mid-step
+        max_live = [b_local * maxp] + [b_local * self._state_blocks] * (
+            self.n_classes - 1)
+        if self.n_classes > CLS_EXPERT:
+            # worst-case live CLS_EXPERT pages == the admission budget
+            # (the ledger never loads past it), so the class's §4.2
+            # slack is exactly its lane stock
+            max_live[CLS_EXPERT] = self.expert_budget
         classed_pool.validate_specs(
             pool_class_specs(cfg, b_local, max_len, lane_tokens,
-                             size_classes),
-            [b_local * maxp] + [b_local * self._state_blocks]
-            * (self.n_classes - 1))
+                             size_classes,
+                             self.expert_budget if self.expert_paging
+                             else None), max_live)
         self._fed: Dict[int, int] = {}       # host shadow of seq_lens
         self.eos_id = eos_id
         self._eos = -1 if eos_id is None else int(eos_id)
@@ -471,6 +538,24 @@ class ServingEngine:
                 (dp, self.sched_config.pin_rows, maxp), NULL, dtype=I32,
                 device=self.device)
         self._pinned_slots: set = set()
+        # expert-paged weight plane: the full expert stacks on the host
+        # (page-locked on a card), the engine's parameter leaves stubbed
+        # to [..., 1, 1], residency through CLS_EXPERT pages and the host
+        # ledger; loads, evictions and reference traffic run at
+        # admission and release, never inside the serve step
+        self.expert_ledger: Optional[ExpertLedger] = None
+        self._host_experts = None
+        self._slot_experts: Dict[int, tuple] = {}
+        self._elayer_slots: List[Tuple[str, int]] = []
+        self._fp_masks: Dict[tuple, tuple] = {}
+        if self.expert_paging:
+            self._host_experts = build_host_experts(
+                cfg, params, pin=self.device.type == "cuda")
+            self.params = stub_expert_params(params)
+            self.expert_ledger = ExpertLedger(dp, self.expert_budget)
+            self._elayer_slots = [
+                (pos, g) for pos in sorted(self.state.expert_tables)
+                for g in range(self.state.expert_tables[pos].shape[0])]
         # the status PAGES row (per-shard pages in use, from the step's
         # one transfer) drives high-water pin eviction; its running sum
         # and peak per shard feed shard_occupancy()
@@ -509,7 +594,8 @@ class ServingEngine:
             dp=dp, b_local=b_local, page_size=int(cfg.page_size),
             pages_local=int(self.pages_local),
             lane_ell=classed_pool.lane_ell(self.state.pool, CLS_KV),
-            size_classes=self.n_classes, speculate=self.speculate,
+            size_classes=self.n_classes, expert_paging=self.expert_paging,
+            expert_budget=self.expert_budget, speculate=self.speculate,
             arch=getattr(cfg, "name", "?"))
 
     @property
@@ -549,6 +635,13 @@ class ServingEngine:
         return (torch.zeros(shape, dtype=torch.float32, device=self.device),
                 torch.zeros(shape, dtype=I32, device=self.device),
                 torch.zeros(shape, dtype=I32, device=self.device))
+
+    def _expert_mask_register(self):
+        """All-True bool [DP, Bl, E] (E = 1 for a model without
+        experts) on the engine's device."""
+        E = self.cfg.moe.num_experts if self.cfg.moe is not None else 1
+        return torch.ones((self.dp, self.bl, E), dtype=torch.bool,
+                          device=self.device)
 
     def _forget_slot(self, slot: int) -> None:
         """Host bookkeeping of a slot that leaves service without a
@@ -615,9 +708,6 @@ class ServingEngine:
     def submit(self, req: Request) -> Admission:
         """Enqueue (or reject, with a reason) through the admission
         scheduler.  The return value is the backpressure signal."""
-        if req.experts is not None:
-            raise NotImplementedError(
-                "Request(experts): a later slice of the port")
         now = self._clock()
         req.submitted_at = now
         if req.deadline_s > 0 and req.deadline_at == 0.0:
@@ -635,6 +725,17 @@ class ServingEngine:
         self._tr_begin("request", req.rid, slo=req.slo,
                        prompt_len=len(req.prompt))
         self.tracer.instant("submit", tid=req.rid, slo=req.slo)
+        if self.expert_paging:
+            # a footprint that cannot fit the expert budget even on an
+            # empty shard is unservable: a typed rejection, not a wedge
+            need = (EXPERT_PPE * len(self._elayer_slots)
+                    * len(self._footprint_of(req)))
+            if need > self.expert_budget:
+                self.scheduler._count("rejected")
+                req.rejected = "too_large"
+                self._jrec("reject", rid=req.rid, reason="too_large")
+                self._trace_terminal(req, "too_large")
+                return Admission(False, "too_large")
         adm = self.scheduler.submit(req, self.est_pages(req))
         if not adm.accepted:
             self._jrec("reject", rid=req.rid, reason=adm.reason)
@@ -669,6 +770,158 @@ class ServingEngine:
 
     def pinned_pages(self) -> int:
         return self.pins.total_pages() if self.pins is not None else 0
+
+    # ------------------------------------------------------ expert paging
+    def _footprint_of(self, req: Request) -> tuple:
+        """A request's admitted expert footprint (sorted, deduplicated;
+        all experts when unrestricted)."""
+        E = self.cfg.moe.num_experts
+        if req.experts is None:
+            return tuple(range(E))
+        return tuple(sorted({int(e) for e in req.experts
+                             if 0 <= int(e) < E}))
+
+    def _fp_row(self, fp: tuple) -> np.ndarray:
+        row = np.zeros(self.cfg.moe.num_experts, bool)
+        row[list(fp)] = True
+        return row
+
+    def _fp_entry(self, fp: tuple):
+        """(masks, row) of a footprint: the per-table bool [S, E] masks
+        the bulk reference step takes, on the device, and the bool [E]
+        register row.  Cached: footprints repeat (that is the skew
+        admission learns)."""
+        ent = self._fp_masks.get(fp)
+        if ent is None:
+            row = self._fp_row(fp)
+            masks = {pos: self._to_device(np.broadcast_to(
+                row, (tab.shape[0], row.size)).copy())
+                for pos, tab in self.state.expert_tables.items()}
+            ent = self._fp_masks[fp] = (masks, row)
+        return ent
+
+    def est_expert_pages(self, req: Request, shard: int) -> int:
+        """CLS_EXPERT pages a request would load on a shard: 0 for each
+        (layer slot, expert) already resident there, EXPERT_PPE for each
+        cold one (the scheduler's third admission dimension)."""
+        if self.expert_ledger is None:
+            return 0
+        led = self.expert_ledger
+        fp = self._footprint_of(req)
+        cold = sum(1 for pos, g in self._elayer_slots for e in fp
+                   if not led.resident(shard, pos, g, e))
+        return EXPERT_PPE * cold
+
+    def expert_headroom(self, shard: int) -> int:
+        """Admissible CLS_EXPERT pages on a shard: the budget less the
+        resident pages, plus what LRU eviction of cold experts (no
+        active references) can reclaim; hot experts are working set."""
+        if self.expert_ledger is None:
+            return 1 << 30
+        led = self.expert_ledger
+        return (self.expert_budget - led.pages_on(shard)
+                + led.evictable_pages(shard))
+
+    def expert_pages_resident(self, shard: int) -> int:
+        return (0 if self.expert_ledger is None
+                else self.expert_ledger.pages_on(shard))
+
+    def _shard_oh(self, d: int) -> torch.Tensor:
+        oh = np.zeros(self.dp, bool)
+        oh[d] = True
+        return self._to_device(oh)
+
+    def _load_expert(self, d: int, pos: str, g: int, e: int) -> None:
+        """One expert's pages onto shard d from the host store: an
+        asynchronous copy from page-locked memory on a card."""
+        w = self._host_experts[pos][g, e].to(self.device, non_blocking=True)
+        counts = np.zeros((self.dp, self.bl), np.int32)
+        counts[d, 0] = EXPERT_PPE
+        self.state = expert_load_step(pos, self.state,
+                                      self._to_device(counts), w,
+                                      self._shard_oh(d), g, e)
+        self.expert_ledger.add(d, pos, g, e)
+        self.telemetry.inc("expert_load_pages", EXPERT_PPE)
+
+    def _evict_expert(self, key) -> None:
+        d, pos, g, e = key
+        self.expert_ledger.remove(key)
+        self.state = expert_evict_step(pos, self.state, self._shard_oh(d),
+                                       g, e)
+        self.telemetry.inc("expert_evictions")
+        self.telemetry.inc("expert_evict_pages", EXPERT_PPE)
+
+    def _admit_experts(self, slot: int, req: Request) -> None:
+        """Bind the slot's expert footprint: set its router-mask row
+        (both engines: token identity holds by construction), and when
+        paging make every footprint expert resident (LRU eviction for
+        room; the scheduler's placement checked the headroom) and take
+        one reference per page for the slot."""
+        if self.cfg.moe is None:
+            return
+        d, b = divmod(slot, self.bl)
+        fp = self._footprint_of(req)
+        if self.expert_ledger is None:
+            self.expert_mask[d, b] = self._to_device(self._fp_row(fp))
+            return
+        masks, row = self._fp_entry(fp)
+        self.expert_mask[d, b] = self._to_device(row)
+        led = self.expert_ledger
+        keys = [(d, pos, g, e) for pos, g in self._elayer_slots for e in fp]
+        for key in keys:
+            if led.resident(*key):
+                led.touch(key)
+                self.telemetry.inc("expert_admit_hits")
+                continue
+            self.telemetry.inc("expert_admit_misses")
+            while led.pages_on(d) + EXPERT_PPE > self.expert_budget:
+                victim = led.lru(d)
+                assert victim is not None, (
+                    "expert admission over budget with nothing evictable: "
+                    "the scheduler's headroom check was violated")
+                self._evict_expert(victim)
+            self._load_expert(*key)
+        # one bulk addref over the whole footprint
+        self.state = expert_ref_step(False, self.state, masks,
+                                     self._shard_oh(d))
+        for key in keys:
+            led.addref(key)
+        self._slot_experts[slot] = (d, fp)
+        peak = max(led.pages_on(s) for s in range(self.dp))
+        self.telemetry.set_max("expert_pages_resident_peak", peak)
+
+    def _release_experts(self, slot: int, device: bool = True) -> None:
+        """Drop the slot's expert references and reset its router-mask
+        row to all-True (both modes).  ``device=False`` when the step
+        that held the references died (shard loss, in-place recovery):
+        host bookkeeping only, the reconcile reclaims the pages."""
+        if self.cfg.moe is None:
+            return
+        d, b = divmod(slot, self.bl)
+        self.expert_mask[d, b] = True
+        ent = self._slot_experts.pop(slot, None)
+        if ent is None or self.expert_ledger is None:
+            return
+        d, fp = ent
+        if device:
+            masks, _ = self._fp_entry(fp)
+            self.state = expert_ref_step(True, self.state, masks,
+                                         self._shard_oh(d))
+        for pos, g in self._elayer_slots:
+            for e in fp:
+                self.expert_ledger.deref((d, pos, g, e))
+
+    def flush_experts(self) -> int:
+        """Evict every cold resident expert (a drained engine's teardown
+        and leak audits; with active references nothing moves).  Returns
+        the number of experts evicted."""
+        if self.expert_ledger is None:
+            return 0
+        cold = [k for k, ent in self.expert_ledger.entries.items()
+                if ent["batch"] == 0]
+        for key in cold:
+            self._evict_expert(key)
+        return len(cold)
 
     def admit(self, req: Request, match, shard: int) -> int:
         """Place a request on ``shard`` (the scheduler chose the order
@@ -710,6 +963,7 @@ class ServingEngine:
             self.topks[d, b] = int(req.top_k)
             self.seeds[d, b] = int(req.seed)
             self._sampling_slots.add(slot)
+        self._admit_experts(slot, req)
         self.telemetry.inc("admitted")
         self._tr_begin("active", req.rid, slot=slot, shard=d)
         self.tracer.instant("admit", tid=req.rid, slot=slot, shard=d,
@@ -732,6 +986,7 @@ class ServingEngine:
         mask = np.zeros((self.dp, self.bl), bool)
         mask[d, b] = True
         self.state, _ = _release_slots(self.state, self._to_device(mask))
+        self._release_experts(slot)
         self._forget_slot(slot)
         req.slot = None
         req.preemptions += 1
@@ -753,6 +1008,7 @@ class ServingEngine:
         mask = np.zeros((self.dp, self.bl), bool)
         mask[d, b] = True
         self.state, _ = _release_slots(self.state, self._to_device(mask))
+        self._release_experts(slot)
         self._forget_slot(slot)
         req.slot = None
         self._tr_end("active", req.rid)
@@ -778,6 +1034,7 @@ class ServingEngine:
         its shard is gone, or the device is mid-operation and the pool
         is reconciled after) and put it back at the head of its class."""
         req = self.active.pop(slot)
+        self._release_experts(slot, device=False)
         self._forget_slot(slot)
         req.slot = None
         req.preemptions += 1
@@ -803,6 +1060,8 @@ class ServingEngine:
         self.scheduler.lose_shard(shard)
         for slot in [s for s in self.active if s // self.bl == shard]:
             self._requeue(slot, "shard_loss")
+        if self.expert_ledger is not None:
+            self.expert_ledger.drop_shard(shard)
         self._free_slots = deque(
             s for s in self._free_slots if s // self.bl != shard)
         if self.pins is not None:
@@ -1086,7 +1345,7 @@ class ServingEngine:
             spec, self._spec_T, self.params, self.state, self.last_tok,
             self.out_count, self.budget, self.temps, self.topks, self.seeds,
             dev[..., :T], dev[..., T], dev[..., T + 1].bool(),
-            dev[..., T + 2].bool())
+            dev[..., T + 2].bool(), self.expert_mask)
         self.telemetry.inc("steps")
         self.telemetry.observe_hist("chunk_hist", T)
         self._fire("dispatched")
@@ -1148,6 +1407,7 @@ class ServingEngine:
                 req.finished_at = now
                 self._latencies.append(now - req.submitted_at)
                 self.active.pop(slot)
+                self._release_experts(slot)
                 self.pending_tokens.pop(slot, None)
                 self._pinned_slots.discard(slot)
                 self._clear_sampling(slot)
@@ -1282,10 +1542,21 @@ class ServingEngine:
         if dead_state.state_tables is not None:
             state = state._replace(
                 state_tables=torch.full_like(dead_state.state_tables, NULL))
+        if dead_state.expert_tables is not None:
+            # no keep or pin rows for CLS_EXPERT: the reconcile reclaimed
+            # every expert page, so the tables go NULL, the ledger
+            # empties and the next admissions load again from the host
+            state = state._replace(expert_tables={
+                pos: torch.full_like(tab, NULL)
+                for pos, tab in dead_state.expert_tables.items()})
+            if self.expert_ledger is not None:
+                self.expert_ledger.clear()
+            self._slot_experts.clear()
         self.state = state
         self.last_tok, self.out_count, self.budget = empty_serve_arrays(
             self.dp, self.bl, self.device)
         self.temps, self.topks, self.seeds = self._sampling_registers()
+        self.expert_mask = self._expert_mask_register()
         if self.pin_tables is not None:
             self.pin_tables = (
                 torch.as_tensor(pin_np, dtype=I32, device=self.device)

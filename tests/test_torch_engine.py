@@ -90,21 +90,42 @@ def test_token_identity_across_lane_widths(setup):
     assert outs[1] == outs[4] == outs[16]
 
 
-def _expert_footprint(eng):
-    """A request restricted to some experts (expert paging comes later)."""
-    eng.submit(tengine.Request(0, prompt=[1, 2, 3], experts=(0, 1)))
-
-
-@pytest.mark.parametrize("option,drive", [
-    (dict(), _expert_footprint),
-    (dict(size_classes=3), None), (dict(expert_paging=True), None),
-    (dict(mesh="auto"), None)])
-def test_options_outside_the_slice_raise(setup, option, drive):
+def test_options_outside_the_slice_raise(setup):
+    """A device mesh, the reference's multi-device plane, raises."""
     _, _, tcfg, tparams = setup
     with pytest.raises(NotImplementedError):
-        eng = tengine.ServingEngine(tcfg, tparams, dp=1, b_local=1,
-                                    max_len=32, device="cpu", **option)
-        drive(eng)
+        tengine.ServingEngine(tcfg, tparams, dp=1, b_local=1, max_len=32,
+                              device="cpu", mesh="auto")
+
+
+@pytest.mark.parametrize("option,experts", [
+    (dict(), (0, 1)), (dict(size_classes=3), None),
+    (dict(expert_paging=True), None)])
+def test_expert_options_on_a_dense_model(setup, option, experts):
+    """On a model without experts the expert options gate off as in the
+    reference: no expert class (size_classes 3 serves two), no expert
+    plane, and a request's footprint changes nothing; the engine serves
+    the reference's tokens and status rows."""
+    import jax.numpy as jnp
+
+    from repro.serving import engine as jengine
+    cfg, params, tcfg, tparams = setup
+    runs = []
+    for mod, c, p, kw in ((jengine, cfg, params, dict(mesh=None)),
+                          (tengine, tcfg, tparams, dict(device="cpu"))):
+        eng = mod.ServingEngine(c, p, dp=1, b_local=2, max_len=32,
+                                prefix_sharing=False, **option, **kw)
+        req = mod.Request(0, prompt=[1, 2, 3], max_new_tokens=3,
+                          experts=experts)
+        eng.submit(req)
+        eng.run(max_steps=50)
+        assert req.done and not eng.expert_paging
+        assert eng.expert_ledger is None and eng.state.expert_tables is None
+        runs.append((eng.n_classes, req.out_tokens,
+                     [r["status"] for r in eng.flight.ring],
+                     tuple(np.asarray(jnp.asarray(eng.expert_mask)).shape)))
+    assert runs[1] == runs[0]
+    assert runs[1][0] == (2 if option.get("size_classes") == 3 else 1)
 
 
 @pytest.mark.parametrize("option,request_kw", [

@@ -134,7 +134,8 @@ def test_pool_denial_appends_nothing():
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "llama3.2-1b", "mamba2-370m",
-                                  "recurrentgemma-2b", "gemma3-27b"])
+                                  "recurrentgemma-2b", "gemma3-27b",
+                                  "mixtral-8x7b"])
 def test_param_tree_matches_reference(arch):
     """The port's parameter tree has the reference's keys, shapes and
     dtypes: at full width from the definitions alone (nothing is
@@ -163,8 +164,8 @@ def test_param_tree_matches_reference(arch):
 
 
 def test_slice_rejects_other_layer_kinds():
-    with pytest.raises(NotImplementedError):          # MoE layers
-        tmodel.init_params(t_smoke_config(t_get_config("mixtral-8x7b")),
+    with pytest.raises(NotImplementedError):          # encoder-decoder
+        tmodel.init_params(t_smoke_config(t_get_config("whisper-tiny")),
                            device="cpu")
 
 

@@ -370,8 +370,8 @@ def test_pin_unpin_and_pinned_share_steps_match_reference(setup):
     lens[:, 0] = (22, 19)
     _, js, _ = j_forward(cfg, params, jnp.asarray(toks), js,
                          jnp.asarray(lens))
-    _, ts = t_forward(tcfg, tparams, torch.from_numpy(toks), ts,
-                      torch.from_numpy(lens))
+    _, ts, _ = t_forward(tcfg, tparams, torch.from_numpy(toks), ts,
+                         torch.from_numpy(lens))
     maxp = ts.page_tables.shape[2]
     jpin = jnp.full((2, 2, maxp), -1, jnp.int32)
     tpin = torch.full((2, 2, maxp), -1, dtype=torch.int32)

@@ -4,8 +4,9 @@ reference's seed-0 weights bridged into the port: identical engine
 stats and identical tokens for every request of the synthetic trace,
 pins, preemption budget and interactive class included; with an
 injected fault schedule, the same recoveries and the same clean drain.
-The flags of later slices raise; the telemetry outputs are written and
-readable.
+The telemetry outputs are written and readable.  The expert flags are
+held against the reference's ``main`` in
+``tests/test_torch_expert_paging.py``.
 """
 
 import pytest
@@ -133,14 +134,6 @@ def test_telemetry_outputs(jparams, monkeypatch, tmp_path):
     assert {"submit", "admit", "finish", "pin", "unpin"} <= names
     dump = json.loads(flight.read_text())
     assert dump["reason"] == "periodic" and dump["records"]
-
-
-@pytest.mark.parametrize("flags", [
-    ["--expert-paging"], ["--size-classes", "3"], ["--expert-budget", "4"]])
-def test_flags_of_later_slices_raise(jparams, monkeypatch, flags):
-    with pytest.raises(NotImplementedError):
-        _main(tserve, ["--smoke", "--device", "cpu", "--requests", "2"]
-              + flags, monkeypatch, jparams)
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

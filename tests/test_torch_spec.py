@@ -164,8 +164,8 @@ def test_share_prefix_step_matches_reference(setup):
     lens[:, 0] = (22, 13)                  # donors: slot 0 of each shard
     _, js, _ = j_forward(cfg, params, jnp.asarray(toks), js,
                          jnp.asarray(lens))
-    _, ts = t_forward(tcfg, tparams, torch.from_numpy(toks), ts,
-                      torch.from_numpy(lens))
+    _, ts, _ = t_forward(tcfg, tparams, torch.from_numpy(toks), ts,
+                         torch.from_numpy(lens))
     P = t_classed.pages_local(ts.pool, 0)
     for dst, src, n in [((0, 1), (0, 0), 16), ((0, 2), (0, 0), 21),
                         ((1, 1), (1, 0), 12), ((1, 2), (1, 0), 20)]:

@@ -1,16 +1,21 @@
 """The port's training path against the JAX package's, on bridged weights.
 
 ``forward_train`` hidden states, ``loss_fn`` and its gradients on the
-smoke configs of olmo-1b, llama3.2-1b and gemma3-27b (local + global
-layers); remat; one AdamW step; int8 gradient compression; the token
+smoke configs of olmo-1b, llama3.2-1b, gemma3-27b (local + global
+layers) and mixtral-8x7b (local layers with a mixture of experts, its
+router, gates and expert weights differentiated through the sort-based
+dispatch); remat; one AdamW step; int8 gradient compression; the token
 stream; the checkpoint format in both directions; the fault-tolerant
 loop; and the trainer's ``main`` against the reference's.  Float32
 throughout.  Tolerances are relative to each tensor's scale (TOL x
-max|ref| plus TOL relative); gemma3-27b's gradients are held at 1e-2,
-because a one-ulp change of its smoke weights (12 layers) alone moves
-them by more than 1e-3 on this batch (``test_gradient_noise_floor``
-asserts that); its local layers' gradients are held at 1e-4 one layer
-at a time in ``tests/test_torch_flash_attention.py``.
+max|ref| plus TOL relative); gemma3-27b's and mixtral-8x7b's gradients
+are held at 1e-2, because a one-ulp change of their smoke weights alone
+can move them by more than 1e-3 on this batch
+(``test_gradient_noise_floor``, ``test_moe_gradient_noise_floor``);
+gemma3's
+local layers' gradients are held at 1e-4 one layer at a time in
+``tests/test_torch_flash_attention.py``, and the mixture of experts'
+in ``tests/test_torch_moe.py``.
 """
 
 import pytest
@@ -49,7 +54,8 @@ from repro_torch.parallel import compress
 from repro_torch.runtime.fault import FailureInjector, FaultTolerantLoop
 
 TOL = 1e-4
-GRAD_TOL = {"olmo-1b": 1e-4, "llama3.2-1b": 1e-4, "gemma3-27b": 1e-2}
+GRAD_TOL = {"olmo-1b": 1e-4, "llama3.2-1b": 1e-4, "gemma3-27b": 1e-2,
+            "mixtral-8x7b": 1e-2}
 
 
 def _setup(arch, dtype=None):
@@ -90,7 +96,8 @@ def _grads(tcfg, tparams, batch, remat=True):
     return loss, torch.autograd.grad(loss, leaves)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "llama3.2-1b", "gemma3-27b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "llama3.2-1b", "gemma3-27b",
+                                  "mixtral-8x7b"])
 def test_forward_loss_and_gradients_match_reference(arch):
     cfg, params, tcfg, tparams = _setup(arch)
     batch = _batch(1)
@@ -130,6 +137,27 @@ def test_gradient_noise_floor():
         moved[arch] = max(float((a - b).abs().max() / b.abs().max())
                           for a, b in zip(g1, g0))
     assert moved["olmo-1b"] < 1e-4 < 1e-3 < moved["gemma3-27b"], moved
+
+
+def test_moe_gradient_noise_floor():
+    """mixtral-8x7b's smoke gradients: of three one-ulp changes of every
+    weight (random signs, seeds 0-2), the one that moves them most moves
+    them by more than 1e-3 of a leaf's scale, so 1e-4 is below what any
+    implementation that rounds differently from the reference can
+    meet; the port's gradients stay within 1e-2."""
+    batch = _batch(1)
+    _, params, tcfg, tparams = _setup("mixtral-8x7b")
+    _, g0 = _grads(tcfg, tparams, batch)
+    moved = []
+    for seed in range(3):
+        rng = np.random.RandomState(seed)
+        nudged = jax.tree.map(lambda a: np.nextafter(
+            a, np.where(rng.rand(*a.shape) < 0.5, -np.inf, np.inf).astype(
+                np.float32)), jax.tree.map(np.asarray, params))
+        _, g1 = _grads(tcfg, params_from_numpy(nudged, "cpu"), batch)
+        moved.append(max(float((a - b).abs().max() / b.abs().max())
+                         for a, b in zip(g1, g0)))
+    assert 1e-3 < max(moved) < GRAD_TOL["mixtral-8x7b"], moved
 
 
 def test_remat_equals_no_remat():
