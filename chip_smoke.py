@@ -56,11 +56,13 @@ Phases, each printed on its own line (any failure fails the run):
    (``SchedConfig(pin_pages=8, page_budget=6)``: pool leaves and pin
    tables identical too), and for recurrentgemma-2b and
    mamba2-370m with two size classes; then training: three steps of
-   ``launch/train.py::build_step`` on the smoke olmo-1b in f32 from the
-   same parameters and ``TokenStream`` batches on both devices (step
-   0's loss and gradients within 1e-4, later losses within 1e-3
-   relative), and the smoke trainer through ``FaultTolerantLoop`` with
-   one injected failure: one restart, the uninterrupted run's losses;
+   ``launch/train.py::build_step`` on the smoke olmo-1b, mamba2-370m
+   and recurrentgemma-2b in f32 from the same parameters and
+   ``TokenStream`` batches on both devices (step 0's loss within 1e-4
+   and its gradients within 1e-4 or twice a leaf's CPU one-ulp floor,
+   later losses within 1e-3 relative), and each smoke trainer through
+   ``FaultTolerantLoop`` with one injected failure: one restart, the
+   uninterrupted run's losses;
 5. the plain path: serve olmo-1b at full width (16 layers x 2048, 16
    heads, hd 128, vocab 50304, bf16, page size 64) with random weights
    from ``--seed`` through ``ServingEngine.run``: every request
@@ -185,8 +187,32 @@ Phases, each printed on its own line (any failure fails the run):
    mixtral-8x7b expert-paged at a budget of one footprint, card against
    CPU (tokens, status rows, stats, pool leaves and expert tables).
 
+18. training and prefill of the recurrent decoders at full width:
+   (a) mamba2-370m (48 SSD layers, d_model 1024, state 128, head dim
+   64, vocab 50,280) and (b) recurrentgemma-2b (18 RG-LRU and 8 local
+   layers of window 2,048, d_model 2,560, d_ff 7,680, vocab 256,000),
+   each at full depth and width, bf16 parameters, float32 AdamW state,
+   remat on, 4 sequences of 2,048 ``TokenStream`` tokens a step, a
+   warm-up and 5 steps of ``build_step``: finite losses, no launch of
+   K1-K6 (the SSD and RG-LRU layers train through their full-sequence
+   forms in torch ops, as the reference's in jnp), one device-to-host
+   transfer a step; ms a step, tokens a second, peak memory and the
+   model-flops share of the card's bf16 peak; (c) with ``--profile``,
+   where their steps' time goes; (d) the prefill path in f32:
+   mamba2-370m 8 prompts of 512 tokens, recurrentgemma-2b 4 prompts of
+   2,304 (past its window, so the ring load wraps): ``prefill``,
+   ``load_prefill`` into an empty state of dp 1 and a slot a prompt, 16
+   greedy ``decode_step``s (K4 or K5 once a layer a step, the prefill
+   no kernel): logits within ``PREFILL_TOL`` of the one-shot
+   ``forward_train`` of the same tokens (the one-ulp floor printed
+   beside), greedy streams equal to the ``ServingEngine``'s (chunked
+   prefill through K4 and K5) or first different at a near-tie, every
+   class empty after the slots are freed.  recurrentgemma-2b's weights
+   in phases 4 and 18 are rescaled to each layer's own fan-in
+   (``rglru_fan_in`` says why).
+
 ``--profile`` serves the workloads of phases 5, 9 and 10 again, and
-runs two more training steps in phase 12, under ``torch.profiler``,
+runs two more training steps in phases 12 and 18, under ``torch.profiler``,
 and prints where a step's time goes.  The last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the rest of the
 repository beside it, the script exits with a non-zero code and prints
@@ -197,6 +223,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -232,6 +259,14 @@ def check(ok: bool, what: str) -> None:
     """A check that holds under ``python -O`` too."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def zero_counts(counted):
+    """Every kernel's launch count, and its count by route, set to 0."""
+    for fn in counted.values():
+        fn.launches = 0
+        for route in getattr(fn, "routes", {}):
+            fn.routes[route] = 0
 
 
 def cuda_ms(fn, iters: int = 40, warmup: int = 3, enqueue=False):
@@ -1119,10 +1154,7 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
           f"{max(len(r.prompt) for r in reqs)}), "
           f"{sum(r.max_new_tokens for r in reqs)} new tokens asked")
     # the main path's run: counts zeroed just before, read just after
-    for fn in counted.values():
-        fn.launches = 0
-        for route in getattr(fn, "routes", {}):
-            fn.routes[route] = 0
+    zero_counts(counted)
     steps0, transfers0 = eng.stats["steps"], eng.host_transfers
     tokens0, prompt0 = eng.stats["tokens_out"], eng.stats["prompt_tokens"]
     width1_0 = eng.stats["chunk_hist"].get(1, 0)
@@ -1451,10 +1483,7 @@ def serve_entry_point(counted, smi):
             "--max-new", "64", "--interactive-frac", "0.25",
             "--pin-pages", "64", "--device", "cuda"]
     phase(f"[14a] python -m repro_torch.launch.serve {' '.join(argv)}")
-    for fn in counted.values():
-        fn.launches = 0
-        for route in getattr(fn, "routes", {}):
-            fn.routes[route] = 0
+    zero_counts(counted)
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         eng = serve.main(argv)
@@ -1876,10 +1905,7 @@ def serve_chaos_entry_point(counted, smi):
             "--max-new", "32", "--pin-pages", "64", "--deadline-s", "900",
             "--inject-fault", faults, "--device", "cuda"]
     phase(f"[16c] python -m repro_torch.launch.serve {' '.join(argv)}")
-    for fn in counted.values():
-        fn.launches = 0
-        for route in getattr(fn, "routes", {}):
-            fn.routes[route] = 0
+    zero_counts(counted)
     lives, reports = [], []
     recover = chaos.recover_engine
 
@@ -2330,13 +2356,41 @@ def smoke_batches(cfg_smoke, seed):
                                   global_batch=4, seed=seed))
 
 
+def rglru_fan_in(cfg, params):
+    """In place, for a model with RG-LRU layers (recurrentgemma-2b):
+    each normal-init leaf of the stacked ``groups`` rescaled from N(0,
+    1) / sqrt(n_groups) to N(0, 1) / sqrt(its own layer's fan-in).
+    ``init_params`` takes a leaf's first dimension as its fan-in, as the
+    reference's ``init_tree`` does, and for a stacked leaf that is the
+    stacking axis: recurrentgemma-2b's weights come out sqrt(2560 / 8)
+    times too large, its RG-LRU gates saturate (a = 1, where ``1 -
+    exp(2 log a)`` cancels) and the model is chaotic in float32 (a
+    one-ulp change of every weight moves its full-width logits by the
+    order of their scale on the card: ``tools/recurrent_probe.py``), so
+    no float32 comparison can hold it.  Other models are returned as
+    they are."""
+    import math
+
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.transformer import model_defs
+
+    if "rglru" in cfg.pattern:
+        with torch.no_grad():
+            for d, p in zip(tree_leaves(model_defs(cfg)["groups"]),
+                            tree_leaves(params["groups"])):
+                if d.init == "normal":
+                    p.mul_(math.sqrt(d.shape[0] / d.shape[1]))
+    return params
+
+
 def smoke_params(cfg_smoke, seed, device):
-    """The smoke parameters, drawn on the CPU from ``seed``."""
+    """The smoke parameters, drawn on the CPU from ``seed``
+    (:func:`rglru_fan_in`'s scale for RG-LRU models)."""
     from repro_torch.models.layers import tree_map
     from repro_torch.models.model import init_params
 
-    return tree_map(lambda a: a.to(device),
-                    init_params(cfg_smoke, seed=seed, device="cpu"))
+    return tree_map(lambda a: a.to(device), rglru_fan_in(
+        cfg_smoke, init_params(cfg_smoke, seed=seed, device="cpu")))
 
 
 def step0_grads(cfg_smoke, params, seed):
@@ -2429,7 +2483,7 @@ def check_train_vs_cpu(cfg_smoke, seed):
           f"{l_cpu[0]})")
     np.testing.assert_allclose(l_card, l_cpu, rtol=1e-3,
                                err_msg="losses on the card vs the CPU")
-    phase(f"[4] smoke olmo-1b training on the card == on the CPU: losses "
+    phase(f"[4] {cfg_smoke.name} training on the card == on the CPU: losses "
           f"{l_card} vs {l_cpu} (step 0 within 1e-4, later 1e-3 relative);"
           f" step 0 gradients within {worst:.2e} of each leaf's scale "
           f"(tol 1e-4; {loose} of {len(g_cpu)} leaves at twice their CPU "
@@ -2460,9 +2514,10 @@ def check_train_loop(cfg_smoke, seed):
     diff = max(abs(failed[0][i] - clean[0][i]) for i in range(5))
     check(diff == 0.0, f"losses after the restart == the uninterrupted "
                        f"run's ({failed[0]} vs {clean[0]})")
-    phase(f"[4] smoke trainer through FaultTolerantLoop on the card, "
-          f"failure injected before step 3: {failed[1].restarts} restart, "
-          f"restored from step 2, {failed[1].completed_steps} steps; losses "
+    phase(f"[4] {cfg_smoke.name} trainer through FaultTolerantLoop on the "
+          f"card, failure injected before step 3: {failed[1].restarts} "
+          f"restart, restored from step 2, {failed[1].completed_steps} "
+          f"steps; losses "
           f"{[failed[0][i] for i in range(5)]} == the uninterrupted run's")
 
 
@@ -2504,10 +2559,7 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
           f"under torch.utils.checkpoint), and {n_global} K6 backward "
           f"launches")
     # the main path's run: counts zeroed just before, read just after
-    for fn in counted.values():
-        fn.launches = 0
-        for route in getattr(fn, "routes", {}):
-            fn.routes[route] = 0
+    zero_counts(counted)
     syncs = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2597,6 +2649,269 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     return dict(launches=launches["K6"], bwd_launches=k6_bwd, steps=steps,
                 ms=ms, mfu=mfu, turns_ms=turns,
                 tok_s=tokens / (ms / 1e3), peak=peak, losses=losses)
+
+
+def attention_pairs(S, window):
+    """(query, key) pairs a causal layer of window ``window`` (None:
+    global) attends over in an S-token sequence."""
+    W = min(window or S, S)
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def train_recurrent_full_width(tag, cfg, seed, counted, smi, batch=4,
+                               seq=2048, steps=5, profile=False):
+    """Phase 18 (a), (b): a recurrent decoder at full depth and width
+    through ``build_step`` (bf16 parameters, float32 AdamW mu, nu and
+    master, remat on): a warm-up step, then ``steps`` counted steps.
+    Its SSD and RG-LRU layers train through their full-sequence forms
+    in torch ops, as the reference trains them in jnp, and its local
+    layers through the plain sliding-window form: no kernel of K1-K6
+    may launch.  One device-to-host transfer a step (the loss).  With
+    ``profile`` (phase 18 (c)), two more steps under the profiler.
+    Weights from ``seed`` at :func:`rglru_fan_in`'s scale.  Returns the
+    run's numbers."""
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.launch.train import build_step
+    from repro_torch.models.model import count_params, init_params
+    from repro_torch.optim import adamw
+
+    gc.collect()                    # earlier phases' engines and caches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = rglru_fan_in(cfg, init_params(cfg, seed=seed, device="cuda"))
+    state = (params, adamw.init(params), None)
+    torch.cuda.synchronize()
+    n_params = count_params(cfg)
+    kinds = {k: cfg.layer_kinds.count(k) for k in sorted(set(
+        cfg.layer_kinds))}
+    tag = f"{tag} {cfg.name}"
+    phase(f"{tag} params: {n_params} ({cfg.dtype}; AdamW mu, nu and master "
+          f"float32), init {time.perf_counter() - t0:.1f} s; layers "
+          f"{kinds} ({cfg.n_groups} groups of {cfg.pattern} under remat, "
+          f"remainder {cfg.remainder}), d_model {cfg.d_model}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}")
+    step_fn = build_step(cfg, adamw.AdamWConfig(warmup_steps=10,
+                                                decay_steps=steps + 1))
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch, seed=0))
+    # data loading is set-up: every batch on the card before the steps
+    batches = [{k: torch.from_numpy(a).cuda() for k, a in
+                stream.batch_at(i).items()} for i in range(steps + 1)]
+    state, m = step_fn(state, batches[0])           # warm-up, not counted
+    losses = [float(m["loss"])]
+    # the main path's run: counts zeroed just before, read just after
+    zero_counts(counted)
+    syncs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(1, steps + 1):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                state, m = step_fn(state, batches[i])
+                losses.append(float(m["loss"]))     # the one read a step
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs.append([str(w.message).splitlines()[0] for w in caught
+                      if "called a synchronizing" in str(w.message)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    peak = torch.cuda.max_memory_allocated() - held
+    check(all(np.isfinite(losses)), f"{tag}: finite losses {losses}")
+    check(sum(launches.values()) == 0,
+          f"{tag}: no kernel of K1-K6 launched in training ({launches})")
+    check(all(len(s) == 1 for s in syncs),
+          f"{tag}: one device-to-host transfer a step (the loss): {syncs}")
+    ms = 1e3 * wall / steps
+    tokens = batch * seq
+    # 6 N per token for the matmul parameters (the input embedding is a
+    # lookup), and the local layers' attention products forward and
+    # backward (12 B H hd flop a (query, key) pair); the SSD's and the
+    # RG-LRU's own products, scans and gates are not counted
+    n_mm = n_params - cfg.vocab * cfg.d_model
+    n_attn = sum(1 for k in cfg.layer_kinds if k in ("local", "global"))
+    attn = (12 * batch * cfg.n_heads * cfg.hd * n_attn
+            * attention_pairs(seq, cfg.window))
+    flops = 6 * n_mm * tokens + attn
+    mfu = flops / (ms / 1e3) / PEAK_OPS[torch.bfloat16]
+    phase(f"{tag}: losses {losses} (the first the warm-up step's); "
+          f"kernel launches {launches}; synchronizing calls a step under "
+          f"sync-debug mode: {[len(s) for s in syncs]} {syncs[0]}")
+    phase(f"{tag} on {smi}: batch {batch} x {seq} tokens, {ms:.1f} ms a "
+          f"step, {tokens / (ms / 1e3):.0f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated, less the "
+          f"{held / 2**30:.2f} GiB held before the phase), model flops "
+          f"{flops:.4e} a step (6 N_matmul tokens, N_matmul {n_mm}, + "
+          f"{attn:.4e} of attention; the SSD and RG-LRU scans, gates and "
+          f"in-chunk products not counted), {100 * mfu:.1f}% of the "
+          f"card's 989 TFLOP/s bf16 peak")
+    if profile:
+        def run():
+            nonlocal state
+            for i in (1, 2):
+                state, m = step_fn(state, batches[i])
+                float(m["loss"])
+            return 2
+
+        profiled(run, f"[18c] {cfg.name}")
+    del state, params, batches
+    torch.cuda.empty_cache()
+    return dict(batch=batch, seq=seq, steps=steps, ms=ms, mfu=mfu,
+                tok_s=tokens / (ms / 1e3), peak=peak, losses=losses,
+                flops=flops)
+
+
+#: phase 18 (d): the largest |prefill + decode logit - one-shot logit|
+#: allowed, relative to the one-shot logits' largest magnitude.  Both
+#: sides are float32 sums of the same products in other orders (the
+#: full-sequence scans, then a recurrence a token at a step, against
+#: the full-sequence scans over all the tokens), so they differ by the
+#: rounding the depth carries.  A one-ulp change of every weight moves
+#: recurrentgemma's smoke logits by 5e-5 to 5e-4 of their scale
+#: (tests/test_torch_recurrent.py::test_float32_noise_floor): the bound
+#: is the smallest power of ten above twice that.  The card's own
+#: one-ulp floor at full width is measured and printed beside it.
+PREFILL_TOL = 1e-3
+
+
+def prefill_full_width(tag, tengine, counted, cfg, seed, n_prompts,
+                       prompt_len, smi, n_decode=16, chunk=64,
+                       device="cuda"):
+    """Phase 18 (d): the prefill path at full width in float32:
+    ``prefill`` of ``n_prompts`` random prompts of ``prompt_len`` tokens,
+    ``load_prefill`` into an empty decode state of dp 1 and one slot a
+    prompt, then ``n_decode`` greedy ``decode_step``s.  Held against the
+    one-shot ``forward_train`` logits of the same tokens (within
+    ``PREFILL_TOL`` of their scale) and against the ``ServingEngine``'s
+    greedy streams of the same prompts (chunked prefill through K4 and
+    K5): identical, or first different at a near-tie (top-2 gap within
+    1e-4 of the logit scale).  The decode steps launch the recurrent
+    kernel once a layer a step and no other kernel; the prefill none.
+    Every class is empty after the slots are freed.  Weights from
+    ``seed`` at :func:`rglru_fan_in`'s scale."""
+    import types
+
+    from repro_torch.core import classed_pool
+    from repro_torch.models.decode_init import (empty_decode_state,
+                                                load_prefill)
+    from repro_torch.models.layers import logits_apply, tree_leaves
+    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.models.transformer import forward_train
+
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    tag = f"{tag} {cfg.name}"
+    params = rglru_fan_in(c32, init_params(c32, seed=seed, device=device))
+    rng = np.random.RandomState(seed + 18)
+    prompts = rng.randint(1, c32.vocab, (n_prompts, prompt_len))
+    toks = torch.from_numpy(prompts.astype(np.int32)).to(device)
+    psz = c32.page_size
+    max_len = -(-(prompt_len + n_decode + 1) // 512) * 512
+    kernel = {"ssd": "K4", "rglru": "K5"}
+    n_rec = {k: sum(1 for x in c32.layer_kinds if x == b)
+             for b, k in kernel.items()}
+    phase(f"{tag}: f32, {n_prompts} prompts of {prompt_len} tokens, "
+          f"{n_decode} greedy decode steps, max_len {max_len}, window "
+          f"{c32.window}, page size {psz}")
+
+    zero_counts(counted)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(c32, params, {"tokens": toks})
+    t_prefill = time.perf_counter()
+    state = empty_decode_state(c32, 1, n_prompts, max_len, device=device)
+    state = load_prefill(c32, state, caches, prompt_len)
+    del caches
+    out_logits = [logits]
+    tok = logits.argmax(-1).to(torch.int32)
+    stream = [tok]
+    for _ in range(n_decode):
+        lg, state = decode_step(c32, params, tok[None], state)
+        out_logits.append(lg[0])
+        tok = lg[0].argmax(-1).to(torch.int32)
+        stream.append(tok)
+    streams = torch.stack(stream, 1).tolist()         # [B, n_decode + 1]
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    want = {k: n * n_decode for k, n in n_rec.items() if n}
+    check(all(launches[k] == n for k, n in want.items())
+          and sum(launches.values()) == sum(want.values()),
+          f"{tag}: the decode steps launched {want}, the prefill no kernel "
+          f"({launches})")
+    check(all(0 <= t < c32.vocab for s in streams for t in s),
+          f"{tag}: tokens inside the vocabulary")
+
+    # against the one-shot forward of the prompts and the streams
+    full = torch.cat([toks, torch.tensor(streams, dtype=torch.int32,
+                                         device=device)[:, :n_decode]], 1)
+    with torch.no_grad():
+        x = forward_train(c32, params, full, remat=False)
+        ref = logits_apply(c32, params["embed"], x[:, prompt_len - 1:])
+    got = torch.stack(out_logits, 1)
+    scale = ref.abs().max().item()
+    err = (got - ref).abs().max().item() / scale
+    check(np.isfinite(err) and err <= PREFILL_TOL,
+          f"{tag}: prefill + decode logits within {PREFILL_TOL} of the "
+          f"one-shot forward's scale ({err:.3e})")
+    # the prefill path's pages and state released: every class empty
+    state, _ = tengine._release_slots(
+        state, torch.ones((1, n_prompts), dtype=torch.bool, device=device))
+    live = [int(classed_pool.live_per_shard(state.pool, c).sum())
+            for c in range(len(state.pool.classes))]
+    check(not any(live), f"{tag}: every class empty after the prefill "
+                         f"path's slots are freed ({live})")
+    del state
+
+    # against the engine's greedy streams of the same prompts
+    eng = tengine.ServingEngine(c32, params, dp=1, b_local=n_prompts,
+                                max_len=max_len, chunk_size=chunk,
+                                size_classes=2, device=device)
+    reqs = [tengine.Request(i, prompt=list(map(int, p)),
+                            max_new_tokens=n_decode + 1)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run(max_steps=10_000)
+    check(all(r.done for r in reqs), f"{tag}: every engine request done")
+    in_use = [eng.blocks_in_use(c) for c in range(eng.n_classes)]
+    check(not any(in_use) and eng.leak_free(),
+          f"{tag}: every class of the engine empty after the drain "
+          f"({in_use})")
+    del eng
+    mine = [types.SimpleNamespace(rid=i, out_tokens=s, temperature=0.0)
+            for i, s in enumerate(streams)]
+    same, ties = check_streams(tag, c32, params, device, reqs, mine, 1e-4)
+
+    # the float32 noise floor: every weight one ulp up or down (the last
+    # use of these weights)
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for p in tree_leaves(params):
+            up = torch.rand(p.shape, generator=g, device=device) < 0.5
+            p.copy_(torch.nextafter(p, torch.where(up, torch.inf,
+                                                   -torch.inf)))
+        x = forward_train(c32, params, full, remat=False)
+        nudged = logits_apply(c32, params["embed"], x[:, prompt_len - 1:])
+    floor = (nudged - ref).abs().max().item() / scale
+    del x, nudged, ref, got, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    phase(f"{tag} on {smi}: prefill {1e3 * (t_prefill - t0):.1f} ms, "
+          f"prefill + load + {n_decode} decode steps {1e3 * wall:.1f} ms; "
+          f"kernel launches {launches}; logits against the one-shot "
+          f"forward: max abs error {err:.3e} of their scale {scale:.3e} "
+          f"(bound {PREFILL_TOL}; a one-ulp change of every weight moves "
+          f"the one-shot logits by {floor:.3e} of it)")
+    phase(f"{tag}: prefill path == ServingEngine (chunk {chunk}, K4/K5 "
+          f"prefill, two size classes): {same} of {n_prompts} greedy "
+          f"streams of {n_decode + 1} tokens identical, {ties} first "
+          f"different at a near-tie (1e-4); every class empty after the "
+          f"slots are freed, on both")
+    return dict(err=err, floor=floor, same=same, ties=ties, wall=wall)
 
 
 def time_k6(k6, rng, cfg, B=4, S=2048):
@@ -3203,8 +3518,9 @@ def main() -> int:
         check_engine_vs_cpu(tengine, c, args.seed, name=f"{c.name} engine "
                             f"(two size classes)", size_classes=2)
     check_moe_engine_vs_cpu(tengine, args.seed)
-    check_train_vs_cpu(cfg_smoke, args.seed)
-    check_train_loop(cfg_smoke, args.seed)
+    for c in (cfg_smoke, mamba_smoke, rgemma_smoke):
+        check_train_vs_cpu(c, args.seed)
+        check_train_loop(c, args.seed)
 
     # [5] the plain path at full width
     counted = {"K1": ops.paged_attention_chunk, "K2": ops.paged_attention,
@@ -3496,6 +3812,23 @@ def main() -> int:
     serve_moe(tengine, counted, args.seed, smi)
     phase(f"[17] expert-paged MoE serving in "
           f"{time.perf_counter() - t17:.1f} s")
+    # [18] training and prefill of the recurrent decoders at full width
+    t18 = time.perf_counter()
+    train18 = {c.name: train_recurrent_full_width(
+        f"[18{x}]", c, args.seed, counted, smi, profile=args.profile)
+        for x, c in (("a", mamba), ("b", rgemma))}
+    prefill18 = {c.name: prefill_full_width(
+        "[18d]", tengine, counted, c, args.seed, n, plen, smi)
+        for c, n, plen in ((mamba, 8, 512), (rgemma, 4, 2304))}
+    for name, r in train18.items():
+        phase(f"[18] {name} training on {smi}: {r['ms']:.1f} ms a step, "
+              f"{r['tok_s']:.0f} tokens/s, {100 * r['mfu']:.1f}% model "
+              f"flops, peak {r['peak'] / 2**30:.2f} GiB; prefill path "
+              f"logits within {prefill18[name]['err']:.3e} of the one-shot "
+              f"forward, {prefill18[name]['same']} streams equal to the "
+              f"engine's")
+    phase(f"[18] recurrent training and prefill in "
+          f"{time.perf_counter() - t18:.1f} s")
     s16 = sampled["runs"][0]
     sampled_launches = {
         "K1": s16["launches"], "K2": s16["k2"],
@@ -3615,7 +3948,7 @@ def main() -> int:
                     "host_ms": t6["bwd"]["present_host_ms"]}}))),
     ]
     kernels[1]["sampled_launches"] = sampled_launches["K1"]
-    phase(f"[17] total {time.perf_counter() - t_start:.1f} s")
+    phase(f"[18] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

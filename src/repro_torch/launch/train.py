@@ -3,8 +3,11 @@
 Counterpart of the JAX package's ``launch/train.py``, with the same
 flags and ``--device`` (``cuda`` unless ``cpu`` is asked for).  Each
 step is :func:`build_step`'s function: the loss and its gradients by
-autograd (global attention layers through K6), optional int8 gradient
-compression, and an in-place AdamW update; the loop around it is
+autograd (global attention layers through K6; SSD and RG-LRU layers,
+mamba2-370m's and recurrentgemma-2b's, through their full-sequence
+forms in torch ops, as the reference differentiates its jnp forms),
+optional int8 gradient compression, and an in-place AdamW update; the
+loop around it is
 :class:`repro_torch.runtime.fault.FaultTolerantLoop` (periodic async
 checkpoints in the reference's npz layout, restart on failure,
 straggler watchdog).  A step reads one number back from the card: the
@@ -12,6 +15,8 @@ loss, which :func:`main` records.
 
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 20 --ckpt-dir build/ckpt_smoke
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-370m \\
+      --smoke --device cpu --steps 6 --ckpt-dir build/ckpt_mamba2
 
 A checkpoint directory that already holds a complete checkpoint is
 resumed from, a JAX trainer's included.

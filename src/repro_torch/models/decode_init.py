@@ -1,8 +1,7 @@
-"""Decode-state construction: the empty state and the serving registers.
+"""Decode-state construction: the empty state, prefill-cache loading
+and the serving registers.
 
-Counterpart of the JAX package's ``models/decode_init.py``
-(``empty_decode_state`` and ``empty_serve_arrays``; prefill-cache
-loading comes with the port's prefill path).
+Counterpart of the JAX package's ``models/decode_init.py``.
 """
 
 from __future__ import annotations
@@ -13,6 +12,7 @@ import torch
 
 from ..core import classed_pool
 from ..core.block_pool import I32, NULL
+from ..core.classed_pool import CLS_KV
 from .layers import tree_map
 from .transformer import DecodeState, decode_state_defs, pool_class_specs
 
@@ -64,3 +64,71 @@ def empty_serve_arrays(dp: int, b_local: int, device="cuda"):
     the on-device done-detection."""
     return tuple(torch.zeros((dp, b_local), dtype=I32, device=device)
                  for _ in range(3))
+
+
+def load_prefill(cfg, state: DecodeState, caches, prompt_len: int
+                 ) -> DecodeState:
+    """Scatter dense prefill caches into the paged, ring and recurrent
+    state: ``caches`` is :func:`repro_torch.models.transformer.
+    forward_prefill`'s, over B = DP * B_local sequences that all hold
+    ``prompt_len`` tokens.
+
+    Every slot's ``ceil(prompt_len / page_size)`` KV pages come from its
+    shard's shared stack in one :func:`classed_pool.alloc_from_shared_dp`
+    grant, as in the reference (bulk admission: a whole prompt never
+    fits a 3 * ell lane), also where no layer is paged; a grant that
+    comes up short raises.  Dense K/V go into the granted pages, the
+    last ``min(W, prompt_len)`` positions of a local layer into ring
+    slot ``s % W``, the final recurrent states into ``state.rec``.  The
+    payloads are written in place by index ops on their device (the sink
+    page and the sink slot are left alone); the page tables, lengths and
+    pool are replaced; the state tables and the expert state pass
+    through unchanged."""
+    dp, b_local, max_pages = state.page_tables.shape
+    psz = cfg.page_size
+    n_pages = -(-prompt_len // psz)
+    if n_pages > max_pages:
+        raise ValueError(f"a {prompt_len}-token prompt needs {n_pages} "
+                         f"pages; the page table holds {max_pages}")
+    dev = state.seq_lens.device
+    counts = torch.full((dp, b_local), n_pages, dtype=I32, device=dev)
+    pool, ids = classed_pool.alloc_from_shared_dp(state.pool, CLS_KV, counts,
+                                                  max(n_pages, 1))
+    ids = ids[..., :n_pages]
+    if not bool((ids >= 0).all()):
+        raise RuntimeError(f"prefill: the KV pool cannot grant {n_pages} "
+                           f"pages to each of {b_local} slots a shard")
+    tables = torch.full_like(state.page_tables, NULL)
+    tables[..., :n_pages] = ids
+    shard = torch.arange(dp, device=dev)[:, None, None].expand_as(ids)
+    page = ids.long()
+
+    def by_slot(dense):
+        """[n, B, S, ...] -> [n, DP, B_local, S, ...]"""
+        return dense.reshape(dense.shape[0], dp, b_local, *dense.shape[2:])
+
+    for pos, pages in state.kv_pages.items():
+        for buf, dense in zip(pages, caches[pos]):
+            n, _, S, KH, hd = dense.shape
+            pad = n_pages * psz - S
+            if pad:
+                dense = torch.cat([dense, dense.new_zeros(
+                    (n, dp * b_local, pad, KH, hd))], dim=2)
+            buf[:, shard, page] = by_slot(dense).reshape(
+                n, dp, b_local, n_pages, psz, KH, hd).to(buf.dtype)
+
+    src = torch.arange(prompt_len, device=dev)
+    for pos, rings in state.rings.items():
+        for buf, dense in zip(rings, caches[pos]):
+            W = buf.shape[3] - 1                    # slot W is the sink
+            s = src[max(prompt_len - W, 0):]
+            buf[:, :, :, s % W] = by_slot(dense)[:, :, :, s].to(buf.dtype)
+
+    for pos, st in state.rec.items():
+        for name, leaf in st.items():
+            leaf.copy_(caches[pos][name].reshape(leaf.shape))
+
+    return state._replace(
+        page_tables=tables, pool=pool,
+        seq_lens=torch.full((dp, b_local), prompt_len, dtype=I32,
+                            device=dev))

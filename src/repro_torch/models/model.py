@@ -1,8 +1,8 @@
-"""Top-level model API of the port: parameters, the training loss and
-decode steps.
+"""Top-level model API of the port: parameters and their counts, the
+training loss, prefill and decode steps.
 
-Counterpart of the JAX package's ``models/model.py`` for the training
-and paged decode paths.
+Counterpart of the JAX package's ``models/model.py`` for the training,
+prefill and paged decode paths.
 """
 
 from __future__ import annotations
@@ -13,8 +13,8 @@ import torch
 
 from .layers import (chunked_softmax_xent, init_tree, logits_apply,
                      tree_leaves, tree_map)
-from .transformer import (DecodeState, forward_decode_chunk, forward_train,
-                          model_defs)
+from .transformer import (DecodeState, forward_decode_chunk,
+                          forward_prefill, forward_train, model_defs)
 
 
 def param_defs(cfg):
@@ -39,6 +39,28 @@ def count_params(cfg) -> int:
     return sum(math.prod(d.shape) for d in tree_leaves(model_defs(cfg)))
 
 
+def count_active_params(cfg) -> int:
+    """Parameters a token uses: a mixture of experts' expert weights
+    scaled by top_k / E (the router counts whole)."""
+    if cfg.moe is None:
+        return count_params(cfg)
+
+    def walk(tree) -> int:
+        if not isinstance(tree, dict):
+            return math.prod(tree.shape)
+        if "router" not in tree:
+            return sum(walk(v) for v in tree.values())
+        total = 0                                   # a MoE FFN subtree
+        for k, v in tree.items():
+            n = sum(math.prod(d.shape) for d in tree_leaves(v))
+            if k.startswith("w_"):                  # expert weights
+                n = n * cfg.moe.top_k // cfg.moe.num_experts
+            total += n
+        return total
+
+    return walk(model_defs(cfg))
+
+
 # ------------------------------------------------------------------- train
 
 def loss_fn(cfg, params, batch, remat: bool = True):
@@ -49,6 +71,14 @@ def loss_fn(cfg, params, batch, remat: bool = True):
 
 
 # ------------------------------------------------------------------- serve
+
+def prefill(cfg, params, batch):
+    """Prompt processing: (last-token logits [B, V], caches) of
+    :func:`forward_prefill` over ``batch["tokens"]`` [B, S]."""
+    x, caches = forward_prefill(cfg, params, batch["tokens"])
+    with torch.no_grad():
+        return logits_apply(cfg, params["embed"], x[:, -1]), caches
+
 
 def decode_step(cfg, params, tokens, state: DecodeState, active=None):
     """One decode step: (logits [DP, Bl, V], new state) — a width-1

@@ -1,12 +1,14 @@
-"""Decoder stack, the training forward, decode state and the chunked
-decode forward.
+"""Decoder stack, the training and prefill forwards, decode state and
+the chunked decode forward.
 
 Counterpart of the JAX package's ``models/transformer.py``, limited to
-the slices of the port so far.  Training (:func:`forward_train`) covers
-decoders of global and local attention layers with a dense or MoE FFN;
-its global layers run K6.  Serving covers decoders of global attention
-over **paged KV** (olmo-1b, llama3.2-1b, phi4-mini), sliding-window
-attention over per-slot **ring** slabs (gemma3's local layers,
+the slices of the port so far.  Training (:func:`forward_train`) and
+prefill (:func:`forward_prefill`) cover decoders of global and local
+attention, SSD and RG-LRU layers with a dense or MoE FFN: global layers
+run K6, recurrent layers their full-sequence forms in torch ops
+(``models/ssm.py``, ``models/rglru.py``).  Serving covers decoders of
+global attention over **paged KV** (olmo-1b, llama3.2-1b, phi4-mini),
+sliding-window attention over per-slot **ring** slabs (gemma3's local layers,
 recurrentgemma's, mixtral's), and recurrent **SSD** (mamba2) and
 **RG-LRU** (recurrentgemma) layers over per-slot state slabs, with a
 dense SwiGLU or GeLU FFN or a mixture of experts (:mod:`.moe`).  Pages
@@ -135,24 +137,20 @@ def model_defs(cfg):
 
 # ================================================================ train path
 
-def _check_train(cfg) -> None:
-    """Raise for a configuration the training path does not cover yet."""
-    _check_slice(cfg)
-    rec = sorted(set(map(base_kind, cfg.pattern + cfg.remainder))
-                 & {"ssd", "rglru"})
-    if rec:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's training path covers global and local "
-            f"attention layers; the train forms of {rec} layers "
-            f"(ssd_chunked, rglru_scan) wait for their slice (ROADMAP "
-            f"Queue A item 1)")
-
-
 def _mix_train(cfg, lp, x, kind: str):
-    """One layer over the full sequence: returns (x, (k, v)).  An FFN
-    with a router is the mixture of experts."""
+    """One layer over the full sequence: returns (x, cache), the cache
+    (k, v) for an attention layer and the final recurrent state {"h",
+    "conv"} for an SSD or RG-LRU layer.  An FFN with a router is the
+    mixture of experts; an SSD layer has none."""
+    bk = base_kind(kind)
     h = apply_norm(cfg, lp["norm1"], x)
-    o, cache = attn.attention_train(cfg, lp["attn"], h, base_kind(kind))
+    if bk in ("global", "local"):
+        o, cache = attn.attention_train(cfg, lp["attn"], h, bk)
+    else:
+        block = (ssm_mod.ssd_block_full if bk == "ssd"
+                 else rglru_mod.rglru_block_full)
+        o, (hn, cn) = block(cfg, lp[bk], h)
+        cache = {"h": hn, "conv": cn}
     x = x + o
     if "ffn" in lp:
         h2 = apply_norm(cfg, lp["norm2"], x)
@@ -161,17 +159,24 @@ def _mix_train(cfg, lp, x, kind: str):
     return x, cache
 
 
+def _group_params(cfg, params):
+    """The stacked ``groups`` parameters as one tree per group.  Each
+    stacked leaf is split once with ``torch.unbind``: indexing a stack
+    inside the loop would make every index's backward write a zero
+    tensor as large as the stack."""
+    stacks = tree_map(lambda a: a.unbind(0), params["groups"])
+    return [tree_map(lambda t: t[g], stacks) for g in range(cfg.n_groups)]
+
+
 def forward_train(cfg, params, tokens, remat: bool = True):
     """tokens [B, S] -> hidden [B, S, d].
 
     The reference scans the stacked ``groups`` parameters and remats
-    each pattern group (``jax.checkpoint``); here each stacked leaf is
-    split once with ``torch.unbind`` (indexing a stack inside the loop
-    would make every index's backward write a zero tensor as large as
-    the stack) and each group runs under ``torch.utils.checkpoint``,
-    so its activations are recomputed in the backward pass: K6 runs
-    twice a global layer a step."""
-    _check_train(cfg)
+    each pattern group (``jax.checkpoint``); here each group runs under
+    ``torch.utils.checkpoint``, so its activations are recomputed in
+    the backward pass (K6 runs twice a global layer a step).  The
+    remainder layers run outside it, as in the reference."""
+    _check_slice(cfg)
     x = embed_apply(params["embed"], tokens).to(cfg.tdtype)
 
     def group(x, gp):
@@ -180,14 +185,48 @@ def forward_train(cfg, params, tokens, remat: bool = True):
         return x
 
     if cfg.n_groups:
-        stacks = tree_map(lambda a: a.unbind(0), params["groups"])
-        for g in range(cfg.n_groups):
-            gp = tree_map(lambda t: t[g], stacks)
+        for gp in _group_params(cfg, params):
             x = (checkpoint(group, x, gp, use_reentrant=False) if remat
                  else group(x, gp))
     for j, kind in enumerate(cfg.remainder):
         x, _ = _mix_train(cfg, params["rem"][f"pos{j}"], x, kind)
     return apply_norm(cfg, params.get("final_norm", {}), x)
+
+
+def _stack_caches(caches):
+    """Per-group caches (each a (k, v) tuple or an {"h", "conv"} dict)
+    stacked leaf by leaf on a new leading axis."""
+    first = caches[0]
+    if isinstance(first, tuple):
+        return tuple(torch.stack(leaf) for leaf in zip(*caches))
+    return {k: torch.stack([c[k] for c in caches]) for k in first}
+
+
+@torch.no_grad()
+def forward_prefill(cfg, params, tokens):
+    """Full-sequence forward that also returns every layer's cache:
+    tokens [B, S] -> (hidden [B, S, d], caches).
+
+    ``caches["pos{j}"]`` stacks pattern position j's caches over the
+    groups, as the reference's ``lax.scan`` stacks them: attention
+    layers dense (k, v) of [n_groups, B, S, KH, hd], recurrent layers
+    their final {"h", "conv"} of [n_groups, B, ...];
+    ``caches["rem{j}"]`` the remainder layers' with a leading axis of
+    1.  :func:`repro_torch.models.decode_init.load_prefill` scatters
+    them into a decode state.  No autograd, no remat."""
+    _check_slice(cfg)
+    x = embed_apply(params["embed"], tokens).to(cfg.tdtype)
+    per_group = {f"pos{j}": [] for j in range(len(cfg.pattern))}
+    if cfg.n_groups:
+        for gp in _group_params(cfg, params):
+            for j, kind in enumerate(cfg.pattern):
+                x, c = _mix_train(cfg, gp[f"pos{j}"], x, kind)
+                per_group[f"pos{j}"].append(c)
+    caches = {pos: _stack_caches(cs) for pos, cs in per_group.items() if cs}
+    for j, kind in enumerate(cfg.remainder):
+        x, c = _mix_train(cfg, params["rem"][f"pos{j}"], x, kind)
+        caches[f"rem{j}"] = _stack_caches([c])
+    return apply_norm(cfg, params.get("final_norm", {}), x), caches
 
 
 # ============================================================== decode state

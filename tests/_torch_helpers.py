@@ -29,6 +29,35 @@ def assert_pools_equal(jpool, tpool, what=""):
         assert np.array_equal(a, b), f"{what}: pool leaf {i} differs"
 
 
+def rglru_fan_in(cfg, params):
+    """The reference's parameters of a model with RG-LRU layers
+    (recurrentgemma-2b) with each normal-init leaf of the stacked
+    ``groups`` rescaled from N(0, 1) / sqrt(n_groups) to N(0, 1) /
+    sqrt(its own layer's fan-in); other models as they are.  The
+    reference's ``init_tree`` takes a leaf's first dimension as its
+    fan-in, the stacking axis for a stacked leaf: recurrentgemma's
+    weights come out too large, its RG-LRU gates saturate and its
+    float32 numbers are set by rounding
+    (``test_torch_train.py::test_recurrent_gradient_noise_floor``)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.layers import is_def
+    from repro.models.transformer import model_defs
+
+    if "rglru" not in cfg.pattern:
+        return params
+
+    def scale(d, p):
+        if d.init != "normal":
+            return p
+        return (p.astype(jnp.float32) * np.sqrt(d.shape[0] / d.shape[1])
+                ).astype(p.dtype)
+
+    groups = jax.tree.map(scale, model_defs(cfg)["groups"],
+                          params["groups"], is_leaf=is_def)
+    return {**params, "groups": groups}
+
+
 # --------------------------------------------------- engine parity harness
 
 #: counters that read the wall clock (the step watchdog)

@@ -2,9 +2,10 @@
 
 ``forward_train`` hidden states, ``loss_fn`` and its gradients on the
 smoke configs of olmo-1b, llama3.2-1b, gemma3-27b (local + global
-layers) and mixtral-8x7b (local layers with a mixture of experts, its
+layers), mixtral-8x7b (local layers with a mixture of experts, its
 router, gates and expert weights differentiated through the sort-based
-dispatch); remat; one AdamW step; int8 gradient compression; the token
+dispatch), mamba2-370m (SSD layers) and recurrentgemma-2b (RG-LRU and
+local layers); remat; one AdamW step; int8 gradient compression; the token
 stream; the checkpoint format in both directions; the fault-tolerant
 loop; and the trainer's ``main`` against the reference's.  Float32
 throughout.  Tolerances are relative to each tensor's scale (TOL x
@@ -15,7 +16,14 @@ can move them by more than 1e-3 on this batch
 gemma3's
 local layers' gradients are held at 1e-4 one layer at a time in
 ``tests/test_torch_flash_attention.py``, and the mixture of experts'
-in ``tests/test_torch_moe.py``.
+in ``tests/test_torch_moe.py``.  mamba2-370m holds 1e-4 and
+recurrentgemma-2b 1e-5, the smallest powers of ten above twice their
+one-ulp noise floors (``test_recurrent_gradient_noise_floor``).
+recurrentgemma-2b's weights are the reference's draw with each stacked
+leaf rescaled to its own layer's fan-in (``_torch_helpers.
+rglru_fan_in``): at the reference's own scale its RG-LRU gates
+saturate where ``1 - exp(2 log a)`` cancels, and the rounding of one
+``exp`` moves the reference's own gradients by more than 1e-2.
 """
 
 import pytest
@@ -29,7 +37,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-import _torch_helpers  # noqa: F401  (caps torch's CPU threads)
+from _torch_helpers import rglru_fan_in
 from repro import models as jmodels
 from repro.checkpoint.ckpt import Checkpointer as JCheckpointer
 from repro.configs import get_config, smoke_config
@@ -55,7 +63,8 @@ from repro_torch.runtime.fault import FailureInjector, FaultTolerantLoop
 
 TOL = 1e-4
 GRAD_TOL = {"olmo-1b": 1e-4, "llama3.2-1b": 1e-4, "gemma3-27b": 1e-2,
-            "mixtral-8x7b": 1e-2}
+            "mixtral-8x7b": 1e-2, "mamba2-370m": 1e-4,
+            "recurrentgemma-2b": 1e-5}
 
 
 def _setup(arch, dtype=None):
@@ -64,7 +73,7 @@ def _setup(arch, dtype=None):
     if dtype:
         cfg = dataclasses.replace(cfg, dtype=dtype)
         tcfg = dataclasses.replace(tcfg, dtype=dtype)
-    params = jmodels.init_params(cfg, jax.random.PRNGKey(0))
+    params = rglru_fan_in(cfg, jmodels.init_params(cfg, jax.random.PRNGKey(0)))
     tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     return cfg, params, tcfg, tparams
 
@@ -97,7 +106,8 @@ def _grads(tcfg, tparams, batch, remat=True):
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "llama3.2-1b", "gemma3-27b",
-                                  "mixtral-8x7b"])
+                                  "mixtral-8x7b", "mamba2-370m",
+                                  "recurrentgemma-2b"])
 def test_forward_loss_and_gradients_match_reference(arch):
     cfg, params, tcfg, tparams = _setup(arch)
     batch = _batch(1)
@@ -160,8 +170,84 @@ def test_moe_gradient_noise_floor():
     assert 1e-3 < max(moved) < GRAD_TOL["mixtral-8x7b"], moved
 
 
+def _nudged(params, seed):
+    """Every weight moved by one float32 ulp, up or down at random."""
+    rng = np.random.RandomState(seed)
+    return jax.tree.map(lambda a: np.nextafter(
+        a, np.where(rng.rand(*a.shape) < 0.5, -np.inf, np.inf).astype(
+            np.float32)), jax.tree.map(np.asarray, params))
+
+
+def _rel(got, want):
+    """Largest difference relative to the largest magnitude, leaf by
+    leaf, the worst leaf."""
+    return max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(got, want))
+
+
+def test_recurrent_gradient_noise_floor():
+    """Three one-ulp changes of every weight move mamba2-370m's smoke
+    gradients by less than half of 1e-4 of a leaf's scale, and
+    recurrentgemma-2b's (at its rescaled weights) by less than half of
+    1e-5.  Why recurrentgemma-2b's weights are rescaled: at the
+    reference's own draw its RG-LRU gates take ``sqrt(1 - exp(2 log
+    a))`` where ``log a`` is near 0 and the difference cancels, so the
+    rounding of one ``exp`` sets the result; computing only the gates
+    in float64 (through the port's forms, the rest float32) moves the
+    reference's own float32 gradients by more than 1e-2 of their scale,
+    and no float32 implementation whose ``exp`` rounds otherwise could
+    be held tighter."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import rglru as trglru
+
+    batch = _batch(1)
+    for arch in ("mamba2-370m", "recurrentgemma-2b"):
+        _, params, tcfg, tparams = _setup(arch)
+        _, g0 = _grads(tcfg, tparams, batch)
+        moved = max(_rel(_grads(tcfg, params_from_numpy(
+            _nudged(params, s), "cpu"), batch)[1], g0) for s in range(3))
+        assert moved < GRAD_TOL[arch] / 2, (arch, moved)
+
+    cfg = smoke_config(get_config("recurrentgemma-2b"))
+    params = jmodels.init_params(cfg, jax.random.PRNGKey(0))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    _, grads = jax.jit(jax.value_and_grad(
+        lambda p: jmodels.loss_fn(cfg, p, jax.tree.map(jnp.asarray, batch))
+    ))(params)
+
+    def gates64(p, x):
+        r = torch.sigmoid(x.double() @ p["w_r"].double())
+        i = torch.sigmoid(x.double() @ p["w_i"].double())
+        log_a = -trglru._C * F.softplus(p["lam"].double()) * r
+        b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)
+                       ) * (i * x.double())
+        return torch.exp(log_a).float(), b.float()
+
+    gates = trglru._gates
+    trglru._gates = gates64
+    try:
+        _, g64 = _grads(tcfg, tparams, batch)
+    finally:
+        trglru._gates = gates
+    g_floor = _rel([torch.from_numpy(np.array(g)) for g in
+                    jax.tree.leaves(grads)], g64)
+    assert g_floor > 1e-2, g_floor
+
+
 def test_remat_equals_no_remat():
     _, _, tcfg, tparams = _setup("llama3.2-1b")
+    batch = _batch(2)
+    l1, g1 = _grads(tcfg, tparams, batch, remat=True)
+    l0, g0 = _grads(tcfg, tparams, batch, remat=False)
+    assert torch.equal(l1, l0)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g0))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-2b"])
+def test_recurrent_remat_equals_no_remat(arch):
+    """recurrentgemma-2b's two remainder layers run outside remat."""
+    _, _, tcfg, tparams = _setup(arch)
     batch = _batch(2)
     l1, g1 = _grads(tcfg, tparams, batch, remat=True)
     l0, g0 = _grads(tcfg, tparams, batch, remat=False)
@@ -186,11 +272,11 @@ def test_param_count_and_shapes_match_reference(arch):
     tree_map(same, t_shapes, shapes)
 
 
-def test_forward_train_raises_for_recurrent_layers():
-    tcfg = t_smoke_config(t_get_config("mamba2-370m"))
-    tparams = tmodel.init_params(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward_train(tcfg, tparams, torch.ones((1, 8), dtype=torch.int32))
+def test_forward_train_raises_outside_the_decoders():
+    """An encoder-decoder configuration is outside the port's slices."""
+    tcfg = t_smoke_config(t_get_config("whisper-tiny"))
+    with pytest.raises(NotImplementedError, match="decoders"):
+        forward_train(tcfg, {}, torch.ones((1, 8), dtype=torch.int32))
 
 
 def _opt_case(rng, step):
@@ -343,7 +429,17 @@ def test_loop_with_injected_failure_resumes_to_the_same_losses(tmp_path):
     """The fault-tolerant loop around ``build_step``: a failure before
     step 3 restores the step-2 checkpoint and gives the uninterrupted
     run's losses; one restart counted."""
-    _, _, tcfg, tparams = _setup("olmo-1b")
+    _injected_failure_loop(tmp_path, "olmo-1b")
+
+
+def test_recurrent_loop_with_injected_failure_resumes_to_the_same_losses(
+        tmp_path):
+    """The same on mamba2-370m's SSD layers."""
+    _injected_failure_loop(tmp_path, "mamba2-370m")
+
+
+def _injected_failure_loop(tmp_path, arch):
+    _, _, tcfg, tparams = _setup(arch)
     stream = TokenStream(DataConfig(vocab=tcfg.vocab, seq_len=16,
                                     global_batch=2))
     step_fn = ttrain.build_step(tcfg, adamw.AdamWConfig(warmup_steps=2,
@@ -378,12 +474,22 @@ def test_main_matches_reference_main(tmp_path, monkeypatch):
     AdamW's first update moves each weight by about the learning rate
     whatever its gradient's size, so gradients at the float32 noise
     level move weights by as much as real ones."""
-    cfg = smoke_config(get_config("olmo-1b"))
+    _main_vs_reference(tmp_path, monkeypatch, "olmo-1b")
+
+
+def test_recurrent_main_matches_reference_main(tmp_path, monkeypatch):
+    """The same with ``--arch mamba2-370m``."""
+    _main_vs_reference(tmp_path, monkeypatch, "mamba2-370m")
+
+
+def _main_vs_reference(tmp_path, monkeypatch, arch):
+    cfg = smoke_config(get_config(arch))
     params = jmodels.init_params(cfg, jax.random.PRNGKey(0))
     monkeypatch.setattr(ttrain, "init_params", lambda c, seed, device:
                         params_from_numpy(jax.tree.map(np.asarray, params),
                                           device))
-    argv = ["--smoke", "--steps", "3", "--batch", "2", "--seq", "24"]
+    argv = ["--arch", arch, "--smoke", "--steps", "3", "--batch", "2",
+            "--seq", "24"]
     _, j_losses = jtrain.main(argv + ["--ckpt-dir", str(tmp_path / "j")])
     (tparams, opt, ef), t_losses = ttrain.main(
         argv + ["--device", "cpu", "--ckpt-dir", str(tmp_path / "t")])
