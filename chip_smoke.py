@@ -47,15 +47,22 @@ Phases, each printed on its own line (any failure fails the run):
    2^-5 of its own scale, where two controls of the walk (a late tile
    pair dropped, delta left out) must lie beyond it; the mma.sync
    kernels at hd 16 and the float32 ones within 1e-4, and two backward
-   calls on the same inputs bit-equal;
+   calls on the same inputs bit-equal; K6's hd 96 instances (bf16 on
+   mma.sync, float32 on FMAs) causal at S = 640 (phi-3-vision's
+   prefill), at a ragged S and bidirectional, bidirectional K6 at S =
+   1,500, hd 64 (whisper-tiny's encoder) on its wgmma route, and K1 (T
+   = 1 and 64) and K2 at phi-3-vision's width (hd 96, pages of 64) on
+   their fma kernels, each within one ulp of the plain version (f32
+   1e-4), two calls bit-equal;
 4. check the port's engine on the card against the same engine on the
    CPU (where every kernel wrapper runs its plain version) on smoke
    configs: identical tokens and status rows, for olmo-1b's plain path
    and, with speculation, the hot-prefix workload of
    ``tests/test_speculative.py``, with pinned prefixes and preemption
    (``SchedConfig(pin_pages=8, page_budget=6)``: pool leaves and pin
-   tables identical too), and for recurrentgemma-2b and
-   mamba2-370m with two size classes; then training: three steps of
+   tables identical too), for recurrentgemma-2b and
+   mamba2-370m with two size classes, and for whisper-tiny and
+   phi-3-vision-4.2b with one and two; then training: three steps of
    ``launch/train.py::build_step`` on the smoke olmo-1b, mamba2-370m
    and recurrentgemma-2b in f32 from the same parameters and
    ``TokenStream`` batches on both devices (step 0's loss within 1e-4
@@ -211,6 +218,34 @@ Phases, each printed on its own line (any failure fails the run):
    in phases 4 and 18 are rescaled to each layer's own fan-in
    (``rglru_fan_in`` says why).
 
+19. encoder-decoder and VLM serving at full width: whisper-tiny (4
+   encoder and 4 decoder layers of 384, 6 heads of 64, 1,500 frames,
+   vocab 51,865) and phi-3-vision-4.2b (32 layers of 3,072, 32 heads of
+   96, d_ff 8,192, 576 image positions, vocab 32,064), weights from
+   ``--seed``, the frame and image patch embeddings drawn from it too:
+   (a) whisper-tiny in bf16, 8 prompts of 32 tokens with their frames:
+   ``prefill`` (K6 on its wgmma route, 4 bidirectional launches at S =
+   1,500 and 4 causal), ``load_prefill`` (the cross K/V into
+   ``enc_kv``) into a state of two size classes, 32 greedy
+   ``decode_step``s (K2 on its tma route once a layer a step, the
+   cross-attention in torch ops, as the reference's is jnp); (b)
+   phi-3-vision in bf16, 4 prompts of 64 tokens after 576 image
+   positions (640 positions, 10 pages of 64): K6 on the mma.sync
+   kernel at hd 96 once a layer, 16 decode steps with K2 on its fma
+   kernel; (c) both again in f32, every logit within ``PREFILL_TOL`` of
+   the one-shot ``forward_train`` with the same extra inputs (the
+   one-ulp floor printed beside); (d) the engine at full width in bf16,
+   dp 1, 8 slots, 16 requests of phase 5's shape: whisper-tiny with two
+   size classes, each slot holding its 376 CLS_STATE blocks of encoder
+   state (4 layers x ceil(1,500 / 16)), phi-3-vision with one, K1 and
+   K2 on their wgmma/tma routes at hd 64 and their fma kernels at hd
+   96, the checks of phase 5 (one transfer a step, every class empty
+   after the drain), and phi-3-vision's text-only prompts through the
+   prefill path in f32 against the engine as phase 18 (d) does; (e) the
+   time of K6 at hd 96 at phi-3-vision's prefill shape, and of K1 (T =
+   64) and K2 at its serving width, each beside its bound, its plain
+   version and SDPA.
+
 ``--profile`` serves the workloads of phases 5, 9 and 10 again, and
 runs two more training steps in phases 12 and 18, under ``torch.profiler``,
 and prints where a step's time goes.  The last line is ``{"ok": true,
@@ -262,11 +297,13 @@ def check(ok: bool, what: str) -> None:
 
 
 def zero_counts(counted):
-    """Every kernel's launch count, and its count by route, set to 0."""
+    """Every kernel's launch count, and its counts by route and by mask,
+    set to 0."""
     for fn in counted.values():
         fn.launches = 0
-        for route in getattr(fn, "routes", {}):
-            fn.routes[route] = 0
+        for by in (getattr(fn, "routes", {}), getattr(fn, "masks", {})):
+            for key in by:
+                by[key] = 0
 
 
 def cuda_ms(fn, iters: int = 40, warmup: int = 3, enqueue=False):
@@ -1117,7 +1154,10 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     dispatcher; ``kernel`` names the one that every layer of its kind
     must launch once a step, and no other kernel may run.  For paged
     attention (``kernel`` K1) a step of width 1 (every lane decoding)
-    runs K2 instead, once per layer.
+    runs K2 instead, once per layer.  In bf16, K1 and K2 take their
+    wgmma and tma routes at hd 64 and 128 and their fma kernels at any
+    other hd (phi-3-vision's 96).  The peak of CLS_STATE blocks in use
+    is the most slots held after a step times a slot's grant.
     ``profile_reqs``, when given, are served again under the profiler.
     Returns the run's numbers."""
     from repro_torch.kernels.rg_lru.ops import LRU_TMA_MIN_S
@@ -1135,11 +1175,12 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     eng = tengine.ServingEngine(cfg, params, dp=1, b_local=b_local,
                                 max_len=max_len, chunk_size=chunk,
                                 size_classes=size_classes, device="cuda")
-    bounded = bool(eng.state.rings or eng.state.rec)
+    bounded = bool(eng.state.rings or eng.state.rec
+                   or eng.state.enc_kv is not None)
     check((eng.prefix_cache is None) == bounded
           and not (bounded and eng.speculate),
-          f"{tag}: sharing and speculation off exactly for ring and "
-          f"recurrent state")
+          f"{tag}: sharing and speculation off exactly for ring, recurrent "
+          f"and encoder state")
     # warm-up: one short request loads the prefill (T = 64) and decode
     # (T = 1) kernels and picks the matmul algorithms; not counted
     eng.submit(tengine.Request(10**6, prompt=[1] * (chunk + 1),
@@ -1174,7 +1215,12 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
             torch.cuda.set_sync_debug_mode("default")
     syncs = [str(w.message).splitlines()[0] for w in caught
              if "called a synchronizing" in str(w.message)]
-    eng.run(max_steps=10_000)
+    peak_slots = len(eng.active)
+    for _ in range(10_000):
+        if eng.idle():
+            break
+        eng.step()
+        peak_slots = max(peak_slots, len(eng.active))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
@@ -1208,10 +1254,12 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     # steps by width T
     hist = {w: n - hist0.get(w, 0) for w, n in eng.stats["chunk_hist"].items()}
     if kernel == "K1" and cfg.dtype == "bfloat16":
-        check(k1_routes["wgmma"] == launches["K1"],
-              f"{tag}: every K1 launch took the wgmma route ({k1_routes})")
-        check(k2_routes["tma"] == launches["K2"],
-              f"{tag}: every K2 launch took the tma route ({k2_routes})")
+        wide = cfg.hd in (64, 128)
+        r1, r2 = ("wgmma", "tma") if wide else ("fma", "fma")
+        check(k1_routes[r1] == launches["K1"],
+              f"{tag}: every K1 launch took the {r1} route ({k1_routes})")
+        check(k2_routes[r2] == launches["K2"],
+              f"{tag}: every K2 launch took the {r2} route ({k2_routes})")
     if kernel == "K4" and cfg.dtype == "bfloat16":
         # T >= SCAN_WGMMA_MIN_S on the wgmma route
         wide = sum(n for w, n in hist.items() if w >= SCAN_WGMMA_MIN_S)
@@ -1242,7 +1290,9 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
           f"; device->host transfers {transfers} (1 per step), "
           f"synchronizing calls in one step under sync-debug mode: "
           f"{len(syncs)} {syncs}; state blocks granted "
-          f"{eng.stats['state_blocks_granted']}; blocks in use after the "
+          f"{eng.stats['state_blocks_granted']}, peak in use "
+          f"{peak_slots * eng._state_blocks} ({peak_slots} slots x "
+          f"{eng._state_blocks}); blocks in use after the "
           f"drain, per class (KV first): {in_use}")
     phase(f"{tag}: end-to-end {tokens / wall:.1f} generated tok/s, "
           f"{(tokens + prompt) / wall:.1f} total tok/s, "
@@ -1250,7 +1300,9 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     out = dict(launches=launches[kernel], steps=steps, tok_s=tokens / wall,
                ms_step=1e3 * wall / steps, n_layers=n_layers,
                k2=launches.get("K2", 0), decode_steps=decode_steps,
+               k1_routes=k1_routes, k2_routes=k2_routes,
                k4_routes=k4_routes, k5_routes=k5_routes,
+               state_peak=peak_slots * eng._state_blocks,
                tokens=[r.out_tokens for r in reqs])
     if profile_reqs is not None:
         profile_serve(eng, profile_reqs, f"{tag} [p]")
@@ -2369,15 +2421,26 @@ def rglru_fan_in(cfg, params):
     order of their scale on the card: ``tools/recurrent_probe.py``), so
     no float32 comparison can hold it.  Other models are returned as
     they are."""
+    if "rglru" in cfg.pattern:
+        own_fan_in(cfg, params, ("groups",))
+    return params
+
+
+def own_fan_in(cfg, params, stacks):
+    """In place: each normal-init leaf of the stacked trees ``stacks``
+    (``groups``, an encoder-decoder's ``encoder``) rescaled from N(0, 1)
+    / sqrt(its stack's depth) to N(0, 1) / sqrt(its own layer's fan-in)
+    (:func:`rglru_fan_in` says why).  Returns ``params``."""
     import math
 
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.transformer import model_defs
 
-    if "rglru" in cfg.pattern:
-        with torch.no_grad():
-            for d, p in zip(tree_leaves(model_defs(cfg)["groups"]),
-                            tree_leaves(params["groups"])):
+    defs = model_defs(cfg)
+    with torch.no_grad():
+        for stack in stacks:
+            for d, p in zip(tree_leaves(defs[stack]),
+                            tree_leaves(params[stack])):
                 if d.init == "normal":
                     p.mul_(math.sqrt(d.shape[0] / d.shape[1]))
     return params
@@ -2780,19 +2843,22 @@ PREFILL_TOL = 1e-3
 
 def prefill_full_width(tag, tengine, counted, cfg, seed, n_prompts,
                        prompt_len, smi, n_decode=16, chunk=64,
-                       device="cuda"):
-    """Phase 18 (d): the prefill path at full width in float32:
-    ``prefill`` of ``n_prompts`` random prompts of ``prompt_len`` tokens,
-    ``load_prefill`` into an empty decode state of dp 1 and one slot a
-    prompt, then ``n_decode`` greedy ``decode_step``s.  Held against the
-    one-shot ``forward_train`` logits of the same tokens (within
-    ``PREFILL_TOL`` of their scale) and against the ``ServingEngine``'s
-    greedy streams of the same prompts (chunked prefill through K4 and
-    K5): identical, or first different at a near-tie (top-2 gap within
-    1e-4 of the logit scale).  The decode steps launch the recurrent
-    kernel once a layer a step and no other kernel; the prefill none.
-    Every class is empty after the slots are freed.  Weights from
-    ``seed`` at :func:`rglru_fan_in`'s scale."""
+                       device="cuda", stacks=None):
+    """Phase 18 (d), and 19 (d) for phi-3-vision's text-only prompts: the
+    prefill path at full width in float32: ``prefill`` of ``n_prompts``
+    random prompts of ``prompt_len`` tokens, ``load_prefill`` into an
+    empty decode state of dp 1 and one slot a prompt, then ``n_decode``
+    greedy ``decode_step``s.  Held against the one-shot
+    ``forward_train`` logits of the same tokens (within ``PREFILL_TOL``
+    of their scale) and against the ``ServingEngine``'s greedy streams
+    of the same prompts (chunked prefill through K1, K4 and K5):
+    identical, or first different at a near-tie (top-2 gap within 1e-4
+    of the logit scale).  The decode steps launch the recurrent kernel
+    (K4, K5) or K2 once a layer a step and no other kernel; the prefill
+    K6 once a global layer.  Every class is empty after the slots are
+    freed.  Weights from ``seed`` at :func:`rglru_fan_in`'s scale, or
+    with the stacked trees ``stacks`` at each layer's own fan-in
+    (:func:`own_fan_in`)."""
     import types
 
     from repro_torch.core import classed_pool
@@ -2804,13 +2870,15 @@ def prefill_full_width(tag, tengine, counted, cfg, seed, n_prompts,
 
     c32 = dataclasses.replace(cfg, dtype="float32")
     tag = f"{tag} {cfg.name}"
-    params = rglru_fan_in(c32, init_params(c32, seed=seed, device=device))
+    params = init_params(c32, seed=seed, device=device)
+    params = (rglru_fan_in(c32, params) if stacks is None
+              else own_fan_in(c32, params, stacks))
     rng = np.random.RandomState(seed + 18)
     prompts = rng.randint(1, c32.vocab, (n_prompts, prompt_len))
     toks = torch.from_numpy(prompts.astype(np.int32)).to(device)
     psz = c32.page_size
     max_len = -(-(prompt_len + n_decode + 1) // 512) * 512
-    kernel = {"ssd": "K4", "rglru": "K5"}
+    kernel = {"ssd": "K4", "rglru": "K5", "global": "K2"}
     n_rec = {k: sum(1 for x in c32.layer_kinds if x == b)
              for b, k in kernel.items()}
     phase(f"{tag}: f32, {n_prompts} prompts of {prompt_len} tokens, "
@@ -2838,10 +2906,12 @@ def prefill_full_width(tag, tengine, counted, cfg, seed, n_prompts,
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
     want = {k: n * n_decode for k, n in n_rec.items() if n}
+    if n_rec["K2"]:
+        want["K6"] = n_rec["K2"]
     check(all(launches[k] == n for k, n in want.items())
           and sum(launches.values()) == sum(want.values()),
-          f"{tag}: the decode steps launched {want}, the prefill no kernel "
-          f"({launches})")
+          f"{tag}: the decode steps launched {want} but K6, the prefill "
+          f"K6 once a global layer ({launches})")
     check(all(0 <= t < c32.vocab for s in streams for t in s),
           f"{tag}: tokens inside the vocabulary")
 
@@ -2906,8 +2976,11 @@ def prefill_full_width(tag, tengine, counted, cfg, seed, n_prompts,
           f"forward: max abs error {err:.3e} of their scale {scale:.3e} "
           f"(bound {PREFILL_TOL}; a one-ulp change of every weight moves "
           f"the one-shot logits by {floor:.3e} of it)")
-    phase(f"{tag}: prefill path == ServingEngine (chunk {chunk}, K4/K5 "
-          f"prefill, two size classes): {same} of {n_prompts} greedy "
+    chunk_kernels = "/".join(k for k, n in n_rec.items() if n).replace(
+        "K2", "K1")
+    phase(f"{tag}: prefill path == ServingEngine (chunk {chunk}, "
+          f"{chunk_kernels} prefill, two size classes): {same} of "
+          f"{n_prompts} greedy "
           f"streams of {n_decode + 1} tokens identical, {ties} first "
           f"different at a near-tie (1e-4); every class empty after the "
           f"slots are freed, on both")
@@ -3394,6 +3467,407 @@ def serve_moe(tengine, counted, seed, smi, n_layers=8):
     return out
 
 
+# ------------------------------------------------------------ phase 19
+
+def check_encdec_kernels(k6, ops, plain, plain2, rng, b_local, maxp, P):
+    """Phase 3, the kernels at phase 19's shapes: K6's hd 96 instances
+    (bf16 on mma.sync, float32 on FMAs) against the plain version,
+    causal at S = 640 (phi-3-vision's prefill: 576 image and 64 text
+    positions), at a ragged S and bidirectional; bidirectional K6 at S =
+    1,500, hd 64 (whisper-tiny's encoder) on its wgmma route; K1 at T =
+    1 and 64 and K2 at phi-3-vision's width (hd 96, G 1), bf16, pages
+    of 64, on their fma kernels.  bf16 within one ulp, f32 within 1e-4,
+    two calls bit-equal.  Returns the worst bf16 errors at hd 96 of K6,
+    K1 and K2."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    bf, f32 = torch.bfloat16, torch.float32
+    worst = {"K6": 0.0, "K1": 0.0, "K2": 0.0}
+
+    def close(name, dt, out, ref):
+        torch.testing.assert_close(out.float(), ref, atol=TOL[dt],
+                                   rtol=TOL[dt],
+                                   msg=lambda m: f"{name}: {m}")
+        tol = f"tol {TOL[dt]:g}"
+        if dt == bf:
+            torch.testing.assert_close(
+                out.float(), ref, atol=BF16_ULP_ATOL, rtol=BF16_ULP_RTOL,
+                msg=lambda m: f"{name}, one bf16 ulp: {m}")
+            tol += f" and one ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}"
+        return (out.float() - ref).abs().max().item(), tol
+
+    for name, dt, B, H, KH, S, hd, causal, route in (
+            ("phi-3-vision prefill bf16", bf, 4, 32, 32, 640, 96, True,
+             "mma"),
+            ("hd=96 S=77 bf16 (ragged tile, G=2)", bf, 2, 4, 2, 77, 96, True,
+             "mma"),
+            ("hd=96 S=200 bf16 bidirectional (G=4)", bf, 2, 4, 1, 200, 96,
+             False, "mma"),
+            ("phi-3-vision prefill f32", f32, 4, 32, 32, 640, 96, True,
+             "f32"),
+            ("hd=96 S=77 f32 (ragged tile, G=2)", f32, 2, 4, 2, 77, 96, True,
+             "f32"),
+            ("hd=96 S=200 f32 bidirectional (G=4)", f32, 2, 4, 1, 200, 96,
+             False, "f32"),
+            ("whisper-tiny encoder bf16", bf, 8, 6, 6, 1500, 64, False,
+             "wgmma")):
+        q, k, v = k6_inputs(rng, B, H, KH, S, hd, dt)
+        check(k6.forward_route(dt, hd) == route,
+              f"K6 {name}: on the {route} route")
+        before = (k6.flash_attention.launches,
+                  k6.flash_attention.routes[route])
+        out = k6.flash_attention(q, k, v, causal)
+        torch.cuda.synchronize()
+        check((k6.flash_attention.launches, k6.flash_attention.routes[route])
+              == (before[0] + 1, before[1] + 1),
+              f"K6 {name}: the dispatcher launched the {route} kernel once")
+        check(torch.equal(out, k6.flash_attention_cuda(q, k, v, causal)[0]),
+              f"K6 {name}: two calls bit-equal")
+        check(bool(torch.isfinite(out.float()).all()), f"K6 {name}: finite")
+        ref = flash_attention_ref(q, k, v, causal).float()
+        err, tol = close(f"K6 {name}", dt, out, ref)
+        phase(f"[3] K6 {name} B={B} H={H} KH={KH} S={S} hd={hd} "
+              f"{'causal' if causal else 'bidirectional'}, {route} kernel: "
+              f"max_abs_err {err:.3e}, max|ref| {ref.abs().max().item():.3e} "
+              f"({tol}); two calls bit-equal")
+        if dt == bf and hd == 96:
+            worst["K6"] = max(worst["K6"], err)
+        del q, k, v, out, ref
+    phi = dict(H=32, KH=32, hd=96, psz=64, maxp=maxp, P=P)
+    for T in (1, 64):
+        args = attn_case(rng, b_local, T, dtype=bf, masked=(1,),
+                         dead=((2, 0),), **phi)
+        name = f"K1 phi-3-vision T={T} bf16"
+        check(ops.chunk_route(bf, 96, 64, T, 1) == "fma",
+              f"{name}: on the fma route")
+        before = (ops.paged_attention_chunk.launches,
+                  ops.paged_attention_chunk.routes["fma"])
+        out = ops.paged_attention_chunk(*args)
+        torch.cuda.synchronize()
+        check((ops.paged_attention_chunk.launches,
+               ops.paged_attention_chunk.routes["fma"])
+              == (before[0] + 1, before[1] + 1),
+              f"{name}: the dispatcher launched the fma kernel once")
+        check(torch.equal(out, ops.paged_attention_chunk_cuda(*args)),
+              f"{name}: two calls bit-equal")
+        check(bool((out[1] == 0).all()), f"{name}: all-masked row is zero")
+        ref = plain(*args).float()
+        err, tol = close(name, bf, out, ref)
+        worst["K1"] = max(worst["K1"], err)
+        phase(f"[3] {name} B={b_local} H=32 hd=96 psz=64 (fma kernel): "
+              f"max_abs_err {err:.3e}, max|ref| {ref.abs().max().item():.3e} "
+              f"({tol}); two calls bit-equal")
+    q, kp, vp, table, base = attn_case(
+        rng, b_local, 1, dtype=bf, base=rng.randint(96, 1088, b_local),
+        masked=(1,), dead=((2, 0),), **phi)
+    q2, lens = q[:, 0].contiguous(), base + 1
+    name = "K2 phi-3-vision bf16"
+    check(ops.decode_route(bf, 96, 64, 1) == "fma", f"{name}: fma route")
+    before = (ops.paged_attention.launches, ops.paged_attention.routes["fma"])
+    out = ops.paged_attention(q2, kp, vp, table, lens, zero_empty=True)
+    torch.cuda.synchronize()
+    check((ops.paged_attention.launches, ops.paged_attention.routes["fma"])
+          == (before[0] + 1, before[1] + 1),
+          f"{name}: the dispatcher launched the fma kernel once")
+    check(torch.equal(out, ops.paged_attention_cuda(q2, kp, vp, table, lens,
+                                                    True, "fma")),
+          f"{name}: two calls bit-equal")
+    check(bool((out[1] == 0).all()), f"{name}: a row without keys is zero")
+    errs = []
+    for what, ref in (("plain", plain2(q2, kp, vp, table, lens,
+                                       zero_empty=True)),
+                      ("K1 T=1", ops.paged_attention_chunk(
+                          q, kp, vp, table, base)[:, 0])):
+        err, tol = close(f"{name} vs {what}", bf, out, ref.float())
+        errs.append(err)
+    worst["K2"] = errs[0]
+    phase(f"[3] {name} B={b_local} H=32 hd=96 psz=64 (fma kernel): "
+          f"max_abs_err vs plain {errs[0]:.3e}, vs K1 at T=1 {errs[1]:.3e} "
+          f"({tol}); contexts {int(lens.min())}-{int(lens.max())}; two "
+          f"calls bit-equal")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def time_k6_forward(k6, rng, B, H, KH, S, hd, causal=True):
+    """K6's forward kernel at one shape (bf16, q and k strided views as
+    the model passes them) beside its bound, its plain version and
+    SDPA on the same inputs; four sets of inputs cycle, so each call
+    reads its inputs from HBM."""
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_fwd_ref
+
+    sets = [k6_inputs(rng, B, H, KH, S, hd, torch.bfloat16)
+            for _ in range(4)]
+    it = iter(range(10 ** 9))
+
+    def kern():
+        k6.flash_attention_cuda(*sets[next(it) % 4], causal)
+
+    def ref():
+        flash_attention_fwd_ref(*sets[next(it) % 4], causal)
+
+    def lib():
+        torch.nn.functional.scaled_dot_product_attention(
+            *sets[next(it) % 4], is_causal=causal, enable_gqa=KH != H)
+
+    ms, host_ms = cuda_ms(kern, iters=32)
+    plain_ms, _ = cuda_ms(ref, iters=4, warmup=1)
+    library_ms, _ = cuda_ms(lib, iters=32)
+    q, k, _ = sets[0]
+    nbytes, nflops = k6.bound_bytes(q, k), k6.flops(q, causal)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * nflops / PEAK_OPS[torch.bfloat16]
+    del sets
+    torch.cuda.empty_cache()
+    return dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bytes=nbytes, flops=nflops, route=k6.forward_route(
+                    torch.bfloat16, hd),
+                shape=f"B={B} H={H} KH={KH} S={S} hd={hd} "
+                      f"{'causal' if causal else 'bidirectional'} bf16")
+
+
+def extra_full_width(tag, tengine, counted, cfg, seed, n_prompts, text_len,
+                     n_decode, smi, one_shot=False, stacks=(),
+                     tol=PREFILL_TOL):
+    """Phase 19 (a)-(c): the prefill path of an encoder-decoder or a VLM
+    at full width in ``cfg``'s dtype.  ``prefill`` of ``n_prompts``
+    random prompts of ``text_len`` tokens with the model's extra inputs
+    drawn from ``seed`` (whisper-tiny: frame embeddings [B, enc_len, d]
+    through the encoder; phi-3-vision: image patch embeddings [B,
+    img_tokens, d] before the text), ``load_prefill`` into an empty
+    state of dp 1, a slot a prompt, two size classes, then ``n_decode``
+    greedy ``decode_step``s.  K6 runs once a global layer in the prefill
+    (bidirectional in the encoder, causal in the decoder), K2 once a
+    decoder layer a decode step, no other kernel.  With ``one_shot``
+    (float32): every logit against the one-shot ``forward_train`` of the
+    prompt and the stream with the same extra inputs, within
+    ``tol`` (``PREFILL_TOL``) of their scale, the one-ulp floor printed
+    beside.  Every class empty after the slots are freed.  ``stacks``
+    names the stacked trees whose weights :func:`own_fan_in`
+    rescales."""
+    from repro_torch.core import classed_pool
+    from repro_torch.kernels.flash_attention.ops import forward_route
+    from repro_torch.kernels.paged_attention.ops import decode_route
+    from repro_torch.models.decode_init import (empty_decode_state,
+                                                load_prefill)
+    from repro_torch.models.layers import logits_apply, tree_leaves
+    from repro_torch.models.model import decode_step, init_params, prefill
+    from repro_torch.models.transformer import (forward_train,
+                                                state_blocks_per_slot)
+
+    dev = "cuda"
+    tag = f"{tag} {cfg.name}"
+    t0 = time.perf_counter()
+    params = own_fan_in(cfg, init_params(cfg, seed=seed, device=dev), stacks)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    t_init = time.perf_counter() - t0
+    rng = np.random.RandomState(seed + 19)
+    prompts = rng.randint(1, cfg.vocab, (n_prompts, text_len))
+    toks = torch.from_numpy(prompts.astype(np.int32)).to(dev)
+    encdec = cfg.arch_kind == "encdec"
+    n_enc = cfg.enc_layers if encdec else 0
+    img = 0 if encdec else cfg.img_tokens
+    rows = cfg.enc_len if encdec else img
+    extra = {"enc_embeds" if encdec else "img_embeds": torch.from_numpy(
+        rng.randn(n_prompts, rows, cfg.d_model).astype(np.float32)).to(dev)}
+    plen = img + text_len
+    max_len = -(-(plen + n_decode + 1) // 512) * 512
+    n_dec = cfg.n_layers
+    inputs = (f"{cfg.enc_len} frames through {n_enc} bidirectional encoder "
+              f"layers" if encdec else f"{img} image positions before the "
+                                       f"text")
+    scale_txt = (f", {' and '.join(stacks)} at each layer's own fan-in"
+                 if stacks else "")
+    phase(f"{tag}: {n_params} params ({cfg.dtype}{scale_txt}), init "
+          f"{t_init:.1f} s; "
+          f"{n_prompts} prompts of {text_len} tokens, {inputs}; "
+          f"{n_decode} greedy decode steps, max_len {max_len}, "
+          f"{state_blocks_per_slot(cfg, max_len)} CLS_STATE blocks a slot")
+
+    zero_counts(counted)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(cfg, params, {"tokens": toks, **extra})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter()
+    state = empty_decode_state(cfg, 1, n_prompts, max_len, size_classes=2,
+                               device=dev)
+    state = load_prefill(cfg, state, caches, plen)
+    del caches
+    torch.cuda.synchronize()
+    t_load = time.perf_counter()
+    out_logits = [logits]
+    tok = logits.argmax(-1).to(torch.int32)
+    stream = [tok]
+    for _ in range(n_decode):
+        lg, state = decode_step(cfg, params, tok[None], state)
+        out_logits.append(lg[0])
+        tok = lg[0].argmax(-1).to(torch.int32)
+        stream.append(tok)
+    streams = torch.stack(stream, 1)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {k: fn.launches for k, fn in counted.items()}
+    k6_routes = dict(counted["K6"].routes)
+    k6_masks = dict(counted["K6"].masks)
+    k2_routes = dict(counted["K2"].routes)
+    r6 = forward_route(cfg.tdtype, cfg.hd)
+    r2 = decode_route(cfg.tdtype, cfg.hd, cfg.page_size,
+                      cfg.n_heads // cfg.n_kv_heads)
+    want = {"K6": n_enc + n_dec, "K2": n_dec * n_decode}
+    check(all(launches[k] == want.get(k, 0) for k in launches),
+          f"{tag}: the prefill launched K6 once a global layer, each decode "
+          f"step K2 once a decoder layer, no other kernel ran ({launches}, "
+          f"want {want})")
+    check(k6_routes[r6] == want["K6"]
+          and k6_masks == {"causal": n_dec, "bidirectional": n_enc},
+          f"{tag}: K6 on its {r6} route, {n_enc} bidirectional and {n_dec} "
+          f"causal launches ({k6_routes}, {k6_masks})")
+    check(k2_routes[r2] == want["K2"],
+          f"{tag}: K2 on its {r2} route ({k2_routes})")
+    got = torch.stack(out_logits, 1).float()
+    check(tuple(got.shape) == (n_prompts, n_decode + 1, cfg.vocab)
+          and bool(torch.isfinite(got).all()),
+          f"{tag}: finite logits of shape [B, steps, vocab]")
+    tokens = streams.tolist()
+    check(all(0 <= t < cfg.vocab for s in tokens for t in s),
+          f"{tag}: tokens inside the vocabulary")
+    if encdec:
+        check(all(bool(t.abs().sum() > 0) for t in state.enc_kv)
+              and tuple(state.enc_kv[0].shape) == (
+                  n_dec, 1, n_prompts, cfg.enc_len, cfg.n_kv_heads, cfg.hd),
+              f"{tag}: enc_kv loaded at [layers, DP, B_local, enc_len, KH, "
+              f"hd]")
+    err = floor = None
+    if one_shot:
+        full = torch.cat([toks, streams[:, :n_decode]], 1)
+        with torch.no_grad():
+            x = forward_train(cfg, params, full, extra, remat=False)
+            ref = logits_apply(cfg, params["embed"],
+                               x[:, plen - 1:]).float()
+        scale = ref.abs().max().item()
+        err = (got - ref).abs().max().item() / scale
+    state, _ = tengine._release_slots(
+        state, torch.ones((1, n_prompts), dtype=torch.bool, device=dev))
+    live = [int(classed_pool.live_per_shard(state.pool, c).sum())
+            for c in range(len(state.pool.classes))]
+    check(not any(live), f"{tag}: every class empty after the prefill "
+                         f"path's slots are freed ({live})")
+    del state
+    if one_shot:
+        # the float32 noise floor: every weight one ulp up or down (the
+        # last use of these weights)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        with torch.no_grad():
+            for p in tree_leaves(params):
+                up = torch.rand(p.shape, generator=g, device=dev) < 0.5
+                p.copy_(torch.nextafter(p, torch.where(up, torch.inf,
+                                                       -torch.inf)))
+            x = forward_train(cfg, params, full, extra, remat=False)
+            nudged = logits_apply(cfg, params["embed"],
+                                  x[:, plen - 1:]).float()
+        floor = (nudged - ref).abs().max().item() / scale
+        del x, nudged, ref
+        phase(f"{tag}: logits against the one-shot forward: max abs error "
+              f"{err:.3e} of their scale {scale:.3e}; a one-ulp change of "
+              f"every weight moves the one-shot logits by {floor:.3e} of it")
+        check(np.isfinite(err) and err <= tol,
+              f"{tag}: prefill + decode logits within {tol} of the "
+              f"one-shot forward's scale ({err:.3e})")
+    del params, got, extra
+    torch.cuda.empty_cache()
+    ms_step = 1e3 * (t_end - t_load) / n_decode
+    txt = ("" if err is None else
+           f"; logits within {err:.3e} of the one-shot forward's scale "
+           f"(bound {tol}; one-ulp floor {floor:.3e})")
+    phase(f"{tag} on {smi}: prefill {1e3 * (t_prefill - t0):.1f} ms "
+          f"({n_prompts * plen} positions), load_prefill "
+          f"{1e3 * (t_load - t_prefill):.1f} ms, decode {ms_step:.2f} "
+          f"ms/step ({n_prompts * n_decode / (t_end - t_load):.1f} "
+          f"generated tok/s); K6 {k6_routes[r6]} launches on {r6} "
+          f"({k6_masks}), K2 {k2_routes[r2]} on {r2}; every class empty "
+          f"after the slots are freed{txt}")
+    return dict(err=err, floor=floor, k6=launches["K6"], k6_route=r6,
+                k2=launches["K2"], k2_route=r2, ms_step=ms_step,
+                prefill_ms=1e3 * (t_prefill - t0))
+
+
+def serve_encdec_vlm(tengine, k6, ops, plain, counted, seed, smi, b_local,
+                     maxp, P, chunk=64):
+    """Phase 19: encoder-decoder and VLM serving at full width,
+    whisper-tiny and phi-3-vision-4.2b: (a) and (b) the prefill path in
+    bf16, (c) in float32 against the one-shot forward, (d) the engine at
+    full width in bf16 (whisper-tiny with two size classes, its slots
+    holding the encoder's CLS_STATE grant) and phi-3-vision's text-only
+    prompts through the prefill path against the engine in float32, (e)
+    the times of K6 at hd 96 at phi-3-vision's prefill shape and of K1
+    and K2 at its serving width.  Returns the numbers the kernels line
+    reports."""
+    from repro_torch.configs import get_config
+
+    whisper, phi = get_config("whisper-tiny"), get_config("phi-3-vision-4.2b")
+    f32 = {c.name: dataclasses.replace(c, dtype="float32")
+           for c in (whisper, phi)}
+    out = {"a": extra_full_width("[19a]", tengine, counted, whisper, seed, 8,
+                                 32, 32, smi),
+           "b": extra_full_width("[19b]", tengine, counted, phi, seed, 4, 64,
+                                 16, smi)}
+    out["c"] = {c.name: extra_full_width("[19c]", tengine, counted, c, seed,
+                                         n, m, 16, smi, one_shot=True,
+                                         stacks=stacks)
+                for c, n, m, stacks in (
+                    (f32["whisper-tiny"], 8, 32, ("groups", "encoder")),
+                    (f32["phi-3-vision-4.2b"], 4, 64, ("groups",)))}
+    out["d"] = {c.name: serve_full_width(
+        "[19d]", tengine, counted, "K1", c, seed, b_local, 2048, chunk,
+        make_requests(tengine, c, seed), size_classes=sc)
+        for c, sc in ((whisper, 2), (phi, 1))}
+    check(out["d"]["whisper-tiny"]["state_peak"] == b_local * 376,
+          "[19d] whisper-tiny: the slots held 376 CLS_STATE blocks each at "
+          "the peak")
+    out["d_text"] = prefill_full_width("[19d]", tengine, counted, phi, seed,
+                                       4, 512, smi, stacks=("groups",))
+    for name, r in out["d"].items():
+        phase(f"[19d] {name} engine on {smi}: {r['tok_s']:.1f} generated "
+              f"tok/s, {r['ms_step']:.2f} ms/step, K1 {r['k1_routes']}, K2 "
+              f"{r['k2_routes']}, peak CLS_STATE blocks in use "
+              f"{r['state_peak']}")
+    # [19e] the hd 96 kernels' times at phi-3-vision's shapes
+    rng = np.random.RandomState(seed + 190)
+    t6 = time_k6_forward(k6, rng, 4, phi.n_heads, phi.n_kv_heads,
+                         phi.img_tokens + 64, phi.hd)
+    phi8 = dataclasses.replace(phi, n_layers=8)
+    base1 = rng.randint(64 + 32, 1024 + 64, b_local)
+    base64 = rng.randint(0, 1024 - 64, b_local) // 64 * 64
+    t1 = time_kernel(lambda *a: lambda: ops.paged_attention_chunk_cuda(*a),
+                     ops.bound_bytes, plain, rng, phi8, b_local, maxp, P, 64,
+                     base64)
+    t2 = time_kernel(
+        lambda q, kp, vp, table, base: lambda: ops.paged_attention_cuda(
+            q[:, 0].contiguous(), kp, vp, table, base + 1, True),
+        lambda q, kp, table, base: ops.decode_bound_bytes(
+            q[:, 0], kp, table, base + 1),
+        lambda q, kp, vp, table, base: ops.paged_attention_ref(
+            q[:, 0], kp, vp, table, base + 1, zero_empty=True),
+        rng, phi8, b_local, maxp, P, 1, base1)
+    for name, t in (("K6 forward (mma.sync, hd 96) " + t6["shape"], t6),
+                    (f"K1 (fma) T=64 B={b_local} H=32 hd=96 psz=64 bf16", t1),
+                    (f"K2 (fma) T=1 B={b_local} H=32 hd=96 psz=64 bf16, "
+                     f"contexts {int(base1.min()) + 1}-{int(base1.max()) + 1}",
+                     t2)):
+        phase(f"[19e] {name} on {smi}: kernel {t['ms']:.4f} ms (host "
+              f"{t['host_ms']:.4f} ms a call), bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}: {t['flops']} flop, {t['bytes']} B), plain "
+              f"{t['plain_ms']:.4f} ms, library (SDPA) "
+              f"{t['library_ms']:.4f} ms")
+    out["times"] = {"K6": t6, "K1": t1, "K2": t2}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3507,6 +3981,10 @@ def main() -> int:
                  [(T, d) for d in (rgemma.d_model, 192)
                   for T in (3, 16, 64, 100, 200)])
     err6, err6b, row6b, ctrl6b = check_k6(k6, rng)
+    # a stream of its own: the later phases draw the inputs they drew
+    err19 = check_encdec_kernels(k6, ops, plain, plain2,
+                                 np.random.RandomState(args.seed + 24),
+                                 b_local, maxp, P)
 
     # [4] the engine on the card vs on the CPU, small input
     check_engine_vs_cpu(tengine, cfg_smoke, args.seed)
@@ -3518,6 +3996,12 @@ def main() -> int:
         check_engine_vs_cpu(tengine, c, args.seed, name=f"{c.name} engine "
                             f"(two size classes)", size_classes=2)
     check_moe_engine_vs_cpu(tengine, args.seed)
+    for arch in ("whisper-tiny", "phi-3-vision-4.2b"):
+        for sc in (1, 2):
+            check_engine_vs_cpu(tengine, smoke_config(get_config(arch)),
+                                args.seed, name=f"{arch} smoke engine ({sc} "
+                                f"size class{'es' if sc > 1 else ''})",
+                                size_classes=sc)
     for c in (cfg_smoke, mamba_smoke, rgemma_smoke):
         check_train_vs_cpu(c, args.seed)
         check_train_loop(c, args.seed)
@@ -3829,6 +4313,12 @@ def main() -> int:
               f"engine's")
     phase(f"[18] recurrent training and prefill in "
           f"{time.perf_counter() - t18:.1f} s")
+    # [19] encoder-decoder and VLM serving at full width
+    t19 = time.perf_counter()
+    r19 = serve_encdec_vlm(tengine, k6, ops, plain, counted, args.seed, smi,
+                           b_local, maxp, P, chunk)
+    phase(f"[19] encoder-decoder and VLM serving in "
+          f"{time.perf_counter() - t19:.1f} s")
     s16 = sampled["runs"][0]
     sampled_launches = {
         "K1": s16["launches"], "K2": s16["k2"],
@@ -3948,7 +4438,37 @@ def main() -> int:
                     "host_ms": t6["bwd"]["present_host_ms"]}}))),
     ]
     kernels[1]["sampled_launches"] = sampled_launches["K1"]
-    phase(f"[18] total {time.perf_counter() - t_start:.1f} s")
+    # phase 19: the instances at phi-3-vision's hd 96, and whisper-tiny's
+    # launches on the routes olmo-1b takes
+    phi19 = r19["d"]["phi-3-vision-4.2b"]
+    times = ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")
+    hd96 = {
+        "paged_attention": dict(
+            route="fma", source=pa_src + "paged_decode.cu",
+            launches=r19["b"]["k2"] + phi19["k2_routes"]["fma"],
+            max_abs_err=err19["K2"], shape=f"T=1 B={b_local} H=32 hd=96 "
+                                           f"psz=64 bf16"),
+        "paged_attention_chunk": dict(
+            route="fma", source=pa_src + "paged_attention.cu",
+            launches=phi19["k1_routes"]["fma"], max_abs_err=err19["K1"],
+            shape=f"T=64 B={b_local} H=32 hd=96 psz=64 bf16"),
+        "flash_attention": dict(
+            route="mma", source=fa_src + "flash_attention.cu",
+            launches=r19["b"]["k6"], max_abs_err=err19["K6"],
+            shape=r19["times"]["K6"]["shape"])}
+    for row_ in kernels:
+        if row_["name"] in hd96:
+            key = {"paged_attention": "K2", "paged_attention_chunk": "K1",
+                   "flash_attention": "K6"}[row_["name"]]
+            row_["hd96"] = {**hd96[row_["name"]],
+                            **{k: r19["times"][key][k] for k in times}}
+    whisper19 = r19["d"]["whisper-tiny"]
+    kernels[0]["whisper_tiny_launches"] = whisper19["k2_routes"]
+    kernels[1]["whisper_tiny_launches"] = whisper19["k1_routes"]
+    next(r for r in kernels if r["name"] == "flash_attention")[
+        "whisper_tiny_launches"] = {r19["a"]["k6_route"]: r19["a"]["k6"]}
+    phase(f"[19] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -51,8 +51,10 @@
 // a warpgroup's softmax with its next QK^T, no setmaxnreg, no
 // persistent grid.
 //
-// fa_fwd_mma (bf16, hd 16, the shapes the wgmma kernel does not take):
-// one block of four warps per (batch, head, 64-row query tile); K
+// fa_fwd_mma (bf16, hd 16 and 96, the shapes the wgmma kernel does not
+// take: hd 96 is phi-3-vision's, whose 96-element rows the wgmma
+// kernel's 64-element swizzle atoms do not tile): one block of four
+// warps per (batch, head, 64-row query tile); K
 // staged row-major and V transposed in shared memory by plain loads;
 // each warp owns 16 query rows and runs mma.sync m16n8k16.  P is split
 // into two bf16 halves, hi = bf16(p) and lo = bf16(p - hi), and PV
@@ -60,9 +62,10 @@
 // split, P rounded to bf16 moves outputs near zero by more than one
 // bf16 ulp of the float32 plain version.
 //
-// fa_fwd_f32 (float32: the smoke configs, the tests): plain float32
-// FMAs, no TF32, one warp per row at a time with the lanes over the
-// keys for QK^T and over hd for PV.
+// fa_fwd_f32 (float32, hd 16, 64, 96 and 128: the smoke configs, the
+// tests, the float32 checks of full-width models): plain float32 FMAs,
+// no TF32, one warp per row at a time with the lanes over the keys for
+// QK^T and over hd for PV.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -586,6 +589,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   switch (hd) {
     case 16: return launch<float, 16>(q, k, v, o, lse, sh, stream);
     case 64: return launch<float, 64>(q, k, v, o, lse, sh, stream);
+    case 96: return launch<float, 96>(q, k, v, o, lse, sh, stream);
     case 128: return launch<float, 128>(q, k, v, o, lse, sh, stream);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -655,20 +659,20 @@ int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
   }
 }
 
-// The mma.sync kernel (dtype 1, bfloat16, hd 16) or the float32 one
-// (dtype 0, hd in {16, 64, 128}).
+// The mma.sync kernel (dtype 1, bfloat16, hd 16 or 96) or the float32
+// one (dtype 0, hd in {16, 64, 96, 128}).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         float* lse, const int64_t* strides, int dtype, int B,
                         int H, int KH, int S, int hd, int causal,
                         void* stream) {
   Shape sh;
-  if (dtype < 0 || dtype > 1 || (dtype == 1 && hd != 16) ||
+  if (dtype < 0 || dtype > 1 || (dtype == 1 && hd != 16 && hd != 96) ||
       !make_shape(sh, strides, B, H, KH, S, hd, causal))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 1
-             ? launch<__nv_bfloat16, 16>(q, k, v, o, lse, sh, st)
-             : launch_f32(q, k, v, o, lse, hd, sh, st);
+  if (dtype == 0) return launch_f32(q, k, v, o, lse, hd, sh, st);
+  return hd == 16 ? launch<__nv_bfloat16, 16>(q, k, v, o, lse, sh, st)
+                  : launch<__nv_bfloat16, 96>(q, k, v, o, lse, sh, st);
 }
 
 }  // extern "C"

@@ -12,7 +12,8 @@ dtype and hd (:func:`forward_route`):
 - ``"wgmma"``, bf16 at hd 64 and 128 (the training path): 128 query
   rows a block in two consumer warpgroups and a producer warp that
   keeps a ring of K/V stages full with TMA; QK^T and PV on ``wgmma``;
-- ``"mma"``, bf16 at hd 16: 64 rows a block on ``mma.sync``;
+- ``"mma"``, bf16 at hd 16 and 96 (phi-3-vision's prefill): 64 rows a
+  block on ``mma.sync``;
 - ``"f32"``, float32 at any of :data:`HEAD_DIMS`: plain float32 FMAs.
 
 Each walks the K/V tiles up to the diagonal with an online softmax and
@@ -28,6 +29,9 @@ agree bit for bit), chosen by dtype and hd (:func:`backward_route`):
 - ``"mma"`` and ``"f32"`` (``csrc/flash_attention_bwd.cu``), bf16 at
   hd 16 on ``mma.sync`` and float32 on FMAs.
 
+The backward has no kernel at hd 96 yet: :func:`backward_route` raises
+there (:data:`BWD_HEAD_DIMS`).
+
 The JAX package has no backward kernel (it differentiates the jnp
 ``blockwise_attention``); the backward computes that gradient.
 
@@ -40,8 +44,9 @@ TFLOP/s) and 171.9 Gflop backward (0.174 ms) (:func:`flops`,
 tensor its forward and backward launch their kernels or raise; on a
 CPU tensor they run the plain versions in :mod:`.ref`.
 ``flash_attention.launches`` counts forward launches (the recomputation
-of a checkpointed forward included) and ``flash_attention.routes`` the
-same by kernel; ``flash_attention_bwd.launches`` counts backward calls
+of a checkpointed forward included), ``flash_attention.routes`` the
+same by kernel and ``flash_attention.masks`` by mask (``"causal"``,
+``"bidirectional"``); ``flash_attention_bwd.launches`` counts backward calls
 and ``flash_attention_bwd.routes`` the same by route.
 """
 
@@ -55,14 +60,17 @@ import torch
 from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 64, 128)
+HEAD_DIMS = (16, 64, 96, 128)
 #: head dims of the wgmma/TMA forward (bf16)
 WGMMA_HEAD_DIMS = (64, 128)
+#: head dims of the backward kernels
+BWD_HEAD_DIMS = (16, 64, 128)
 
 
 def forward_route(dtype, hd: int) -> str:
     """The forward's kernel for (dtype, hd): ``"wgmma"`` for bf16 at hd
-    64 or 128, ``"mma"`` for bf16 at hd 16, ``"f32"`` for float32."""
+    64 or 128, ``"mma"`` for bf16 at hd 16 or 96, ``"f32"`` for
+    float32."""
     if dtype == torch.bfloat16:
         return "wgmma" if hd in WGMMA_HEAD_DIMS else "mma"
     return "f32"
@@ -70,10 +78,15 @@ def forward_route(dtype, hd: int) -> str:
 
 def backward_route(dtype, hd: int) -> str:
     """The backward's kernels for (dtype, hd): ``"wgmma"`` for bf16 at hd
-    64 or 128, ``"mma"`` for bf16 at hd 16, ``"f32"`` for float32.  It is
-    :func:`forward_route`'s rule, on purpose: each direction has its
-    kernel of each kind at the same (dtype, hd), so one rule serves
-    both; a kind added to one direction only splits them."""
+    64 or 128, ``"mma"`` for bf16 at hd 16, ``"f32"`` for float32; at a
+    head dim outside :data:`BWD_HEAD_DIMS` (hd 96, whose forward is
+    phi-3-vision's prefill) it raises.  Where both directions have
+    kernels it is :func:`forward_route`'s rule, on purpose: each
+    direction has its kernel of each kind at the same (dtype, hd)."""
+    if hd not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd: no backward kernel at hd {hd} (kernels "
+            f"at hd {BWD_HEAD_DIMS}); the forward takes {HEAD_DIMS}")
     return forward_route(dtype, hd)
 
 
@@ -171,6 +184,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
     KH = k.shape[1]
     if route is None:
         route = backward_route(q.dtype, hd)
+    if hd not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: hd {hd} outside "
+                         f"{BWD_HEAD_DIMS}")
     if route == "wgmma":
         if q.dtype != torch.bfloat16 or hd not in WGMMA_HEAD_DIMS:
             raise ValueError(f"flash_attention_bwd: the wgmma route takes "
@@ -220,6 +236,7 @@ def flash_attention_fwd(q, k, v, causal: bool = True):
     out = flash_attention_cuda(q, k, v, causal)
     flash_attention.launches += 1
     flash_attention.routes[forward_route(q.dtype, q.shape[-1])] += 1
+    flash_attention.masks["causal" if causal else "bidirectional"] += 1
     return out
 
 
@@ -261,6 +278,7 @@ def flash_attention(q, k, v, causal: bool = True):
 
 flash_attention.launches = 0
 flash_attention.routes = {"wgmma": 0, "mma": 0, "f32": 0}
+flash_attention.masks = {"causal": 0, "bidirectional": 0}
 
 
 def _pairs(S: int, causal: bool) -> int:

@@ -1,5 +1,6 @@
 """Full-sequence attention of the training path: projections with RoPE,
-causal flash attention (K6) for global layers, and the blockwise and
+flash attention (K6, causal or bidirectional) for global layers, the
+decoder's cross-attention over an encoder's K/V, and the blockwise and
 sliding-window forms in plain torch ops.
 
 Counterpart of the JAX package's ``models/attention.py`` for training.
@@ -7,7 +8,10 @@ Tensors keep the reference's [B, S, H, hd] layout here; K6's wrapper
 takes [B, H, S, hd], and the transposes between the two are views (the
 kernel reads strided inputs).  The reference has no kernel for a
 window: :func:`local_attention` and :func:`blockwise_attention` serve
-``local`` layers, and the tests use them as oracles.
+``local`` layers, and the tests use them as oracles.  Nor for
+cross-attention, whose queries and keys differ in length (K6 takes one
+S for both): :func:`cross_attention` runs :func:`blockwise_attention`,
+as the reference's runs its jnp form.
 """
 
 from __future__ import annotations
@@ -120,16 +124,28 @@ def local_attention(q, k, v, window: int, block_q: int = 512,
     return torch.cat(outs, 1)
 
 
-def attention_train(cfg, params, x, kind: str):
-    """Full-sequence causal attention layer: returns (out [B, S, d], (k,
-    v)).  Global layers run K6 on grouped kv heads without expanding
-    them; local layers the plain sliding-window form."""
+def attention_train(cfg, params, x, kind: str, causal: bool = True):
+    """Full-sequence attention layer: returns (out [B, S, d], (k, v)).
+    Global layers run K6 on grouped kv heads without expanding them,
+    causal or, for an encoder's layers, bidirectional; local layers the
+    plain sliding-window form."""
     q, k, v = qkv(cfg, params, x)
     if kind == "local" and cfg.window is not None:
         o = local_attention(q, _expand_kv(k, cfg.n_heads),
                             _expand_kv(v, cfg.n_heads), cfg.window)
     else:
         o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2)).transpose(1, 2)
+                            v.transpose(1, 2), causal).transpose(1, 2)
     out = torch.einsum("bshk,hkd->bsd", o, params["wo"])
     return out, (k, v)
+
+
+def cross_attention(cfg, params, x, enc_kv):
+    """Decoder cross-attention over precomputed encoder K/V: x [B, S, d],
+    enc_kv (k, v) [B, L, KH, hd] -> [B, S, d].  No RoPE on either side,
+    every query sees all L keys."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k, v = enc_kv
+    o = blockwise_attention(q, _expand_kv(k, cfg.n_heads),
+                            _expand_kv(v, cfg.n_heads), causal=False)
+    return torch.einsum("bshk,hkd->bsd", o, params["wo"])

@@ -22,7 +22,8 @@ def empty_decode_state(cfg, dp: int, b_local: int, max_len: int,
                        expert_budget: Optional[int] = None,
                        device="cuda") -> DecodeState:
     """Concrete zero state on ``device``: zero KV pages, rings, recurrent
-    state and expert pages, empty page, state and expert tables, and a
+    state, expert pages and an encoder-decoder's ``enc_kv``, empty page,
+    state and expert tables, and a
     per-shard pool vector with one private lane per slot per class
     (``chunk`` sizes the KV lane batch ``ell``, ``size_classes`` the
     class vector, ``expert_budget`` the expert class)."""
@@ -54,7 +55,9 @@ def empty_decode_state(cfg, dp: int, b_local: int, max_len: int,
         seq_lens=torch.zeros(defs.seq_lens.shape, dtype=I32, device=device),
         pool=classed_pool.create_dp(dp, specs, device),
         state_tables=state_tables, expert_pages=expert_pages,
-        expert_tables=expert_tables)
+        expert_tables=expert_tables,
+        enc_kv=None if defs.enc_kv is None else tuple(map(zeros,
+                                                          defs.enc_kv)))
 
 
 def empty_serve_arrays(dp: int, b_local: int, device="cuda"):
@@ -79,11 +82,14 @@ def load_prefill(cfg, state: DecodeState, caches, prompt_len: int
     fits a 3 * ell lane), also where no layer is paged; a grant that
     comes up short raises.  Dense K/V go into the granted pages, the
     last ``min(W, prompt_len)`` positions of a local layer into ring
-    slot ``s % W``, the final recurrent states into ``state.rec``.  The
-    payloads are written in place by index ops on their device (the sink
-    page and the sink slot are left alone); the page tables, lengths and
-    pool are replaced; the state tables and the expert state pass
-    through unchanged."""
+    slot ``s % W``, the final recurrent states into ``state.rec``, and
+    an encoder-decoder's cross K/V (each layer's cache is ``(self,
+    (k_x, v_x))``) into ``state.enc_kv`` in layer order: pattern
+    positions interleaved back by group, then the remainder, as in the
+    reference.  The payloads are written in place by index ops on their
+    device (the sink page and the sink slot are left alone); the page
+    tables, lengths and pool are replaced; the state tables and the
+    expert state pass through unchanged."""
     dp, b_local, max_pages = state.page_tables.shape
     psz = cfg.page_size
     n_pages = -(-prompt_len // psz)
@@ -107,8 +113,13 @@ def load_prefill(cfg, state: DecodeState, caches, prompt_len: int
         """[n, B, S, ...] -> [n, DP, B_local, S, ...]"""
         return dense.reshape(dense.shape[0], dp, b_local, *dense.shape[2:])
 
+    encdec = cfg.arch_kind == "encdec"
+
+    def self_cache(pos):
+        return caches[pos][0] if encdec else caches[pos]
+
     for pos, pages in state.kv_pages.items():
-        for buf, dense in zip(pages, caches[pos]):
+        for buf, dense in zip(pages, self_cache(pos)):
             n, _, S, KH, hd = dense.shape
             pad = n_pages * psz - S
             if pad:
@@ -119,14 +130,30 @@ def load_prefill(cfg, state: DecodeState, caches, prompt_len: int
 
     src = torch.arange(prompt_len, device=dev)
     for pos, rings in state.rings.items():
-        for buf, dense in zip(rings, caches[pos]):
+        for buf, dense in zip(rings, self_cache(pos)):
             W = buf.shape[3] - 1                    # slot W is the sink
             s = src[max(prompt_len - W, 0):]
             buf[:, :, :, s % W] = by_slot(dense)[:, :, :, s].to(buf.dtype)
 
     for pos, st in state.rec.items():
         for name, leaf in st.items():
-            leaf.copy_(caches[pos][name].reshape(leaf.shape))
+            leaf.copy_(self_cache(pos)[name].reshape(leaf.shape))
+
+    if encdec:
+        pat = [caches[f"pos{j}"][1] for j in range(len(cfg.pattern))
+               if cfg.n_groups]
+        rem = [caches[f"rem{j}"][1] for j in range(len(cfg.remainder))]
+        for i, buf in enumerate(state.enc_kv):
+            # [n_groups, P, B, ...] -> layer order g * P + j
+            parts = ([torch.stack([c[i] for c in pat], 1).flatten(0, 1)]
+                     if pat else []) + [c[i] for c in rem]
+            dense = torch.cat(parts, 0)
+            want = (buf.shape[0], dp * b_local) + tuple(buf.shape[3:])
+            if tuple(dense.shape) != want:
+                raise ValueError(f"load_prefill: cross K/V of shape "
+                                 f"{tuple(dense.shape)}, the state holds "
+                                 f"{want} (enc_len {cfg.enc_len})")
+            buf.copy_(by_slot(dense))
 
     return state._replace(
         page_tables=tables, pool=pool,

@@ -65,8 +65,13 @@ def count_active_params(cfg) -> int:
 
 def loss_fn(cfg, params, batch, remat: bool = True):
     """Causal LM loss: the mean cross-entropy of ``batch["labels"]``
-    after ``batch["tokens"]``, chunked (never holds [B, S, V] logits)."""
-    x = forward_train(cfg, params, batch["tokens"], remat=remat)
+    after ``batch["tokens"]``, chunked (never holds [B, S, V] logits).
+    The batch also carries a VLM's ``img_embeds``, whose positions the
+    loss leaves out, or an encoder-decoder's ``enc_embeds``."""
+    x = forward_train(cfg, params, batch["tokens"], extra=batch,
+                      remat=remat)
+    if cfg.arch_kind == "vlm" and "img_embeds" in batch:
+        x = x[:, batch["img_embeds"].shape[1]:]     # text positions only
     return chunked_softmax_xent(cfg, params["embed"], x, batch["labels"])
 
 
@@ -74,8 +79,10 @@ def loss_fn(cfg, params, batch, remat: bool = True):
 
 def prefill(cfg, params, batch):
     """Prompt processing: (last-token logits [B, V], caches) of
-    :func:`forward_prefill` over ``batch["tokens"]`` [B, S]."""
-    x, caches = forward_prefill(cfg, params, batch["tokens"])
+    :func:`forward_prefill` over ``batch["tokens"]`` [B, S], with a
+    VLM's ``img_embeds`` or an encoder-decoder's ``enc_embeds`` where
+    the batch holds them."""
+    x, caches = forward_prefill(cfg, params, batch["tokens"], extra=batch)
     with torch.no_grad():
         return logits_apply(cfg, params["embed"], x[:, -1]), caches
 

@@ -1,12 +1,17 @@
 """Decoder stack, the training and prefill forwards, decode state and
 the chunked decode forward.
 
-Counterpart of the JAX package's ``models/transformer.py``, limited to
-the slices of the port so far.  Training (:func:`forward_train`) and
-prefill (:func:`forward_prefill`) cover decoders of global and local
-attention, SSD and RG-LRU layers with a dense or MoE FFN: global layers
-run K6, recurrent layers their full-sequence forms in torch ops
-(``models/ssm.py``, ``models/rglru.py``).  Serving covers decoders of
+Counterpart of the JAX package's ``models/transformer.py``.  Training
+(:func:`forward_train`) and prefill (:func:`forward_prefill`) cover
+decoders of global and local attention, SSD and RG-LRU layers with a
+dense or MoE FFN: global layers run K6, recurrent layers their
+full-sequence forms in torch ops (``models/ssm.py``,
+``models/rglru.py``).  An encoder-decoder (whisper) runs a stack of
+bidirectional global layers over stubbed frame embeddings first (K6
+with ``causal=False``) and gives each decoder layer a cross-attention
+over the encoder's output; its decode state carries each layer's cross
+K/V in ``enc_kv``.  A VLM (phi-3-vision) prepends stubbed image patch
+embeddings to the text and is a decoder from there on.  Serving covers decoders of
 global attention over **paged KV** (olmo-1b, llama3.2-1b, phi4-mini),
 sliding-window attention over per-slot **ring** slabs (gemma3's local layers,
 recurrentgemma's, mixtral's), and recurrent **SSD** (mamba2) and
@@ -65,18 +70,24 @@ from . import ssm as ssm_mod
 from .attention import _expand_kv
 from .layers import (ParamDef, apply_norm, embed_apply, embed_defs,
                      ffn_apply, ffn_defs, norm_defs, rope_tables, rotate,
-                     tree_map)
+                     tree_leaves, tree_map)
 
 
 # ===================================================================== defs
 
 def _check_slice(cfg) -> None:
-    """Raise for a configuration outside the port's slices so far."""
+    """Raise for a configuration the port does not cover: a layer kind
+    outside global, local, ssd and rglru, an ``arch_kind`` outside
+    decoder, encdec and vlm, or an encoder-decoder whose pattern is
+    longer than one layer (the reference's decode asserts that too:
+    ``enc_kv`` is indexed by pattern group)."""
     kinds = set(map(base_kind, cfg.pattern + cfg.remainder))
     if (not kinds <= {"global", "local", "ssd", "rglru"}
-            or cfg.arch_kind != "decoder"):
+            or cfg.arch_kind not in ("decoder", "encdec", "vlm")
+            or (cfg.arch_kind == "encdec" and len(cfg.pattern) != 1)):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves decoders of global, local, ssd "
+            f"{cfg.name}: the port serves decoders, VLMs and "
+            f"encoder-decoders of pattern length 1, of global, local, ssd "
             f"and rglru layers with a dense or MoE FFN (pattern "
             f"{cfg.pattern}, arch_kind {cfg.arch_kind!r})")
 
@@ -99,7 +110,9 @@ def _stack(defs, n: int):
                     defs.init)
 
 
-def layer_defs(cfg, kind: str):
+def layer_defs(cfg, kind: str, with_xattn: bool = False):
+    """One layer's parameters; ``with_xattn`` adds an encoder-decoder's
+    cross-attention (``norm_x``, ``xattn``)."""
     bk = base_kind(kind)
     if bk not in ("global", "local", "ssd", "rglru"):
         raise NotImplementedError(f"layer kind {kind!r}")
@@ -110,6 +123,9 @@ def layer_defs(cfg, kind: str):
         d["ssd"] = ssm_mod.ssd_defs(cfg)
     else:
         d["rglru"] = rglru_mod.rglru_defs(cfg)
+    if with_xattn:
+        d["norm_x"] = norm_defs(cfg)
+        d["xattn"] = attn_defs(cfg)
     if bk != "ssd" and cfg.d_ff:
         d["norm2"] = norm_defs(cfg)
         d["ffn"] = (moe_mod.moe_defs(cfg) if is_moe_kind(kind)
@@ -118,40 +134,57 @@ def layer_defs(cfg, kind: str):
 
 
 def model_defs(cfg):
-    """The reference's parameter tree for the port's decoders:
-    ``embed``, ``final_norm`` (RMS configs), ``groups`` (the pattern
-    groups stacked on a leading layers axis) and ``rem``."""
+    """The reference's parameter tree: ``embed``, ``final_norm`` (RMS
+    configs), ``groups`` (the pattern groups stacked on a leading layers
+    axis) and ``rem``; an encoder-decoder adds cross-attention to every
+    decoder layer, ``encoder`` (``enc_layers`` global layers, stacked)
+    and ``enc_final_norm``."""
     _check_slice(cfg)
+    encdec = cfg.arch_kind == "encdec"
     defs = {"embed": embed_defs(cfg)}
     fn = norm_defs(cfg)
     if fn:
         defs["final_norm"] = fn
-    group = {f"pos{j}": layer_defs(cfg, k) for j, k in enumerate(cfg.pattern)}
+    group = {f"pos{j}": layer_defs(cfg, k, encdec)
+             for j, k in enumerate(cfg.pattern)}
     if cfg.n_groups:
         defs["groups"] = _stack(group, cfg.n_groups)
     if cfg.remainder:
-        defs["rem"] = {f"pos{j}": layer_defs(cfg, k)
+        defs["rem"] = {f"pos{j}": layer_defs(cfg, k, encdec)
                        for j, k in enumerate(cfg.remainder)}
+    if encdec:
+        defs["encoder"] = _stack(layer_defs(cfg, "global"), cfg.enc_layers)
+        if fn:
+            defs["enc_final_norm"] = norm_defs(cfg)
     return defs
 
 
 # ================================================================ train path
 
-def _mix_train(cfg, lp, x, kind: str):
+def _mix_train(cfg, lp, x, kind: str, enc_out=None, causal: bool = True):
     """One layer over the full sequence: returns (x, cache), the cache
     (k, v) for an attention layer and the final recurrent state {"h",
-    "conv"} for an SSD or RG-LRU layer.  An FFN with a router is the
-    mixture of experts; an SSD layer has none."""
+    "conv"} for an SSD or RG-LRU layer.  A layer with cross-attention,
+    given the encoder's output ``enc_out`` [B, L, d], attends over its
+    projections after the self-attention, and its cache is then
+    ``(self_cache, (k, v))`` with the cross K/V [B, L, KH, hd].  An FFN
+    with a router is the mixture of experts; an SSD layer has none."""
     bk = base_kind(kind)
     h = apply_norm(cfg, lp["norm1"], x)
     if bk in ("global", "local"):
-        o, cache = attn.attention_train(cfg, lp["attn"], h, bk)
+        o, cache = attn.attention_train(cfg, lp["attn"], h, bk, causal)
     else:
         block = (ssm_mod.ssd_block_full if bk == "ssd"
                  else rglru_mod.rglru_block_full)
         o, (hn, cn) = block(cfg, lp[bk], h)
         cache = {"h": hn, "conv": cn}
     x = x + o
+    if "xattn" in lp and enc_out is not None:
+        hx = apply_norm(cfg, lp["norm_x"], x)
+        k = torch.einsum("bsd,dhk->bshk", enc_out, lp["xattn"]["wk"])
+        v = torch.einsum("bsd,dhk->bshk", enc_out, lp["xattn"]["wv"])
+        x = x + attn.cross_attention(cfg, lp["xattn"], hx, (k, v))
+        cache = (cache, (k, v))
     if "ffn" in lp:
         h2 = apply_norm(cfg, lp["norm2"], x)
         x = x + (moe_mod.moe_apply(cfg, lp["ffn"], h2)
@@ -159,17 +192,58 @@ def _mix_train(cfg, lp, x, kind: str):
     return x, cache
 
 
+def _unstack(stacked, n: int):
+    """A stacked parameter tree (``groups``, ``encoder``) as n trees.
+    Each stacked leaf is split once with ``torch.unbind``: indexing a
+    stack inside the loop would make every index's backward write a
+    zero tensor as large as the stack."""
+    stacks = tree_map(lambda a: a.unbind(0), stacked)
+    return [tree_map(lambda t: t[g], stacks) for g in range(n)]
+
+
 def _group_params(cfg, params):
-    """The stacked ``groups`` parameters as one tree per group.  Each
-    stacked leaf is split once with ``torch.unbind``: indexing a stack
-    inside the loop would make every index's backward write a zero
-    tensor as large as the stack."""
-    stacks = tree_map(lambda a: a.unbind(0), params["groups"])
-    return [tree_map(lambda t: t[g], stacks) for g in range(cfg.n_groups)]
+    """The stacked ``groups`` parameters as one tree per group."""
+    return _unstack(params["groups"], cfg.n_groups)
 
 
-def forward_train(cfg, params, tokens, remat: bool = True):
-    """tokens [B, S] -> hidden [B, S, d].
+def _encoder_apply(cfg, params, enc_embeds, remat: bool = True):
+    """Whisper-style encoder over stubbed frame embeddings [B, L, d]:
+    the ``encoder`` stack's global layers, bidirectional (K6 with
+    ``causal=False``), each under ``torch.utils.checkpoint`` when
+    ``remat`` (the reference remats each), then ``enc_final_norm``."""
+    def layer(x, lp):
+        return _mix_train(cfg, lp, x, "global", causal=False)[0]
+
+    x = enc_embeds
+    n = tree_leaves(params["encoder"])[0].shape[0]
+    for lp in _unstack(params["encoder"], n):
+        x = (checkpoint(layer, x, lp, use_reentrant=False) if remat
+             else layer(x, lp))
+    if "enc_final_norm" in params:
+        x = apply_norm(cfg, params["enc_final_norm"], x)
+    return x
+
+
+def _embed_inputs(cfg, params, tokens, extra, remat: bool):
+    """(x [B, S', d], enc_out): the token embeddings, after a VLM's
+    ``extra["img_embeds"]`` [B, I, d] where given (S' = I + S), and an
+    encoder-decoder's encoder output over ``extra["enc_embeds"]``."""
+    x = embed_apply(params["embed"], tokens).to(cfg.tdtype)
+    if cfg.arch_kind == "vlm" and extra and "img_embeds" in extra:
+        x = torch.cat([extra["img_embeds"].to(cfg.tdtype), x], dim=1)
+    enc_out = None
+    if cfg.arch_kind == "encdec":
+        if not extra or "enc_embeds" not in extra:
+            raise ValueError(f"{cfg.name}: an encoder-decoder needs "
+                             f"extra['enc_embeds'] [B, enc_len, d]")
+        enc_out = _encoder_apply(cfg, params,
+                                 extra["enc_embeds"].to(cfg.tdtype), remat)
+    return x, enc_out
+
+
+def forward_train(cfg, params, tokens, extra=None, remat: bool = True):
+    """tokens [B, S] (and, in ``extra``, a VLM's ``img_embeds`` or an
+    encoder-decoder's ``enc_embeds``) -> hidden [B, S', d].
 
     The reference scans the stacked ``groups`` parameters and remats
     each pattern group (``jax.checkpoint``); here each group runs under
@@ -177,55 +251,64 @@ def forward_train(cfg, params, tokens, remat: bool = True):
     the backward pass (K6 runs twice a global layer a step).  The
     remainder layers run outside it, as in the reference."""
     _check_slice(cfg)
-    x = embed_apply(params["embed"], tokens).to(cfg.tdtype)
+    x, enc_out = _embed_inputs(cfg, params, tokens, extra, remat)
 
-    def group(x, gp):
+    def group(x, gp, enc_out):
         for j, kind in enumerate(cfg.pattern):
-            x, _ = _mix_train(cfg, gp[f"pos{j}"], x, kind)
+            x, _ = _mix_train(cfg, gp[f"pos{j}"], x, kind, enc_out)
         return x
 
     if cfg.n_groups:
         for gp in _group_params(cfg, params):
-            x = (checkpoint(group, x, gp, use_reentrant=False) if remat
-                 else group(x, gp))
+            x = (checkpoint(group, x, gp, enc_out, use_reentrant=False)
+                 if remat else group(x, gp, enc_out))
     for j, kind in enumerate(cfg.remainder):
-        x, _ = _mix_train(cfg, params["rem"][f"pos{j}"], x, kind)
+        x, _ = _mix_train(cfg, params["rem"][f"pos{j}"], x, kind, enc_out)
     return apply_norm(cfg, params.get("final_norm", {}), x)
 
 
 def _stack_caches(caches):
-    """Per-group caches (each a (k, v) tuple or an {"h", "conv"} dict)
-    stacked leaf by leaf on a new leading axis."""
+    """Per-group caches (each a (k, v) tuple, an {"h", "conv"} dict or
+    an encoder-decoder's ((k, v), (k_x, v_x))) stacked leaf by leaf on a
+    new leading axis."""
     first = caches[0]
     if isinstance(first, tuple):
-        return tuple(torch.stack(leaf) for leaf in zip(*caches))
-    return {k: torch.stack([c[k] for c in caches]) for k in first}
+        return tuple(_stack_caches(list(leaf)) for leaf in zip(*caches))
+    if isinstance(first, dict):
+        return {k: _stack_caches([c[k] for c in caches]) for k in first}
+    return torch.stack(caches)
 
 
 @torch.no_grad()
-def forward_prefill(cfg, params, tokens):
+def forward_prefill(cfg, params, tokens, extra=None):
     """Full-sequence forward that also returns every layer's cache:
-    tokens [B, S] -> (hidden [B, S, d], caches).
+    tokens [B, S] (and ``extra`` as for :func:`forward_train`) ->
+    (hidden [B, S', d], caches).
 
     ``caches["pos{j}"]`` stacks pattern position j's caches over the
     groups, as the reference's ``lax.scan`` stacks them: attention
-    layers dense (k, v) of [n_groups, B, S, KH, hd], recurrent layers
-    their final {"h", "conv"} of [n_groups, B, ...];
-    ``caches["rem{j}"]`` the remainder layers' with a leading axis of
-    1.  :func:`repro_torch.models.decode_init.load_prefill` scatters
-    them into a decode state.  No autograd, no remat."""
+    layers dense (k, v) of [n_groups, B, S', KH, hd], recurrent layers
+    their final {"h", "conv"} of [n_groups, B, ...], an
+    encoder-decoder's layers ((k, v), (k_x, v_x)) with the cross K/V of
+    [n_groups, B, L, KH, hd]; ``caches["rem{j}"]`` the remainder
+    layers' with a leading axis of 1; ``caches["enc_out"]`` the
+    encoder's output [B, L, d].
+    :func:`repro_torch.models.decode_init.load_prefill` scatters them
+    into a decode state.  No autograd, no remat."""
     _check_slice(cfg)
-    x = embed_apply(params["embed"], tokens).to(cfg.tdtype)
+    x, enc_out = _embed_inputs(cfg, params, tokens, extra, remat=False)
     per_group = {f"pos{j}": [] for j in range(len(cfg.pattern))}
     if cfg.n_groups:
         for gp in _group_params(cfg, params):
             for j, kind in enumerate(cfg.pattern):
-                x, c = _mix_train(cfg, gp[f"pos{j}"], x, kind)
+                x, c = _mix_train(cfg, gp[f"pos{j}"], x, kind, enc_out)
                 per_group[f"pos{j}"].append(c)
     caches = {pos: _stack_caches(cs) for pos, cs in per_group.items() if cs}
     for j, kind in enumerate(cfg.remainder):
-        x, c = _mix_train(cfg, params["rem"][f"pos{j}"], x, kind)
+        x, c = _mix_train(cfg, params["rem"][f"pos{j}"], x, kind, enc_out)
         caches[f"rem{j}"] = _stack_caches([c])
+    if enc_out is not None:
+        caches["enc_out"] = enc_out
     return apply_norm(cfg, params.get("final_norm", {}), x), caches
 
 
@@ -260,9 +343,12 @@ class DecodeState(NamedTuple):
                  ids of each MoE layer slot's experts (w_gate, w_up,
                  w_down), NULL where not resident; changed only by
                  loads and evictions.  Both None without expert paging
-
-    The reference's encoder field belongs to layers a later slice of the
-    port brings in.
+    enc_kv:      an encoder-decoder's cross K/V, (k, v) [n_layers, DP,
+                 Bl, enc_len, KH, hd] in layer order, written by
+                 :func:`repro_torch.models.decode_init.load_prefill`;
+                 metered in a two-class pool as ``enc_len`` tokens a
+                 layer of CLS_STATE blocks (:func:`state_blocks_per_slot`).
+                 None for other models
     """
     kv_pages: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
     rings: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
@@ -273,6 +359,7 @@ class DecodeState(NamedTuple):
     state_tables: Optional[torch.Tensor] = None
     expert_pages: Optional[torch.Tensor] = None
     expert_tables: Optional[Dict[str, torch.Tensor]] = None
+    enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 class TensorDef(NamedTuple):
@@ -330,18 +417,29 @@ def state_page_tokens(cfg) -> int:
     return max(1, cfg.page_size // 4)
 
 
+def enc_layers_kv(cfg) -> int:
+    """Decoder layers that keep cross K/V in ``enc_kv`` (an
+    encoder-decoder's pattern has one layer, so one a group)."""
+    return cfg.n_groups + len(cfg.remainder)
+
+
 def state_blocks_per_slot(cfg, max_len: int) -> int:
     """CLS_STATE blocks one slot's bounded state occupies, at
     :func:`state_page_tokens` granularity: a ring charges its window,
-    a recurrent layer one block.  The grants are real allocator traffic
-    that meters state kept in dense slot-indexed slabs, so admission
-    counts bounded state at its own granularity instead of rounding it
-    up to KV pages."""
+    a recurrent layer one block, an encoder-decoder's cross K/V its
+    ``enc_len`` tokens a decoder layer.  The grants are real allocator
+    traffic that meters state kept in dense slot-indexed slabs, so
+    admission counts bounded state at its own granularity instead of
+    rounding it up to KV pages."""
     psz_s = state_page_tokens(cfg)
     W = ring_window(cfg, max_len)
     per_kind = {"paged": 0, "ring": -(-W // psz_s), "rec": 1}
-    return (cfg.n_groups * sum(per_kind[_state_kind(k)] for k in cfg.pattern)
-            + sum(per_kind[_state_kind(k)] for k in cfg.remainder))
+    blocks = (cfg.n_groups * sum(per_kind[_state_kind(k)]
+                                 for k in cfg.pattern)
+              + sum(per_kind[_state_kind(k)] for k in cfg.remainder))
+    if cfg.arch_kind == "encdec":
+        blocks += enc_layers_kv(cfg) * -(-cfg.enc_len // psz_s)
+    return blocks
 
 
 def pool_class_specs(cfg, b_local: int, max_len: int,
@@ -408,7 +506,8 @@ def decode_state_defs(cfg, dp: int, b_local: int, max_len: int,
                       expert_budget: Optional[int] = None) -> DecodeState:
     """TensorDef tree of the decode state (pool leaves included); a
     three-class pool adds the expert pages and tables
-    (``expert_budget`` pages, :func:`pool_class_specs`)."""
+    (``expert_budget`` pages, :func:`pool_class_specs`), an
+    encoder-decoder its ``enc_kv``."""
     _check_slice(cfg)
     psz, KH, hd, dt = cfg.page_size, cfg.n_kv_heads, cfg.hd, cfg.tdtype
     max_pages = max(max_len // psz, 1)
@@ -458,6 +557,10 @@ def decode_state_defs(cfg, dp: int, b_local: int, max_len: int,
         expert_tables = {
             pos: TensorDef((cfg.n_groups if pos in pat else 1, dp, E,
                             EXPERT_PPE), I32) for pos in pat + rem}
+    enc_kv = None
+    if cfg.arch_kind == "encdec":
+        enc_kv = (TensorDef((enc_layers_kv(cfg), dp, b_local, cfg.enc_len,
+                             KH, hd), dt),) * 2
     return DecodeState(
         kv_pages=kv_pages, rings=rings, rec=rec,
         page_tables=TensorDef((dp, b_local, max_pages), I32),
@@ -465,7 +568,7 @@ def decode_state_defs(cfg, dp: int, b_local: int, max_len: int,
         pool=classed_pool.ClassedPool(
             classes=tuple(class_def(s) for s in specs)),
         state_tables=state_tables, expert_pages=expert_pages,
-        expert_tables=expert_tables)
+        expert_tables=expert_tables, enc_kv=enc_kv)
 
 
 # ======================================================= chunked decode path
@@ -647,14 +750,37 @@ def _ring_attn_chunk(q, k_ring, v_ring, k_chunk, v_chunk, idx: _RingIndex):
     return o.reshape(DP, Bl, T, H, hd)
 
 
+def _xattn_decode_chunk(cfg, lp, x, enc_kv_layer):
+    """Cross-attention of a chunk of decode tokens over one layer's
+    encoder K/V, plain torch ops as in the reference: x [DP, Bl, T, d],
+    enc_kv_layer (k, v) [DP, Bl, enc_len, KH, hd], no mask.  The scores
+    are an ``x.dtype`` product divided by sqrt(hd), then float32 for
+    the softmax, and P goes back to ``x.dtype`` before the product with
+    V: the reference's order, which in bf16 decides the tokens."""
+    DP, Bl, T, d = x.shape
+    H, hd, L = cfg.n_heads, cfg.hd, cfg.enc_len
+    h = apply_norm(cfg, lp["norm_x"], x)
+    q = torch.einsum("xbtd,dhk->xbthk", h, lp["xattn"]["wq"])
+    k, v = enc_kv_layer
+    ke = _expand_kv(k.reshape(DP * Bl, L, -1, hd), H)
+    ve = _expand_kv(v.reshape(DP * Bl, L, -1, hd), H)
+    qf = q.reshape(DP * Bl, T, H, hd)
+    s = torch.einsum("bthd,bkhd->bhtk", qf, ke) / (hd ** 0.5)
+    p = torch.softmax(s.float(), dim=-1)
+    o = torch.einsum("bhtk,bkhd->bthd", p.to(x.dtype), ve)
+    o = o.reshape(DP, Bl, T, H, hd)
+    return x + torch.einsum("xbthk,hkd->xbtd", o, lp["xattn"]["wo"])
+
+
 def _mix_decode_chunk(cfg, lp, x, kind: str, layer_state, idx: _StepIndex,
-                      expert_buf=None, expert_mask=None):
+                      expert_buf=None, expert_mask=None, enc_kv_layer=None):
     """One layer over a chunk of up to T tokens per sequence, x: [DP,
     Bl, T, d].  Attention layers write the chunk's K/V once (pages or
     ring) and attend in one call; recurrent layers run the chunk in one
-    scan-kernel launch from the carried state; then the FFN, where the
-    layer has one.  Returns (x, moe_meta): ``moe_meta`` is None for a
-    dense FFN, else ``(dropped [DP], routed [DP, E])``, the valid
+    scan-kernel launch from the carried state; an encoder-decoder's
+    layer then attends over its ``enc_kv_layer``; then the FFN, where
+    the layer has one.  Returns (x, moe_meta): ``moe_meta`` is None for
+    a dense FFN, else ``(dropped [DP], routed [DP, E])``, the valid
     assignments capacity dropped per shard and kept per expert.
 
     ``expert_buf`` (EXPERT_PPE tensors [E, d*d_ff], the layer's expert
@@ -692,6 +818,8 @@ def _mix_decode_chunk(cfg, lp, x, kind: str, layer_state, idx: _StepIndex,
                   st["h"], st["conv"], idx.lens.reshape(DP * Bl),
                   idx.tok_valid.reshape(DP * Bl, T))
         x = x + o.reshape(DP, Bl, T, d)
+    if "xattn" in lp and enc_kv_layer is not None:
+        x = _xattn_decode_chunk(cfg, lp, x, enc_kv_layer)
     moe_meta = None
     if "ffn" in lp:
         h2 = apply_norm(cfg, lp["norm2"], x).reshape(DP * Bl, T, d)
@@ -759,7 +887,9 @@ def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
     pages the pool denies, appends nothing.  The reference's
     ``lax.scan`` over layer groups is a Python loop over layers.
     ``verify`` routes paged attention through the verify kernel (K3),
-    as the engine does on a step where any lane carries drafts.
+    as the engine does on a step where any lane carries drafts.  An
+    encoder-decoder's layer i attends over row i of ``state.enc_kv``: a
+    group's layer g, a remainder layer n_groups + j.
     """
     _check_slice(cfg)
     DP, Bl, T = tokens.shape
@@ -803,7 +933,10 @@ def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
             meters["expert_prefetch_pages"] += (etabs[pos] >= 0).sum(
                 (0, 2, 3), dtype=I32)
 
-    def layer(lp, pos, g, kind, x):
+    def layer(lp, pos, g, kind, x, i):
+        enc = None
+        if state.enc_kv is not None:
+            enc = (state.enc_kv[0][i], state.enc_kv[1][i])
         if pos in state.rec:
             ls = {n: t[g] for n, t in state.rec[pos].items()}
         else:
@@ -814,7 +947,7 @@ def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
             tab = etabs[pos][g]                          # [DP, E, PPE]
             ebuf = _gather_expert_pages(state.expert_pages, tab)
         x, meta = _mix_decode_chunk(cfg, lp, x, kind, ls, idx, ebuf,
-                                    expert_mask)
+                                    expert_mask, enc)
         if meta is not None:
             dropped, routed = meta
             meters["moe_dropped"] += dropped
@@ -831,9 +964,10 @@ def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
     for g in range(cfg.n_groups):
         for j, kind in enumerate(cfg.pattern):
             lp = tree_map(lambda a: a[g], params["groups"][f"pos{j}"])
-            x = layer(lp, f"pos{j}", g, kind, x)
+            x = layer(lp, f"pos{j}", g, kind, x, g)
     for j, kind in enumerate(cfg.remainder):
-        x = layer(params["rem"][f"pos{j}"], f"rem{j}", 0, kind, x)
+        x = layer(params["rem"][f"pos{j}"], f"rem{j}", 0, kind, x,
+                  cfg.n_groups * len(cfg.pattern) + j)
 
     state = state._replace(seq_lens=base + lens)
     return apply_norm(cfg, params.get("final_norm", {}), x), state, meters

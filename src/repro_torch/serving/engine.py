@@ -2,7 +2,10 @@
 
 Counterpart of the JAX package's ``serving/engine.py``: greedy or
 sampled serving on one device, DP kept as a leading axis, of paged,
-ring and recurrent decoders with dense or MoE FFNs over one, two or
+ring and recurrent decoders with dense or MoE FFNs, VLMs and
+encoder-decoders (whose cross K/V a two-class pool meters as CLS_STATE
+blocks; the engine takes no encoder input, so an encoder-decoder's
+slots decode over zero cross K/V, as in the reference) over one, two or
 three size classes (paged KV, the fine bounded-state class, and the
 read-only expert-weight class of expert-paged MoE serving), with prefix
 sharing from live donors and from pinned prefixes, preemption,
@@ -502,10 +505,11 @@ class ServingEngine:
         self._spec_T = self.draft_len + 1
         # prefix sharing from live donors: sound only when the whole
         # decode state is paged (a ring or recurrent layer would need the
-        # donor's state at the match point)
+        # donor's state at the match point, an encoder-decoder the
+        # donor's cross K/V)
         self.prefix_cache = None
         if (prefix_sharing and self.state.kv_pages and not self.state.rings
-                and not self.state.rec):
+                and not self.state.rec and self.state.enc_kv is None):
             self.prefix_cache = PrefixCache(cfg.page_size)
         # speculative decoding over shared prefixes, under the same
         # condition (a rejected draft rolls back pages and seq_lens, but

@@ -58,6 +58,38 @@ def rglru_fan_in(cfg, params):
     return {**params, "groups": groups}
 
 
+def extra_inputs(cfg, rng, B):
+    """A VLM's image patch embeddings ``img_embeds`` [B, img_tokens, d]
+    or an encoder-decoder's frame embeddings ``enc_embeds`` [B, enc_len,
+    d], float32 numpy from ``rng`` (empty for a decoder)."""
+    if cfg.arch_kind == "vlm":
+        return {"img_embeds": rng.randn(B, cfg.img_tokens, cfg.d_model)
+                .astype(np.float32)}
+    if cfg.arch_kind == "encdec":
+        return {"enc_embeds": rng.randn(B, cfg.enc_len, cfg.d_model)
+                .astype(np.float32)}
+    return {}
+
+
+def run_main(mod, argv, monkeypatch, jparams=None):
+    """Run one package's serve ``main`` and keep every request it builds;
+    ``jparams`` (numpy) replace the port's own draw, bridged."""
+    from repro_torch.bridge import params_from_numpy
+
+    made = []
+    base = mod.Request
+
+    def request(*a, **kw):
+        made.append(base(*a, **kw))
+        return made[-1]
+
+    monkeypatch.setattr(mod, "Request", request)
+    if jparams is not None:
+        monkeypatch.setattr(mod, "init_params", lambda c, seed, device:
+                            params_from_numpy(jparams, device))
+    return mod.main(argv), made
+
+
 # --------------------------------------------------- engine parity harness
 
 #: counters that read the wall clock (the step watchdog)

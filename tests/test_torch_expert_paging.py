@@ -29,7 +29,7 @@ import torch
 
 import _torch_helpers  # noqa: F401  (caps torch's CPU threads)
 from _torch_helpers import (TIMING, _engine, assert_engines_equal,
-                            assert_pools_equal, engine_setup)
+                            assert_pools_equal, engine_setup, run_main)
 from repro.core import classed_pool as jpool
 from repro.core import refpool
 from repro.launch import serve as jserve
@@ -403,22 +403,6 @@ def test_recovery_clears_the_expert_plane():
     assert classed_pool.live_per_shard(eng.state.pool, 2).sum() == 0
 
 
-def _main(mod, argv, monkeypatch, jparams=None):
-    """Run one package's ``main`` and keep every request it builds."""
-    made = []
-    base = mod.Request
-
-    def request(*a, **kw):
-        made.append(base(*a, **kw))
-        return made[-1]
-
-    monkeypatch.setattr(mod, "Request", request)
-    if jparams is not None:
-        monkeypatch.setattr(mod, "init_params", lambda c, seed, device:
-                            params_from_numpy(jparams, device))
-    return mod.main(argv), made
-
-
 @pytest.mark.parametrize("budget", ["12", "0"])
 def test_serve_main_expert_paging_matches_reference(monkeypatch, capsys,
                                                     budget):
@@ -435,9 +419,9 @@ def test_serve_main_expert_paging_matches_reference(monkeypatch, capsys,
         return [ln for ln in capsys.readouterr().out.splitlines()
                 if ln.startswith("expert paging:")]
 
-    je, jreqs = _main(jserve, argv, monkeypatch)
+    je, jreqs = run_main(jserve, argv, monkeypatch)
     jline = expert_line()
-    te, treqs = _main(tserve, argv + ["--device", "cpu"], monkeypatch,
+    te, treqs = run_main(tserve, argv + ["--device", "cpu"], monkeypatch,
                       jax.tree.map(np.asarray, _setup()[1]))
     tline = expert_line()
     assert tline == jline and len(tline) == 1

@@ -60,6 +60,8 @@ def _close(got, want, tol=TOL):
     (2, 4, 2, 64, 16, True),            # the smoke configs
     (1, 4, 1, 77, 64, True),            # ragged S, G = 4
     (1, 8, 2, 33, 128, False),
+    (1, 4, 4, 70, 96, True),            # phi-3-vision's hd
+    (2, 6, 6, 40, 64, False),           # an encoder's layer
 ])
 def test_plain_and_cpu_path_vs_reference_oracle(B, H, KH, S, hd, causal):
     q, k, v = _inputs(S + H, B, H, KH, S, hd)
@@ -253,8 +255,10 @@ def test_delta_vs_reference_oracle(causal):
     (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 96, "mma"),
     (torch.float32, 128, "f32"),
     (torch.float32, 16, "f32"),
+    (torch.float32, 96, "f32"),
 ])
 def test_forward_route_by_dtype_and_hd(dtype, hd, route):
     assert ops.forward_route(dtype, hd) == route
@@ -284,6 +288,15 @@ def test_backward_bound_at_the_training_shape():
 ])
 def test_backward_route_by_dtype_and_hd(dtype, hd, route):
     assert ops.backward_route(dtype, hd) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_backward_route_raises_at_hd_96(dtype):
+    """hd 96 (phi-3-vision) has a forward kernel and no backward one
+    yet: the backward's dispatcher raises instead of falling back."""
+    assert 96 in ops.HEAD_DIMS and 96 not in ops.BWD_HEAD_DIMS
+    with pytest.raises(NotImplementedError, match="hd 96"):
+        ops.backward_route(dtype, 96)
 
 
 @pytest.mark.parametrize("B,H,KH,S,hd,causal", [

@@ -492,6 +492,10 @@ def _qkv(rng, B, H, KH, S, hd, dtype, grad=False):
     (torch.bfloat16, 2, 4, 1, 77, 16, False),
     (torch.bfloat16, 2, 4, 2, 77, 128, True),      # ragged, wgmma
     (torch.bfloat16, 2, 4, 1, 200, 64, False),
+    (torch.bfloat16, 1, 32, 32, 640, 96, True),    # phi-3-vision, mma
+    (torch.bfloat16, 2, 4, 2, 77, 96, False),      # ragged, hd 96
+    (torch.float32, 2, 4, 2, 77, 96, True),
+    (torch.bfloat16, 1, 6, 6, 1500, 64, False),    # whisper's encoder
 ])
 def test_flash_attention_kernel_vs_plain(card, dtype, B, H, KH, S, hd,
                                          causal):

@@ -4,12 +4,15 @@
 (DP = 2, B_local = 2): per-position logits within 1e-4, page tables,
 ``seq_lens`` and every pool leaf exactly equal, step after step.  Also
 the reference's own chunk-vs-single-token contract on the port, pool
-denial, and the parameter tree of ``init_params``.
+denial, the parameter tree of ``init_params`` (the encoder-decoder's
+and the VLM's too) and what the port still refuses.
 """
 
 import pytest
 
 pytest.importorskip("torch")   # the port's tests need PyTorch
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -135,7 +138,8 @@ def test_pool_denial_appends_nothing():
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "llama3.2-1b", "mamba2-370m",
                                   "recurrentgemma-2b", "gemma3-27b",
-                                  "mixtral-8x7b"])
+                                  "mixtral-8x7b", "whisper-tiny",
+                                  "phi-3-vision-4.2b"])
 def test_param_tree_matches_reference(arch):
     """The port's parameter tree has the reference's keys, shapes and
     dtypes: at full width from the definitions alone (nothing is
@@ -164,9 +168,16 @@ def test_param_tree_matches_reference(arch):
 
 
 def test_slice_rejects_other_layer_kinds():
-    with pytest.raises(NotImplementedError):          # encoder-decoder
-        tmodel.init_params(t_smoke_config(t_get_config("whisper-tiny")),
-                           device="cpu")
+    """What the port still refuses: a layer kind outside global, local,
+    ssd and rglru, and an encoder-decoder whose pattern is longer than
+    one layer (its ``enc_kv`` is indexed by pattern group)."""
+    whisper = t_smoke_config(t_get_config("whisper-tiny"))
+    for cfg in (dataclasses.replace(whisper, pattern=("global", "local"),
+                                    window=16),
+                dataclasses.replace(t_smoke_config(t_get_config("olmo-1b")),
+                                    pattern=("conv",))):
+        with pytest.raises(NotImplementedError):
+            tmodel.init_params(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["ln_nonparam", "rmsnorm", "apply_rope",

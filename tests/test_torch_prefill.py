@@ -1,27 +1,32 @@
 """The port's prefill path against the reference's, on bridged weights.
 
-For each of the eight configurations the port's decoders cover (smoke
-sizes, float32; the two MoE ones at no-drop capacity, as the
-reference's ``test_prefill_decode_consistency`` sets them): a 37-token
-prompt on 4 sequences (past the 32-token smoke window, so rings wrap,
-and not a whole number of 8-token pages) through ``prefill``, then
-``load_prefill`` into an empty decode state of DP 2 x B_local 2, then
-3 decode steps.
+For each of the ten configurations (smoke sizes, float32; the two MoE
+ones at no-drop capacity, as the reference's
+``test_prefill_decode_consistency`` sets them): a 37-token prompt on 4
+sequences (past the 32-token smoke window, so rings wrap, and not a
+whole number of 8-token pages) through ``prefill``, with seeded image
+patch embeddings before it (phi-3-vision) or frame embeddings through
+the encoder (whisper-tiny), then ``load_prefill`` into an empty decode
+state of DP 2 x B_local 2, then 3 decode steps.
 
 - ``forward_prefill``'s hidden states and every cache within ``TOL``
   of the reference's;
 - ``load_prefill``'s page tables, ``seq_lens`` and every pool leaf
-  exactly the reference's; KV pages, rings and recurrent state within
-  ``TOL``, the port's sink page and sink ring slot left zero;
+  exactly the reference's; KV pages, rings, recurrent state and
+  ``enc_kv`` within ``TOL``, the port's sink page and sink ring slot
+  left zero;
 - prefill and decode logits within 2e-3 of the port's own one-shot
   ``forward_train`` (the reference test's bound) and within ``TOL`` of
   the reference's decode logits.
 
-``TOL`` is 1e-4 of a tensor's scale.  recurrentgemma-2b's weights are
-the reference's draw rescaled to each layer's own fan-in
-(``_torch_helpers.rglru_fan_in``, which says why).
+``TOL`` is 1e-4 of a tensor's scale, whisper-tiny's 1e-3: a one-ulp
+change of every weight moves the reference's own whisper hidden states
+by more than 1e-4 of their scale
+(``test_torch_encdec.py::test_encdec_float32_noise_floor``).
+recurrentgemma-2b's weights are the reference's draw rescaled to each
+layer's own fan-in (``_torch_helpers.rglru_fan_in``, which says why).
 ``count_active_params`` against the reference's at full width for the
-same eight.
+same ten.
 """
 
 import pytest
@@ -35,7 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_helpers import assert_pools_equal, rglru_fan_in
+from _torch_helpers import assert_pools_equal, extra_inputs, rglru_fan_in
 from repro import models as jmodels
 from repro.configs import get_config, smoke_config
 from repro.models.decode_init import empty_decode_state as j_empty
@@ -52,8 +57,10 @@ from repro_torch.models.transformer import forward_prefill, forward_train
 
 ARCHS = ["olmo-1b", "llama3.2-1b", "phi4-mini-3.8b", "gemma3-27b",
          "llama4-maverick-400b-a17b", "mixtral-8x7b", "mamba2-370m",
-         "recurrentgemma-2b"]
+         "recurrentgemma-2b", "whisper-tiny", "phi-3-vision-4.2b"]
 TOL = 1e-4
+#: above the float32 noise floor (see the module's docstring)
+ARCH_TOL = {"whisper-tiny": 1e-3}
 B, T0, T1, DP, BL, MAX_LEN = 4, 37, 4, 2, 2, 64
 
 j_decode = jax.jit(jmodels.decode_step, static_argnums=0)
@@ -99,28 +106,34 @@ def _caches_close(got, want, tol, what):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_load_and_decode_match_reference(arch):
     cfg, params, tcfg, tparams = _setup(arch)
-    tol = TOL
+    tol = ARCH_TOL.get(arch, TOL)
     rng = np.random.RandomState(1)
     toks = rng.randint(1, cfg.vocab, (B, T0 + T1)).astype(np.int32)
     ttoks = torch.from_numpy(toks)
+    extra = extra_inputs(cfg, rng, B)
+    jextra = {k: jnp.asarray(v) for k, v in extra.items()}
+    textra = {k: torch.from_numpy(v) for k, v in extra.items()}
+    img = cfg.img_tokens if "img_embeds" in extra else 0
+    plen = T0 + img
 
     # forward_prefill: hidden states and caches
-    x, caches = jax.jit(lambda p, t: j_forward_prefill(cfg, p, t))(
-        params, jnp.asarray(toks[:, :T0]))
-    tx, tcaches = forward_prefill(tcfg, tparams, ttoks[:, :T0])
+    x, caches = jax.jit(lambda p, t, e: j_forward_prefill(cfg, p, t, e))(
+        params, jnp.asarray(toks[:, :T0]), jextra)
+    tx, tcaches = forward_prefill(tcfg, tparams, ttoks[:, :T0], textra)
     _close(tx, x, tol, f"{arch} hidden")
     assert set(tcaches) == set(caches), (set(tcaches), set(caches))
     for pos in caches:
         _caches_close(tcaches[pos], caches[pos], tol, f"{arch} {pos}")
 
     # load_prefill: integer state exact, payloads close, sinks zero
-    jlogits, jcaches = jax.jit(lambda p, t: jmodels.prefill(
-        cfg, p, {"tokens": t}))(params, jnp.asarray(toks[:, :T0]))
-    tlogits, tcaches = tmodel.prefill(tcfg, tparams, {"tokens":
-                                                      ttoks[:, :T0]})
-    jstate = j_load(cfg, j_empty(cfg, DP, BL, MAX_LEN), jcaches, T0)
+    jlogits, jcaches = jax.jit(lambda p, t, e: jmodels.prefill(
+        cfg, p, {"tokens": t, **e}))(params, jnp.asarray(toks[:, :T0]),
+                                     jextra)
+    tlogits, tcaches = tmodel.prefill(tcfg, tparams,
+                                      {"tokens": ttoks[:, :T0], **textra})
+    jstate = j_load(cfg, j_empty(cfg, DP, BL, MAX_LEN), jcaches, plen)
     tstate = t_load(tcfg, t_empty(tcfg, DP, BL, MAX_LEN, device="cpu"),
-                    tcaches, T0)
+                    tcaches, plen)
     assert np.array_equal(tstate.page_tables.numpy(),
                           np.asarray(jstate.page_tables))
     assert np.array_equal(tstate.seq_lens.numpy(),
@@ -140,12 +153,18 @@ def test_prefill_load_and_decode_match_reference(arch):
         for name in st:
             _close(tstate.rec[pos][name], st[name], tol,
                    f"{arch} rec {pos}.{name}")
+    assert (tstate.enc_kv is None) == (jstate.enc_kv is None)
+    if jstate.enc_kv is not None:
+        assert not any(bool(t.any()) for t in t_empty(
+            tcfg, DP, BL, MAX_LEN, device="cpu").enc_kv)
+        for i, (got, want) in enumerate(zip(tstate.enc_kv, jstate.enc_kv)):
+            _close(got, want, tol, f"{arch} enc_kv[{i}]")
     assert tstate.state_tables is None and tstate.expert_tables is None
 
     # decode: against the one-shot forward and the reference's logits
     with torch.no_grad():
         full = logits_apply(tcfg, tparams["embed"], forward_train(
-            tcfg, tparams, ttoks, remat=False))
+            tcfg, tparams, ttoks, textra, remat=False)[:, img:])
     errs = [float((tlogits - full[:, T0 - 1]).abs().max())]
     _close(tlogits, jlogits, tol, f"{arch} prefill logits")
     for t in range(T1 - 1):

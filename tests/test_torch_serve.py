@@ -19,11 +19,10 @@ import jax
 import numpy as np
 
 import _torch_helpers  # noqa: F401  (caps torch's CPU threads)
-from _torch_helpers import TIMING
+from _torch_helpers import TIMING, run_main
 from repro import models as jmodels
 from repro.configs import get_config, smoke_config
 from repro.launch import serve as jserve
-from repro_torch.bridge import params_from_numpy
 from repro_torch.launch import serve as tserve
 from repro_torch.serving.telemetry import parse_prom
 from repro_torch.serving.trace import validate_chrome
@@ -36,22 +35,6 @@ def jparams():
                         jmodels.init_params(cfg, jax.random.PRNGKey(0)))
 
 
-def _main(mod, argv, monkeypatch, jparams=None):
-    """Run one package's ``main`` and keep every request it builds."""
-    made = []
-    base = mod.Request
-
-    def request(*a, **kw):
-        made.append(base(*a, **kw))
-        return made[-1]
-
-    monkeypatch.setattr(mod, "Request", request)
-    if jparams is not None:
-        monkeypatch.setattr(mod, "init_params", lambda c, seed, device:
-                            params_from_numpy(jparams, device))
-    return mod.main(argv), made
-
-
 @pytest.mark.parametrize("extra", [
     ["--pin-pages", "8", "--page-budget", "6", "--interactive-frac", "0.5",
      "--hot-prefix", "8"],
@@ -62,8 +45,8 @@ def _main(mod, argv, monkeypatch, jparams=None):
 ])
 def test_main_matches_reference_main(jparams, monkeypatch, extra):
     argv = ["--smoke"] + extra
-    je, jreqs = _main(jserve, argv, monkeypatch)
-    te, treqs = _main(tserve, argv + ["--device", "cpu"], monkeypatch,
+    je, jreqs = run_main(jserve, argv, monkeypatch)
+    te, treqs = run_main(tserve, argv + ["--device", "cpu"], monkeypatch,
                       jparams)
     assert all(r.done for r in treqs) and len(treqs) == len(jreqs)
     assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
@@ -101,9 +84,9 @@ def test_fault_schedule_matches_reference_main(jparams, monkeypatch,
         return [ln for ln in capsys.readouterr().out.splitlines()
                 if ln.startswith("[chaos]")]
 
-    je, _ = _main(jserve, argv, monkeypatch)
+    je, _ = run_main(jserve, argv, monkeypatch)
     jlines = chaos_lines()
-    te, _ = _main(tserve, argv + ["--device", "cpu"], monkeypatch, jparams)
+    te, _ = run_main(tserve, argv + ["--device", "cpu"], monkeypatch, jparams)
     tlines = chaos_lines()
     assert tlines == jlines and len(tlines) == 4
     assert "drained clean: 12 finished" in tlines[-1]
@@ -122,7 +105,7 @@ def test_telemetry_outputs(jparams, monkeypatch, tmp_path):
     monkeypatch.setattr(tserve, "install_signal_dump", lambda flight: None)
     prom, trace, flight = (tmp_path / n for n in ("m.prom", "t.json",
                                                   "f.json"))
-    te, _ = _main(tserve, [
+    te, _ = run_main(tserve, [
         "--smoke", "--device", "cpu", "--requests", "6", "--max-new", "4",
         "--pin-pages", "8", "--hot-prefix", "8", "--metrics-path",
         str(prom), "--trace-path", str(trace), "--flight-recorder",

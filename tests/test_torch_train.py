@@ -273,10 +273,19 @@ def test_param_count_and_shapes_match_reference(arch):
 
 
 def test_forward_train_raises_outside_the_decoders():
-    """An encoder-decoder configuration is outside the port's slices."""
-    tcfg = t_smoke_config(t_get_config("whisper-tiny"))
-    with pytest.raises(NotImplementedError, match="decoders"):
-        forward_train(tcfg, {}, torch.ones((1, 8), dtype=torch.int32))
+    """An encoder-decoder of pattern length 2 and an unknown layer kind
+    are outside what the port covers; whisper-tiny without its frame
+    embeddings raises too."""
+    whisper = t_smoke_config(t_get_config("whisper-tiny"))
+    toks = torch.ones((1, 8), dtype=torch.int32)
+    for cfg in (dataclasses.replace(whisper, pattern=("global", "global")),
+                dataclasses.replace(whisper, arch_kind="decoder",
+                                    pattern=("attn",))):
+        with pytest.raises(NotImplementedError, match="pattern length 1"):
+            forward_train(cfg, {}, toks)
+    params = tmodel.init_params(whisper, device="cpu")
+    with pytest.raises(ValueError, match="enc_embeds"):
+        forward_train(whisper, params, toks)
 
 
 def _opt_case(rng, step):
