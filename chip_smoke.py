@@ -110,7 +110,9 @@ Phases, each printed on its own line (any failure fails the run):
    tensor-core operations and the sequential form's float32
    operations as bounds; K5's tma route beside its seq kernel on the
    same inputs at T = 1, 2, 4, 8, 16 and 64, which sets
-   LRU_TMA_MIN_S), and print both families' end-to-end rates;
+   LRU_TMA_MIN_S), serve phase 5's workload on mamba2-370m once with K4
+   on its fma kernel and once on its wgmma route, and print both
+   families' end-to-end rates;
 12. the training path: olmo-1b at full depth and width (bf16
    parameters, float32 AdamW state), one micro-batch of 4 sequences of
    2048 tokens from ``TokenStream``, a warm-up step and 5 steps of
@@ -141,9 +143,9 @@ Phases, each printed on its own line (any failure fails the run):
    within 1e-4 of the logit scale);
 15. time K2 (its tma route, with splits of 1, 2, 4 and 8 pages, and
    its present fma kernel) and K1 at T = 1 on the same inputs beside
-   K2's bound, its plain version and SDPA; serve phase 5's workload with decode-only
-   steps through K1 and through K2 in turns (K1, K2, K2, K1); print the
-   kernels line (K1-K6; K4's and K5's routes, and K6's forward and
+   K2's bound, its plain version and SDPA; serve phase 5's workload
+   once each with decode-only steps through K1, through K2's tma route
+   and through its fma kernel; print the kernels line (K1-K6; K4's and K5's routes, and K6's forward and
    backward, on rows of their own);
 16. sampled serving and crash recovery at full width (olmo-1b, bf16
    unless said): (a) phase 5's workload with three requests in four
@@ -246,7 +248,30 @@ Phases, each printed on its own line (any failure fails the run):
    64) and K2 at its serving width, each beside its bound, its plain
    version and SDPA.
 
-``--profile`` serves the workloads of phases 5, 9 and 10 again, and
+20. the DP allocation plane, one rank per DP shard
+   (``repro_torch.launch.mesh``), two ranks spawned with their own
+   process group: (a) phase 4's f32 olmo-1b smoke workload at dp 2 on
+   two ranks sharing the card over gloo: tokens, status rows and each
+   shard's page tables, seq_lens and pool leaves equal to the CPU
+   single-process engine's; (b) olmo-1b at full width on phase 5's
+   requests, dp 2 on the same ranks, 8 slots a shard: the ranks' host
+   state equal at the end, each shard conserved, never dry and empty
+   after the drain, one transfer and one collective a step, each rank's
+   K1 and K2 once a layer a step of their width (wgmma and tma routes),
+   the streams equal to the single-process dp 2 engine's on the card or
+   first different where its top-2 logit gap is within 6e-2 of the logit
+   scale; ms/step and tok/s of each rank (two ranks time-sharing one
+   card: a plumbing figure, not a scaling one) beside the single-process
+   engine's; (c) (b) again over nccl, one rank per card, where the run
+   was given two cards or more (CUDA_VISIBLE_DEVICES, else the host's;
+   otherwise it prints that nccl went unexercised); (d) olmo-1b in f32
+   at full width cut to two layers, on the ranks of (a): every stream
+   equal to the single-process dp 2 engine's token for token (K1 and K2
+   on their fma kernels).  (a) and (d) are the plane's correctness
+   gates; (b)'s bf16 near-tie allowance makes it a smoke check.
+
+Every phase prints its seconds.  ``--profile`` serves the workloads of
+phases 5, 9 and 10 again, and
 runs two more training steps in phases 12 and 18, under ``torch.profiler``,
 and prints where a step's time goes.  The last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the rest of the
@@ -272,8 +297,10 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-# one card: the first, unless the caller chose which
-os.environ.setdefault("CUDA_VISIBLE_DEVICES", "0")
+# the cards the caller gave this run (None: every card of the host):
+# main() runs on the first, and phase 20's ranks, which import this
+# module again, take theirs from the list
+CALLER_CARDS = os.environ.get("CUDA_VISIBLE_DEVICES")
 
 #: published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -1661,8 +1688,7 @@ def decode_route_ab(tengine, ops, cfg, seed, b_local, max_len, chunk,
     return route_ab("[15]", tengine, cfg, seed, b_local, max_len, chunk, smi,
                     {"K1": use(via_k1), "K2 (tma)": use(k2),
                      "K2 (fma)": use(via_fma), None: use(k2)},
-                    ("K1", "K2 (tma)", "K2 (fma)", "K2 (fma)", "K2 (tma)",
-                     "K1"))
+                    ("K1", "K2 (tma)", "K2 (fma)"))
 
 
 def top2_gap(cfg, params, context):
@@ -3868,6 +3894,366 @@ def serve_encdec_vlm(tengine, k6, ops, plain, counted, seed, smi, b_local,
     return out
 
 
+# --------------------------------------------------- phase 20: DP ranks
+
+def dp_smoke_run(tengine, cfg_smoke, seed, device, mesh=None):
+    """Phase 20 (a): phase 4's f32 smoke workload through the olmo-1b
+    smoke engine at dp 2 on ``device`` (one process, or a rank of
+    ``mesh``).  Returns tokens, status rows and the integer state of the
+    shards this process holds, on the CPU."""
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.model import init_params
+
+    params = tree_map(lambda a: a.to(device),
+                      init_params(cfg_smoke, seed=seed, device="cpu"))
+    eng = tengine.ServingEngine(cfg_smoke, params, dp=2, b_local=2,
+                                max_len=64, chunk_size=8, device=device,
+                                mesh=mesh)
+    rng = np.random.RandomState(seed)
+    reqs = [tengine.Request(i, prompt=list(rng.randint(
+        1, cfg_smoke.vocab, rng.randint(3, 30))), max_new_tokens=6)
+        for i in range(9)]
+    for r in reqs:
+        eng.submit(r)
+    eng.run(max_steps=500)
+    return dict(tokens=[r.out_tokens for r in reqs],
+                done=all(r.done for r in reqs), leak_free=eng.leak_free(),
+                status=[rec["status"] for rec in eng.flight.ring],
+                tables=eng.state.page_tables.cpu(),
+                seq_lens=eng.state.seq_lens.cpu(), pool=pool_state(eng),
+                steps=eng.stats["steps"], transfers=eng.host_transfers,
+                collectives=eng.collectives)
+
+
+def dp_full_run(tengine, counted, cfg, seed, b_local, max_len, chunk,
+                mesh=None):
+    """Phase 20 (b): olmo-1b at full width on phase 5's requests at dp 2,
+    ``b_local`` slots a shard, in one process or as a rank of ``mesh``.
+    The checks of phase 5 on the shards this process holds; returns the
+    run's numbers and streams."""
+    from repro_torch.core import classed_pool
+    from repro_torch.core.classed_pool import CLS_KV
+    from repro_torch.models.model import init_params
+
+    params = init_params(cfg, seed=seed, device="cuda")
+    eng = tengine.ServingEngine(cfg, params, dp=2, b_local=b_local,
+                                max_len=max_len, chunk_size=chunk,
+                                device="cuda" if mesh is None
+                                else mesh.device, mesh=mesh)
+    eng.submit(tengine.Request(10**6, prompt=[1] * (chunk + 1),
+                               max_new_tokens=3))
+    eng.run(max_steps=100)
+    reqs = make_requests(tengine, cfg, seed)
+    zero_counts(counted)
+    steps0, transfers0 = eng.stats["steps"], eng.host_transfers
+    colls0, tokens0 = eng.collectives, eng.stats["tokens_out"]
+    width1_0 = eng.stats["chunk_hist"].get(1, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        eng.submit(r)
+    eng.run(max_steps=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    steps = eng.stats["steps"] - steps0
+    decode_steps = eng.stats["chunk_hist"].get(1, 0) - width1_0
+    n_layers = sum(1 for k in cfg.layer_kinds if k == "global")
+    in_use = eng.blocks_in_use()
+    pool = eng.state.pool
+    free = classed_pool.free_per_shard(pool, CLS_KV).cpu().tolist()
+    live = classed_pool.live_per_shard(pool, CLS_KV).cpu().tolist()
+    return dict(
+        tokens=[r.out_tokens for r in reqs],
+        prompts=[list(r.prompt) for r in reqs],
+        done=all(r.done for r in reqs)
+        and [len(r.out_tokens) for r in reqs]
+        == [r.max_new_tokens for r in reqs],
+        steps=steps, decode_steps=decode_steps, n_layers=n_layers,
+        wall=wall, ms_step=1e3 * wall / steps,
+        tok_s=(eng.stats["tokens_out"] - tokens0) / wall,
+        launches=launches, k1_routes=dict(counted["K1"].routes),
+        k2_routes=dict(counted["K2"].routes),
+        transfers=eng.host_transfers - transfers0,
+        collectives=eng.collectives - colls0,
+        in_use=in_use, leak_free=eng.leak_free(),
+        conserved=all(f + lv == eng.pages_local
+                      for f, lv in zip(free, live)),
+        margin=eng.telemetry.never_dry_margin_min(),
+        host=eng.host_state(), pages_local=eng.pages_local)
+
+
+def dp_f32_config(cfg):
+    """Phase 20 (d): ``cfg`` in float32 at its full width, cut to two
+    layers."""
+    return dataclasses.replace(cfg, dtype="float32", n_layers=2)
+
+
+def dp_rank(rank, world, backend, init, out, seed, smoke, b_local, max_len,
+            chunk):
+    """Phase 20: one rank of the DP plane, in a process of its own
+    (spawned).  Joins the group through the file ``init``, runs (a) and
+    (d) when ``smoke`` and (b), and saves the results to
+    ``out/rank<rank>.pt``."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels.flash_attention import ops as k6
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.rg_lru import ops as k5
+    from repro_torch.kernels.ssd_scan import ops as k4
+    from repro_torch.kernels.verify_attention import ops as k3
+    from repro_torch.launch.mesh import make_dp_group
+    from repro_torch.serving import engine as tengine
+
+    group = make_dp_group(world, backend, "cuda",
+                          init_method=f"file://{init}", timeout_s=600)
+    counted = {"K1": ops.paged_attention_chunk, "K2": ops.paged_attention,
+               "K3": k3.verify_attention, "K4": k4.ssd_scan,
+               "K5": k5.rg_lru, "K6": k6.flash_attention,
+               "K6 backward": k6.flash_attention_bwd}
+    cfg = get_config("olmo-1b")
+    bus = getattr(torch.cuda.get_device_properties(group.device),
+                  "pci_bus_id", "?")
+    res = {"device": f"{group.device}, bus {bus}"}
+    if smoke:
+        res["a"] = dp_smoke_run(tengine, smoke_config(cfg), seed,
+                                group.device, group)
+    res["b"] = dp_full_run(tengine, counted, cfg, seed, b_local, max_len,
+                           chunk, group)
+    if smoke:
+        res["d"] = dp_full_run(tengine, counted, dp_f32_config(cfg), seed,
+                               b_local, max_len, chunk, group)
+    torch.save(res, Path(out) / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def caller_cards():
+    """The cards this run may use, in order: the caller's
+    CUDA_VISIBLE_DEVICES entries, or, where it named none, every card of
+    the host (nvidia-smi lists them all, and no mask hides one then)."""
+    if CALLER_CARDS is not None:
+        return [c.strip() for c in CALLER_CARDS.split(",") if c.strip()]
+    n = len(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines())
+    return [str(i) for i in range(n)]
+
+
+def spawn_ranks(tag, backend, seed, smoke, b_local, max_len, chunk,
+                visible, limit_s=300):
+    """Phase 20: two ranks of :func:`dp_rank` started together (the
+    ``spawn`` start method: this process holds a CUDA context), joined
+    under ``limit_s``, killed and failed past it.  ``visible`` is their
+    CUDA_VISIBLE_DEVICES, taken from the caller's cards
+    (:func:`caller_cards`).  Returns their results in rank order."""
+    import shutil
+    import torch.multiprocessing as mp
+
+    out = ROOT / "build" / f"dp_ranks_{backend}"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    ctx = mp.get_context("spawn")
+    env0 = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = visible
+    try:
+        procs = [ctx.Process(target=dp_rank, args=(
+            r, 2, backend, str(out / "pg"), str(out), seed, smoke, b_local,
+            max_len, chunk)) for r in range(2)]
+        for p in procs:
+            p.start()
+    finally:
+        if env0 is None:
+            del os.environ["CUDA_VISIBLE_DEVICES"]
+        else:
+            os.environ["CUDA_VISIBLE_DEVICES"] = env0
+    deadline = time.perf_counter() + limit_s
+    for p in procs:
+        p.join(max(deadline - time.perf_counter(), 1))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0, 0], f"{tag} both ranks exited 0 within {limit_s} s "
+                           f"({codes})")
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(2)]
+
+
+def serve_dp_ranks(tengine, counted, cfg, cfg_smoke, seed, b_local,
+                   max_len, chunk, smi):
+    """Phase 20: the DP allocation plane, one rank per DP shard.  (a)
+    phase 4's f32 smoke workload at dp 2 on two ranks sharing the card
+    over gloo equals the CPU single-process engine: tokens, status rows,
+    each shard's integer state; (b) olmo-1b at full width on phase 5's
+    requests, dp 2 on the same two ranks, ``b_local`` slots a shard: the
+    ranks' host state equal, conservation per shard, leak-free, one
+    transfer and one collective a step, each rank's K1/K2 launches once
+    a layer a step of their width, the streams the single-process dp 2
+    engine's on the card or first different at a near-tie; (c) (b) over
+    nccl, one rank per card, where the run was given two cards; (d) the
+    f32 model at full width and cut depth on the ranks of (a): every
+    stream the single-process dp 2 engine's exactly.  Returns the
+    numbers."""
+    t0 = time.perf_counter()
+    cpu = dp_smoke_run(tengine, cfg_smoke, seed, "cpu")
+    one = dp_full_run(tengine, counted, cfg, seed, b_local, max_len, chunk)
+    one_launches = dict(one["launches"])
+    check(cpu["done"] and one["done"] and one["leak_free"],
+          "[20] the single-process references finished and drained")
+    from repro_torch.models.model import init_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase(f"[20] single-process references: the CPU smoke engine and the "
+          f"card's dp 2 engine at full width in "
+          f"{time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    cfg32 = dp_f32_config(cfg)
+    one32 = dp_full_run(tengine, counted, cfg32, seed, b_local, max_len,
+                        chunk)
+    check(one32["done"] and one32["leak_free"],
+          "[20d] the single-process f32 reference finished and drained")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cards = caller_cards()
+    ranks = spawn_ranks("[20]", "gloo", seed, True, b_local, max_len, chunk,
+                        visible=cards[0])
+    phase(f"[20] two gloo ranks on {smi} ({ranks[0]['device']}; "
+          f"{ranks[1]['device']}; CUDA_VISIBLE_DEVICES {cards[0]}): "
+          f"spawned, served (a), (b) and (d), exited in "
+          f"{time.perf_counter() - t1:.1f} s")
+    for d, r in enumerate(ranks):
+        a = r["a"]
+        check(a["done"] and a["leak_free"], f"[20a] rank {d} drained")
+        check(a["tokens"] == cpu["tokens"] and a["status"] == cpu["status"],
+              f"[20a] rank {d}: tokens and status rows == the CPU engine's")
+        check(torch.equal(a["tables"], cpu["tables"][d:d + 1])
+              and torch.equal(a["seq_lens"], cpu["seq_lens"][d:d + 1])
+              and same_tensors(a["pool"], [t[d:d + 1] for t in cpu["pool"]]),
+              f"[20a] rank {d}: shard {d}'s page tables, seq_lens and pool "
+              f"leaves == the CPU engine's")
+        check(a["transfers"] == a["collectives"] == a["steps"],
+              f"[20a] rank {d}: one transfer and one collective a step")
+    phase(f"[20a] f32 smoke at dp 2 on two gloo ranks sharing {smi}: "
+          f"{len(cpu['tokens'])} requests, {cpu['steps']} steps, tokens, "
+          f"status rows and each shard's integer state == the CPU "
+          f"single-process engine's")
+
+    def check_full(tag, runs):
+        check(runs[0]["host"] == runs[1]["host"],
+              f"{tag} the ranks' host state (slot map, queues, ledgers, "
+              f"stats) equal at the end")
+        for d, b in enumerate(runs):
+            want = {"K1": b["n_layers"] * (b["steps"] - b["decode_steps"]),
+                    "K2": b["n_layers"] * b["decode_steps"]}
+            got = b["launches"]
+            check(b["done"], f"{tag} rank {d}: every request finished, "
+                             f"every budget generated")
+            check(all(got[k] == n > 0 for k, n in want.items())
+                  and sum(got.values()) == sum(want.values()),
+                  f"{tag} rank {d}: K1 and K2 once a layer a step of their "
+                  f"width, no other kernel ({got}, want {want})")
+            check(b["k1_routes"]["wgmma"] == got["K1"]
+                  and b["k2_routes"]["tma"] == got["K2"],
+                  f"{tag} rank {d}: K1 on wgmma, K2 on tma")
+            check(b["transfers"] == b["collectives"] == b["steps"],
+                  f"{tag} rank {d}: one transfer and one collective a step "
+                  f"({b['transfers']}, {b['collectives']}, {b['steps']})")
+            check(b["in_use"] == 0 and b["leak_free"] and b["conserved"]
+                  and b["margin"] is not None and b["margin"] >= 0,
+                  f"{tag} rank {d}: shard conserved (free + live == "
+                  f"{b['pages_local']}), never dry (margin {b['margin']}), "
+                  f"leak-free after the drain")
+        check(runs[0]["tokens"] == runs[1]["tokens"],
+              f"{tag} both ranks hold every stream")
+        return near_ties(tag, runs[0], one)
+
+    params = None
+
+    def near_ties(tag, got, ref):
+        """Streams equal to the single-process run's, or first different
+        where its top-2 logit gap is within 6e-2 of the logit scale."""
+        nonlocal params
+        same, ties = 0, []
+        for i, (a, b) in enumerate(zip(got["tokens"], ref["tokens"])):
+            if a == b:
+                same += 1
+                continue
+            if params is None:
+                params = init_params(cfg, seed=seed, device="cuda")
+            p = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            gap, scale = top2_gap(cfg, params, ref["prompts"][i] + b[:p])
+            check(gap <= 6e-2 * scale,
+                  f"{tag} stream {i} differs at token {p} where the "
+                  f"top-2 gap {gap:.4f} exceeds 6e-2 of the logit scale "
+                  f"{scale:.2f}")
+            ties.append((i, p, round(gap, 5)))
+        phase(f"{tag} {same} of {len(ref['tokens'])} streams == the "
+              f"single-process dp 2 engine's; near-ties (stream, token, "
+              f"top-2 gap): {ties}")
+        return same
+
+    same_b = check_full("[20b]", [r["b"] for r in ranks])
+    d32 = [r["d"] for r in ranks]
+    check(d32[0]["host"] == d32[1]["host"],
+          "[20d] the ranks' host state equal at the end")
+    for d, b in enumerate(d32):
+        check(b["done"] and b["tokens"] == one32["tokens"],
+              f"[20d] rank {d}: every stream == the single-process dp 2 "
+              f"engine's, token for token")
+        check(b["transfers"] == b["collectives"] == b["steps"]
+              and b["in_use"] == 0 and b["leak_free"] and b["conserved"],
+              f"[20d] rank {d}: one transfer and one collective a step, "
+              f"the shard conserved and empty after the drain")
+        check(b["launches"]["K1"] == b["n_layers"] * (b["steps"]
+                                                      - b["decode_steps"])
+              and b["launches"]["K2"] == b["n_layers"] * b["decode_steps"]
+              and b["k1_routes"].get("fma") == b["launches"]["K1"]
+              and b["k2_routes"].get("fma") == b["launches"]["K2"],
+              f"[20d] rank {d}: K1 and K2 on their fma kernels once a layer "
+              f"a step of their width ({b['launches']})")
+    phase(f"[20d] olmo-1b in f32 at full width, {cfg32.n_layers} layers, "
+          f"dp 2 on two gloo ranks sharing {smi}: {len(one32['tokens'])} "
+          f"streams over {d32[0]['steps']} steps == the single-process dp "
+          f"2 engine's, token for token; K1 {d32[0]['launches']['K1']}, "
+          f"K2 {d32[0]['launches']['K2']} a rank")
+    for d, r in enumerate(ranks):
+        b = r["b"]
+        phase(f"[20b] olmo-1b at dp 2, rank {d} of two gloo ranks "
+              f"time-sharing {smi} (a plumbing figure, not a scaling "
+              f"one): {b['steps']} steps ({b['decode_steps']} decode-only), "
+              f"{b['ms_step']:.2f} ms/step, {b['tok_s']:.1f} generated "
+              f"tok/s; K1 launches {b['launches']['K1']}, K2 launches "
+              f"{b['launches']['K2']}; transfers {b['transfers']}, "
+              f"collectives {b['collectives']}")
+    phase(f"[20b] single-process dp 2 engine on {smi}: {one['steps']} "
+          f"steps, {one['ms_step']:.2f} ms/step, {one['tok_s']:.1f} "
+          f"generated tok/s; K1 {one_launches['K1']}, K2 "
+          f"{one_launches['K2']}")
+    out = dict(a_steps=cpu["steps"], ranks=[r["b"] for r in ranks],
+               one=one, same=same_b, nccl=None)
+    if len(cards) >= 2:
+        t2 = time.perf_counter()
+        nccl = spawn_ranks("[20c]", "nccl", seed, False, b_local, max_len,
+                           chunk, visible=",".join(cards[:2]))
+        out["nccl"] = [r["b"] for r in nccl]
+        out["same_nccl"] = check_full("[20c]", out["nccl"])
+        for d, b in enumerate(out["nccl"]):
+            phase(f"[20c] olmo-1b at dp 2 over nccl, rank {d} on "
+                  f"{nccl[d]['device']}: {b['ms_step']:.2f} ms/step, "
+                  f"{b['tok_s']:.1f} generated tok/s; K1 "
+                  f"{b['launches']['K1']}, K2 {b['launches']['K2']}")
+        phase(f"[20c] nccl ranks in {time.perf_counter() - t2:.1f} s")
+    else:
+        phase(f"[20c] nccl unexercised: this run was given {len(cards)} "
+              f"card (NCCL refuses two ranks on one card)")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3875,6 +4261,8 @@ def main() -> int:
                     help="also serve the workload again under "
                          "torch.profiler and print where the time goes")
     args = ap.parse_args()
+    # one card, set before CUDA starts
+    os.environ["CUDA_VISIBLE_DEVICES"] = (CALLER_CARDS or "0").split(",")[0]
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
               "card", file=sys.stderr)
@@ -3899,6 +4287,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(n, what):
+        """A phase's seconds, on a line of its own."""
+        now = time.perf_counter()
+        phase(f"[{n}] {what} in {now - t_lap[0]:.1f} s")
+        t_lap[0] = now
 
     # [1] the card
     smi = subprocess.run(
@@ -3910,6 +4305,7 @@ def main() -> int:
     phase(f"[1] {smi}")
     phase(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{kind}, capability {torch.cuda.get_device_capability(0)}")
+    lap(1, "the card")
 
     # [2] build the kernels from this checkout's sources, in parallel
     t0 = time.perf_counter()
@@ -3925,6 +4321,7 @@ def main() -> int:
                 phase(f"[2] {stem}: {line.strip()}")
     phase(f"[2] built {', '.join(stems)} in {time.perf_counter() - t0:.1f} "
           f"s into {build.BUILD_DIR}")
+    lap(2, "the build")
 
     cfg = get_config("olmo-1b")
     cfg_smoke = smoke_config(cfg)
@@ -3985,6 +4382,7 @@ def main() -> int:
     err19 = check_encdec_kernels(k6, ops, plain, plain2,
                                  np.random.RandomState(args.seed + 24),
                                  b_local, maxp, P)
+    lap(3, "kernels against their plain versions")
 
     # [4] the engine on the card vs on the CPU, small input
     check_engine_vs_cpu(tengine, cfg_smoke, args.seed)
@@ -4005,6 +4403,7 @@ def main() -> int:
     for c in (cfg_smoke, mamba_smoke, rgemma_smoke):
         check_train_vs_cpu(c, args.seed)
         check_train_loop(c, args.seed)
+    lap(4, "the card against the CPU")
 
     # [5] the plain path at full width
     counted = {"K1": ops.paged_attention_chunk, "K2": ops.paged_attention,
@@ -4016,6 +4415,7 @@ def main() -> int:
         chunk, make_requests(tengine, cfg, args.seed),
         profile_reqs=make_requests(tengine, cfg, args.seed + 1)
         if args.profile else None)
+    lap(5, "the plain path at full width")
 
     # [6] K1 timings at the serving shapes: decode (T=1) at the contexts
     # the run reached, and a prefill chunk (T=64)
@@ -4043,10 +4443,12 @@ def main() -> int:
               f"{t['library_ms']:.4f} ms")
     phase(f"[6] end-to-end decode on {smi}: {run1['tok_s']:.1f} generated "
           f"tok/s")
+    lap(6, "K1 timings")
 
     # [7] the speculative path at full width
     spec = serve_speculative(tengine, k3, ops, cfg, args.seed, b_local,
                              max_len, chunk)
+    lap(7, "the speculative path")
 
     # [8] K3 timings: a verify step (T=5) of lanes past a shared
     # 512-token prompt, and a 64-token chunk after it
@@ -4087,6 +4489,7 @@ def main() -> int:
               f"{t['bytes']} B, distinct pages; {t['flops']} flop), plain "
               f"{t['plain_ms']:.4f} ms, library (SDPA, dense K/V) "
               f"{t['library_ms']:.4f} ms")
+    lap(8, "K3 timings")
 
     # [9], [10] the recurrent paths at full width: mamba2-370m (K4) and
     # recurrentgemma-2b (K5, and ring attention in plain torch ops)
@@ -4104,6 +4507,7 @@ def main() -> int:
         chunk, rgemma_requests(args.seed), size_classes=2,
         profile_reqs=rgemma_requests(args.seed + 1) if args.profile
         else None)
+    lap(10, "the recurrent paths at full width (phases 9 and 10)")
 
     # [11] K4 and K5 timings at the serving shapes: decode (T=1) and a
     # prefill chunk (T=64); bf16 activations as the model serves them
@@ -4200,11 +4604,11 @@ def main() -> int:
              {"K4 (fma)": k4_min_s(10 ** 9),
               wgmma_from: k4_min_s(k4.SCAN_WGMMA_MIN_S),
               None: k4_min_s(k4.SCAN_WGMMA_MIN_S)},
-             ("K4 (fma)", wgmma_from, wgmma_from, "K4 (fma)"),
-             size_classes=2)
+             ("K4 (fma)", wgmma_from), size_classes=2)
     for name, r in (("mamba2-370m", run4), ("recurrentgemma-2b", run5)):
         phase(f"[11] end-to-end {name} on {smi}: {r['tok_s']:.1f} generated "
               f"tok/s, {r['ms_step']:.2f} ms/step")
+    lap(11, "K4 and K5 timings and K4's routes in turns")
 
     # [12] the training path at full width, [13] K6 at its shape
     train = train_full_width(cfg, args.seed, counted, smi,
@@ -4225,10 +4629,12 @@ def main() -> int:
           f"flash_attention_bwd.cu) {t['present_ms']:.4f} ms (host "
           f"{t['present_host_ms']:.4f} ms a call); in turns wgmma, mma, "
           f"mma, wgmma: {', '.join(f'{x:.4f}' for x in t['turns_ms'])} ms")
+    lap(13, "training at full width and K6 timings (phases 12 and 13)")
 
     # [14] the serve entry point at full width, then preemption
     entry = serve_entry_point(counted, smi)
     preempting = check_preempting(tengine, counted, cfg, args.seed, smi)
+    lap(14, "the serve entry point and preemption")
 
     # [15] K2 and K1 at T = 1 on the same inputs (decode at contexts of
     # 96-1,087 tokens), beside K2's bound, plain version and SDPA
@@ -4280,24 +4686,20 @@ def main() -> int:
     phase(f"[15] end-to-end on {smi}: entry point {entry['tok_s']:.1f} "
           f"generated tok/s; preempting run (bf16) "
           f"{preempting['tokens_out'] / preempting['wall']:.1f} tok/s")
+    lap(15, "K2 timings and its routes in turns")
 
     # [16] sampled serving and crash recovery at full width
-    t16 = time.perf_counter()
     sampled = serve_sampled(tengine, counted, cfg, args.seed, b_local,
                             max_len, chunk, run1, smi)
     check_sampled_f32(tengine, k3, ops, counted, cfg, args.seed, b_local,
                       max_len, chunk, smi)
     chaos16 = serve_chaos_entry_point(counted, smi)
     check_crash_f32(tengine, cfg, args.seed, b_local, max_len, chunk, smi)
-    phase(f"[16] sampled serving and recovery in "
-          f"{time.perf_counter() - t16:.1f} s")
+    lap(16, "sampled serving and recovery")
     # [17] expert-paged MoE serving, mixtral-8x7b at full width
-    t17 = time.perf_counter()
     serve_moe(tengine, counted, args.seed, smi)
-    phase(f"[17] expert-paged MoE serving in "
-          f"{time.perf_counter() - t17:.1f} s")
+    lap(17, "expert-paged MoE serving")
     # [18] training and prefill of the recurrent decoders at full width
-    t18 = time.perf_counter()
     train18 = {c.name: train_recurrent_full_width(
         f"[18{x}]", c, args.seed, counted, smi, profile=args.profile)
         for x, c in (("a", mamba), ("b", rgemma))}
@@ -4311,14 +4713,15 @@ def main() -> int:
               f"logits within {prefill18[name]['err']:.3e} of the one-shot "
               f"forward, {prefill18[name]['same']} streams equal to the "
               f"engine's")
-    phase(f"[18] recurrent training and prefill in "
-          f"{time.perf_counter() - t18:.1f} s")
+    lap(18, "recurrent training and prefill")
     # [19] encoder-decoder and VLM serving at full width
-    t19 = time.perf_counter()
     r19 = serve_encdec_vlm(tengine, k6, ops, plain, counted, args.seed, smi,
                            b_local, maxp, P, chunk)
-    phase(f"[19] encoder-decoder and VLM serving in "
-          f"{time.perf_counter() - t19:.1f} s")
+    lap(19, "encoder-decoder and VLM serving")
+    # [20] the DP allocation plane: one rank per DP shard
+    r20 = serve_dp_ranks(tengine, counted, cfg, cfg_smoke, args.seed,
+                         b_local, max_len, chunk, smi)
+    lap(20, "the DP allocation plane on ranks")
     s16 = sampled["runs"][0]
     sampled_launches = {
         "K1": s16["launches"], "K2": s16["k2"],
@@ -4468,7 +4871,15 @@ def main() -> int:
     kernels[1]["whisper_tiny_launches"] = whisper19["k1_routes"]
     next(r for r in kernels if r["name"] == "flash_attention")[
         "whisper_tiny_launches"] = {r19["a"]["k6_route"]: r19["a"]["k6"]}
-    phase(f"[19] total {time.perf_counter() - t_start:.1f} s")
+    dp_launches = {f"rank{d}": {k: b["launches"][k] for k in ("K1", "K2")}
+                   for d, b in enumerate(r20["ranks"])}
+    for row_, key in ((kernels[0], "K2"), (kernels[1], "K1")):
+        row_["dp_ranks_launches"] = {
+            "gloo_one_card": {r: n[key] for r, n in dp_launches.items()},
+            "nccl": None if r20["nccl"] is None else {
+                f"rank{d}": b["launches"][key]
+                for d, b in enumerate(r20["nccl"])}}
+    phase(f"[20] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,26 +30,37 @@ Expert knobs (MoE archs): ``--expert-paging`` (or ``--size-classes
 ``--expert-budget N`` caps the resident expert pages per shard (0 =
 full residency), ``--expert-frac F`` restricts that fraction of the
 requests to a random half of the experts (the routing skew load-aware
-admission learns).  Expert paging needs ``--dp 1``.
+admission learns).  In one process expert paging needs ``--dp 1``; on
+ranks (below) each shard pages its own experts.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \\
       --smoke --device cpu --dp 1 --expert-paging --expert-budget 12 \\
       --expert-frac 0.5
 
-The port serves on one device: ``--mesh auto`` resolves to the
-single-device plane, DP kept as a leading axis, as the reference does
-when fewer than ``dp`` devices exist.
+The allocation plane: under ``torchrun`` (``WORLD_SIZE`` > 1) ``--mesh
+auto`` runs one rank per DP shard (:mod:`repro_torch.launch.mesh`) over
+``--dist-backend``: ``nccl`` with one rank per card, or ``gloo`` for CPU
+ranks and for ranks sharing one card.  Every rank serves the same
+trace; only rank 0 prints.  Fault injection under ranks is not ported
+yet.  In one process ``--mesh auto`` is the single-device plane, DP
+kept as a leading axis, as the reference does when fewer than ``dp``
+devices exist.
+
+  torchrun --nproc-per-node 2 -m repro_torch.launch.serve --dp 2 \\
+      --mesh auto --dist-backend nccl
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
 import torch
 
 from ..configs import get_config, smoke_config
+from .mesh import BACKENDS, make_dp_group
 from ..models.model import init_params
 from ..serving import chaos
 from ..serving.engine import Request, ServingEngine
@@ -106,7 +117,13 @@ def main(argv=None):
                     help="fraction of requests restricted to a random "
                          "half of the experts")
     ap.add_argument("--mesh", choices=("auto", "off"), default="auto",
-                    help="auto and off both serve on one device here")
+                    help="auto: one rank per DP shard under torchrun "
+                         "(WORLD_SIZE > 1), else one process; off: one "
+                         "process")
+    ap.add_argument("--dist-backend", choices=BACKENDS, default="nccl",
+                    help="the ranks' process-group backend: nccl (one "
+                         "rank per card) or gloo (CPU ranks, or ranks "
+                         "sharing the current card)")
     ap.add_argument("--inject-fault", default="", metavar="SPEC",
                     help="deterministic fault schedule, comma-joined "
                          "kind@step:phase[:extra] (serving/chaos.py)")
@@ -131,10 +148,24 @@ def main(argv=None):
         raise RuntimeError("serve: no CUDA device; pass --device cpu to "
                            "serve on the CPU")
 
+    ranks = int(os.environ.get("WORLD_SIZE", "1"))
+    group = None
+    if ranks > 1:
+        if args.mesh == "off":
+            raise SystemExit("serve: --mesh off runs one process; launch "
+                             "it without torchrun")
+        group = make_dp_group(args.dp, args.dist_backend, args.device)
+    lead = group is None or group.rank == 0
+
+    def say(*a, **kw):
+        if lead:
+            print(*a, **kw)
+
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke_config(cfg)
-    params = init_params(cfg, seed=0, device=args.device)
+    params = init_params(cfg, seed=0,
+                         device=group.device if group else args.device)
     buckets = tuple(int(b) for b in args.chunk_buckets.split(",") if b)
     faults = bool(args.inject_fault)
     journal = chaos.ServingJournal() if faults else None
@@ -144,8 +175,10 @@ def main(argv=None):
     def build():
         # a fresh recorder per build: recover_engine adopts the crashed
         # ring into it, so the forensic window spans the crash
-        flight = (FlightRecorder(path=args.flight_recorder or None,
-                                 sync_every=args.flight_sync)
+        path = args.flight_recorder or None
+        if path and not lead:
+            path = f"{path}.rank{group.rank}"
+        flight = (FlightRecorder(path=path, sync_every=args.flight_sync)
                   if args.flight_recorder or args.flight_sync else None)
         eng = ServingEngine(
             cfg, params, dp=args.dp, b_local=args.b_local,
@@ -157,15 +190,21 @@ def main(argv=None):
             sched=SchedConfig(pin_pages=args.pin_pages,
                               page_budget=args.page_budget,
                               chunk_buckets=buckets),
-            journal=journal, injector=injector, max_restarts=4,
-            tracer=tracer, flight=flight, device=args.device)
+            journal=journal, injector=injector,
+            max_restarts=0 if group else 4, tracer=tracer, flight=flight,
+            mesh=group, device=group.device if group else args.device)
         if args.flight_recorder:
             install_signal_dump(eng.flight)
         return eng
 
     engine = build()
-    print(f"allocation plane: single device ({engine.device}, dp="
-          f"{engine.dp} shards as a leading axis)")
+    if group is not None:
+        say(f"allocation plane: {group.size} ranks over {group.backend}, "
+            f"one DP shard each (rank 0 on {engine.device}), one status "
+            f"gather a step")
+    else:
+        say(f"allocation plane: single device ({engine.device}, dp="
+            f"{engine.dp} shards as a leading axis)")
 
     rng = np.random.RandomState(0)
     hot = list(rng.randint(1, cfg.vocab - 1, args.hot_prefix))
@@ -198,79 +237,79 @@ def main(argv=None):
         except chaos.HostCrash:
             crashes += 1
             engine, report = chaos.recover_engine(build, engine, journal)
-            print(f"[chaos] host crash #{crashes} at step "
-                  f"{injector.step}: reconciled {report['reclaimed']} "
-                  f"leaked pages, requeued {report['requeued']} "
-                  f"requests, restored {report['pins_restored']} pins "
-                  f"(never_dry={report['never_dry']})")
+            say(f"[chaos] host crash #{crashes} at step "
+                f"{injector.step}: reconciled {report['reclaimed']} "
+                f"leaked pages, requeued {report['requeued']} "
+                f"requests, restored {report['pins_restored']} pins "
+                f"(never_dry={report['never_dry']})")
     dt = time.time() - t0
     s = engine.stats
     lat = engine.latency_quantiles()
-    print(f"served {s['admitted']} requests, {s['tokens_out']} tokens in "
-          f"{s['steps']} engine steps ({dt:.1f}s, "
-          f"{s['tokens_out']/max(dt,1e-9):.1f} tok/s)")
-    print(f"latency p50={lat['p50_s']*1e3:.0f}ms p99={lat['p99_s']*1e3:.0f}ms "
-          f"(first token p50={lat['first_token_p50_s']*1e3:.0f}ms)")
-    print(f"host allocator worst-case op steps: {s['alloc_steps_max']} "
-          f"(O(1) — paper Result 1)")
+    say(f"served {s['admitted']} requests, {s['tokens_out']} tokens in "
+        f"{s['steps']} engine steps ({dt:.1f}s, "
+        f"{s['tokens_out']/max(dt,1e-9):.1f} tok/s)")
+    say(f"latency p50={lat['p50_s']*1e3:.0f}ms p99={lat['p99_s']*1e3:.0f}ms "
+        f"(first token p50={lat['first_token_p50_s']*1e3:.0f}ms)")
+    say(f"host allocator worst-case op steps: {s['alloc_steps_max']} "
+        f"(O(1) — paper Result 1)")
     ss = engine.scheduler.stats
-    print(f"scheduler: preemptions={s['preemptions']} "
-          f"deferred={ss['deferred']} rejected={ss['rejected']} "
-          f"pins created={s['pins_created']} "
-          f"hits={s['pin_hit_reqs']} evicted={ss['pins_evicted']}")
-    print(f"lane widths: {s['chunk_hist']} "
-          f"(buckets={engine.scheduler.buckets(engine.chunk)})")
+    say(f"scheduler: preemptions={s['preemptions']} "
+        f"deferred={ss['deferred']} rejected={ss['rejected']} "
+        f"pins created={s['pins_created']} "
+        f"hits={s['pin_hit_reqs']} evicted={ss['pins_evicted']}")
+    say(f"lane widths: {s['chunk_hist']} "
+        f"(buckets={engine.scheduler.buckets(engine.chunk)})")
     if engine.speculate:
         rate = s["spec_accepted"] / max(s["spec_drafted"], 1)
-        print(f"speculative: drafted={s['spec_drafted']} "
-              f"accepted={s['spec_accepted']} (rate={rate:.2f}) "
-              f"pages_rolled_back={s['spec_pages_rolled_back']} "
-              f"accept_hist={s['accept_hist']} "
-              f"gate_skips={s['spec_gate_skips']} "
-              f"mixed_steps={s['spec_mixed_steps']}")
+        say(f"speculative: drafted={s['spec_drafted']} "
+            f"accepted={s['spec_accepted']} (rate={rate:.2f}) "
+            f"pages_rolled_back={s['spec_pages_rolled_back']} "
+            f"accept_hist={s['accept_hist']} "
+            f"gate_skips={s['spec_gate_skips']} "
+            f"mixed_steps={s['spec_mixed_steps']}")
     occ = engine.shard_occupancy()
-    print(f"shard occupancy: mean={occ['pages_mean_shard']} "
-          f"peak={occ['pages_peak_shard']} pages per shard")
+    say(f"shard occupancy: mean={occ['pages_mean_shard']} "
+        f"peak={occ['pages_peak_shard']} pages per shard")
     if engine.expert_paging:
         hr = engine.telemetry.expert_hit_rate()
         dropped = int(engine.telemetry.shard["moe_dropped_tokens"].sum())
-        print(f"expert paging: budget={engine.expert_budget} pages/shard "
-              f"hit_rate={'n/a' if hr is None else f'{hr:.2f}'} "
-              f"loads={s['expert_load_pages']} "
-              f"evictions={s['expert_evictions']} "
-              f"resident_peak={s['expert_pages_resident_peak']} "
-              f"dropped_tokens={dropped}")
+        say(f"expert paging: budget={engine.expert_budget} pages/shard "
+            f"hit_rate={'n/a' if hr is None else f'{hr:.2f}'} "
+            f"loads={s['expert_load_pages']} "
+            f"evictions={s['expert_evictions']} "
+            f"resident_peak={s['expert_pages_resident_peak']} "
+            f"dropped_tokens={dropped}")
     engine.flush_pins()
     engine.flush_experts()
     if faults:
-        print(f"[chaos] fired={injector.log} crashes={crashes} "
-              f"shards_lost={sorted(engine.lost_shards)} "
-              f"retries={s['retries']} failed={s['failed']} "
-              f"deadline_expired={s['deadline_expired']}")
+        say(f"[chaos] fired={injector.log} crashes={crashes} "
+            f"shards_lost={sorted(engine.lost_shards)} "
+            f"retries={s['retries']} failed={s['failed']} "
+            f"deadline_expired={s['deadline_expired']}")
         assert not injector.pending(), (
             f"faults never reached: {injector.pending()}")
         assert engine.leak_free(), "pages leaked on surviving shards"
         assert not journal.in_flight(), (
             "requests neither finished nor failed")
-        print(f"[chaos] drained clean: {len(journal.finished())} "
-              f"finished, zero leaked pages on surviving shards")
+        say(f"[chaos] drained clean: {len(journal.finished())} "
+            f"finished, zero leaked pages on surviving shards")
     else:
-        print(f"page occupancy after drain+flush: "
-              f"{engine.page_occupancy():.4f}")
+        say(f"page occupancy after drain+flush: "
+            f"{engine.page_occupancy():.4f}")
     m = engine.telemetry.never_dry_margin_min()
-    print(f"never-dry margin (min over shards x steps): {m} "
-          f"(>= 0 proves §4.2 held with slack)")
-    if args.metrics_path:
+    say(f"never-dry margin (min over shards x steps): {m} "
+        f"(>= 0 proves §4.2 held with slack)")
+    if args.metrics_path and lead:
         with open(args.metrics_path, "w") as fh:
             fh.write(engine.telemetry.render_prom())
-        print(f"telemetry: prometheus snapshot -> {args.metrics_path}")
-    if args.trace_path:
+        say(f"telemetry: prometheus snapshot -> {args.metrics_path}")
+    if args.trace_path and lead:
         if args.trace_path.endswith(".jsonl"):
             engine.tracer.write_jsonl(args.trace_path)
         else:
             engine.tracer.write_chrome(args.trace_path)
-        print(f"telemetry: {len(engine.tracer.events)} trace events -> "
-              f"{args.trace_path}")
+        say(f"telemetry: {len(engine.tracer.events)} trace events -> "
+            f"{args.trace_path}")
     return engine
 
 

@@ -1,14 +1,46 @@
-"""Serving-plane capacity planning on shard loss.
+"""Elastic scaling: re-mesh on device-membership change, and
+serving-plane capacity planning on shard loss.
 
-Carried over from the JAX package's ``runtime/elastic.py`` (the
-serving half only): the admission scheduler sheds backlog against
-this plan when shards are lost.
+Carried over from the JAX package's ``runtime/elastic.py``, host-only.
+On a membership change the trainer's policy (:func:`plan_for`) keeps
+the model axis if it can (the tensor-parallel degree is
+architecture-critical) and shrinks the data axis, raising gradient
+accumulation so the global batch stays; the admission scheduler sheds
+backlog against :func:`plan_serving_for` when serving shards are lost.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Iterable, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticPlan:
+    mesh_shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    grad_accum: int            # microbatches to keep the global batch
+    note: str
+
+
+def plan_for(n_devices: int, *, model_parallel: int = 16,
+             full_data_parallel: int = 16,
+             pods: int = 1) -> ElasticPlan:
+    """Nearest valid (data, model) factorization for surviving devices."""
+    mp = model_parallel
+    while mp > 1 and n_devices % mp:
+        mp //= 2
+    data = n_devices // mp
+    full_dp = full_data_parallel * pods
+    # keep the global batch: accumulate if data-parallel ways were lost
+    accum = max(1, -(-full_dp // max(data, 1)))
+    note = ("full mesh" if mp == model_parallel and data == full_dp
+            else f"degraded: model {model_parallel}->{mp}, data "
+                 f"{full_dp}->{data}")
+    if pods > 1 and data % pods == 0 and mp == model_parallel:
+        return ElasticPlan((pods, data // pods, mp), ("pod", "data", "model"),
+                           accum, note)
+    return ElasticPlan((data, mp), ("data", "model"), accum, note)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -295,8 +295,10 @@ def recover_engine(factory, crashed, journal: ServingJournal):
     ``pins_restored``, ``finished_at_crash`` and the requeued
     ``requests`` (for token-identity checks).
     """
-    from .engine import Request
+    from .engine import GROUP_TODO, Request
 
+    if getattr(crashed, "mesh", None) is not None:
+        raise NotImplementedError(f"recover_engine {GROUP_TODO}")
     eng = factory()
     assert eng.dp == crashed.dp and eng.bl == crashed.bl, \
         "recovery requires an identical topology"

@@ -62,8 +62,21 @@ rebuilds an engine after a host crash from the surviving device state
 and the journal.  Per-request deadlines and bounded retry parking are
 the scheduler's.
 
-A device mesh, the reference's multi-device plane, raises
-``NotImplementedError``.
+The reference's multi-device plane is ``mesh=`` a
+:class:`~repro_torch.launch.mesh.DPGroup`: one process (a rank) per DP
+shard, each holding only its shard's device state (pool, lanes,
+refcounts, pin rows, expert and KV pages, registers) as ``[1, Bl, ...]``
+tensors on its own device, while every rank runs the same host control
+on the same requests.  A rank uploads only its shard's row of each host
+buffer, runs the device steps of the slots it owns, and ends each serve
+step in one device-to-host copy and one collective, the gather of the
+packed status (counted in ``host_transfers`` and ``collectives``); a
+share step's verdict is agreed in one more (``agreements``).  The wall
+clock that host decisions read (deadlines, the speculation gate's step
+cost, the watchdog) is rank 0's, carried in trailing rows of that same
+gather; an engine with nothing owed runs no serve step, so a submit to
+it first gathers the clock rows alone (``clock_syncs``).  Fault injection, in-place recovery, crash recovery and warm
+restart under a group raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -81,6 +94,7 @@ from ..core import NULL, SimContext, WaitFreeAllocator, classed_pool
 from ..core.block_pool import I32
 from ..core import hier_pool
 from ..core.classed_pool import CLS_EXPERT, CLS_KV, CLS_STATE
+from ..launch.mesh import DPGroup
 from ..models.decode_init import empty_decode_state, empty_serve_arrays
 from ..models.layers import logits_apply, logits_argmax_chunked, tree_map
 from ..models.transformer import (EXPERT_PPE, DecodeState,
@@ -188,6 +202,33 @@ def _alloc_state_step(state: DecodeState, counts):
 STATUS_EMITTED = 0   # + T: emitted-token count this step
 STATUS_DONE = 1      # + T: 1 iff the slot finished (pages released)
 STATUS_PAGES = 2     # + T: KV pages-in-use on the slot's DP shard
+
+# Under a DP group the status gathered each step carries CLOCK_ROWS more
+# rows at its end, stripped on the host before anything reads the
+# status: the sending rank's wall clock (microseconds, high and low
+# 32 bits) and its wall time of the previous serve step (microseconds,
+# -1 for none).  Host decisions read rank 0's, so the ranks agree.
+CLOCK_ROWS = 3
+
+#: what a DP group does not serve yet
+GROUP_TODO = ("under a DP group (ROADMAP.md, Queue A: recovery, warm "
+              "restart and fault injection under the group)")
+
+
+def _clock_rows(now: float, dt: Optional[float], bl: int) -> np.ndarray:
+    """The trailing status rows of one rank (see CLOCK_ROWS)."""
+    us = int(round(now * 1e6))
+    rows = np.zeros((CLOCK_ROWS, 1, bl), np.int64)
+    rows[:, 0, 0] = (us >> 32, us & 0xFFFFFFFF,
+                     -1 if dt is None else min(int(dt * 1e6), 2**31 - 1))
+    return rows.astype(np.int32)
+
+
+def _read_clock(rows: np.ndarray) -> Tuple[float, Optional[float]]:
+    """(now, dt) of rank 0 from the gathered trailing rows."""
+    hi, lo, dt = (int(x) for x in rows[:, 0, 0])
+    now = ((hi << 32) | (lo & 0xFFFFFFFF)) / 1e6
+    return now, (None if dt < 0 else dt / 1e6)
 
 
 def _serve_step(cfg, max_len, eos_id, use_sampler, spec, n_verify, params,
@@ -406,12 +447,27 @@ class ServingEngine:
                  device="cuda"):
         self.sched_config = sched or SchedConfig()
         if mesh is not None:
-            raise NotImplementedError(
-                "ServingEngine(mesh): the port serves on one device")
+            if not isinstance(mesh, DPGroup):
+                raise TypeError("ServingEngine(mesh=...) takes a DPGroup "
+                                "(launch.mesh.make_dp_group) or None")
+            if mesh.size != dp:
+                raise ValueError(f"a DP group of {mesh.size} ranks serves "
+                                 f"dp={mesh.size}, not dp={dp}")
+            if injector is not None or max_restarts > 0:
+                raise NotImplementedError(
+                    f"fault injection and in-place recovery {GROUP_TODO}")
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(f"device {device} for a rank on "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self.mesh: Optional[DPGroup] = mesh
         self.cfg = cfg
         self.params = params
         self.device = torch.device(device)
         self.dp, self.bl = dp, b_local
+        # the DP shards this process holds on its device: all of them,
+        # or its own under a group
+        self._dp_dev = dp if mesh is None else 1
         # expert-paged MoE serving: expert FFN weights through the pool's
         # third size class, on an MoE config with expert layer slots; the
         # class vector widens to three before telemetry and the pool are
@@ -431,9 +487,10 @@ class ServingEngine:
         # the §4.2 slack
         self.expert_budget = 0
         if self.expert_paging:
-            if dp != 1:
+            if dp != 1 and mesh is None:
                 raise ValueError("expert paging needs shard-local DP == 1: "
-                                 "on one device, run dp=1")
+                                 "run dp=1, or one rank per shard (a DP "
+                                 "group)")
             full = self._elayer_n * cfg.moe.num_experts * EXPERT_PPE
             self.expert_budget = int(expert_budget
                                      or self.sched_config.expert_budget
@@ -454,14 +511,14 @@ class ServingEngine:
         if speculate:
             lane_tokens = max(lane_tokens, self.draft_len + 1)
         self.state = empty_decode_state(
-            cfg, dp, b_local, max_len, chunk=lane_tokens,
+            cfg, self._dp_dev, b_local, max_len, chunk=lane_tokens,
             size_classes=size_classes,
             expert_budget=self.expert_budget if self.expert_paging else None,
             device=self.device)
         self.n_classes = len(self.state.pool.classes)
         assert self.telemetry.n_classes == self.n_classes
         self.last_tok, self.out_count, self.budget = empty_serve_arrays(
-            dp, b_local, self.device)
+            self._dp_dev, b_local, self.device)
         # per-slot sampling registers (written at admission, read by the
         # step; all zeros is greedy everywhere), and the slots that sample
         self.temps, self.topks, self.seeds = self._sampling_registers()
@@ -502,6 +559,11 @@ class ServingEngine:
         self.host_transfers = 0
         # the share step's ok flag, read at admission, outside the step
         self.admission_transfers = 0
+        # under a DP group: the serve steps' status gathers, the share
+        # steps' verdicts, and the clock-only gathers (_sync_clock)
+        self.collectives = 0
+        self.agreements = 0
+        self.clock_syncs = 0
         self._spec_T = self.draft_len + 1
         # prefix sharing from live donors: sound only when the whole
         # decode state is paged (a ring or recurrent layer would need the
@@ -539,8 +601,8 @@ class ServingEngine:
             self.pins = PinnedPrefixes(dp, self.sched_config.pin_rows,
                                        self.sched_config.pin_pages)
             self.pin_tables = torch.full(
-                (dp, self.sched_config.pin_rows, maxp), NULL, dtype=I32,
-                device=self.device)
+                (self._dp_dev, self.sched_config.pin_rows, maxp), NULL,
+                dtype=I32, device=self.device)
         self._pinned_slots: set = set()
         # expert-paged weight plane: the full expert stacks on the host
         # (page-locked on a card), the engine's parameter leaves stubbed
@@ -585,6 +647,16 @@ class ServingEngine:
         self._injector = injector
         self.watchdog = watchdog or StepWatchdog()
         self._clock = clock or time.time
+        # under a group every host decision reads rank 0's clock: the
+        # value of the last gather (:meth:`_sync_clock`), and step costs
+        # one step late, from the status gather
+        self._local_clock = self._clock
+        self._step_dt: Optional[float] = None   # this rank's last step
+        self._cost_key: Optional[Tuple[int, bool]] = None
+        self._group_verdict: Optional[str] = None
+        if mesh is not None:
+            self._sync_clock()
+            self._clock = lambda: self._shared_now
         self.max_restarts = max_restarts
         self.lost_shards: set = set()
         self.active: Dict[int, Request] = {}     # slot -> request
@@ -635,7 +707,7 @@ class ServingEngine:
     def _sampling_registers(self):
         """Zeroed (temps float32, topks int32, seeds int32) [DP, Bl] on
         the engine's device."""
-        shape = (self.dp, self.bl)
+        shape = (self._dp_dev, self.bl)
         return (torch.zeros(shape, dtype=torch.float32, device=self.device),
                 torch.zeros(shape, dtype=I32, device=self.device),
                 torch.zeros(shape, dtype=I32, device=self.device))
@@ -644,8 +716,23 @@ class ServingEngine:
         """All-True bool [DP, Bl, E] (E = 1 for a model without
         experts) on the engine's device."""
         E = self.cfg.moe.num_experts if self.cfg.moe is not None else 1
-        return torch.ones((self.dp, self.bl, E), dtype=torch.bool,
+        return torch.ones((self._dp_dev, self.bl, E), dtype=torch.bool,
                           device=self.device)
+
+    def _own(self, d: int) -> Optional[int]:
+        """Shard ``d``'s row in this process's device state: ``d`` on one
+        device; under a group 0 on the rank that owns it, None on the
+        others (which skip the device work of the slots of ``d``)."""
+        if self.mesh is None:
+            return d
+        return 0 if d == self.mesh.rank else None
+
+    def _shard_to_device(self, a: np.ndarray) -> torch.Tensor:
+        """:meth:`_to_device` of a host buffer with a leading [DP] axis:
+        all of it on one device, this rank's row under a group."""
+        if self.mesh is not None:
+            a = a[self.mesh.rank:self.mesh.rank + 1]
+        return self._to_device(np.ascontiguousarray(a))
 
     def _forget_slot(self, slot: int) -> None:
         """Host bookkeeping of a slot that leaves service without a
@@ -664,8 +751,10 @@ class ServingEngine:
         if slot in self._sampling_slots:
             self._sampling_slots.discard(slot)
             d, b = divmod(slot, self.bl)
-            for reg in (self.temps, self.topks, self.seeds):
-                reg[d, b] = 0
+            r = self._own(d)
+            if r is not None:
+                for reg in (self.temps, self.topks, self.seeds):
+                    reg[r, b] = 0
 
     # ------------------------------------------------------------ control
     def _host_alloc_slot(self, shard: Optional[int] = None
@@ -712,6 +801,10 @@ class ServingEngine:
     def submit(self, req: Request) -> Admission:
         """Enqueue (or reject, with a reason) through the admission
         scheduler.  The return value is the backpressure signal."""
+        if self.mesh is not None and self.idle():
+            # the agreed clock stood still while nothing was owed: bring
+            # it to now before stamping the request
+            self._sync_clock()
         now = self._clock()
         req.submitted_at = now
         if req.deadline_s > 0 and req.deadline_at == 0.0:
@@ -833,25 +926,29 @@ class ServingEngine:
     def _shard_oh(self, d: int) -> torch.Tensor:
         oh = np.zeros(self.dp, bool)
         oh[d] = True
-        return self._to_device(oh)
+        return self._shard_to_device(oh)
 
     def _load_expert(self, d: int, pos: str, g: int, e: int) -> None:
         """One expert's pages onto shard d from the host store: an
-        asynchronous copy from page-locked memory on a card."""
-        w = self._host_experts[pos][g, e].to(self.device, non_blocking=True)
-        counts = np.zeros((self.dp, self.bl), np.int32)
-        counts[d, 0] = EXPERT_PPE
-        self.state = expert_load_step(pos, self.state,
-                                      self._to_device(counts), w,
-                                      self._shard_oh(d), g, e)
+        asynchronous copy from page-locked memory on a card (on the
+        owning rank under a group; every rank's ledger takes it)."""
+        if self._own(d) is not None:
+            w = self._host_experts[pos][g, e].to(self.device,
+                                                 non_blocking=True)
+            counts = np.zeros((self.dp, self.bl), np.int32)
+            counts[d, 0] = EXPERT_PPE
+            self.state = expert_load_step(pos, self.state,
+                                          self._shard_to_device(counts), w,
+                                          self._shard_oh(d), g, e)
         self.expert_ledger.add(d, pos, g, e)
         self.telemetry.inc("expert_load_pages", EXPERT_PPE)
 
     def _evict_expert(self, key) -> None:
         d, pos, g, e = key
         self.expert_ledger.remove(key)
-        self.state = expert_evict_step(pos, self.state, self._shard_oh(d),
-                                       g, e)
+        if self._own(d) is not None:
+            self.state = expert_evict_step(pos, self.state,
+                                           self._shard_oh(d), g, e)
         self.telemetry.inc("expert_evictions")
         self.telemetry.inc("expert_evict_pages", EXPERT_PPE)
 
@@ -864,12 +961,15 @@ class ServingEngine:
         if self.cfg.moe is None:
             return
         d, b = divmod(slot, self.bl)
+        r = self._own(d)
         fp = self._footprint_of(req)
         if self.expert_ledger is None:
-            self.expert_mask[d, b] = self._to_device(self._fp_row(fp))
+            if r is not None:
+                self.expert_mask[r, b] = self._to_device(self._fp_row(fp))
             return
         masks, row = self._fp_entry(fp)
-        self.expert_mask[d, b] = self._to_device(row)
+        if r is not None:
+            self.expert_mask[r, b] = self._to_device(row)
         led = self.expert_ledger
         keys = [(d, pos, g, e) for pos, g in self._elayer_slots for e in fp]
         for key in keys:
@@ -886,8 +986,9 @@ class ServingEngine:
                 self._evict_expert(victim)
             self._load_expert(*key)
         # one bulk addref over the whole footprint
-        self.state = expert_ref_step(False, self.state, masks,
-                                     self._shard_oh(d))
+        if r is not None:
+            self.state = expert_ref_step(False, self.state, masks,
+                                         self._shard_oh(d))
         for key in keys:
             led.addref(key)
         self._slot_experts[slot] = (d, fp)
@@ -902,12 +1003,14 @@ class ServingEngine:
         if self.cfg.moe is None:
             return
         d, b = divmod(slot, self.bl)
-        self.expert_mask[d, b] = True
+        r = self._own(d)
+        if r is not None:
+            self.expert_mask[r, b] = True
         ent = self._slot_experts.pop(slot, None)
         if ent is None or self.expert_ledger is None:
             return
         d, fp = ent
-        if device:
+        if device and r is not None:
             masks, _ = self._fp_entry(fp)
             self.state = expert_ref_step(True, self.state, masks,
                                          self._shard_oh(d))
@@ -946,26 +1049,30 @@ class ServingEngine:
             shared_n = self._try_share(slot, match, len(toks))
         self.pending_tokens[slot] = toks[shared_n:]
         self._fed[slot] = shared_n
+        r = self._own(d)
         if self._state_blocks > 0:
             # the slot's bounded-state blocks from the fine class, one
             # bulk shared-pool pull; the class's §4.2 slack and the
             # scheduler's state budget guarantee the grant
-            counts = np.zeros((self.dp, self.bl), np.int32)
-            counts[d, b] = self._state_blocks
-            self.state = _alloc_state_step(self.state,
-                                           self._to_device(counts))
+            if r is not None:
+                counts = np.zeros((self.dp, self.bl), np.int32)
+                counts[d, b] = self._state_blocks
+                self.state = _alloc_state_step(
+                    self.state, self._shard_to_device(counts))
             self.telemetry.inc("state_blocks_granted", self._state_blocks)
         if self.prefix_cache is not None:
             self.prefix_cache.insert(slot, d, toks)
             self.prefix_cache.update_progress(slot, shared_n)
         if self.spec_store is not None:
             req._spec_key = self.spec_store.key_of(req.prompt)
-        self.budget[d, b] = int(req.max_new_tokens)
-        self.out_count[d, b] = len(req.out_tokens)
+        if r is not None:
+            self.budget[r, b] = int(req.max_new_tokens)
+            self.out_count[r, b] = len(req.out_tokens)
         if req.temperature > 0:
-            self.temps[d, b] = float(req.temperature)
-            self.topks[d, b] = int(req.top_k)
-            self.seeds[d, b] = int(req.seed)
+            if r is not None:
+                self.temps[r, b] = float(req.temperature)
+                self.topks[r, b] = int(req.top_k)
+                self.seeds[r, b] = int(req.seed)
             self._sampling_slots.add(slot)
         self._admit_experts(slot, req)
         self.telemetry.inc("admitted")
@@ -986,10 +1093,7 @@ class ServingEngine:
         tokens."""
         req = self.active.pop(slot)
         self._maybe_pin(slot, list(req.prompt) + list(req.out_tokens))
-        d, b = divmod(slot, self.bl)
-        mask = np.zeros((self.dp, self.bl), bool)
-        mask[d, b] = True
-        self.state, _ = _release_slots(self.state, self._to_device(mask))
+        self._release_slot_device(slot)
         self._release_experts(slot)
         self._forget_slot(slot)
         req.slot = None
@@ -1008,10 +1112,7 @@ class ServingEngine:
         after a bounded backoff or reject it with a typed reason
         (sched.FAILURE_REASONS)."""
         req = self.active.pop(slot)
-        d, b = divmod(slot, self.bl)
-        mask = np.zeros((self.dp, self.bl), bool)
-        mask[d, b] = True
-        self.state, _ = _release_slots(self.state, self._to_device(mask))
+        self._release_slot_device(slot)
         self._release_experts(slot)
         self._forget_slot(slot)
         req.slot = None
@@ -1032,6 +1133,17 @@ class ServingEngine:
             self._jrec("reject", rid=req.rid, reason=reason)
             self._trace_terminal(req, reason)
         return req
+
+    def _release_slot_device(self, slot: int) -> None:
+        """Release one slot's pages and state through the refcounted
+        path, outside the step (on the owning rank under a group)."""
+        d, b = divmod(slot, self.bl)
+        if self._own(d) is None:
+            return
+        mask = np.zeros((self.dp, self.bl), bool)
+        mask[d, b] = True
+        self.state, _ = _release_slots(self.state,
+                                       self._shard_to_device(mask))
 
     def _requeue(self, slot: int, reason: str) -> None:
         """Evacuate a running request host-side only (no device release:
@@ -1100,14 +1212,16 @@ class ServingEngine:
             return
         pin_id = self.pins.add(d, key_toks, n_pages)
         row = pin_id % self.pins.npin
-        pin_oh = np.zeros((self.dp, self.pins.npin), bool)
-        pin_oh[d, row] = True
-        src = np.zeros((self.dp, self.bl), bool)
-        src[d, b] = True
-        pool, self.pin_tables = pin_prefix_step(
-            self.state.pool, self.pin_tables, self.state.page_tables,
-            self._to_device(pin_oh), self._to_device(src), n_pages)
-        self.state = self.state._replace(pool=pool)
+        if self._own(d) is not None:
+            pin_oh = np.zeros((self.dp, self.pins.npin), bool)
+            pin_oh[d, row] = True
+            src = np.zeros((self.dp, self.bl), bool)
+            src[d, b] = True
+            pool, self.pin_tables = pin_prefix_step(
+                self.state.pool, self.pin_tables, self.state.page_tables,
+                self._shard_to_device(pin_oh), self._shard_to_device(src),
+                n_pages)
+            self.state = self.state._replace(pool=pool)
         self.prefix_cache.pin_insert(pin_id, d, key_toks)
         self.telemetry.inc("pins_created")
         self.tracer.instant("pin", pin_id=pin_id, shard=d,
@@ -1122,11 +1236,12 @@ class ServingEngine:
         """Drop the cache's references on one pinned row (mechanism;
         the scheduler picks which and when)."""
         shard, row = self.pins.remove(pin_id)
-        oh = np.zeros((self.dp, self.pins.npin), bool)
-        oh[shard, row] = True
-        pool, self.pin_tables = unpin_step(self.state.pool, self.pin_tables,
-                                           self._to_device(oh))
-        self.state = self.state._replace(pool=pool)
+        if self._own(shard) is not None:
+            oh = np.zeros((self.dp, self.pins.npin), bool)
+            oh[shard, row] = True
+            pool, self.pin_tables = unpin_step(
+                self.state.pool, self.pin_tables, self._shard_to_device(oh))
+            self.state = self.state._replace(pool=pool)
         self.prefix_cache.pin_remove(pin_id)
         self.tracer.instant("unpin", pin_id=pin_id, shard=shard)
         self._jrec("unpin", pin_id=pin_id)
@@ -1155,20 +1270,28 @@ class ServingEngine:
             return 0
         dst = np.zeros((self.dp, self.bl), bool)
         dst[slot // self.bl, slot % self.bl] = True
-        if match.pinned:
-            pin_id = pin_id_of(match.slot)
-            pin_oh = np.zeros((self.dp, self.pins.npin), bool)
-            pin_oh[match.shard, self.pins.entries[pin_id]["row"]] = True
-            self.state, ok = share_pinned_step(
-                psz, self.state, self.pin_tables, self._to_device(dst),
-                self._to_device(pin_oh), n)
-        else:
-            src = np.zeros((self.dp, self.bl), bool)
-            src[match.slot // self.bl, match.slot % self.bl] = True
-            self.state, ok = share_prefix_step(
-                psz, self.state, self._to_device(dst), self._to_device(src),
-                n)
+        pin_id = pin_id_of(match.slot) if match.pinned else None
+        # under a group only the owning rank runs the step; the others'
+        # state would not change, and their verdict is False
+        ok = False
+        if self._own(match.shard) is not None:
+            if match.pinned:
+                pin_oh = np.zeros((self.dp, self.pins.npin), bool)
+                pin_oh[match.shard, self.pins.entries[pin_id]["row"]] = True
+                self.state, ok = share_pinned_step(
+                    psz, self.state, self.pin_tables,
+                    self._shard_to_device(dst),
+                    self._shard_to_device(pin_oh), n)
+            else:
+                src = np.zeros((self.dp, self.bl), bool)
+                src[match.slot // self.bl, match.slot % self.bl] = True
+                self.state, ok = share_prefix_step(
+                    psz, self.state, self._shard_to_device(dst),
+                    self._shard_to_device(src), n)
         self.admission_transfers += 1
+        if self.mesh is not None:
+            self.agreements += 1
+            ok = self.mesh.agree(ok)
         if not bool(ok):   # shared pool dry for the COW page: no sharing
             return 0
         rid = self.active[slot].rid
@@ -1199,9 +1322,58 @@ class ServingEngine:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _status_to_host(self, status: torch.Tensor) -> np.ndarray:
-        """The step's one device -> host transfer, counted."""
+        """The step's one device -> host transfer, counted.  Under a DP
+        group it is also the step's one collective: this rank's status,
+        with its clock rows, gathered from every rank; rank 0's clock
+        becomes every rank's, and its cost of the previous step goes to
+        the gate and the watchdog (:meth:`_observe_cost`)."""
         self.host_transfers += 1
-        return status.cpu().numpy()
+        if self.mesh is None:
+            return status.cpu().numpy()
+        self.collectives += 1
+        rows = self._to_device(_clock_rows(self._local_clock(),
+                                           self._step_dt, self.bl))
+        got = self.mesh.gather_status(torch.cat([status, rows]))
+        self._shared_now, dt = _read_clock(got[-CLOCK_ROWS:])
+        self._group_verdict = None
+        if dt is not None and self._cost_key is not None:
+            self._group_verdict = self._observe_cost(self._cost_key, dt)
+        return got[:-CLOCK_ROWS]
+
+    def _sync_clock(self) -> None:
+        """Under a DP group, one gather of the clock rows alone: rank 0's
+        wall clock becomes every rank's.  The status gather moves the
+        agreed clock on every serve step; an engine with nothing owed
+        runs none, so this one runs at construction, at a submit to an
+        idle engine and at an idle step that leaves work owed.  Every
+        rank decides it from the host state they share, so all call it
+        at the same point; counted in ``clock_syncs``."""
+        self.clock_syncs += 1
+        got = self.mesh.gather_status(self._to_device(
+            _clock_rows(self._local_clock(), None, self.bl)))
+        self._shared_now = _read_clock(got)[0]
+
+    def _observe_cost(self, key: Tuple[int, bool], dt: float
+                      ) -> Optional[str]:
+        """A serve step's wall time ``dt``: the gate's per-step cost
+        model, an EWMA keyed by (lane width, spec) whose first sample of
+        a key is discarded, and the watchdog, whose verdict is
+        returned."""
+        if key in self._cost_seen:
+            prev = self._step_cost.get(key)
+            self._step_cost[key] = dt if prev is None else (
+                0.8 * prev + 0.2 * dt)
+        else:
+            self._cost_seen.add(key)
+        verdict = self.watchdog.observe(self.stats["steps"], dt)
+        if verdict == "straggler":
+            self.telemetry.inc("stragglers")
+        elif verdict == "timeout":
+            self.telemetry.inc("step_timeouts")
+        if verdict is not None:
+            self.tracer.instant("watchdog", verdict=verdict,
+                                step=self.stats["steps"])
+        return verdict
 
     def _gate_k(self, key, k_max: int) -> int:
         """Break-even draft length for this prefix.
@@ -1280,6 +1452,8 @@ class ServingEngine:
         self._fire("post_admission")
         if not self.active:
             self.telemetry.inc("idle_steps")
+            if self.mesh is not None and self.scheduler.backlog():
+                self._sync_clock()     # parked work's deadlines move on
             return False
 
         # lane widths: the scheduler's prefill bucket, else width 1,
@@ -1343,7 +1517,7 @@ class ServingEngine:
                 gen_slots[slot] = len(dr)
 
         spec = any(gen_slots.values())
-        dev = self._to_device(feed)
+        dev = self._shard_to_device(feed)
         self.state, self.last_tok, self.out_count, status = _serve_step(
             self.cfg, self.capacity, self._eos, bool(self._sampling_slots),
             spec, self._spec_T, self.params, self.state, self.last_tok,
@@ -1445,24 +1619,14 @@ class ServingEngine:
                     self._pinned_slots.add(slot)
                     self._maybe_pin(slot, list(req.prompt))
         self._fire("post_step")
-        # the gate's per-step cost model: an EWMA of wall time keyed by
-        # (lane width, spec); the first sample of a key is discarded
         dt = time.perf_counter() - t0
-        ck = (T, spec)
-        if ck in self._cost_seen:
-            prev = self._step_cost.get(ck)
-            self._step_cost[ck] = dt if prev is None else (
-                0.8 * prev + 0.2 * dt)
+        if self.mesh is None:
+            verdict = self._observe_cost((T, spec), dt)
         else:
-            self._cost_seen.add(ck)
-        verdict = self.watchdog.observe(self.stats["steps"], dt)
-        if verdict == "straggler":
-            self.telemetry.inc("stragglers")
-        elif verdict == "timeout":
-            self.telemetry.inc("step_timeouts")
-        if verdict is not None:
-            self.tracer.instant("watchdog", verdict=verdict,
-                                step=self.stats["steps"])
+            # this rank's wall time goes out with the next status gather;
+            # the verdict is of rank 0's previous step, from this one's
+            self._step_dt, self._cost_key = dt, (T, spec)
+            verdict = self._group_verdict
         self.flight.record(
             step=self.stats["steps"], t=now, T=T, spec=spec,
             status=status.tolist(), ctr=ctr_block.tolist(),
@@ -1478,6 +1642,26 @@ class ServingEngine:
     def idle(self) -> bool:
         """Nothing running and nothing admissible."""
         return not self.active and self.scheduler.backlog() == 0
+
+    def host_state(self) -> str:
+        """The host control every rank of a DP group must hold alike, as
+        one string: the slot map, the feeds, the free slots, the queues,
+        the pin and expert ledgers, the trie's slots, the gate's step
+        costs, the clock and the counters.  Ranks whose strings stay
+        equal step after step are in lockstep."""
+        pc, led = self.prefix_cache, self.expert_ledger
+        return repr((
+            sorted((s, r.rid, len(r.out_tokens))
+                   for s, r in self.active.items()),
+            sorted((s, len(p)) for s, p in self.pending_tokens.items()),
+            sorted(self._fed.items()), sorted(self._free_slots),
+            [r.rid for r in self.scheduler.pending()],
+            self.pins.to_state() if self.pins is not None else None,
+            (sorted(pc.completed.items()), sorted(pc.shard_of.items()))
+            if pc is not None else None,
+            sorted(led.entries.items()) if led is not None else None,
+            sorted(self._step_cost.items()), self._clock(),
+            dict(self.stats)))
 
     def run(self, max_steps: int = 10_000,
             max_restarts: Optional[int] = None) -> None:
@@ -1510,6 +1694,8 @@ class ServingEngine:
                     self.telemetry.inc("flight_dumps")
                 raise
             except Exception as e:
+                if self.mesh is not None:
+                    raise           # no in-place recovery under a group
                 restarts += 1
                 if self.flight.dump("step_error",
                                     {"step": self.stats["steps"],
@@ -1531,6 +1717,8 @@ class ServingEngine:
         all in-flight work re-enters through the preemption-resume
         path.  Returns the reconcile report."""
         assert not self.active, "adopt with active slots"
+        if self.mesh is not None:
+            raise NotImplementedError(f"crash recovery {GROUP_TODO}")
         C = len(dead_state.pool.classes)
         # pins live only in the KV class
         pins = None if pin_np is None else [pin_np] + [None] * (C - 1)
@@ -1585,7 +1773,10 @@ class ServingEngine:
         ledger does not hold set to NULL (None without pins)."""
         if self.pin_tables is None:
             return None
-        pin_np = self.pin_tables.cpu().numpy().copy()
+        pins = self.pin_tables
+        if self.mesh is not None:
+            pins = self.mesh.gather(pins, 0)
+        pin_np = pins.cpu().numpy().copy()
         ok = np.zeros(pin_np.shape[:2], bool)
         for e in self.pins.entries.values():
             ok[e["shard"], e["row"]] = True
@@ -1598,6 +1789,8 @@ class ServingEngine:
         bookkeeping only: the device may be mid-operation) and rebuild
         the pool from the pin rows the ledger trusts; a device pin whose
         ledger entry never landed is reclaimed, as after a crash."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"in-place recovery {GROUP_TODO}")
         self.telemetry.inc("recoveries")
         self.tracer.begin("recover", kind="inplace")
         for slot in list(self.active):
@@ -1615,6 +1808,8 @@ class ServingEngine:
         drained: queued work requeues exactly, but a running slot's KV
         is not consistent with a host mid-step."""
         assert not self.active, "drain the engine before a warm save"
+        if self.mesh is not None:
+            raise NotImplementedError(f"save_warm {GROUP_TODO}")
         ckptr.wait()
         payload = {"state": self.state}
         if self.pin_tables is not None:
@@ -1643,6 +1838,8 @@ class ServingEngine:
         and the speculation store, and resubmit the queued requests.
         The first hot-prefix request after the restart shares pinned
         pages and drafts without prefilling again."""
+        if self.mesh is not None:
+            raise NotImplementedError(f"restore_warm {GROUP_TODO}")
         if step is None:
             step = ckptr.latest_step()
         assert step is not None, "no complete warm checkpoint to restore"
@@ -1676,9 +1873,13 @@ class ServingEngine:
     # ------------------------------------------------------------ metrics
     def blocks_in_use(self, cls: int = CLS_KV) -> int:
         """Blocks of one size class currently referenced across shards
-        (shared pages count once)."""
+        (shared pages count once).  Under a group a collective: every
+        rank calls it at the same point."""
         total = classed_pool.pages_local(self.state.pool, cls) * self.dp
-        return total - int(hier_pool.total_free(self.state.pool.classes[cls]))
+        free = hier_pool.total_free(self.state.pool.classes[cls])
+        if self.mesh is not None:
+            free = self.mesh.gather(free.reshape(1)).sum()
+        return total - int(free)
 
     def pages_in_use(self) -> int:
         """Physical KV pages currently referenced across shards."""
@@ -1689,20 +1890,26 @@ class ServingEngine:
 
     def shard_occupancy(self) -> Dict[str, list]:
         """Per-shard pages in use over the run, from the status row's
-        PAGES entries (no extra transfer)."""
+        PAGES entries (no extra transfer; under a group no collective
+        either, since every rank holds the gathered status)."""
         steps = max(self.stats["steps"], 1)
         return {
             "pages_mean_shard": [round(float(x) / steps, 1)
                                  for x in self._pages_shard_sum],
             "pages_peak_shard": [int(x) for x in self._pages_shard_peak],
+            "mesh_devices": 0 if self.mesh is None else self.mesh.size,
         }
 
     def leak_free(self) -> bool:
         """Zero live blocks of every class on every surviving shard (the
         post-drain invariant; a lost shard's pages left the accounting
-        with the shard)."""
-        live = sum(classed_pool.live_per_shard(self.state.pool, c).cpu()
+        with the shard).  Under a group a collective: every rank calls
+        it at the same point."""
+        live = sum(classed_pool.live_per_shard(self.state.pool, c)
                    for c in range(self.n_classes))
+        if self.mesh is not None:
+            live = self.mesh.gather(live)
+        live = live.cpu()
         return all(int(live[s]) == 0 for s in range(self.dp)
                    if s not in self.lost_shards)
 

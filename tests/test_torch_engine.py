@@ -91,9 +91,19 @@ def test_token_identity_across_lane_widths(setup):
 
 
 def test_options_outside_the_slice_raise(setup):
-    """A device mesh, the reference's multi-device plane, raises."""
+    """Under a DP group (the reference's multi-device plane), fault
+    injection and in-place recovery raise before the group is used; a
+    mesh that is not a DPGroup is refused."""
+    from repro_torch.launch.mesh import DPGroup
     _, _, tcfg, tparams = setup
-    with pytest.raises(NotImplementedError):
+    group = DPGroup(rank=0, size=2, device="cpu", backend="gloo")
+    for option in (dict(injector=chaos.ServingFailureInjector([])),
+                   dict(max_restarts=1)):
+        with pytest.raises(NotImplementedError):
+            tengine.ServingEngine(tcfg, tparams, dp=2, b_local=1,
+                                  max_len=32, device="cpu", mesh=group,
+                                  **option)
+    with pytest.raises(TypeError):
         tengine.ServingEngine(tcfg, tparams, dp=1, b_local=1, max_len=32,
                               device="cpu", mesh="auto")
 
