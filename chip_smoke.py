@@ -267,8 +267,21 @@ Phases, each printed on its own line (any failure fails the run):
    otherwise it prints that nccl went unexercised); (d) olmo-1b in f32
    at full width cut to two layers, on the ranks of (a): every stream
    equal to the single-process dp 2 engine's token for token (K1 and K2
-   on their fma kernels).  (a) and (d) are the plane's correctness
-   gates; (b)'s bf16 near-tie allowance makes it a smoke check.
+   on their fma kernels); (e) phase 16 (c)'s ``launch.serve`` argv and
+   fault schedule with ``--mesh auto --dist-backend gloo`` on the ranks
+   of (a), olmo-1b at full width in bf16: on each rank 16 (c)'s checks
+   (every fault fired, the journal drained, every reconcile conserved
+   and never-dry, 0 blocks of every class in use on the surviving
+   shard, transfers + torn crashes = steps, K1 + K2 = 16 x steps,
+   ``recoveries`` = injected errors), collectives = transfers, and the
+   ranks' host state and injector logs equal; each rank's ms a step
+   (the call's wall time over its steps, recoveries included); (f) (d)'s
+   f32 model on the same ranks under a crash at ``post_sync``, a torn
+   crash at ``dispatched`` and a step error: every stream equal to one
+   process at dp 2 under the same faults, token for token, and each
+   shard's reconcile reports equal to that process's.  (a), (d) and (f)
+   are the plane's correctness gates; (b)'s bf16 near-tie allowance
+   makes it a smoke check.
 
 Every phase prints its seconds.  ``--profile`` serves the workloads of
 phases 5, 9 and 10 again, and
@@ -1957,97 +1970,142 @@ def check_sampled_f32(tengine, k3, ops, counted, cfg, seed, b_local,
                 pre_ties=ties2)
 
 
-def serve_chaos_entry_point(counted, smi):
-    """Phase 16 (c): ``repro_torch.launch.serve.main`` at full width in
-    bf16, two shards of 4 slots, a 512-token hot prefix, 64 pin pages,
-    deadlines, and a fault schedule that fires each kind: a poisoned
-    request, a straggler, a crash at ``post_sync``, the loss of shard 1,
-    a torn crash at ``dispatched`` and, after the last crash, a step
-    error recovered in place.  Every fault fires, the journal drains,
-    each reconcile is conserved and never-dry, no block of any class is
-    in use on the surviving shard, one transfer a step but the step a
-    torn crash cut, K1 + K2 = 16 x steps, and telemetry ``recoveries``
-    equals the injected step errors (so a real failure recovered in
-    place fails the run)."""
+#: phase 16 (c)'s fault schedule and argv (20 (e) adds the ranks' flags)
+CHAOS_FAULTS = ("poison@2:feed:5,straggler@4:pre_tick:0.05,"
+                "crash@8:post_sync,shard_loss@14:post_admission:1,"
+                "crash@20:dispatched:torn,error@26:post_sync")
+CHAOS_ARGV = ["--arch", "olmo-1b", "--dp", "2", "--b-local", "4",
+              "--max-len", "2048", "--hot-prefix", "512", "--requests", "24",
+              "--max-new", "32", "--pin-pages", "64", "--deadline-s", "900",
+              "--inject-fault", CHAOS_FAULTS, "--device", "cuda"]
+
+
+def chaos_entry_run(counted, argv):
+    """``repro_torch.launch.serve.main(argv)`` (one process, or a rank
+    when ``argv`` asks for the mesh), the kernels' counts set to 0 just
+    before it and read just after, every ``chaos.recover_engine``
+    recorded.  Returns what phases 16 (c) and 20 (e) check: the lives'
+    steps, transfers and collectives, the reconcile reports (of this
+    rank's shard on a rank), the injector's log, the journal, the blocks
+    in use on this process's first shard, launches, the host state and
+    the call's wall time."""
     import contextlib
     import io
 
     from repro_torch.launch import serve
     from repro_torch.serving import chaos
 
-    faults = ("poison@2:feed:5,straggler@4:pre_tick:0.05,"
-              "crash@8:post_sync,shard_loss@14:post_admission:1,"
-              "crash@20:dispatched:torn,error@26:post_sync")
-    argv = ["--arch", "olmo-1b", "--dp", "2", "--b-local", "4",
-            "--max-len", "2048", "--hot-prefix", "512", "--requests", "24",
-            "--max-new", "32", "--pin-pages", "64", "--deadline-s", "900",
-            "--inject-fault", faults, "--device", "cuda"]
-    phase(f"[16c] python -m repro_torch.launch.serve {' '.join(argv)}")
-    zero_counts(counted)
     lives, reports = [], []
     recover = chaos.recover_engine
 
     def recording(build, crashed, journal):
         lives.append((crashed.stats["steps"], crashed.host_transfers,
-                      crashed.stats["recoveries"]))
+                      crashed.collectives))
         eng, report = recover(build, crashed, journal)
-        reports.append(report)
+        reports.append({k: v for k, v in report.items() if k != "requests"})
         return eng, report
 
     out = io.StringIO()
+    zero_counts(counted)
     chaos.recover_engine = recording
+    t0 = time.perf_counter()
     try:
         with contextlib.redirect_stdout(out):
             eng = serve.main(argv)
     finally:
         chaos.recover_engine = recover
     torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
-    for line in out.getvalue().splitlines():
-        phase(f"[16c] | {line}")
     st, inj = eng.stats, eng._injector
-    lives.append((st["steps"], eng.host_transfers, st["recoveries"]))
-    steps = sum(x[0] for x in lives)
-    transfers = sum(x[1] for x in lives)
-    kinds = [k for _, _, k in inj.log]
+    lives.append((st["steps"], eng.host_transfers, eng.collectives))
     last_crash = max(s for s, _, k in inj.log if k == "crash")
-    errors_after = sum(s > last_crash for s, _, k in inj.log if k == "error")
-    torn = sum(f.torn for f in inj.faults if f.kind == "crash")
-    n_layers = eng.cfg.n_layers
-    check(not inj.pending() and sorted(set(kinds)) == sorted(
-        {"poison", "straggler", "crash", "shard_loss", "error"})
-          and len(reports) == 2,
-          f"[16c]: every fault fired ({inj.log})")
-    check(not eng._journal.in_flight(), "[16c]: the journal drained")
-    check(all(r["conserved"] and r["never_dry"] for r in reports),
-          "[16c]: every reconcile conserved and never-dry")
-    live = [int(eng.state.pool.classes[c].shared.refcount[0].gt(0).sum())
-            for c in range(eng.n_classes)]
-    check(eng.lost_shards == {1} and live == [0] * eng.n_classes
-          and eng.leak_free(),
-          f"[16c]: no block in use on the surviving shard ({live})")
-    check(transfers + torn == steps,
-          f"[16c]: one transfer a step but the step a torn crash cut "
-          f"({transfers} transfers, {steps} steps)")
-    check(launches["K1"] + launches["K2"] == n_layers * steps
-          and sum(launches.values()) == n_layers * steps,
-          f"[16c]: K1 + K2 = {n_layers} x steps ({launches}, {steps})")
-    check(errors_after >= 1 and st["recoveries"] == errors_after,
-          f"[16c]: telemetry recoveries {st['recoveries']} == injected step "
-          f"errors since the last crash {errors_after}")
-    phase(f"[16c] entry point with faults on {smi}: {steps} steps over "
-          f"{len(lives)} engine lives, transfers {transfers}; faults fired "
-          f"{inj.log}; reconciles: " + "; ".join(
-              f"reclaimed {r['reclaimed']}, resurrected {r['resurrected']}, "
-              f"requeued {r['requeued']}, pins restored {r['pins_restored']}"
-              for r in reports) + f"; recoveries {st['recoveries']}; "
-          f"finished {len(eng._journal.finished())}, blocks in use on shard "
-          f"0 by class {live}; K1 {launches['K1']} + K2 {launches['K2']} "
-          f"launches")
-    out = dict(k1=launches["K1"], k2=launches["K2"], steps=steps)
-    del eng
+    return dict(
+        lines=out.getvalue().splitlines(), log=list(inj.log),
+        pending=inj.pending(),
+        torn=sum(f.torn for f in inj.faults if f.kind == "crash"),
+        errors_after=sum(s > last_crash for s, _, k in inj.log
+                         if k == "error"),
+        in_flight=len(eng._journal.in_flight()),
+        finished=len(eng._journal.finished()), reports=reports,
+        lost=sorted(eng.lost_shards),
+        shard=0 if eng.mesh is None else eng.mesh.rank,
+        live=[int(eng.state.pool.classes[c].shared.refcount[0].gt(0).sum())
+              for c in range(eng.n_classes)],
+        leak_free=eng.leak_free(), lives=lives,
+        steps=sum(x[0] for x in lives), transfers=sum(x[1] for x in lives),
+        collectives=sum(x[2] for x in lives), launches=launches,
+        k1_routes=dict(counted["K1"].routes),
+        k2_routes=dict(counted["K2"].routes),
+        n_layers=eng.cfg.n_layers, recoveries=st["recoveries"],
+        host=eng.host_state(), wall=wall)
+
+
+def check_chaos_entry(tag, r):
+    """Phase 16 (c)'s checks of one :func:`chaos_entry_run`: every
+    fault fired, the journal drained, each reconcile conserved and
+    never-dry, no block of any class in use on the surviving shard (when
+    this process holds it), one transfer a step but the step a torn
+    crash cut, K1 + K2 = layers x steps and no other kernel, telemetry
+    ``recoveries`` equal to the injected step errors since the last
+    crash (so a real failure recovered in place fails the run); K1 and
+    K2 on their ``wgmma`` and ``tma`` routes (bf16 at full width)."""
+    kinds = {k for _, _, k in r["log"]}
+    check(not r["pending"] and kinds == {"poison", "straggler", "crash",
+                                         "shard_loss", "error"}
+          and len(r["reports"]) == 2,
+          f"{tag}: every fault fired ({r['log']})")
+    check(r["in_flight"] == 0, f"{tag}: the journal drained")
+    check(all(x["conserved"] and x["never_dry"] for x in r["reports"]),
+          f"{tag}: every reconcile conserved and never-dry")
+    check(r["lost"] == [1] and r["leak_free"]
+          and (r["shard"] == 1 or r["live"] == [0] * len(r["live"])),
+          f"{tag}: no block in use on the surviving shard ({r['live']} on "
+          f"shard {r['shard']})")
+    check(r["transfers"] + r["torn"] == r["steps"],
+          f"{tag}: one transfer a step but the step a torn crash cut "
+          f"({r['transfers']} transfers, {r['steps']} steps)")
+    n, got = r["n_layers"] * r["steps"], r["launches"]
+    check(got["K1"] + got["K2"] == n and sum(got.values()) == n,
+          f"{tag}: K1 + K2 = {r['n_layers']} x steps ({got}, "
+          f"{r['steps']})")
+    check(r["k1_routes"].get("wgmma", 0) == got["K1"]
+          and r["k2_routes"].get("tma", 0) == got["K2"],
+          f"{tag}: K1 on wgmma, K2 on tma ({r['k1_routes']}, "
+          f"{r['k2_routes']})")
+    check(r["errors_after"] >= 1 and r["recoveries"] == r["errors_after"],
+          f"{tag}: telemetry recoveries {r['recoveries']} == injected step "
+          f"errors since the last crash {r['errors_after']}")
+
+
+def chaos_summary(r):
+    return ("; ".join(f"reclaimed {x['reclaimed']}, resurrected "
+                      f"{x['resurrected']}, requeued {x['requeued']}, pins "
+                      f"restored {x['pins_restored']}" for x in r["reports"])
+            + f"; recoveries {r['recoveries']}; finished {r['finished']}; "
+              f"K1 {r['launches']['K1']} + K2 {r['launches']['K2']} "
+              f"launches")
+
+
+def serve_chaos_entry_point(counted, smi):
+    """Phase 16 (c): ``repro_torch.launch.serve.main`` at full width in
+    bf16, two shards of 4 slots, a 512-token hot prefix, 64 pin pages,
+    deadlines, and a fault schedule that fires each kind: a poisoned
+    request, a straggler, a crash at ``post_sync``, the loss of shard 1,
+    a torn crash at ``dispatched`` and, after the last crash, a step
+    error recovered in place; the checks of :func:`check_chaos_entry`."""
+    phase(f"[16c] python -m repro_torch.launch.serve {' '.join(CHAOS_ARGV)}")
+    r = chaos_entry_run(counted, CHAOS_ARGV)
+    for line in r["lines"]:
+        phase(f"[16c] | {line}")
+    check_chaos_entry("[16c]", r)
+    phase(f"[16c] entry point with faults on {smi}: {r['steps']} steps over "
+          f"{len(r['lives'])} engine lives, transfers {r['transfers']}; "
+          f"faults fired {r['log']}; reconciles: {chaos_summary(r)}; "
+          f"blocks in use on shard 0 by class {r['live']}")
     torch.cuda.empty_cache()
-    return out
+    return dict(k1=r["launches"]["K1"], k2=r["launches"]["K2"],
+                steps=r["steps"])
 
 
 def check_crash_f32(tengine, cfg, seed, b_local, max_len, chunk, smi):
@@ -3989,11 +4047,76 @@ def dp_f32_config(cfg):
     return dataclasses.replace(cfg, dtype="float32", n_layers=2)
 
 
+#: phase 20 (f)'s fault schedule: a crash after the status gather, a torn
+#: crash, and a step error after the last crash
+F32_FAULTS = (("crash", 12, "post_sync", False),
+              ("crash", 30, "dispatched", True),
+              ("error", 45, "post_sync", False))
+
+
+def dp_chaos_f32(tengine, counted, cfg, seed, b_local, max_len, chunk,
+                 mesh=None):
+    """Phase 20 (f): (d)'s float32 model and requests at dp 2 under
+    ``F32_FAULTS``, in one process or as a rank of ``mesh``, each crash
+    recovered through ``chaos.recover_engine``.  Returns the streams,
+    the reconcile reports (of the rank's shard on a rank), launches,
+    the lives' counts and the host state."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import chaos
+
+    params = init_params(cfg, seed=seed, device="cuda")
+    journal = chaos.ServingJournal()
+    injector = chaos.ServingFailureInjector(
+        [chaos.Fault(step=n, phase=ph, kind=k, torn=torn)
+         for k, n, ph, torn in F32_FAULTS])
+
+    def build():
+        return tengine.ServingEngine(
+            cfg, params, dp=2, b_local=b_local, max_len=max_len,
+            chunk_size=chunk, journal=journal, injector=injector,
+            max_restarts=1, mesh=mesh,
+            device="cuda" if mesh is None else mesh.device)
+
+    reqs = make_requests(tengine, cfg, seed)
+    zero_counts(counted)
+    t0 = time.perf_counter()
+    eng = build()
+    for r in reqs:
+        eng.submit(r)
+    lives, reports = [], []
+    while True:
+        try:
+            eng.run(max_steps=10_000)
+            break
+        except chaos.HostCrash:
+            lives.append((eng.stats["steps"], eng.host_transfers,
+                          eng.collectives))
+            eng, report = chaos.recover_engine(build, eng, journal)
+            reports.append({k: v for k, v in report.items()
+                            if k != "requests"})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lives.append((eng.stats["steps"], eng.host_transfers, eng.collectives))
+    outs = journal.outputs()
+    return dict(
+        tokens=[outs[r.rid] for r in reqs],
+        drained=journal.finished() == {r.rid for r in reqs}
+        and not journal.in_flight(),
+        reports=reports, log=list(injector.log),
+        recoveries=eng.stats["recoveries"], leak_free=eng.leak_free(),
+        launches={k: fn.launches for k, fn in counted.items()},
+        k1_routes=dict(counted["K1"].routes),
+        k2_routes=dict(counted["K2"].routes),
+        steps=sum(x[0] for x in lives), transfers=sum(x[1] for x in lives),
+        collectives=sum(x[2] for x in lives), n_layers=cfg.n_layers,
+        host=eng.host_state(), wall=wall)
+
+
 def dp_rank(rank, world, backend, init, out, seed, smoke, b_local, max_len,
             chunk):
     """Phase 20: one rank of the DP plane, in a process of its own
-    (spawned).  Joins the group through the file ``init``, runs (a) and
-    (d) when ``smoke`` and (b), and saves the results to
+    (spawned).  Joins the group through the file ``init``, runs (a),
+    (d), (e) and (f) when ``smoke`` and (b), and saves the results to
     ``out/rank<rank>.pt``."""
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
                       LOCAL_RANK=str(rank))
@@ -4026,6 +4149,14 @@ def dp_rank(rank, world, backend, init, out, seed, smoke, b_local, max_len,
     if smoke:
         res["d"] = dp_full_run(tengine, counted, dp_f32_config(cfg), seed,
                                b_local, max_len, chunk, group)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["e"] = chaos_entry_run(counted, CHAOS_ARGV + [
+            "--mesh", "auto", "--dist-backend", backend])
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["f"] = dp_chaos_f32(tengine, counted, dp_f32_config(cfg), seed,
+                                b_local, max_len, chunk, group)
     torch.save(res, Path(out) / f"rank{rank}.pt")
     torch.distributed.destroy_process_group()
 
@@ -4084,6 +4215,77 @@ def spawn_ranks(tag, backend, seed, smoke, b_local, max_len, chunk,
             for r in range(2)]
 
 
+def check_chaos_ranks(e, f, onef, smi):
+    """Phase 20 (e) and (f) on the two gloo ranks.  (e): on each rank
+    the checks of phase 16 (c) (:func:`check_chaos_entry`), one
+    collective a transfer, and across the ranks equal host state and
+    equal injector logs; rank 0 printed the run's lines, rank 1 none.
+    (f): every stream equal to the single-process dp 2 run's under the
+    same faults, token for token; rank d's reconcile reports equal that
+    run's for shard d; one recovery in place, the journal drained,
+    leak-free; one transfer and one collective a step but the step the
+    torn crash cut; K1 + K2 = layers x steps on their fma kernels."""
+    for d, r in enumerate(e):
+        check_chaos_entry(f"[20e] rank {d}", r)
+        check(r["collectives"] == r["transfers"],
+              f"[20e] rank {d}: one collective a transfer "
+              f"({r['collectives']}, {r['transfers']})")
+    check(e[0]["host"] == e[1]["host"] and e[0]["log"] == e[1]["log"],
+          "[20e] the ranks' host state and injector logs equal")
+    check(e[0]["lines"] and not e[1]["lines"],
+          "[20e] rank 0 printed the run's lines, rank 1 none")
+    for line in e[0]["lines"]:
+        phase(f"[20e] | {line}")
+    for d, r in enumerate(e):
+        phase(f"[20e] rank {d} of two gloo ranks sharing {smi}: "
+              f"{r['steps']} steps over {len(r['lives'])} engine lives in "
+              f"{r['wall']:.1f} s ({1e3 * r['wall'] / r['steps']:.2f} ms a "
+              f"step, recoveries and rebuilds included), transfers "
+              f"{r['transfers']}, collectives {r['collectives']}; faults "
+              f"fired {r['log']}; reconciles of shard {d}: "
+              f"{chaos_summary(r)}")
+
+    def shard_of(report, d):
+        return [{**c["shards"][d]} for c in report["classes"]]
+
+    check(f[0]["host"] == f[1]["host"] and f[0]["log"] == f[1]["log"]
+          == onef["log"], "[20f] the ranks' host state equal, every fault "
+                          "fired as in one process")
+    for d, r in enumerate(f):
+        check(r["drained"] and r["leak_free"] and r["recoveries"] == 1
+              and r["tokens"] == onef["tokens"],
+              f"[20f] rank {d}: drained, leak-free, one recovery in place, "
+              f"every stream == the single-process dp 2 run's under the "
+              f"same faults, token for token")
+        check(len(r["reports"]) == len(onef["reports"]) == 2 and all(
+            shard_of(a, 0) == shard_of(b, d) and a["conserved"]
+            and a["never_dry"] for a, b in zip(r["reports"],
+                                               onef["reports"])),
+              f"[20f] rank {d}: each reconcile report of shard {d} == the "
+              f"single-process run's")
+        torn = sum(1 for k, _, _, t in F32_FAULTS if k == "crash" and t)
+        check(r["transfers"] + torn == r["steps"] == r["collectives"] + torn,
+              f"[20f] rank {d}: one transfer and one collective a step but "
+              f"the step the torn crash cut ({r['transfers']}, "
+              f"{r['collectives']}, {r['steps']})")
+        got = r["launches"]
+        check(got["K1"] + got["K2"] == r["n_layers"] * r["steps"]
+              and sum(got.values()) == r["n_layers"] * r["steps"]
+              and r["k1_routes"].get("fma", 0) == got["K1"]
+              and r["k2_routes"].get("fma", 0) == got["K2"],
+              f"[20f] rank {d}: K1 + K2 = {r['n_layers']} x steps on their "
+              f"fma kernels ({got}, {r['steps']})")
+    phase(f"[20f] olmo-1b in f32 at full width, {f[0]['n_layers']} layers, "
+          f"dp 2 on two gloo ranks sharing {smi} under {F32_FAULTS}: "
+          f"{len(onef['tokens'])} streams == the single-process run's, "
+          f"token for token; reconciles (rank 0; rank 1) "
+          + "; ".join(f"reclaimed {a['reclaimed']} / {b['reclaimed']}"
+                      for a, b in zip(f[0]["reports"], f[1]["reports"]))
+          + f"; K1 {f[0]['launches']['K1']}, K2 {f[0]['launches']['K2']} a "
+            f"rank over {f[0]['steps']} steps; {f[0]['wall']:.1f} s on rank "
+            f"0, {onef['wall']:.1f} s in one process")
+
+
 def serve_dp_ranks(tengine, counted, cfg, cfg_smoke, seed, b_local,
                    max_len, chunk, smi):
     """Phase 20: the DP allocation plane, one rank per DP shard.  (a)
@@ -4097,7 +4299,10 @@ def serve_dp_ranks(tengine, counted, cfg, cfg_smoke, seed, b_local,
     engine's on the card or first different at a near-tie; (c) (b) over
     nccl, one rank per card, where the run was given two cards; (d) the
     f32 model at full width and cut depth on the ranks of (a): every
-    stream the single-process dp 2 engine's exactly.  Returns the
+    stream the single-process dp 2 engine's exactly; (e) phase 16 (c)'s
+    ``launch.serve`` with every fault kind on the ranks of (a); (f) (d)
+    under a crash, a torn crash and a step error, against one process
+    under the same faults (:func:`check_chaos_ranks`).  Returns the
     numbers."""
     t0 = time.perf_counter()
     cpu = dp_smoke_run(tengine, cfg_smoke, seed, "cpu")
@@ -4111,7 +4316,6 @@ def serve_dp_ranks(tengine, counted, cfg, cfg_smoke, seed, b_local,
     phase(f"[20] single-process references: the CPU smoke engine and the "
           f"card's dp 2 engine at full width in "
           f"{time.perf_counter() - t0:.1f} s")
-    t1 = time.perf_counter()
     cfg32 = dp_f32_config(cfg)
     one32 = dp_full_run(tengine, counted, cfg32, seed, b_local, max_len,
                         chunk)
@@ -4119,12 +4323,24 @@ def serve_dp_ranks(tengine, counted, cfg, cfg_smoke, seed, b_local,
           "[20d] the single-process f32 reference finished and drained")
     gc.collect()
     torch.cuda.empty_cache()
+    t_f = time.perf_counter()
+    onef = dp_chaos_f32(tengine, counted, cfg32, seed, b_local, max_len,
+                        chunk)
+    check(onef["drained"] and onef["leak_free"] and len(onef["log"]) == 3
+          and len(onef["reports"]) == 2 and onef["recoveries"] == 1,
+          f"[20f] the single-process f32 reference under faults fired "
+          f"{onef['log']}, recovered and drained")
+    phase(f"[20f] single-process f32 reference under faults in "
+          f"{time.perf_counter() - t_f:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
     cards = caller_cards()
+    t1 = time.perf_counter()
     ranks = spawn_ranks("[20]", "gloo", seed, True, b_local, max_len, chunk,
-                        visible=cards[0])
+                        visible=cards[0], limit_s=480)
     phase(f"[20] two gloo ranks on {smi} ({ranks[0]['device']}; "
           f"{ranks[1]['device']}; CUDA_VISIBLE_DEVICES {cards[0]}): "
-          f"spawned, served (a), (b) and (d), exited in "
+          f"spawned, served (a), (b), (d), (e) and (f), exited in "
           f"{time.perf_counter() - t1:.1f} s")
     for d, r in enumerate(ranks):
         a = r["a"]
@@ -4221,6 +4437,8 @@ def serve_dp_ranks(tengine, counted, cfg, cfg_smoke, seed, b_local,
           f"streams over {d32[0]['steps']} steps == the single-process dp "
           f"2 engine's, token for token; K1 {d32[0]['launches']['K1']}, "
           f"K2 {d32[0]['launches']['K2']} a rank")
+    check_chaos_ranks([r["e"] for r in ranks], [r["f"] for r in ranks],
+                      onef, smi)
     for d, r in enumerate(ranks):
         b = r["b"]
         phase(f"[20b] olmo-1b at dp 2, rank {d} of two gloo ranks "
@@ -4235,7 +4453,9 @@ def serve_dp_ranks(tengine, counted, cfg, cfg_smoke, seed, b_local,
           f"generated tok/s; K1 {one_launches['K1']}, K2 "
           f"{one_launches['K2']}")
     out = dict(a_steps=cpu["steps"], ranks=[r["b"] for r in ranks],
-               one=one, same=same_b, nccl=None)
+               one=one, same=same_b, nccl=None,
+               faults=[r["e"]["launches"] for r in ranks],
+               faults_f32=[r["f"]["launches"] for r in ranks])
     if len(cards) >= 2:
         t2 = time.perf_counter()
         nccl = spawn_ranks("[20c]", "nccl", seed, False, b_local, max_len,
@@ -4876,6 +5096,10 @@ def main() -> int:
     for row_, key in ((kernels[0], "K2"), (kernels[1], "K1")):
         row_["dp_ranks_launches"] = {
             "gloo_one_card": {r: n[key] for r, n in dp_launches.items()},
+            "gloo_one_card_faults": {f"rank{d}": n[key] for d, n in
+                                     enumerate(r20["faults"])},
+            "gloo_one_card_faults_f32": {f"rank{d}": n[key] for d, n in
+                                         enumerate(r20["faults_f32"])},
             "nccl": None if r20["nccl"] is None else {
                 f"rank{d}": b["launches"][key]
                 for d, b in enumerate(r20["nccl"])}}

@@ -10,8 +10,15 @@ Layout: ``<dir>/step_<N>/``
     tuples, joined by ``/``; bfloat16 stored as float32 (lossless)
   * ``aux.json``       — an optional JSON sidecar (the serving plane's
     host ledgers for a warm restart), read back by ``restore_aux``
-  * ``INDEX.json``     — written LAST (atomic rename); a checkpoint
-    without INDEX is incomplete and ignored on restore
+  * ``INDEX.json``     — written LAST (atomic rename), listing the
+    shards; a checkpoint without INDEX, or without a shard file its
+    INDEX lists, is incomplete and ignored on restore
+
+Shards written by several processes (the ranks of a DP group) share
+one step directory: each saves its own file with ``complete=False``,
+and once every file has landed one of them writes the marker for all
+with :meth:`Checkpointer.mark_complete`, so no marker names a step that
+a shard cannot restore.
 
 Saves never corrupt the previous checkpoint: every file is written to
 a temporary name and renamed into place.  ``latest_step`` reports only
@@ -92,15 +99,20 @@ class Checkpointer:
 
     # ------------------------------------------------------------- save
     def save(self, step: int, state: Any, async_: bool = False,
-             aux: Any = None) -> None:
+             aux: Any = None, complete: bool = True) -> None:
+        """Write this shard's file (and ``aux``'s sidecar); with
+        ``complete`` also the completion marker, listing this shard
+        alone.  A shard of several sets ``complete=False`` and leaves
+        the marker to :meth:`mark_complete`."""
         flat = _flatten(state)
         if async_:
             self.wait()
             self._thread = threading.Thread(
-                target=self._write, args=(step, flat, aux), daemon=True)
+                target=self._write, args=(step, flat, aux, complete),
+                daemon=True)
             self._thread.start()
         else:
-            self._write(step, flat, aux)
+            self._write(step, flat, aux, complete)
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -108,8 +120,8 @@ class Checkpointer:
             self._thread = None
 
     def _write(self, step: int, flat: Dict[str, np.ndarray],
-               aux: Any = None) -> None:
-        d = self.dir / f"step_{step:08d}"
+               aux: Any = None, complete: bool = True) -> None:
+        d = self._step_dir(step)
         d.mkdir(parents=True, exist_ok=True)
         tmp_npz = d / f".shard_{self.shard_id}.npz.tmp"
         with open(tmp_npz, "wb") as f:
@@ -119,34 +131,70 @@ class Checkpointer:
             tmp_aux = d / ".aux.json.tmp"
             tmp_aux.write_text(json.dumps(aux, default=int))
             os.replace(tmp_aux, d / "aux.json")
+        if complete:
+            self._mark(d, step, [self.shard_id], sorted(flat),
+                       aux is not None)
+
+    def mark_complete(self, step: int, shards) -> None:
+        """Write the completion marker of a step whose ``shards`` were
+        saved with ``complete=False``, once each of their files has
+        landed; a missing one raises and leaves the step incomplete."""
+        d = self._step_dir(step)
+        missing = [k for k in shards if not (d / f"shard_{k}.npz").exists()]
+        if missing:
+            raise FileNotFoundError(f"{d}: shard files {missing} missing; "
+                                    f"step {step} stays incomplete")
+        with np.load(d / f"shard_{self.shard_id}.npz") as npz:
+            keys = sorted(npz.files)
+        self._mark(d, step, list(shards), keys, (d / "aux.json").exists())
+
+    def _mark(self, d: pathlib.Path, step: int, shards, keys,
+              has_aux: bool) -> None:
         tmp = d / ".INDEX.tmp"
         tmp.write_text(json.dumps({
             "step": step,
-            "shards": [self.shard_id],
-            "keys": sorted(flat),
-            "aux": aux is not None,
+            "shards": shards,
+            "keys": keys,
+            "aux": has_aux,
         }))
         os.replace(tmp, d / "INDEX.json")       # atomic completion marker
         self._gc()
 
+    def _step_dir(self, step: int) -> pathlib.Path:
+        return self.dir / f"step_{step:08d}"
+
+    def _complete(self, d: pathlib.Path) -> bool:
+        """The step directory has its marker and every shard file the
+        marker lists."""
+        try:
+            index = json.loads((d / "INDEX.json").read_text())
+        except (FileNotFoundError, ValueError):
+            return False
+        return all((d / f"shard_{k}.npz").exists() for k in index["shards"])
+
     def _gc(self) -> None:
         done = sorted(p for p in self.dir.glob("step_*")
-                      if (p / "INDEX.json").exists())
+                      if self._complete(p))
         for p in done[:-self.keep]:
             shutil.rmtree(p, ignore_errors=True)
 
     # ---------------------------------------------------------- restore
     def latest_step(self) -> Optional[int]:
+        """The newest complete step that holds this shard's file."""
         done = sorted(p for p in self.dir.glob("step_*")
-                      if (p / "INDEX.json").exists())
+                      if self._complete(p)
+                      and (p / f"shard_{self.shard_id}.npz").exists())
         if not done:
             return None
         return int(done[-1].name.split("_")[1])
 
     def restore(self, step: int, like: Any) -> Any:
-        d = self.dir / f"step_{step:08d}"
-        if not (d / "INDEX.json").exists():
+        d = self._step_dir(step)
+        if not self._complete(d):
             raise FileNotFoundError(f"incomplete checkpoint {d}")
+        if not (d / f"shard_{self.shard_id}.npz").exists():
+            raise FileNotFoundError(f"{d} holds no file of shard "
+                                    f"{self.shard_id}")
         with np.load(d / f"shard_{self.shard_id}.npz") as npz:
             flat = dict(npz)
         return _unflatten_into(like, flat)
@@ -154,8 +202,8 @@ class Checkpointer:
     def restore_aux(self, step: int) -> Any:
         """The JSON sidecar saved with ``step`` (None if there is
         none)."""
-        d = self.dir / f"step_{step:08d}"
-        if not (d / "INDEX.json").exists():
+        d = self._step_dir(step)
+        if not self._complete(d):
             raise FileNotFoundError(f"incomplete checkpoint {d}")
         p = d / "aux.json"
         return json.loads(p.read_text()) if p.exists() else None

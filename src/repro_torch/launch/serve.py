@@ -41,13 +41,18 @@ The allocation plane: under ``torchrun`` (``WORLD_SIZE`` > 1) ``--mesh
 auto`` runs one rank per DP shard (:mod:`repro_torch.launch.mesh`) over
 ``--dist-backend``: ``nccl`` with one rank per card, or ``gloo`` for CPU
 ranks and for ranks sharing one card.  Every rank serves the same
-trace; only rank 0 prints.  Fault injection under ranks is not ported
-yet.  In one process ``--mesh auto`` is the single-device plane, DP
-kept as a leading axis, as the reference does when fewer than ``dp``
-devices exist.
+trace; only rank 0 prints.  ``--inject-fault`` runs on the ranks too:
+every rank holds the schedule, so each fault fires on every rank at
+the same (step, phase); each crash is recovered on every rank (each
+rank adopting its own shard), a step error in place on every rank, and
+a lost shard's rank stays in the group owning no slot.  Flight dumps of
+rank r > 0 go to ``<path>.rank<r>``.  In one process ``--mesh auto`` is
+the single-device plane, DP kept as a leading axis, as the reference
+does when fewer than ``dp`` devices exist.
 
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve --dp 2 \\
-      --mesh auto --dist-backend nccl
+      --mesh auto --dist-backend nccl \\
+      --inject-fault crash@3:post_sync,shard_loss@5:post_admission:1
 """
 
 from __future__ import annotations
@@ -191,7 +196,7 @@ def main(argv=None):
                               page_budget=args.page_budget,
                               chunk_buckets=buckets),
             journal=journal, injector=injector,
-            max_restarts=0 if group else 4, tracer=tracer, flight=flight,
+            max_restarts=4, tracer=tracer, flight=flight,
             mesh=group, device=group.device if group else args.device)
         if args.flight_recorder:
             install_signal_dump(eng.flight)
@@ -237,8 +242,11 @@ def main(argv=None):
         except chaos.HostCrash:
             crashes += 1
             engine, report = chaos.recover_engine(build, engine, journal)
+            reclaimed = report["reclaimed"]
+            if group is not None:       # each rank reconciled its shard
+                reclaimed = int(group.gather(torch.tensor([reclaimed])).sum())
             say(f"[chaos] host crash #{crashes} at step "
-                f"{injector.step}: reconciled {report['reclaimed']} "
+                f"{injector.step}: reconciled {reclaimed} "
                 f"leaked pages, requeued {report['requeued']} "
                 f"requests, restored {report['pins_restored']} pins "
                 f"(never_dry={report['never_dry']})")

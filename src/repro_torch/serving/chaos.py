@@ -21,6 +21,16 @@ makes the serving engine honor the same contract at host granularity:
   by ``fold_in(seed, out_count)``, replay regenerates exactly the
   tokens the crash lost — recovery is token-identical for greedy and
   sampled decode alike.
+
+Under a DP group (one rank per shard, ``launch/mesh.py``) every rank
+holds the same schedule and runs the same host control, so each fault
+fires on every rank at the same (step, phase): a crash on every rank
+(:func:`recover_engine` then runs on every rank, each adopting its own
+shard), an ``error`` recovered in place on every rank, a shard's loss
+retired by every rank while the lost shard's rank stays in the group.
+A schedule that not every rank holds fails only its own rank; the
+engine tells the others through its status gather
+(:class:`RankFailure`).
 """
 
 from __future__ import annotations
@@ -28,9 +38,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
+import zlib
 from typing import Any, Dict, IO, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core import NULL, classed_pool
 
@@ -53,6 +65,13 @@ class HostCrash(RuntimeError):
 class StepError(RuntimeError):
     """A step failed without killing the host (a software bug, a transient
     device error).  ``ServingEngine.run`` recovers in place."""
+
+
+class RankFailure(RuntimeError):
+    """A rank of a DP group failed after a status gather (or in a step
+    that gathered nothing), when the ranks' host state may already
+    differ: no in-place recovery is tried.  Raised on every rank at the
+    group's next gather, naming the failing rank and serve step."""
 
 
 class PoisonedRequest(RuntimeError):
@@ -106,8 +125,20 @@ class ServingFailureInjector:
     def pending(self) -> int:
         return sum(1 for f in self.faults if not f.fired)
 
+    def digest(self) -> int:
+        """A 31-bit checksum of the schedule as given (not of its firing
+        state): the ranks of a DP group compare theirs to learn whether
+        every rank holds the same schedule."""
+        sched = [(f.step, f.phase, f.kind, f.shard, f.rid, f.delay, f.torn)
+                 for f in self.faults]
+        return zlib.crc32(json.dumps(sched).encode()) & 0x7FFFFFFF
+
     def fire(self, engine: Any, phase: str,
-             rids: Optional[Dict[int, int]] = None) -> None:
+             rids: Optional[Dict[int, int]] = None,
+             alone: bool = False) -> None:
+        """Fire the faults due at ``phase``.  ``alone``: the schedule is
+        this rank's alone, so a shard's loss, which only the whole
+        group can decide, is raised as this rank's :class:`StepError`."""
         if phase == "pre_tick":
             self.step += 1
         for f in self.faults:
@@ -126,6 +157,10 @@ class ServingFailureInjector:
             if f.kind == "straggler":
                 time.sleep(f.delay)
             elif f.kind == "shard_loss":
+                if alone:
+                    raise StepError(
+                        f"shard_loss of shard {f.shard} scheduled on one "
+                        f"rank only @ step {self.step}:{phase}")
                 engine.lose_shard(f.shard)
             elif f.kind == "error":
                 raise StepError(
@@ -194,7 +229,9 @@ class ServingJournal:
       sampler keying.
 
     With ``path`` set, events are additionally appended to a JSONL file
-    (``load`` replays it), modeling a durable log.
+    (``load`` replays it), modeling a durable log.  Under a DP group
+    every rank records the same events in its own journal, and only rank
+    0's is given a ``path``.
     """
 
     def __init__(self, path: Optional[str] = None):
@@ -258,6 +295,12 @@ class ServingJournal:
     def finished(self) -> set:
         return {ev["rid"] for ev in self.events if ev["kind"] == "finish"}
 
+    def digest(self) -> int:
+        """A 31-bit checksum of the events: the ranks of a DP group
+        compare theirs at recovery."""
+        return zlib.crc32(json.dumps(self.events, default=int).encode()
+                          ) & 0x7FFFFFFF
+
     def live_pins(self) -> List[dict]:
         """Pin entries still live at the end of the log (pins on lost
         shards are dropped — their pages died with the shard)."""
@@ -290,15 +333,29 @@ def recover_engine(factory, crashed, journal: ServingJournal):
     untrusted, but its device-resident tensors (DecodeState, pin tables)
     survive and are the ground truth together with the journal.
 
-    Returns ``(engine, report)`` where ``report`` extends the
-    :func:`classed_pool.audit_and_reconcile` report with ``requeued``,
-    ``pins_restored``, ``finished_at_crash`` and the requeued
-    ``requests`` (for token-identity checks).
-    """
-    from .engine import GROUP_TODO, Request
+    Under a DP group every rank calls it at the same point: the ranks'
+    journals are compared first (one gather of their digests, outside
+    any serve step; a difference raises on every rank), the factory
+    builds over the same group, and each rank adopts its own crashed
+    shard against its own pin row.
 
-    if getattr(crashed, "mesh", None) is not None:
-        raise NotImplementedError(f"recover_engine {GROUP_TODO}")
+    Returns ``(engine, report)`` where ``report`` extends the
+    :func:`classed_pool.audit_and_reconcile` report (of this rank's
+    shard under a group) with ``requeued``, ``pins_restored``,
+    ``finished_at_crash`` and the requeued ``requests`` (for
+    token-identity checks).
+    """
+    from .engine import Request
+
+    mesh = getattr(crashed, "mesh", None)
+    if mesh is not None:
+        mine = torch.tensor([journal.digest(), len(journal.events)],
+                            dtype=torch.int64)
+        got = mesh.gather(mine).reshape(mesh.size, 2).tolist()
+        if any(g != got[0] for g in got):
+            raise RuntimeError(
+                f"recover_engine: the ranks' journals differ (digest, "
+                f"events by rank: {got}): the shards cannot recover alike")
     eng = factory()
     assert eng.dp == crashed.dp and eng.bl == crashed.bl, \
         "recovery requires an identical topology"
@@ -311,19 +368,21 @@ def recover_engine(factory, crashed, journal: ServingJournal):
     eng.telemetry.tracer = eng.tracer = crashed.telemetry.tracer
     eng.tracer.begin("recover", kind="host_crash")
 
-    # journal-trusted pin rows: mask the device pin tables down to rows
-    # the journal confirms; everything else is reclaimed by reconcile
+    # journal-trusted pin rows: mask the device pin tables (this rank's
+    # row under a group) down to rows the journal confirms; everything
+    # else is reclaimed by reconcile
     pins_live = journal.live_pins() if eng.pins is not None else []
     pin_np = None
     if crashed.pin_tables is not None:
         pin_np = crashed.pin_tables.cpu().numpy().copy()
         ok = np.zeros(pin_np.shape[:2], bool)
         for e in pins_live:
-            ok[e["shard"], e["row"]] = True
+            r = eng._own(e["shard"])
+            if r is not None:
+                ok[r, e["row"]] = True
         pin_np[~ok] = NULL
 
     report = eng.adopt_crashed_state(crashed.state, pin_np)
-
     if eng.pins is not None and pins_live:
         eng.pins.load_state(pins_live)
         if eng.prefix_cache is not None:

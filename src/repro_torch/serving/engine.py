@@ -75,12 +75,26 @@ share step's verdict is agreed in one more (``agreements``).  The wall
 clock that host decisions read (deadlines, the speculation gate's step
 cost, the watchdog) is rank 0's, carried in trailing rows of that same
 gather; an engine with nothing owed runs no serve step, so a submit to
-it first gathers the clock rows alone (``clock_syncs``).  Fault injection, in-place recovery, crash recovery and warm
-restart under a group raise ``NotImplementedError``.
+it first gathers the clock rows alone (``clock_syncs``).
+
+Faults under a group: every rank holds the same fault schedule and runs
+the same host control, so an injected fault fires on every rank at the
+same (step, phase) and each rank recovers as one process does, on its
+own shard: a crash through ``recover_engine`` on every rank, a step
+error in place on every rank, a shard's loss retired by every rank
+(the lost shard's rank stays in the group, owning no slot).  A failure
+of one rank alone (a device error in the step or in admission's device
+work, or a schedule that not every rank holds) is held while the rank's
+host control goes on in step, and rides the trailing rows of the next
+gather: raised before the step's status gather, every rank recovers in
+place at it; after it, every rank raises :class:`~.chaos.RankFailure`
+at the next one.  A warm save writes each rank's shard file, rank 0's
+sidecar, and the completion marker once every file has landed.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import time
@@ -101,7 +115,7 @@ from ..models.transformer import (EXPERT_PPE, DecodeState,
                                   expert_layer_slots, forward_decode_chunk,
                                   pool_class_specs, state_blocks_per_slot)
 from ..runtime.fault import StepWatchdog
-from .chaos import HostCrash, PoisonedRequest
+from .chaos import HostCrash, PoisonedRequest, RankFailure, StepError
 from .expert_pages import (ExpertLedger, build_host_experts,
                            expert_evict_step, expert_load_step,
                            expert_ref_step, stub_expert_params)
@@ -203,30 +217,35 @@ STATUS_EMITTED = 0   # + T: emitted-token count this step
 STATUS_DONE = 1      # + T: 1 iff the slot finished (pages released)
 STATUS_PAGES = 2     # + T: KV pages-in-use on the slot's DP shard
 
-# Under a DP group the status gathered each step carries CLOCK_ROWS more
+# Under a DP group the status gathered each step carries TRAIL_ROWS more
 # rows at its end, stripped on the host before anything reads the
 # status: the sending rank's wall clock (microseconds, high and low
 # 32 bits) and its wall time of the previous serve step (microseconds,
-# -1 for none).  Host decisions read rank 0's, so the ranks agree.
+# -1 for none), of which host decisions read rank 0's, so the ranks
+# agree; then the rank's failure flag (0, FAIL_IN_STEP or FAIL_LATE)
+# and the serve step it names; then the checksum of the rank's fault
+# schedule (0 without an injector).
 CLOCK_ROWS = 3
+TRAIL_FAIL, TRAIL_FAIL_STEP, TRAIL_SCHEDULE = 3, 4, 5
+TRAIL_ROWS = 6
+FAIL_IN_STEP = 1   # failed in the step this status gather closes
+FAIL_LATE = 2      # failed after an earlier gather, or in a step with none
 
-#: what a DP group does not serve yet
-GROUP_TODO = ("under a DP group (ROADMAP.md, Queue A: recovery, warm "
-              "restart and fault injection under the group)")
 
-
-def _clock_rows(now: float, dt: Optional[float], bl: int) -> np.ndarray:
-    """The trailing status rows of one rank (see CLOCK_ROWS)."""
+def _trail_rows(now: float, dt: Optional[float], fail: int, fail_step: int,
+                schedule: int, bl: int) -> np.ndarray:
+    """The trailing status rows of one rank (see TRAIL_ROWS)."""
     us = int(round(now * 1e6))
-    rows = np.zeros((CLOCK_ROWS, 1, bl), np.int64)
+    rows = np.zeros((TRAIL_ROWS, 1, bl), np.int64)
     rows[:, 0, 0] = (us >> 32, us & 0xFFFFFFFF,
-                     -1 if dt is None else min(int(dt * 1e6), 2**31 - 1))
+                     -1 if dt is None else min(int(dt * 1e6), 2**31 - 1),
+                     fail, fail_step, schedule)
     return rows.astype(np.int32)
 
 
 def _read_clock(rows: np.ndarray) -> Tuple[float, Optional[float]]:
     """(now, dt) of rank 0 from the gathered trailing rows."""
-    hi, lo, dt = (int(x) for x in rows[:, 0, 0])
+    hi, lo, dt = (int(x) for x in rows[:CLOCK_ROWS, 0, 0])
     now = ((hi << 32) | (lo & 0xFFFFFFFF)) / 1e6
     return now, (None if dt < 0 else dt / 1e6)
 
@@ -453,9 +472,6 @@ class ServingEngine:
             if mesh.size != dp:
                 raise ValueError(f"a DP group of {mesh.size} ranks serves "
                                  f"dp={mesh.size}, not dp={dp}")
-            if injector is not None or max_restarts > 0:
-                raise NotImplementedError(
-                    f"fault injection and in-place recovery {GROUP_TODO}")
             if torch.device(device).type != mesh.device.type:
                 raise ValueError(f"device {device} for a rank on "
                                  f"{mesh.device}")
@@ -654,8 +670,13 @@ class ServingEngine:
         self._step_dt: Optional[float] = None   # this rank's last step
         self._cost_key: Optional[Tuple[int, bool]] = None
         self._group_verdict: Optional[str] = None
+        # under a group: this rank's failure not yet told to the others,
+        # as (exception, serve step, raised before the step's gather),
+        # and whether its fault schedule is its own (not every rank's)
+        self._held: Optional[tuple] = None
+        self._faults_alone = False
         if mesh is not None:
-            self._sync_clock()
+            self._sync_clock(construction=True)
             self._clock = lambda: self._shared_now
         self.max_restarts = max_restarts
         self.lost_shards: set = set()
@@ -701,8 +722,38 @@ class ServingEngine:
             self._journal.record(kind, **fields)
 
     def _fire(self, phase: str, **ctx) -> None:
-        if self._injector is not None:
+        if self._injector is None:
+            return
+        if not self._faults_alone:
             self._injector.fire(self, phase, **ctx)
+            return
+        # a schedule of this rank alone: its faults are this rank's
+        # failures, held and told to the group at the next gather while
+        # the host control goes on in step with the other ranks
+        try:
+            self._injector.fire(self, phase, alone=True, **ctx)
+        except (StepError, HostCrash, PoisonedRequest) as e:
+            self._hold(e, before_gather=phase not in ("post_sync",
+                                                      "post_step"))
+
+    def _hold(self, e: BaseException, before_gather: bool) -> None:
+        """Keep this rank's first failure until a gather tells it."""
+        if self._held is None:
+            self._held = (e, self.stats["steps"], before_gather)
+
+    @contextlib.contextmanager
+    def _holding(self):
+        """Around this rank's device work outside the serve step (the
+        share, pin, grant, release and expert steps, register writes):
+        under a group a failure is held, and the rank's later device
+        work skipped (:meth:`_own`), while the host control, and so
+        every collective, goes on in step with the other ranks."""
+        try:
+            yield
+        except Exception as e:
+            if self.mesh is None:
+                raise
+            self._hold(e, before_gather=True)
 
     def _sampling_registers(self):
         """Zeroed (temps float32, topks int32, seeds int32) [DP, Bl] on
@@ -722,10 +773,11 @@ class ServingEngine:
     def _own(self, d: int) -> Optional[int]:
         """Shard ``d``'s row in this process's device state: ``d`` on one
         device; under a group 0 on the rank that owns it, None on the
-        others (which skip the device work of the slots of ``d``)."""
+        others (which skip the device work of the slots of ``d``), and
+        None on a rank holding a failure (:meth:`_holding`)."""
         if self.mesh is None:
             return d
-        return 0 if d == self.mesh.rank else None
+        return 0 if d == self.mesh.rank and self._held is None else None
 
     def _shard_to_device(self, a: np.ndarray) -> torch.Tensor:
         """:meth:`_to_device` of a host buffer with a leading [DP] axis:
@@ -753,8 +805,9 @@ class ServingEngine:
             d, b = divmod(slot, self.bl)
             r = self._own(d)
             if r is not None:
-                for reg in (self.temps, self.topks, self.seeds):
-                    reg[r, b] = 0
+                with self._holding():
+                    for reg in (self.temps, self.topks, self.seeds):
+                        reg[r, b] = 0
 
     # ------------------------------------------------------------ control
     def _host_alloc_slot(self, shard: Optional[int] = None
@@ -933,13 +986,14 @@ class ServingEngine:
         asynchronous copy from page-locked memory on a card (on the
         owning rank under a group; every rank's ledger takes it)."""
         if self._own(d) is not None:
-            w = self._host_experts[pos][g, e].to(self.device,
-                                                 non_blocking=True)
             counts = np.zeros((self.dp, self.bl), np.int32)
             counts[d, 0] = EXPERT_PPE
-            self.state = expert_load_step(pos, self.state,
-                                          self._shard_to_device(counts), w,
-                                          self._shard_oh(d), g, e)
+            with self._holding():
+                w = self._host_experts[pos][g, e].to(self.device,
+                                                     non_blocking=True)
+                self.state = expert_load_step(
+                    pos, self.state, self._shard_to_device(counts), w,
+                    self._shard_oh(d), g, e)
         self.expert_ledger.add(d, pos, g, e)
         self.telemetry.inc("expert_load_pages", EXPERT_PPE)
 
@@ -947,8 +1001,9 @@ class ServingEngine:
         d, pos, g, e = key
         self.expert_ledger.remove(key)
         if self._own(d) is not None:
-            self.state = expert_evict_step(pos, self.state,
-                                           self._shard_oh(d), g, e)
+            with self._holding():
+                self.state = expert_evict_step(pos, self.state,
+                                               self._shard_oh(d), g, e)
         self.telemetry.inc("expert_evictions")
         self.telemetry.inc("expert_evict_pages", EXPERT_PPE)
 
@@ -965,11 +1020,13 @@ class ServingEngine:
         fp = self._footprint_of(req)
         if self.expert_ledger is None:
             if r is not None:
-                self.expert_mask[r, b] = self._to_device(self._fp_row(fp))
+                with self._holding():
+                    self.expert_mask[r, b] = self._to_device(
+                        self._fp_row(fp))
             return
-        masks, row = self._fp_entry(fp)
         if r is not None:
-            self.expert_mask[r, b] = self._to_device(row)
+            with self._holding():
+                self.expert_mask[r, b] = self._to_device(self._fp_entry(fp)[1])
         led = self.expert_ledger
         keys = [(d, pos, g, e) for pos, g in self._elayer_slots for e in fp]
         for key in keys:
@@ -986,9 +1043,11 @@ class ServingEngine:
                 self._evict_expert(victim)
             self._load_expert(*key)
         # one bulk addref over the whole footprint
-        if r is not None:
-            self.state = expert_ref_step(False, self.state, masks,
-                                         self._shard_oh(d))
+        if self._own(d) is not None:
+            with self._holding():
+                self.state = expert_ref_step(False, self.state,
+                                             self._fp_entry(fp)[0],
+                                             self._shard_oh(d))
         for key in keys:
             led.addref(key)
         self._slot_experts[slot] = (d, fp)
@@ -1005,15 +1064,17 @@ class ServingEngine:
         d, b = divmod(slot, self.bl)
         r = self._own(d)
         if r is not None:
-            self.expert_mask[r, b] = True
+            with self._holding():
+                self.expert_mask[r, b] = True
         ent = self._slot_experts.pop(slot, None)
         if ent is None or self.expert_ledger is None:
             return
         d, fp = ent
-        if device and r is not None:
-            masks, _ = self._fp_entry(fp)
-            self.state = expert_ref_step(True, self.state, masks,
-                                         self._shard_oh(d))
+        if device and self._own(d) is not None:
+            with self._holding():
+                self.state = expert_ref_step(True, self.state,
+                                             self._fp_entry(fp)[0],
+                                             self._shard_oh(d))
         for pos, g in self._elayer_slots:
             for e in fp:
                 self.expert_ledger.deref((d, pos, g, e))
@@ -1050,29 +1111,31 @@ class ServingEngine:
         self.pending_tokens[slot] = toks[shared_n:]
         self._fed[slot] = shared_n
         r = self._own(d)
+        if r is not None:
+            with self._holding():
+                if self._state_blocks > 0:
+                    # the slot's bounded-state blocks from the fine
+                    # class, one bulk shared-pool pull; the class's §4.2
+                    # slack and the scheduler's state budget guarantee
+                    # the grant
+                    counts = np.zeros((self.dp, self.bl), np.int32)
+                    counts[d, b] = self._state_blocks
+                    self.state = _alloc_state_step(
+                        self.state, self._shard_to_device(counts))
+                self.budget[r, b] = int(req.max_new_tokens)
+                self.out_count[r, b] = len(req.out_tokens)
+                if req.temperature > 0:
+                    self.temps[r, b] = float(req.temperature)
+                    self.topks[r, b] = int(req.top_k)
+                    self.seeds[r, b] = int(req.seed)
         if self._state_blocks > 0:
-            # the slot's bounded-state blocks from the fine class, one
-            # bulk shared-pool pull; the class's §4.2 slack and the
-            # scheduler's state budget guarantee the grant
-            if r is not None:
-                counts = np.zeros((self.dp, self.bl), np.int32)
-                counts[d, b] = self._state_blocks
-                self.state = _alloc_state_step(
-                    self.state, self._shard_to_device(counts))
             self.telemetry.inc("state_blocks_granted", self._state_blocks)
         if self.prefix_cache is not None:
             self.prefix_cache.insert(slot, d, toks)
             self.prefix_cache.update_progress(slot, shared_n)
         if self.spec_store is not None:
             req._spec_key = self.spec_store.key_of(req.prompt)
-        if r is not None:
-            self.budget[r, b] = int(req.max_new_tokens)
-            self.out_count[r, b] = len(req.out_tokens)
         if req.temperature > 0:
-            if r is not None:
-                self.temps[r, b] = float(req.temperature)
-                self.topks[r, b] = int(req.top_k)
-                self.seeds[r, b] = int(req.seed)
             self._sampling_slots.add(slot)
         self._admit_experts(slot, req)
         self.telemetry.inc("admitted")
@@ -1142,8 +1205,9 @@ class ServingEngine:
             return
         mask = np.zeros((self.dp, self.bl), bool)
         mask[d, b] = True
-        self.state, _ = _release_slots(self.state,
-                                       self._shard_to_device(mask))
+        with self._holding():
+            self.state, _ = _release_slots(self.state,
+                                           self._shard_to_device(mask))
 
     def _requeue(self, slot: int, reason: str) -> None:
         """Evacuate a running request host-side only (no device release:
@@ -1217,11 +1281,12 @@ class ServingEngine:
             pin_oh[d, row] = True
             src = np.zeros((self.dp, self.bl), bool)
             src[d, b] = True
-            pool, self.pin_tables = pin_prefix_step(
-                self.state.pool, self.pin_tables, self.state.page_tables,
-                self._shard_to_device(pin_oh), self._shard_to_device(src),
-                n_pages)
-            self.state = self.state._replace(pool=pool)
+            with self._holding():
+                pool, self.pin_tables = pin_prefix_step(
+                    self.state.pool, self.pin_tables,
+                    self.state.page_tables, self._shard_to_device(pin_oh),
+                    self._shard_to_device(src), n_pages)
+                self.state = self.state._replace(pool=pool)
         self.prefix_cache.pin_insert(pin_id, d, key_toks)
         self.telemetry.inc("pins_created")
         self.tracer.instant("pin", pin_id=pin_id, shard=d,
@@ -1239,9 +1304,11 @@ class ServingEngine:
         if self._own(shard) is not None:
             oh = np.zeros((self.dp, self.pins.npin), bool)
             oh[shard, row] = True
-            pool, self.pin_tables = unpin_step(
-                self.state.pool, self.pin_tables, self._shard_to_device(oh))
-            self.state = self.state._replace(pool=pool)
+            with self._holding():
+                pool, self.pin_tables = unpin_step(
+                    self.state.pool, self.pin_tables,
+                    self._shard_to_device(oh))
+                self.state = self.state._replace(pool=pool)
         self.prefix_cache.pin_remove(pin_id)
         self.tracer.instant("unpin", pin_id=pin_id, shard=shard)
         self._jrec("unpin", pin_id=pin_id)
@@ -1275,19 +1342,21 @@ class ServingEngine:
         # state would not change, and their verdict is False
         ok = False
         if self._own(match.shard) is not None:
-            if match.pinned:
-                pin_oh = np.zeros((self.dp, self.pins.npin), bool)
-                pin_oh[match.shard, self.pins.entries[pin_id]["row"]] = True
-                self.state, ok = share_pinned_step(
-                    psz, self.state, self.pin_tables,
-                    self._shard_to_device(dst),
-                    self._shard_to_device(pin_oh), n)
-            else:
-                src = np.zeros((self.dp, self.bl), bool)
-                src[match.slot // self.bl, match.slot % self.bl] = True
-                self.state, ok = share_prefix_step(
-                    psz, self.state, self._shard_to_device(dst),
-                    self._shard_to_device(src), n)
+            with self._holding():
+                if match.pinned:
+                    pin_oh = np.zeros((self.dp, self.pins.npin), bool)
+                    pin_oh[match.shard,
+                           self.pins.entries[pin_id]["row"]] = True
+                    self.state, ok = share_pinned_step(
+                        psz, self.state, self.pin_tables,
+                        self._shard_to_device(dst),
+                        self._shard_to_device(pin_oh), n)
+                else:
+                    src = np.zeros((self.dp, self.bl), bool)
+                    src[match.slot // self.bl, match.slot % self.bl] = True
+                    self.state, ok = share_prefix_step(
+                        psz, self.state, self._shard_to_device(dst),
+                        self._shard_to_device(src), n)
         self.admission_transfers += 1
         if self.mesh is not None:
             self.agreements += 1
@@ -1321,37 +1390,86 @@ class ServingEngine:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _status_to_host(self, status: torch.Tensor) -> np.ndarray:
+    def _status_to_host(self, status: Optional[torch.Tensor],
+                        T: int) -> np.ndarray:
         """The step's one device -> host transfer, counted.  Under a DP
         group it is also the step's one collective: this rank's status,
-        with its clock rows, gathered from every rank; rank 0's clock
+        with its trailing rows, gathered from every rank; rank 0's clock
         becomes every rank's, and its cost of the previous step goes to
-        the gate and the watchdog (:meth:`_observe_cost`)."""
+        the gate and the watchdog (:meth:`_observe_cost`).  A rank whose
+        step failed sends zeros (``status`` None) and its failure flag,
+        and every rank raises at this gather (:meth:`_read_trail`)."""
         self.host_transfers += 1
         if self.mesh is None:
             return status.cpu().numpy()
         self.collectives += 1
-        rows = self._to_device(_clock_rows(self._local_clock(),
-                                           self._step_dt, self.bl))
+        if status is None:
+            status = self._to_device(np.zeros(
+                (T + 3 + self.n_classes * N_CTR, 1, self.bl), np.int32))
+        rows = self._to_device(self._trail(self._step_dt))
         got = self.mesh.gather_status(torch.cat([status, rows]))
-        self._shared_now, dt = _read_clock(got[-CLOCK_ROWS:])
+        trail = got[-TRAIL_ROWS:]
+        self._shared_now, dt = _read_clock(trail)
         self._group_verdict = None
         if dt is not None and self._cost_key is not None:
             self._group_verdict = self._observe_cost(self._cost_key, dt)
-        return got[:-CLOCK_ROWS]
+        self._read_trail(trail, in_step=True)
+        return got[:-TRAIL_ROWS]
 
-    def _sync_clock(self) -> None:
-        """Under a DP group, one gather of the clock rows alone: rank 0's
-        wall clock becomes every rank's.  The status gather moves the
-        agreed clock on every serve step; an engine with nothing owed
-        runs none, so this one runs at construction, at a submit to an
-        idle engine and at an idle step that leaves work owed.  Every
+    def _sync_clock(self, construction: bool = False) -> None:
+        """Under a DP group, one gather of the trailing rows alone: rank
+        0's wall clock becomes every rank's.  The status gather moves
+        the agreed clock on every serve step; an engine with nothing
+        owed runs none, so this one runs at construction, at a submit to
+        an idle engine and at an idle step that leaves work owed.  Every
         rank decides it from the host state they share, so all call it
-        at the same point; counted in ``clock_syncs``."""
+        at the same point; counted in ``clock_syncs``.  At construction
+        the ranks also compare their fault schedules: a schedule that
+        not every rank holds is its rank's alone (:meth:`_fire`)."""
         self.clock_syncs += 1
-        got = self.mesh.gather_status(self._to_device(
-            _clock_rows(self._local_clock(), None, self.bl)))
+        got = self.mesh.gather_status(self._to_device(self._trail(None)))
         self._shared_now = _read_clock(got)[0]
+        if construction:
+            mine = int(got[TRAIL_SCHEDULE, self.mesh.rank, 0])
+            self._faults_alone = bool(mine) and any(
+                int(x) != mine for x in got[TRAIL_SCHEDULE, :, 0])
+        self._read_trail(got, in_step=False)
+
+    def _trail(self, dt: Optional[float]) -> np.ndarray:
+        """This rank's trailing rows: its clock, ``dt``, the failure it
+        holds (cleared once the gather has told it, :meth:`_read_trail`)
+        and its schedule's checksum."""
+        fail, fail_step = 0, 0
+        if self._held is not None:
+            fail = FAIL_IN_STEP if self._held[2] else FAIL_LATE
+            fail_step = self._held[1]
+        return _trail_rows(self._local_clock(), dt, fail, fail_step,
+                           0 if self._injector is None
+                           else self._injector.digest(), self.bl)
+
+    def _read_trail(self, trail: np.ndarray, in_step: bool) -> None:
+        """Raise on every rank if a gather carried a rank's failure: a
+        :class:`~.chaos.StepError` (recovered in place by :meth:`run` on
+        every rank) when each failing rank failed before this status
+        gather, in the step it closes, and :class:`~.chaos.RankFailure`
+        otherwise.  The failing rank's own error is the cause."""
+        held, self._held = self._held, None
+        fails = [(r, int(trail[TRAIL_FAIL, r, 0]),
+                  int(trail[TRAIL_FAIL_STEP, r, 0]))
+                 for r in range(self.mesh.size)
+                 if int(trail[TRAIL_FAIL, r, 0])]
+        if not fails:
+            return
+        cause = None if held is None else held[0]
+        if in_step and all(k == FAIL_IN_STEP for _, k, _ in fails):
+            raise StepError("; ".join(
+                f"rank {r} failed in serve step {s} before its status "
+                f"gather" for r, _, s in fails)) from cause
+        raise RankFailure("; ".join(
+            f"rank {r} failed in serve step {s}"
+            + (" after its status gather" if k == FAIL_LATE
+               else " before its status gather")
+            for r, k, s in fails)) from cause
 
     def _observe_cost(self, key: Tuple[int, bool], dt: float
                       ) -> Optional[str]:
@@ -1452,6 +1570,9 @@ class ServingEngine:
         self._fire("post_admission")
         if not self.active:
             self.telemetry.inc("idle_steps")
+            if self._held is not None:
+                # no status gather in this step: told as a late failure
+                self._held = self._held[:2] + (False,)
             if self.mesh is not None and self.scheduler.backlog():
                 self._sync_clock()     # parked work's deadlines move on
             return False
@@ -1517,17 +1638,28 @@ class ServingEngine:
                 gen_slots[slot] = len(dr)
 
         spec = any(gen_slots.values())
-        dev = self._shard_to_device(feed)
-        self.state, self.last_tok, self.out_count, status = _serve_step(
-            self.cfg, self.capacity, self._eos, bool(self._sampling_slots),
-            spec, self._spec_T, self.params, self.state, self.last_tok,
-            self.out_count, self.budget, self.temps, self.topks, self.seeds,
-            dev[..., :T], dev[..., T], dev[..., T + 1].bool(),
-            dev[..., T + 2].bool(), self.expert_mask)
+        status = None
+        if self._held is None:
+            try:
+                dev = self._shard_to_device(feed)
+                (self.state, self.last_tok, self.out_count,
+                 status) = _serve_step(
+                    self.cfg, self.capacity, self._eos,
+                    bool(self._sampling_slots), spec, self._spec_T,
+                    self.params, self.state, self.last_tok, self.out_count,
+                    self.budget, self.temps, self.topks, self.seeds,
+                    dev[..., :T], dev[..., T], dev[..., T + 1].bool(),
+                    dev[..., T + 2].bool(), self.expert_mask)
+            except Exception as e:
+                if self.mesh is None:
+                    raise
+                # this rank's device step failed: the others learn it at
+                # the status gather, which this rank still joins
+                self._hold(e, before_gather=True)
         self.telemetry.inc("steps")
         self.telemetry.observe_hist("chunk_hist", T)
         self._fire("dispatched")
-        status = self._status_to_host(status)
+        status = self._status_to_host(status, T)
         self._fire("post_sync")
         n_emit = status[T + STATUS_EMITTED]
         done_row = status[T + STATUS_DONE]
@@ -1676,6 +1808,12 @@ class ServingEngine:
           the pool reconciled), counted in telemetry ``recoveries``, and
           past the restart budget re-raises after recovering, so the
           pool is conserved on that path too.
+
+        Under a DP group only a :class:`~.chaos.StepError` recovers in
+        place: one raised alike on every rank (an injected ``error``, or
+        a rank's failure told at the step's status gather), so every
+        rank's restart count and budget move together.  Anything else
+        (:class:`~.chaos.RankFailure` included) re-raises.
         """
         budget = self.max_restarts if max_restarts is None else max_restarts
         restarts = 0
@@ -1694,8 +1832,8 @@ class ServingEngine:
                     self.telemetry.inc("flight_dumps")
                 raise
             except Exception as e:
-                if self.mesh is not None:
-                    raise           # no in-place recovery under a group
+                if self.mesh is not None and not isinstance(e, StepError):
+                    raise
                 restarts += 1
                 if self.flight.dump("step_error",
                                     {"step": self.stats["steps"],
@@ -1715,10 +1853,10 @@ class ServingEngine:
         (:func:`classed_pool.audit_and_reconcile`, back on the engine's
         device), and clear every per-slot mapping and register, since
         all in-flight work re-enters through the preemption-resume
-        path.  Returns the reconcile report."""
+        path.  Under a DP group ``dead_state`` and ``pin_np`` are this
+        rank's shard and pin row, and the report is of that shard.
+        Returns the reconcile report."""
         assert not self.active, "adopt with active slots"
-        if self.mesh is not None:
-            raise NotImplementedError(f"crash recovery {GROUP_TODO}")
         C = len(dead_state.pool.classes)
         # pins live only in the KV class
         pins = None if pin_np is None else [pin_np] + [None] * (C - 1)
@@ -1746,7 +1884,7 @@ class ServingEngine:
             self._slot_experts.clear()
         self.state = state
         self.last_tok, self.out_count, self.budget = empty_serve_arrays(
-            self.dp, self.bl, self.device)
+            self._dp_dev, self.bl, self.device)
         self.temps, self.topks, self.seeds = self._sampling_registers()
         self.expert_mask = self._expert_mask_register()
         if self.pin_tables is not None:
@@ -1769,17 +1907,17 @@ class ServingEngine:
         return report
 
     def _trusted_pins(self) -> Optional[np.ndarray]:
-        """The device pin table on the host with every row the pin
-        ledger does not hold set to NULL (None without pins)."""
+        """The device pin table on the host (this rank's row under a
+        group) with every row the pin ledger does not hold set to NULL
+        (None without pins)."""
         if self.pin_tables is None:
             return None
-        pins = self.pin_tables
-        if self.mesh is not None:
-            pins = self.mesh.gather(pins, 0)
-        pin_np = pins.cpu().numpy().copy()
-        ok = np.zeros(pin_np.shape[:2], bool)
+        pin_np = self.pin_tables.cpu().numpy().copy()
+        ok = np.zeros((self.dp, pin_np.shape[1]), bool)
         for e in self.pins.entries.values():
             ok[e["shard"], e["row"]] = True
+        if self.mesh is not None:
+            ok = ok[self.mesh.rank:self.mesh.rank + 1]
         pin_np[~ok] = NULL
         return pin_np
 
@@ -1788,14 +1926,16 @@ class ServingEngine:
         losing the process: requeue every active request (host
         bookkeeping only: the device may be mid-operation) and rebuild
         the pool from the pin rows the ledger trusts; a device pin whose
-        ledger entry never landed is reclaimed, as after a crash."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"in-place recovery {GROUP_TODO}")
+        ledger entry never landed is reclaimed, as after a crash.  Under
+        a DP group every rank runs it at the same point, on its own
+        shard, with no collective; the step costs waiting to be observed
+        are dropped alike on every rank."""
         self.telemetry.inc("recoveries")
         self.tracer.begin("recover", kind="inplace")
         for slot in list(self.active):
             self._requeue(slot, "recovery")
         report = self.adopt_crashed_state(self.state, self._trusted_pins())
+        self._step_dt = self._cost_key = self._group_verdict = None
         self.tracer.end("recover")
         return report
 
@@ -1806,10 +1946,16 @@ class ServingEngine:
         device pin table, and a JSON sidecar with the host ledgers (pin
         entries, speculation streams, queued requests).  Must be called
         drained: queued work requeues exactly, but a running slot's KV
-        is not consistent with a host mid-step."""
+        is not consistent with a host mid-step.
+
+        Under a DP group every rank calls it at the same point with a
+        checkpointer of its own shard (``Checkpointer(dir,
+        shard_id=rank)``): each rank writes its shard's state and pin
+        row, rank 0 alone the sidecar, and after one gather of the
+        ranks' done flags rank 0 writes the completion marker, listing
+        every shard, only when every file has landed; otherwise every
+        rank raises."""
         assert not self.active, "drain the engine before a warm save"
-        if self.mesh is not None:
-            raise NotImplementedError(f"save_warm {GROUP_TODO}")
         ckptr.wait()
         payload = {"state": self.state}
         if self.pin_tables is not None:
@@ -1829,7 +1975,28 @@ class ServingEngine:
                 "deadline_at": float(r.deadline_at),
             } for r in self.scheduler.pending()],
         }
-        ckptr.save(step, payload, aux=aux)
+        if self.mesh is None:
+            ckptr.save(step, payload, aux=aux)
+            return
+        err = None
+        try:
+            if ckptr.shard_id != self.mesh.rank:
+                raise ValueError(f"rank {self.mesh.rank} saves through a "
+                                 f"checkpointer of shard {ckptr.shard_id}")
+            ckptr.save(step, payload, aux=aux if self.mesh.rank == 0
+                       else None, complete=False)
+        except Exception as e:           # told to every rank, then raised
+            err = e
+        done = self.mesh.gather(torch.tensor([int(err is None)])).cpu()
+        if int(done.min()) == 1 and self.mesh.rank == 0:
+            ckptr.mark_complete(step, list(range(self.mesh.size)))
+        if err is not None:
+            raise err
+        if int(done.min()) != 1:
+            raise RuntimeError(
+                f"save_warm: the shard files of ranks "
+                f"{[r for r, x in enumerate(done.tolist()) if not x]} did "
+                f"not land; step {step} is not marked complete")
 
     def restore_warm(self, ckptr, step: Optional[int] = None) -> int:
         """Rebuild a freshly built engine from a warm save: adopt the
@@ -1837,9 +2004,9 @@ class ServingEngine:
         engine's device, reload the pin ledger, the trie's pin entries
         and the speculation store, and resubmit the queued requests.
         The first hot-prefix request after the restart shares pinned
-        pages and drafts without prefilling again."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"restore_warm {GROUP_TODO}")
+        pages and drafts without prefilling again.  Under a DP group
+        every rank restores its own shard file and pin row and reads
+        rank 0's sidecar."""
         if step is None:
             step = ckptr.latest_step()
         assert step is not None, "no complete warm checkpoint to restore"
@@ -1878,7 +2045,7 @@ class ServingEngine:
         total = classed_pool.pages_local(self.state.pool, cls) * self.dp
         free = hier_pool.total_free(self.state.pool.classes[cls])
         if self.mesh is not None:
-            free = self.mesh.gather(free.reshape(1)).sum()
+            free = self._gather_read(free).sum()
         return total - int(free)
 
     def pages_in_use(self) -> int:
@@ -1908,10 +2075,26 @@ class ServingEngine:
         live = sum(classed_pool.live_per_shard(self.state.pool, c)
                    for c in range(self.n_classes))
         if self.mesh is not None:
-            live = self.mesh.gather(live)
+            live = self._gather_read(live)
         live = live.cpu()
         return all(int(live[s]) == 0 for s in range(self.dp)
                    if s not in self.lost_shards)
+
+    def _gather_read(self, local: torch.Tensor) -> torch.Tensor:
+        """A read outside the step under a group: ``local`` (one value)
+        from every rank, in rank order, with this rank's held failure
+        beside it, so a failure after a run's last status gather is told
+        here at the latest (:meth:`_read_trail`)."""
+        fail = 0 if self._held is None else FAIL_LATE
+        step = 0 if self._held is None else self._held[1]
+        mine = torch.tensor([int(local.reshape(-1)[0]), fail, step],
+                            dtype=torch.int64)
+        got = self.mesh.gather(mine).reshape(self.mesh.size, 3).cpu()
+        trail = np.zeros((TRAIL_ROWS, self.mesh.size, 1), np.int64)
+        trail[TRAIL_FAIL, :, 0] = got[:, 1].numpy()
+        trail[TRAIL_FAIL_STEP, :, 0] = got[:, 2].numpy()
+        self._read_trail(trail, in_step=False)
+        return got[:, 0]
 
     def latency_quantiles(self) -> Dict[str, float]:
         """p50/p99 end-to-end and first-token latency (seconds)."""

@@ -12,7 +12,10 @@ reference (the classes of ``tests/test_chaos.py``).
   queued and running work and across a crash; a step error recovered in
   place and one past the restart budget; shard loss at dp 2;
 * a warm restart with pins, speculation and queued requests through the
-  checkpoint's ``aux`` sidecar.
+  checkpoint's ``aux`` sidecar, and two shard writers of one step (the
+  ranks of a DP group) marking it complete only when both files landed;
+* the port's ``core/linearizability.py`` giving the reference's verdicts
+  on recovery histories.
 """
 
 import json
@@ -33,8 +36,8 @@ except ImportError:                                 # pragma: no cover
 from _torch_helpers import assert_pools_equal, engine_setup, pool_leaves
 from repro.core import classed_pool as j_classed
 from repro.core import hier_pool as j_hier
-from repro.core.linearizability import check_recovery_history
-from repro.core.sim import OpRecord
+from repro_torch.core.linearizability import check_recovery_history
+from repro_torch.core.sim import OpRecord
 from repro.serving import chaos as jchaos
 from repro.serving import engine as jengine
 from repro_torch.checkpoint.ckpt import Checkpointer
@@ -221,32 +224,79 @@ def test_single_block_ops_match_the_reference():
         assert int(t_hier.num_live(tp)) == int(j_hier.num_live(jp))
 
 
-def test_reconcile_history_passes_the_recovery_checker():
-    """The pages a crashed slot held, allocated then reclaimed by the
-    port's reconcile: ``check_recovery_history`` finds no leak and no
-    double free; dropping one reclaimed page is a leak."""
+def _recovery_history(held, back, Op=OpRecord):
+    """Pid 0 allocates ``held`` one block at a time, pid 1 crashes it,
+    then reconciles ``back``."""
+    ops = [Op(opid=i, pid=0, name="allocate", arg=None,
+              invoke_step=i, response_step=i + 1, result=b)
+           for i, b in enumerate(held)]
+    n = len(ops)
+    ops.append(Op(opid=n, pid=1, name="crash", arg=[0],
+                  invoke_step=n, response_step=n + 1, result=None))
+    ops.append(Op(opid=n + 1, pid=1, name="reconcile", arg=back,
+                  invoke_step=n + 2, response_step=n + 3, result=None))
+    return ops
+
+
+def _reclaimed_by_reconcile():
+    """The pages one crashed slot held (3 of a 16-page pool) and what
+    the port's reconcile reclaimed."""
     pool = t_hier.create(16, 2, 3, "cpu")
     pool, ids = t_hier.alloc_n(pool, torch.tensor([3, 0]), 3)
     held = [int(b) for b in ids[0]]
     _, rep = t_hier.audit_and_reconcile(pool)
-    reclaimed = rep["shards"][0]["reclaimed"]
+    return held, rep["shards"][0]["reclaimed"]
+
+
+def test_reconcile_history_passes_the_recovery_checker():
+    """The pages a crashed slot held, allocated then reclaimed by the
+    port's reconcile: ``check_recovery_history`` finds no leak and no
+    double free; dropping one reclaimed page is a leak."""
+    held, reclaimed = _reclaimed_by_reconcile()
     assert sorted(reclaimed) == sorted(held)
+    assert check_recovery_history(_recovery_history(held, reclaimed)) == []
+    assert any("leaked" in e for e in check_recovery_history(
+        _recovery_history(held, reclaimed[1:])))
 
-    def history(back):
-        ops = [OpRecord(opid=i, pid=0, name="allocate", arg=None,
-                        invoke_step=i, response_step=i + 1, result=b)
-               for i, b in enumerate(held)]
-        n = len(ops)
-        ops.append(OpRecord(opid=n, pid=1, name="crash", arg=[0],
-                            invoke_step=n, response_step=n + 1, result=None))
-        ops.append(OpRecord(opid=n + 1, pid=1, name="reconcile", arg=back,
-                            invoke_step=n + 2, response_step=n + 3,
-                            result=None))
-        return ops
 
-    assert check_recovery_history(history(reclaimed)) == []
-    assert any("leaked" in e
-               for e in check_recovery_history(history(reclaimed[1:])))
+def test_recovery_checker_gives_the_reference_verdicts():
+    """The port's ``core/linearizability.py`` and the reference's give
+    the same findings on the same recovery histories: the clean and the
+    leaking history above, a double free, an orphan never reconciled,
+    and seeded random histories of batch grants, frees, crashes and
+    reconciles over a few pids (most of them faulty)."""
+    from repro.core import linearizability as j_lin
+    from repro.core.sim import OpRecord as JOp
+    from repro_torch.core import linearizability as t_lin
+
+    held, reclaimed = _reclaimed_by_reconcile()
+    cases = [(held, reclaimed), (held, reclaimed[1:]),
+             (held, reclaimed + [15]), (held, None)]
+    histories = [(_recovery_history(h, b), _recovery_history(h, b, JOp))
+                 for h, b in cases]
+    rng = np.random.RandomState(11)
+    for _ in range(40):
+        specs, t = [], 0
+        for i in range(int(rng.randint(4, 14))):
+            kind = rng.choice(["alloc_n", "free_n", "crash", "reconcile"],
+                              p=[0.45, 0.25, 0.15, 0.15])
+            pid = int(rng.randint(0, 3))
+            ids = [int(b) for b in rng.choice(12, int(rng.randint(0, 4)),
+                                              replace=False)]
+            arg = (ids if kind in ("free_n", "reconcile")
+                   else [pid] if kind == "crash" else len(ids))
+            result = ids if kind == "alloc_n" else None
+            specs.append(dict(opid=i, pid=pid, name=str(kind), arg=arg,
+                              invoke_step=t, response_step=t + 1,
+                              result=result))
+            t += int(rng.randint(1, 3))
+        histories.append(([OpRecord(**x) for x in specs],
+                          [JOp(**x) for x in specs]))
+    verdicts = [t_lin.check_recovery_history(a) for a, _ in histories]
+    assert verdicts == [j_lin.check_recovery_history(b)
+                        for _, b in histories]
+    assert verdicts[0] == [] and all(verdicts[1:4])
+    assert sum(bool(v) for v in verdicts) > len(verdicts) // 2
 
 
 # -------------------------------------------------- crash recovery e2e
@@ -556,6 +606,50 @@ def test_pins_and_speculation_survive_restart(setup, tmp_path):
     warm.flush_pins()
     _conserved(warm)
     assert warm.leak_free()
+
+
+def test_shard_writers_mark_a_step_only_when_every_file_landed(
+        tmp_path, monkeypatch):
+    """Two shard writers share a step directory (the ranks of a DP
+    group): each saves its file without a marker and the marker, listing
+    both, is written only once both files landed.  When writer 1 dies
+    before its ``os.replace``, ``mark_complete`` refuses, ``latest_step``
+    still names the earlier complete step, and ``restore`` of the new
+    step raises on both writers; a marker that lists shard 0 alone (one
+    writer's own save) is no step of shard 1's: ``latest_step`` does not
+    name it there and ``restore`` refuses it."""
+    from repro_torch.checkpoint import ckpt as tckpt
+    writers = [Checkpointer(str(tmp_path), shard_id=k, keep=3)
+               for k in range(2)]
+    state = {"x": torch.arange(6, dtype=torch.int32)}
+    for w in writers:
+        w.save(3, state, complete=False)
+    writers[0].mark_complete(3, [0, 1])
+    assert [w.latest_step() for w in writers] == [3, 3]
+    real = tckpt.os.replace
+
+    def dies(src, dst):
+        if str(src).endswith(".shard_1.npz.tmp"):
+            raise OSError("writer 1 died before its rename")
+        return real(src, dst)
+
+    monkeypatch.setattr(tckpt.os, "replace", dies)
+    writers[0].save(5, state, complete=False)
+    with pytest.raises(OSError):
+        writers[1].save(5, state, complete=False)
+    monkeypatch.setattr(tckpt.os, "replace", real)
+    with pytest.raises(FileNotFoundError, match="shard files \\[1\\]"):
+        writers[0].mark_complete(5, [0, 1])
+    assert [w.latest_step() for w in writers] == [3, 3]
+    for w in writers:
+        with pytest.raises(FileNotFoundError):
+            w.restore(5, state)
+        assert torch.equal(w.restore(3, state)["x"], state["x"])
+    writers[0].save(7, state)                # marker lists shard 0 alone
+    assert [w.latest_step() for w in writers] == [7, 3]
+    assert torch.equal(writers[0].restore(7, state)["x"], state["x"])
+    with pytest.raises(FileNotFoundError, match="no file of shard 1"):
+        writers[1].restore(7, state)
 
 
 def test_queued_requests_survive_restart(setup, tmp_path):

@@ -11,6 +11,8 @@ import pytest
 
 pytest.importorskip("torch")   # the port's tests need PyTorch
 
+import os
+
 import numpy as np
 
 from _torch_helpers import assert_same, engine_setup, serve
@@ -90,22 +92,47 @@ def test_token_identity_across_lane_widths(setup):
     assert outs[1] == outs[4] == outs[16]
 
 
-def test_options_outside_the_slice_raise(setup):
-    """Under a DP group (the reference's multi-device plane), fault
-    injection and in-place recovery raise before the group is used; a
-    mesh that is not a DPGroup is refused."""
-    from repro_torch.launch.mesh import DPGroup
+def test_options_outside_the_slice_raise(setup, tmp_path):
+    """A mesh that is not a DPGroup, or a group of another size than
+    ``dp``, is refused.  Fault injection and in-place recovery, which
+    raised under a group before the group's recovery was ported, now
+    construct: on a one-rank gloo group in this process an injected step
+    error recovers in place."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import DPGroup, make_dp_group
     _, _, tcfg, tparams = setup
-    group = DPGroup(rank=0, size=2, device="cpu", backend="gloo")
-    for option in (dict(injector=chaos.ServingFailureInjector([])),
-                   dict(max_restarts=1)):
-        with pytest.raises(NotImplementedError):
-            tengine.ServingEngine(tcfg, tparams, dp=2, b_local=1,
-                                  max_len=32, device="cpu", mesh=group,
-                                  **option)
     with pytest.raises(TypeError):
         tengine.ServingEngine(tcfg, tparams, dp=1, b_local=1, max_len=32,
                               device="cpu", mesh="auto")
+    with pytest.raises(ValueError):
+        tengine.ServingEngine(tcfg, tparams, dp=2, b_local=1, max_len=32,
+                              device="cpu", mesh=DPGroup(0, 1, "cpu", "gloo"))
+    saved = {k: os.environ.get(k) for k in ("RANK", "WORLD_SIZE")}
+    os.environ.update(RANK="0", WORLD_SIZE="1")
+    try:
+        group = make_dp_group(1, "gloo", "cpu",
+                              init_method=f"file://{tmp_path / 'pg'}")
+        eng = tengine.ServingEngine(
+            tcfg, tparams, dp=1, b_local=2, max_len=32, device="cpu",
+            mesh=group, max_restarts=4,
+            injector=chaos.ServingFailureInjector(
+                [chaos.Fault(step=2, phase="post_sync", kind="error")]))
+        reqs = [tengine.Request(i, prompt=[3 + i, 5, 7], max_new_tokens=4)
+                for i in range(2)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_steps=100)
+        assert eng.stats["recoveries"] == 1 and all(r.done for r in reqs)
+        assert eng.leak_free()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 @pytest.mark.parametrize("option,experts", [

@@ -28,12 +28,6 @@ import pytest
 pytest.importorskip("torch")   # the port's tests need PyTorch
 
 import dataclasses
-import json
-import os
-import pathlib
-import subprocess
-import sys
-import time
 
 import numpy as np
 import torch
@@ -52,7 +46,6 @@ from repro_torch.models.decode_init import empty_decode_state as t_empty
 from repro_torch.models.transformer import EXPERT_PPE, expert_layer_slots
 from repro_torch.runtime import elastic as telastic
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 RANK_LIMIT_S = 120
 DP = 2
 SERVE_ARGV = ["--arch", "olmo-1b", "--smoke", "--requests", "10",
@@ -113,38 +106,8 @@ def run(tmp_path_factory):
                      for _ in range(8)],
         expert_budget=budget,
         serve_argv=SERVE_ARGV + ["--mesh", "auto", "--dist-backend", "gloo"])
-    (tmp / "job.json").write_text(json.dumps(job))
-    procs = []
-    for r in range(DP):
-        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(DP),
-                   LOCAL_RANK=str(r), PYTHONPATH=str(ROOT / "src"))
-        log = open(tmp / f"rank{r}.log", "w")
-        procs.append((subprocess.Popen(
-            [sys.executable, str(ROOT / "tests" / "_torch_mesh_rank.py"),
-             str(tmp / "job.json")], env=env, cwd=ROOT, stdout=log,
-            stderr=subprocess.STDOUT), log))
-    t0 = time.monotonic()
-    try:
-        mine = _this_side(olmo, job)
-    finally:
-        deadline = t0 + RANK_LIMIT_S
-        codes = []
-        for p, log in procs:
-            try:
-                codes.append(p.wait(timeout=max(deadline - time.monotonic(),
-                                                1)))
-            except subprocess.TimeoutExpired:
-                codes.append("timeout")
-            log.close()
-        for p, _ in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    logs = [(tmp / f"rank{r}.log").read_text()[-4000:] for r in range(DP)]
-    assert codes == [0] * DP, f"ranks exited {codes}:\n" + "\n".join(logs)
-    ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
-             for r in range(DP)]
-    return ranks, mine, job
+    return (*rank_mod.spawn(tmp, job, lambda: _this_side(olmo, job),
+                            RANK_LIMIT_S), job)
 
 
 def _this_side(olmo, job):

@@ -9,7 +9,10 @@ against the CPU single-process engine, (b) olmo-1b at full width on
 phase 5's requests at dp 2 on the same ranks against the single-process
 dp 2 engine, (c) (b) over nccl where the run was given two cards,
 (d) olmo-1b in f32 at full width and two layers on the ranks of (a),
-token for token against the single-process dp 2 engine.
+token for token against the single-process dp 2 engine, (e) phase 16
+(c)'s ``launch.serve`` with every fault kind on the ranks, (f) (d)'s
+model under a crash, a torn crash and a step error against one process
+under the same faults.
 
 Needs one card; prints the card's name and power limit first, and a
 line per phase as ``chip_smoke.py`` does.  Exits non-zero if a check
