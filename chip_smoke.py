@@ -315,15 +315,35 @@ sys.path.insert(0, str(ROOT / "src"))
 # module again, take theirs from the list
 CALLER_CARDS = os.environ.get("CUDA_VISIBLE_DEVICES")
 
-#: published H100 SXM peaks (NVIDIA data sheet, dense)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+from repro_torch.launch.roofline import (  # noqa: E402
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS, PEAK_FLOPS_F32)
+
+#: published H100 SXM peaks (NVIDIA data sheet, dense), one source with
+#: the dry run's roofline
+PEAK_OPS = {torch.bfloat16: PEAK_FLOPS, torch.float32: PEAK_FLOPS_F32}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
 #: the kernels of the port's CUDA sources, by name prefix
 PORT_KERNELS = ("k1_", "k2_", "k3_", "k4_", "fa_", "paged_", "verify_",
                 "ssd_scan_", "rg_lru_")
 #: bf16: kernel and plain version may differ by one ulp of the output
 BF16_ULP_RTOL, BF16_ULP_ATOL = 2.0 ** -7, 1e-5
+
+
+#: phase 21 (a): olmo-1b's train cell at phase 12's shape on the 1 x 1
+#: smoke mesh, traced in a process of its own (its fake process group
+#: stays there) with no card visible
+DRYRUN_CELL = """
+import json
+import os
+os.nice(19)              # the card's phases run beside it, ahead of it
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import make_smoke_mesh
+shape = ShapeConfig("train_2k", {seq}, {batch}, "train")
+print(json.dumps(dryrun.run_cell("olmo-1b", shape,
+                                 mesh_cm=make_smoke_mesh())))
+"""
 
 
 def phase(msg: str) -> None:
@@ -2676,6 +2696,7 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     under the profiler.  Returns the run's numbers."""
     from repro_torch.data.pipeline import DataConfig, TokenStream
     from repro_torch.launch.train import build_step
+    from repro_torch.models.layers import tree_leaves
     from repro_torch.models.model import count_params, init_params
     from repro_torch.optim import adamw
 
@@ -2685,6 +2706,12 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     state = (params, adamw.init(params), None)
     torch.cuda.synchronize()
     n_params = count_params(cfg)
+    # the parameters and AdamW state the trainer holds (the step counter
+    # a 4-byte int32 on the host), for phase 21's dry run
+    opt = state[1]
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      tree_leaves(params) + [opt.step] + tree_leaves(opt.mu)
+                      + tree_leaves(opt.nu) + tree_leaves(opt.master))
     tag = f"[12] {cfg.name}"
     phase(f"{tag} params: {n_params} ({cfg.dtype}; AdamW mu, nu and master "
           f"float32), init {time.perf_counter() - t0:.1f} s; batch {batch} "
@@ -2795,7 +2822,8 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     torch.cuda.empty_cache()
     return dict(launches=launches["K6"], bwd_launches=k6_bwd, steps=steps,
                 ms=ms, mfu=mfu, turns_ms=turns,
-                tok_s=tokens / (ms / 1e3), peak=peak, losses=losses)
+                tok_s=tokens / (ms / 1e3), peak=peak, losses=losses,
+                state_bytes=state_bytes, batch=batch, seq=seq)
 
 
 def attention_pairs(S, window):
@@ -4474,6 +4502,119 @@ def serve_dp_ranks(tengine, counted, cfg, cfg_smoke, seed, b_local,
     return out
 
 
+def start_dryrun(batch=4, seq=2048):
+    """Start phase 21 (a)'s dry run in a subprocess, after the build (so
+    it never competes with nvcc) and at the lowest priority: host work
+    only, it overlaps the card's phases; ``atexit`` stops it if the
+    script ends first."""
+    import atexit
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CELL.format(batch=batch, seq=seq)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc
+
+
+def check_dryrun(proc, train, smi, timeout=600):
+    """Phase 21 (a): the dry run's prediction of phase 12's step beside
+    what phase 12 measured.  Gates: the predicted bytes of the
+    parameters and AdamW state equal what the trainer held, exactly;
+    the measured step is no faster than the predicted compute term."""
+    out, err = proc.communicate(timeout=timeout)
+    check(proc.returncode == 0,
+          f"[21a] the dry run exited {proc.returncode}: {err[-2000:]}")
+    r = json.loads(out.strip().splitlines()[-1])
+    rf, mem = r["roofline"], r["memory"]
+    held = sum(mem["argument_size_by_arg"][:2])
+    check(held == train["state_bytes"],
+          f"[21a] predicted parameter and AdamW bytes {held} == the "
+          f"trainer's {train['state_bytes']}")
+    t_comp, t_mem = 1e3 * rf["t_compute_s"], 1e3 * rf["t_memory_s"]
+    check(train["ms"] >= t_comp,
+          f"[21a] phase 12's step {train['ms']:.1f} ms >= the predicted "
+          f"compute term {t_comp:.1f} ms")
+    phase(f"[21a] dry run of {r['arch']} {r['shape']} (B {train['batch']} "
+          f"x S {train['seq']}, rules {r['rules']}, mesh {r['mesh']}, "
+          f"traced in {r['trace_s']} s on a host core): parameters and "
+          f"AdamW state {held} B predicted == {train['state_bytes']} B held "
+          f"by phase 12's trainer")
+    phase(f"[21a] on {smi}: predicted hbm_per_device_gb "
+          f"{r['hbm_per_device_gb']:.3f} GiB (arguments + peak temporaries "
+          f"- donated) against max_memory_allocated "
+          f"{train['peak'] / 2**30:.3f} GiB; t_compute {t_comp:.1f} ms, "
+          f"t_memory {t_mem:.1f} ms ({rf['bottleneck']}-bound, graph flops "
+          f"{r['graph_cost']['flops']:.4e}, bytes "
+          f"{r['graph_cost']['bytes accessed']:.4e}) against the measured "
+          f"step {train['ms']:.1f} ms")
+    return dict(record=r, held=held, t_compute_ms=t_comp, t_memory_ms=t_mem)
+
+
+def check_kv_cache(seed, smi, device="cuda"):
+    """Phase 21 (b): ``core/kv_cache.py`` at olmo-1b's KV width (16 kv
+    heads, hd 128, bf16, pages of 64) through a seeded sequence of
+    every op on the card and on the CPU: integer state and pages
+    bit-equal after each op; no block in use after the release."""
+    from repro_torch.core import kv_cache as kv
+
+    S, C, KH, hd, psz, pages, maxp = 8, 96, 16, 128, 64, 40, 8
+    g = torch.Generator().manual_seed(seed)
+    caches = {d: kv.create(pages, psz, KH, hd, S, maxp, torch.bfloat16, d)
+              for d in ("cpu", device)}
+
+    def same(oks):
+        a, b = caches["cpu"], caches[device]
+        for x, y in zip([*a.pool, *a[1:]], [*b.pool, *b[1:]]):
+            check(torch.equal(x, y.cpu()), "[21b] card == CPU, bit for bit")
+        check(torch.equal(oks["cpu"], oks[device].cpu()), "[21b] ok equal")
+
+    def run(op, *args):
+        oks = {}
+        for d, c in caches.items():
+            out = op(c, *[a.to(d) if torch.is_tensor(a) else a
+                          for a in args])
+            caches[d], oks[d] = ((out, torch.ones(1, dtype=torch.bool))
+                                 if isinstance(out, kv.PagedKVCache)
+                                 else out)
+        same(oks)
+        return oks["cpu"]
+
+    def kvs(*shape):
+        return (torch.randn(*shape, KH, hd, generator=g).to(torch.bfloat16),
+                torch.randn(*shape, KH, hd, generator=g).to(torch.bfloat16))
+
+    def lens(hi):
+        return torch.randint(0, hi + 1, (S,), generator=g, dtype=torch.int32)
+
+    run(kv.append_chunk, *kvs(S, C), lens(C))
+    run(kv.append_chunk, *kvs(S, C), lens(C),
+        torch.rand(S, generator=g) < 0.7)
+    run(kv.append, *kvs(S), torch.rand(S, generator=g) < 0.8)
+    run(kv.rollback, lens(40))
+    empty = torch.zeros(S, dtype=torch.bool)
+    empty[-2:] = True
+    run(kv.release, empty)
+    n_shared = [int(caches["cpu"].seq_lens[s]) - 5 for s in (0, 1)]
+    shared = [bool(run(kv.share_prefix, S - 2 + s, s, max(n, 0)))
+              for s, n in enumerate(n_shared)]
+    denied = [run(kv.append_chunk, *kvs(S, C), torch.full(
+        (S,), C, dtype=torch.int32)) for _ in range(3)]
+    n_denied = sum(int((~ok).sum()) for ok in denied)
+    run(kv.release, torch.ones(S, dtype=torch.bool))
+    c = caches[device]
+    check(int(c.pool.top) == pages and int((c.pool.refcount != 0).sum()) == 0,
+          "[21b] every page back in the pool after the release")
+    phase(f"[21b] kv_cache on {smi}: {S} sequences, {KH} kv heads, hd {hd}, "
+          f"bf16, pages of {psz}, a pool of {pages}: append_chunk (C {C}), "
+          f"append, rollback, release, share_prefix ({shared}), "
+          f"{n_denied} chunk appends denied at a full pool or table, "
+          f"release: integer state and pages bit-equal to the CPU after "
+          f"every op; 0 blocks in use after the release")
+    return dict(shared=shared, denied=n_denied)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4542,6 +4683,8 @@ def main() -> int:
     phase(f"[2] built {', '.join(stems)} in {time.perf_counter() - t0:.1f} "
           f"s into {build.BUILD_DIR}")
     lap(2, "the build")
+    # [21] (a)'s dry run: host only, traced beside the card's phases
+    dryrun_proc = start_dryrun()
 
     cfg = get_config("olmo-1b")
     cfg_smoke = smoke_config(cfg)
@@ -4942,6 +5085,10 @@ def main() -> int:
     r20 = serve_dp_ranks(tengine, counted, cfg, cfg_smoke, args.seed,
                          b_local, max_len, chunk, smi)
     lap(20, "the DP allocation plane on ranks")
+    # [21] the dry run of phase 12's step, and core/kv_cache.py
+    check_dryrun(dryrun_proc, train, smi)
+    check_kv_cache(args.seed, smi)
+    lap(21, "the dry run against phase 12, kv_cache on the card")
     s16 = sampled["runs"][0]
     sampled_launches = {
         "K1": s16["launches"], "K2": s16["k2"],
@@ -5103,7 +5250,7 @@ def main() -> int:
             "nccl": None if r20["nccl"] is None else {
                 f"rank{d}": b["launches"][key]
                 for d, b in enumerate(r20["nccl"])}}
-    phase(f"[20] total {time.perf_counter() - t_start:.1f} s")
+    phase(f"[21] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

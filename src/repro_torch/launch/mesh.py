@@ -19,15 +19,24 @@ ranks on one card).
   torchrun --nproc-per-node 2 -m repro_torch.launch.serve --dp 2 \\
       --mesh auto --dist-backend nccl
 
+The dry run's meshes (:func:`make_production_mesh`,
+:func:`make_smoke_mesh`) are the reference's production and smoke
+meshes seen from rank 0: a ``DeviceMesh`` over a fake process group
+(``torch.testing._internal.distributed.fake_pg``), whose collectives
+run nowhere.  A trace over it holds rank 0's local shards and the
+collectives DTensor inserts (``launch/roofline.py`` counts them).
+
 Nothing here touches ``torch.distributed`` or a device at import.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import math
 import os
-from typing import Optional
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -162,6 +171,45 @@ def make_dp_group(dp: int, backend: str, device,
             raise RuntimeError(f"make_dp_group: nccl ranks share cards "
                                f"{idx.tolist()}: one rank per card")
     return group
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: Sequence[int], names: Sequence[str]) -> Iterator:
+    """A ``DeviceMesh`` of ``shape`` with axes ``names`` over a fake
+    process group of ``prod(shape)`` ranks, this process rank 0, on
+    host tensors; the group is destroyed on exit.
+
+    Raises if a default group already exists: joining one would make
+    the fake ranks real ones, and a fake group left behind would be
+    joined by the next :func:`make_dp_group`."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError(
+            "fake_mesh: a process group is already initialised "
+            f"({dist.get_backend()}, {dist.get_world_size()} ranks); the "
+            "dry run's mesh needs a process of its own")
+    n = math.prod(shape)
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield DeviceMesh("cpu", torch.arange(n).reshape(tuple(shape)),
+                         mesh_dim_names=tuple(names))
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's production mesh, rank 0's view, as a context
+    manager: 16 x 16 = 256 devices ("data", "model"), or 2 x 16 x 16 =
+    512 ("pod", "data", "model") multi-pod."""
+    if multi_pod:
+        return fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return fake_mesh((16, 16), ("data", "model"))
+
+
+def make_smoke_mesh():
+    """A 1 x 1 mesh with the production axis names (a context manager)."""
+    return fake_mesh((1, 1), ("data", "model"))
 
 
 def nearest_mesh_for(n_devices: int, model_parallel: int = 16):

@@ -21,6 +21,8 @@ from typing import Optional
 import torch
 
 from ..kernels.flash_attention.ops import flash_attention
+from ..parallel import partition
+from ..parallel.partition import BATCH, MODEL
 from .layers import rope_tables, rotate
 
 NEG_INF = -1e30
@@ -124,6 +126,32 @@ def local_attention(q, k, v, window: int, block_q: int = 512,
     return torch.cat(outs, 1)
 
 
+# Sharding boundaries (``partition.local_map``): each attention form
+# runs on its shard's block, the batch over the batch axes and the heads
+# over "model" where they divide, S and hd whole; the output is laid out
+# as q.  K6 takes [B, H, S, hd]; the plain forms [B, S, H, hd].
+_HEADS_1 = (BATCH, MODEL, None, None)
+_HEADS_2 = (BATCH, None, MODEL, None)
+_flash_shards = partition.local_map(
+    flash_attention, (_HEADS_1, _HEADS_1, _HEADS_1, None), partition.like(0))
+_local_shards = partition.local_map(
+    local_attention, (_HEADS_2, _HEADS_2, _HEADS_2, None), partition.like(0))
+_blockwise_shards = partition.local_map(
+    blockwise_attention, (_HEADS_2, _HEADS_2, _HEADS_2, None),
+    partition.like(0))
+
+
+def _kv_like_q(q, k, head_dim: int):
+    """GQA on shards: kv heads that "model" cannot shard as it shards
+    q's heads are expanded to q's heads first, so that each shard holds
+    the kv heads of its query heads."""
+    if (partition.is_sharded(k) and partition.divides(q, head_dim, "model")
+            and not partition.divides(k, head_dim, "model")):
+        return k.repeat_interleave(q.shape[head_dim] // k.shape[head_dim],
+                                   dim=head_dim)
+    return k
+
+
 def attention_train(cfg, params, x, kind: str, causal: bool = True):
     """Full-sequence attention layer: returns (out [B, S, d], (k, v)).
     Global layers run K6 on grouped kv heads without expanding them,
@@ -131,11 +159,12 @@ def attention_train(cfg, params, x, kind: str, causal: bool = True):
     plain sliding-window form."""
     q, k, v = qkv(cfg, params, x)
     if kind == "local" and cfg.window is not None:
-        o = local_attention(q, _expand_kv(k, cfg.n_heads),
-                            _expand_kv(v, cfg.n_heads), cfg.window)
+        o = _local_shards(q, _expand_kv(k, cfg.n_heads),
+                          _expand_kv(v, cfg.n_heads), cfg.window)
     else:
-        o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal).transpose(1, 2)
+        kq, vq = _kv_like_q(q, k, 2), _kv_like_q(q, v, 2)
+        o = _flash_shards(q.transpose(1, 2), kq.transpose(1, 2),
+                          vq.transpose(1, 2), causal).transpose(1, 2)
     out = torch.einsum("bshk,hkd->bsd", o, params["wo"])
     return out, (k, v)
 
@@ -146,6 +175,6 @@ def cross_attention(cfg, params, x, enc_kv):
     every query sees all L keys."""
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k, v = enc_kv
-    o = blockwise_attention(q, _expand_kv(k, cfg.n_heads),
-                            _expand_kv(v, cfg.n_heads), causal=False)
+    o = _blockwise_shards(q, _expand_kv(k, cfg.n_heads),
+                          _expand_kv(v, cfg.n_heads), False)
     return torch.einsum("bshk,hkd->bsd", o, params["wo"])

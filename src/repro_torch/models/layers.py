@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel import partition
+
 
 class ParamDef(NamedTuple):
     shape: Tuple[int, ...]
@@ -109,7 +111,9 @@ def rope_tables(positions, head_dim: int, theta: float):
 
 def rotate(x, cos, sin):
     """Apply RoPE tables from :func:`rope_tables` to x [..., seq, heads,
-    head_dim] in float32; the result in x's dtype."""
+    head_dim] in float32; the result in x's dtype.  The tables are
+    constants of the step: beside a sharded x they enter replicated."""
+    cos, sin = partition.constant(cos, x), partition.constant(sin, x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -180,11 +184,43 @@ def embed_defs(cfg):
     return out
 
 
+def _lookup_shard(tok, ids, v0: int):
+    """A vocabulary shard's share of the lookup: rows ``ids - v0`` of a
+    table holding vocabulary rows [v0, v0 + len(tok)), zeros for ids
+    outside them."""
+    local = ids.long() - v0
+    hit = (local >= 0) & (local < tok.shape[0])
+    return torch.where(hit[..., None],
+                       tok[local.clamp(0, tok.shape[0] - 1)], 0)
+
+
+def _embed_out(mesh, parts):
+    """The rows: the ids' batch shard, partial sums over "model" where
+    the table's vocabulary is sharded there."""
+    from torch.distributed.tensor import Partial
+    plc = list(partition.placements((parts[1][0], None, None), mesh))
+    if parts[0][0] == "model":
+        plc[mesh.mesh_dim_names.index("model")] = Partial()
+    return (tuple(plc),)
+
+
+#: the vocabulary-parallel lookup: the table's vocabulary shard over
+#: "model" (its embed dim gathered), the ids' batch shard
+_embed_shards = partition.local_map(
+    _lookup_shard, ((partition.MODEL, None), (partition.BATCH, None), None),
+    _embed_out)
+
+
 def embed_apply(params, tokens):
     """Token embedding; ids are clamped into the vocabulary as a JAX
-    gather clamps them."""
+    gather clamps them.  A sharded table is looked up shard by shard
+    (:data:`_embed_shards`)."""
     tok = params["tok"]
-    return tok[tokens.clamp(0, tok.shape[0] - 1).long()]
+    ids = tokens.clamp(0, tok.shape[0] - 1)
+    if not partition.is_sharded(tok):
+        return tok[ids.long()]
+    v0 = partition.shard_offset(tok, 0, "model")
+    return _embed_shards(tok, ids, v0)
 
 
 def logits_apply(cfg, params, x):
@@ -218,11 +254,82 @@ def logits_argmax_chunked(cfg, params, x, chunk: int = 1024):
     return arg
 
 
+def _gold_shard(logits, labels, v0: int):
+    """A vocabulary shard's share of the gold logits: ``logits[...,
+    label - v0]`` where the label lies in the shard's columns [v0, v0 +
+    V_local), zero elsewhere."""
+    local = labels.long() - v0
+    hit = (local >= 0) & (local < logits.shape[-1])
+    g = logits.gather(-1, local.clamp(0, logits.shape[-1] - 1)[..., None])
+    return torch.where(hit, g[..., 0], 0.0)
+
+
+def _gold_out(mesh, parts):
+    """The gold logits: the labels' batch shard, partial sums over
+    "model" where the logits' vocabulary is sharded there."""
+    from torch.distributed.tensor import Partial
+    plc = list(partition.placements((parts[1][0], None), mesh))
+    if parts[0][2] == "model":
+        plc[mesh.mesh_dim_names.index("model")] = Partial()
+    return (tuple(plc),)
+
+
+#: the gold logits of vocabulary-sharded logits [B, c, V], shard by shard
+_gold_shards = partition.local_map(
+    _gold_shard, ((partition.BATCH, None, partition.MODEL),
+                  (partition.BATCH, None), None), _gold_out)
+
+
+def _minus_gold_shard(p, labels, v0: int):
+    """``p`` minus the one-hot of the labels on a vocabulary shard's
+    columns [v0, v0 + V_local): the softmax's gradient of the
+    cross-entropy, shard by shard."""
+    local = labels.long() - v0
+    hit = (local >= 0) & (local < p.shape[-1])
+    onehot = torch.zeros_like(p).scatter_(
+        -1, local.clamp(0, p.shape[-1] - 1)[..., None],
+        hit[..., None].to(p.dtype))
+    return p - onehot
+
+
+_minus_gold_shards = partition.local_map(
+    _minus_gold_shard, ((partition.BATCH, None, partition.MODEL),
+                        (partition.BATCH, None), None), partition.like(0))
+
+
+class _ShardedXent(torch.autograd.Function):
+    """Summed cross-entropy of vocabulary-sharded float32 logits [B, c,
+    V]: the log-sum-exp from the shards' maxima and sums (two small
+    reductions over "model"), the gold logits from the shard that holds
+    each label; the gradient (softmax - one-hot) is formed in the
+    logits' own layout, shard by shard, so the backward needs no
+    reshard of [B, c, V]."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, v0):
+        m = logits.amax(-1, keepdim=True)
+        e = torch.exp(logits - m)
+        s = e.sum(-1, keepdim=True)
+        lse = torch.log(s)[..., 0] + m[..., 0]
+        ctx.save_for_backward(e, s, labels)
+        ctx.v0 = v0
+        return (lse - _gold_shards(logits, labels, v0)).sum()
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, labels = ctx.saved_tensors
+        return _minus_gold_shards(e / s, labels, ctx.v0) * g, None, None
+
+
 def _xent_sum(xc, yc, w):
-    """Summed cross-entropy of one chunk: logits in float32."""
+    """Summed cross-entropy of one chunk: logits in float32.  Sharded
+    logits go through :class:`_ShardedXent`."""
     logits = (xc @ w).float()
-    gold = logits.gather(-1, yc[..., None].long())[..., 0]
-    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+    if not partition.is_sharded(logits):
+        gold = logits.gather(-1, yc[..., None].long())[..., 0]
+        return (torch.logsumexp(logits, dim=-1) - gold).sum()
+    return _ShardedXent.apply(logits, yc,
+                              partition.shard_offset(logits, 2, "model"))
 
 
 def chunked_softmax_xent(cfg, embed_params, x, labels, chunk: int = 512):
@@ -235,6 +342,8 @@ def chunked_softmax_xent(cfg, embed_params, x, labels, chunk: int = 512):
     w = embed_params.get("lm_head")
     if w is None:
         w = embed_params["tok"].T
+    w = partition.unshard(w, 0)      # the FSDP gather of the embed dim
+    x = partition.gather_model(x)    # the sequence shard of "sp" gathered
     total = 0.0
     for off in range(0, S, chunk):
         total = total + checkpoint(_xent_sum, x[:, off:off + chunk],

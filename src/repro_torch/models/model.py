@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from ..parallel import partition
 from .layers import (chunked_softmax_xent, init_tree, logits_apply,
                      tree_leaves, tree_map)
 from .transformer import (DecodeState, forward_decode_chunk,
@@ -92,8 +93,9 @@ def decode_step(cfg, params, tokens, state: DecodeState, active=None):
     token lane through :func:`forward_decode_chunk`; inactive slots
     feed a zero-length lane and stay inert."""
     if active is None:
-        active = torch.ones(tokens.shape, dtype=torch.bool,
-                            device=tokens.device)
+        active = partition.constant(
+            torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device),
+            tokens)
     x, state, _ = forward_decode_chunk(cfg, params, tokens[:, :, None],
                                        state, active.to(torch.int32),
                                        active=active)

@@ -43,6 +43,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from ..parallel import partition
+from ..parallel.partition import BATCH, constrain_batch
 from .layers import ParamDef
 
 #: router-logit fill for experts outside a row's admitted footprint.
@@ -100,33 +102,65 @@ def _experts(params, buf):
     return y.reshape(E, R, C, d).transpose(0, 1)
 
 
-def _dispatch_compute(params, x, gates, eids, C: int):
-    """Sort-based dispatch of R rows: x [R, N, d], gates [R, N, k] ->
-    (out [R, N, d], (keep, t_s, e_s)), the routing meta feeding the
-    capacity-drop and expert-touch meters."""
+def _route(x, gates, eids, E: int, C: int):
+    """Sort-based dispatch of R rows into the experts' buckets: x [R, N,
+    d], gates and eids [R, N, k] -> (buf [R, E, C, d], keep, dest, t_s,
+    e_s, order, g_s), the routing of :func:`_dispatch_indices` and the
+    gates in sorted order."""
     R, N, d = x.shape
     k = eids.shape[-1]
-    E = params["router"].shape[1]
     keep, dest, t_s, e_s, order = _dispatch_indices(eids, E, C)
     g_s = gates.reshape(R, N * k).gather(1, order)
     r = torch.arange(R, device=x.device)[:, None].expand_as(dest)
-
     buf = x.new_zeros((R, E * C + 1, d))         # row E*C: the sink
     buf[r, dest] = x[r, t_s]
-    y = _experts(params, buf[:, :E * C].reshape(R, E, C, d))
-    y = y.reshape(R, E * C, d)
+    return (buf[:, :E * C].reshape(R, E, C, d), keep, dest, t_s, e_s, order,
+            g_s)
 
+
+def _combine(y, keep, dest, order, g_s, k: int):
+    """The experts' outputs y [R, E, C, d] back to the tokens: each
+    token's k kept outputs weighted by their gates, summed in slot
+    order onto zeros -> [R, N, d]."""
+    R, E, C, d = y.shape
+    N = order.shape[1] // k
+    y = y.reshape(R, E * C, d)
+    r = torch.arange(R, device=y.device)[:, None].expand_as(dest)
     gathered = torch.where(keep[..., None], y[r, dest.clamp(max=E * C - 1)],
                            0.0)
-    contrib = gathered * g_s[..., None].to(x.dtype)
+    contrib = gathered * g_s[..., None].to(y.dtype)
     # back to (token, slot) order: pair i sits at sorted position inv[i]
     inv = torch.argsort(order, dim=1)
     c = contrib.gather(1, inv[..., None].expand(R, N * k, d)).reshape(
         R, N, k, d)
-    out = x.new_zeros((R, N, d))
+    out = y.new_zeros((R, N, d))
     for j in range(k):
         out = out + c[:, :, j]
-    return out, (keep, t_s, e_s)
+    return out
+
+
+#: sharding boundaries: routing and combining run on each row shard
+#: (the batch over the batch axes, the rest whole); the expert products
+#: between them are sharded ops over the experts' placements
+_ROW3 = (BATCH, None, None)
+_route_shards = partition.local_map(
+    _route, (_ROW3, _ROW3, _ROW3, None, None), partition.like(0))
+_combine_shards = partition.local_map(
+    _combine, ((BATCH, None, None, None), (BATCH, None), (BATCH, None),
+               (BATCH, None), (BATCH, None), None), partition.like(0))
+
+
+def _dispatch_compute(params, x, gates, eids, C: int):
+    """Sort-based dispatch of R rows: x [R, N, d], gates [R, N, k] ->
+    (out [R, N, d], (keep, t_s, e_s)), the routing meta feeding the
+    capacity-drop and expert-touch meters."""
+    k = eids.shape[-1]
+    E = params["router"].shape[1]
+    buf, keep, dest, t_s, e_s, order, g_s = _route_shards(x, gates, eids,
+                                                          E, C)
+    buf = constrain_batch(buf)
+    y = constrain_batch(_experts(params, buf))
+    return _combine_shards(y, keep, dest, order, g_s, k), (keep, t_s, e_s)
 
 
 def moe_apply(cfg, params, x, *, expert_mask=None, token_valid=None,
@@ -151,8 +185,9 @@ def moe_apply(cfg, params, x, *, expert_mask=None, token_valid=None,
     top, eids = torch.sort(logits, dim=-1, descending=True, stable=True)
     gates = torch.softmax(top[..., :k], dim=-1)
     eids = eids[..., :k]
-    valid = (torch.ones((B, S), dtype=torch.bool, device=x.device)
-             if token_valid is None else token_valid.bool())
+    valid = (partition.constant(
+        torch.ones((B, S), dtype=torch.bool, device=x.device), x)
+        if token_valid is None else token_valid.bool())
 
     if S == 1:     # flat: one row of B tokens
         C = _capacity(k, B, E, cf)
@@ -162,21 +197,43 @@ def moe_apply(cfg, params, x, *, expert_mask=None, token_valid=None,
         out = out.reshape(B, S, d)
         if not metered:
             return out
-        t_s, e_s, keep = t_s[0], e_s[0], keep[0]
-        v_s = valid.reshape(B)[t_s]
-        dropped = torch.zeros(B, dtype=torch.int32, device=x.device)
-        dropped.index_add_(0, t_s, (v_s & ~keep).to(torch.int32))
-        routed = torch.zeros((B, E), dtype=torch.int32, device=x.device)
-        routed.index_put_((t_s, e_s), (v_s & keep).to(torch.int32),
-                          accumulate=True)
-        return out, dropped, routed
+        return (out,) + _flat_meters_shards(valid.reshape(1, B), t_s, e_s,
+                                            keep, E)
 
     C = _capacity(k, S, E, cf)
     out, (keep, t_s, e_s) = _dispatch_compute(params, x, gates, eids, C)
     if not metered:
         return out
+    return (out,) + _row_meters_shards(valid, t_s, e_s, keep, E)
+
+
+def _flat_meters(valid, t_s, e_s, keep, E: int):
+    """(dropped int32 [B], routed int32 [B, E]) of the flat path's one
+    row of B tokens: valid [1, B]; t_s, e_s, keep [1, B*k]."""
+    B = valid.shape[1]
+    t_s, e_s, keep = t_s[0], e_s[0], keep[0]
+    v_s = valid[0][t_s]
+    dropped = torch.zeros(B, dtype=torch.int32, device=valid.device)
+    dropped.index_add_(0, t_s, (v_s & ~keep).to(torch.int32))
+    routed = torch.zeros((B, E), dtype=torch.int32, device=valid.device)
+    routed.index_put_((t_s, e_s), (v_s & keep).to(torch.int32),
+                      accumulate=True)
+    return dropped, routed
+
+
+def _row_meters(valid, t_s, e_s, keep, E: int):
+    """(dropped int32 [B], routed int32 [B, E]) of B rows: valid [B, S];
+    t_s, e_s, keep [B, S*k]."""
     v_s = valid.gather(1, t_s)
     dropped = (v_s & ~keep).sum(1, dtype=torch.int32)
-    routed = torch.zeros((B, E), dtype=torch.int32, device=x.device)
+    routed = torch.zeros((valid.shape[0], E), dtype=torch.int32,
+                         device=valid.device)
     routed.scatter_add_(1, e_s, (v_s & keep).to(torch.int32))
-    return out, dropped, routed
+    return dropped, routed
+
+
+#: the meters on each row shard; the flat path's one row is whole
+_flat_meters_shards = partition.local_map(
+    _flat_meters, (None,) * 5, partition.whole)
+_row_meters_shards = partition.local_map(
+    _row_meters, ((BATCH,),) * 4 + (None,), partition.like(0))

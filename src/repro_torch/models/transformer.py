@@ -63,6 +63,9 @@ from ..kernels.verify_attention.ops import (verify_attention, verify_route,
                                             workspace_numel)
 from ..kernels.verify_attention.schedule import (build_verify_schedule,
                                                  build_verify_units)
+from ..parallel import partition
+from ..parallel.partition import (BATCH, KEEP, MODEL, constrain_batch,
+                                  gather_model)
 from . import attention as attn
 from . import moe as moe_mod
 from . import rglru as rglru_mod
@@ -161,6 +164,16 @@ def model_defs(cfg):
 
 # ================================================================ train path
 
+#: sharding boundaries of the recurrent blocks over a full sequence: each
+#: batch shard runs the whole block (its parameters gathered) on its rows
+_ssd_full_shards = partition.local_map(
+    ssm_mod.ssd_block_full, (None, None, (BATCH, None, None)),
+    partition.like(-1))
+_rglru_full_shards = partition.local_map(
+    rglru_mod.rglru_block_full, (None, None, (BATCH, None, None)),
+    partition.like(-1))
+
+
 def _mix_train(cfg, lp, x, kind: str, enc_out=None, causal: bool = True):
     """One layer over the full sequence: returns (x, cache), the cache
     (k, v) for an attention layer and the final recurrent state {"h",
@@ -170,26 +183,40 @@ def _mix_train(cfg, lp, x, kind: str, enc_out=None, causal: bool = True):
     ``(self_cache, (k, v))`` with the cross K/V [B, L, KH, hd].  An FFN
     with a router is the mixture of experts; an SSD layer has none."""
     bk = base_kind(kind)
-    h = apply_norm(cfg, lp["norm1"], x)
+    if partition.is_sharded(x):
+        # the FSDP gather of the layer's embed-sharded parameters (under
+        # remat it is recomputed in the backward, as FSDP re-gathers)
+        lp = partition.unshard_axis(lp, layer_defs(cfg, kind, "xattn" in lp))
+    h = gather_model(apply_norm(cfg, lp["norm1"], x))
     if bk in ("global", "local"):
         o, cache = attn.attention_train(cfg, lp["attn"], h, bk, causal)
     else:
-        block = (ssm_mod.ssd_block_full if bk == "ssd"
-                 else rglru_mod.rglru_block_full)
+        block = _ssd_full_shards if bk == "ssd" else _rglru_full_shards
         o, (hn, cn) = block(cfg, lp[bk], h)
         cache = {"h": hn, "conv": cn}
-    x = x + o
+    x = constrain_batch(x + gather_model(o))
     if "xattn" in lp and enc_out is not None:
-        hx = apply_norm(cfg, lp["norm_x"], x)
-        k = torch.einsum("bsd,dhk->bshk", enc_out, lp["xattn"]["wk"])
-        v = torch.einsum("bsd,dhk->bshk", enc_out, lp["xattn"]["wv"])
-        x = x + attn.cross_attention(cfg, lp["xattn"], hx, (k, v))
+        hx = gather_model(apply_norm(cfg, lp["norm_x"], x))
+        enc = gather_model(enc_out)
+        k = torch.einsum("bsd,dhk->bshk", enc, lp["xattn"]["wk"])
+        v = torch.einsum("bsd,dhk->bshk", enc, lp["xattn"]["wv"])
+        x = constrain_batch(x + gather_model(attn.cross_attention(
+            cfg, lp["xattn"], hx, (k, v))))
         cache = (cache, (k, v))
     if "ffn" in lp:
-        h2 = apply_norm(cfg, lp["norm2"], x)
-        x = x + (moe_mod.moe_apply(cfg, lp["ffn"], h2)
-                 if "router" in lp["ffn"] else ffn_apply(cfg, lp["ffn"], h2))
+        h2 = gather_model(apply_norm(cfg, lp["norm2"], x))
+        x = constrain_batch(x + gather_model(
+            moe_mod.moe_apply(cfg, lp["ffn"], h2) if "router" in lp["ffn"]
+            else ffn_apply(cfg, lp["ffn"], h2)))
     return x, cache
+
+
+def _final_norm(cfg, params, x, name: str = "final_norm"):
+    """``params[name]`` (a final norm's parameters, {} for a
+    non-parametric norm), its embed dim gathered beside a sharded x."""
+    p = params.get(name, {})
+    return partition.unshard_axis(p, norm_defs(cfg)) if (
+        partition.is_sharded(x)) else p
 
 
 def _unstack(stacked, n: int):
@@ -212,6 +239,7 @@ def _encoder_apply(cfg, params, enc_embeds, remat: bool = True):
     ``causal=False``), each under ``torch.utils.checkpoint`` when
     ``remat`` (the reference remats each), then ``enc_final_norm``."""
     def layer(x, lp):
+        x = constrain_batch(x)
         return _mix_train(cfg, lp, x, "global", causal=False)[0]
 
     x = enc_embeds
@@ -220,7 +248,7 @@ def _encoder_apply(cfg, params, enc_embeds, remat: bool = True):
         x = (checkpoint(layer, x, lp, use_reentrant=False) if remat
              else layer(x, lp))
     if "enc_final_norm" in params:
-        x = apply_norm(cfg, params["enc_final_norm"], x)
+        x = apply_norm(cfg, _final_norm(cfg, params, x, "enc_final_norm"), x)
     return x
 
 
@@ -231,13 +259,14 @@ def _embed_inputs(cfg, params, tokens, extra, remat: bool):
     x = embed_apply(params["embed"], tokens).to(cfg.tdtype)
     if cfg.arch_kind == "vlm" and extra and "img_embeds" in extra:
         x = torch.cat([extra["img_embeds"].to(cfg.tdtype), x], dim=1)
+    x = constrain_batch(x)
     enc_out = None
     if cfg.arch_kind == "encdec":
         if not extra or "enc_embeds" not in extra:
             raise ValueError(f"{cfg.name}: an encoder-decoder needs "
                              f"extra['enc_embeds'] [B, enc_len, d]")
-        enc_out = _encoder_apply(cfg, params,
-                                 extra["enc_embeds"].to(cfg.tdtype), remat)
+        enc_out = constrain_batch(_encoder_apply(
+            cfg, params, extra["enc_embeds"].to(cfg.tdtype), remat))
     return x, enc_out
 
 
@@ -254,9 +283,10 @@ def forward_train(cfg, params, tokens, extra=None, remat: bool = True):
     x, enc_out = _embed_inputs(cfg, params, tokens, extra, remat)
 
     def group(x, gp, enc_out):
+        x = constrain_batch(x)
         for j, kind in enumerate(cfg.pattern):
             x, _ = _mix_train(cfg, gp[f"pos{j}"], x, kind, enc_out)
-        return x
+        return constrain_batch(x)
 
     if cfg.n_groups:
         for gp in _group_params(cfg, params):
@@ -264,7 +294,7 @@ def forward_train(cfg, params, tokens, extra=None, remat: bool = True):
                  if remat else group(x, gp, enc_out))
     for j, kind in enumerate(cfg.remainder):
         x, _ = _mix_train(cfg, params["rem"][f"pos{j}"], x, kind, enc_out)
-    return apply_norm(cfg, params.get("final_norm", {}), x)
+    return apply_norm(cfg, _final_norm(cfg, params, x), x)
 
 
 def _stack_caches(caches):
@@ -300,16 +330,18 @@ def forward_prefill(cfg, params, tokens, extra=None):
     per_group = {f"pos{j}": [] for j in range(len(cfg.pattern))}
     if cfg.n_groups:
         for gp in _group_params(cfg, params):
+            x = constrain_batch(x)
             for j, kind in enumerate(cfg.pattern):
                 x, c = _mix_train(cfg, gp[f"pos{j}"], x, kind, enc_out)
                 per_group[f"pos{j}"].append(c)
+            x = constrain_batch(x)
     caches = {pos: _stack_caches(cs) for pos, cs in per_group.items() if cs}
     for j, kind in enumerate(cfg.remainder):
         x, c = _mix_train(cfg, params["rem"][f"pos{j}"], x, kind, enc_out)
         caches[f"rem{j}"] = _stack_caches([c])
     if enc_out is not None:
         caches["enc_out"] = enc_out
-    return apply_norm(cfg, params.get("final_norm", {}), x), caches
+    return apply_norm(cfg, _final_norm(cfg, params, x), x), caches
 
 
 # ============================================================== decode state
@@ -727,14 +759,26 @@ def _ring_write_chunk(k_ring, v_ring, k_new, v_new, write) -> None:
     v_ring.index_put_(write, v_new.to(v_ring.dtype))
 
 
-def _ring_attn_chunk(q, k_ring, v_ring, k_chunk, v_chunk, idx: _RingIndex):
+def _summed(s, group):
+    """``s`` summed over the ranks of ``group`` (a shard's partial
+    scores over its slice of the head dim); ``s`` itself without one."""
+    if group is None:
+        return s
+    ops = torch.ops._c10d_functional
+    return ops.wait_tensor(ops.all_reduce(s, "sum", group.group_name))
+
+
+def _ring_attn_chunk(q, k_ring, v_ring, k_chunk, v_chunk, idx: _RingIndex,
+                     group=None):
     """Chunked sliding-window attention over ring + in-chunk K/V, plain
     torch ops as in the reference.
 
     q: [DP, Bl, T, H, hd]; rings: [DP, Bl, W + 1, KH, hd] holding the
     PRE-chunk content (slot W is the sink); k/v_chunk: [DP, Bl, T, KH,
     hd].  Attention runs before the ring is overwritten, so early
-    queries still see tokens that later chunk tokens evict."""
+    queries still see tokens that later chunk tokens evict.  Given a
+    ``group``, the operands are a shard's slice of the head dim and
+    the scores are summed over the group before the softmax."""
     DP, Bl, T, H, hd = q.shape
     W = k_ring.shape[2] - 1
     k = torch.cat([k_ring[:, :, :W], k_chunk.to(k_ring.dtype)], dim=2)
@@ -742,7 +786,9 @@ def _ring_attn_chunk(q, k_ring, v_ring, k_chunk, v_chunk, idx: _RingIndex):
     ke = _expand_kv(k.reshape(DP * Bl, W + T, -1, hd), H)
     ve = _expand_kv(v.reshape(DP * Bl, W + T, -1, hd), H)
     qf = q.reshape(DP * Bl, T, H, hd)
-    s = torch.einsum("bthd,bkhd->bhtk", qf, ke) / (hd ** 0.5)
+    hd_all = hd * (1 if group is None else group.size())
+    s = _summed(torch.einsum("bthd,bkhd->bhtk", qf, ke), group) / (
+        hd_all ** 0.5)
     s = torch.where(idx.valid, s.float(), NEG_INF)
     p = torch.softmax(s, dim=-1)
     p = torch.where(idx.any_valid, p, 0.0)
@@ -758,18 +804,99 @@ def _xattn_decode_chunk(cfg, lp, x, enc_kv_layer):
     the softmax, and P goes back to ``x.dtype`` before the product with
     V: the reference's order, which in bf16 decides the tokens."""
     DP, Bl, T, d = x.shape
-    H, hd, L = cfg.n_heads, cfg.hd, cfg.enc_len
+    H, hd = cfg.n_heads, cfg.hd
     h = apply_norm(cfg, lp["norm_x"], x)
     q = torch.einsum("xbtd,dhk->xbthk", h, lp["xattn"]["wq"])
     k, v = enc_kv_layer
+    spec, group = _split_spec(k)
+    o = _xattn_shards(spec)(q.reshape(DP, Bl, T, H, hd), k, v, group)
+    return x + torch.einsum("xbthk,hkd->xbtd", gather_model(o),
+                            lp["xattn"]["wo"])
+
+
+def _xattn_core(q, k, v, group=None):
+    """Attention of q [DP, Bl, T, H, hd] over every row of k, v [DP, Bl,
+    L, KH, hd]: an ``q.dtype`` product divided by sqrt(hd), the
+    softmax in float32, P back in ``q.dtype`` before the product with V
+    (the reference's order).  Given a ``group``: a shard's slice of the
+    head dim, the scores summed over the group (:func:`_summed`)."""
+    DP, Bl, T, H, hd = q.shape
+    L = k.shape[2]
     ke = _expand_kv(k.reshape(DP * Bl, L, -1, hd), H)
     ve = _expand_kv(v.reshape(DP * Bl, L, -1, hd), H)
     qf = q.reshape(DP * Bl, T, H, hd)
-    s = torch.einsum("bthd,bkhd->bhtk", qf, ke) / (hd ** 0.5)
+    hd_all = hd * (1 if group is None else group.size())
+    s = _summed(torch.einsum("bthd,bkhd->bhtk", qf, ke), group) / (
+        hd_all ** 0.5)
     p = torch.softmax(s.float(), dim=-1)
-    o = torch.einsum("bhtk,bkhd->bthd", p.to(x.dtype), ve)
-    o = o.reshape(DP, Bl, T, H, hd)
-    return x + torch.einsum("xbthk,hkd->xbtd", o, lp["xattn"]["wo"])
+    o = torch.einsum("bhtk,bkhd->bthd", p.to(q.dtype), ve)
+    return o.reshape(DP, Bl, T, H, hd)
+
+
+def _xattn_shards(spec):
+    return partition.local_map(_xattn_core, (spec,) * 3 + (None,),
+                               partition.like(0))
+
+
+# Sharding boundaries of a decode layer.  The KV writes run in place on
+# each shard's block of the state (KEEP: a redistributed copy would take
+# the write); attention reads the shard's pages, ring or encoder K/V,
+# its kv heads over "model" where the state shards them there.  Where
+# the state shards the head dim instead (the reference's GQA fallback),
+# the plain forms (ring, cross) keep it sharded and sum each shard's
+# partial scores (:func:`_split_spec`), while the paged kernels, which
+# take whole head dims, get the pages gathered.  A recurrent block runs
+# each batch shard's rows on copies of their state, which the caller
+# writes back.
+_ATT5 = (BATCH, None, None, None, None)
+_paged_write_shards = partition.local_map(
+    _paged_write_chunk, (KEEP,) * 5, lambda mesh, parts: ())
+_ring_write_shards = partition.local_map(
+    _ring_write_chunk, (KEEP,) * 5, lambda mesh, parts: ())
+
+
+def _kv_heads_spec(kp) -> tuple:
+    """Spec of a [DP, ., ., heads, hd] attention operand: the heads over
+    "model" where the state ``kp`` shards its kv heads there."""
+    if partition.is_sharded(kp) and partition.sharded_dim(kp, 3, "model"):
+        return (BATCH, None, None, MODEL, None)
+    return _ATT5
+
+
+def _paged_attn_shards(heads):
+    return partition.local_map(_paged_attn_chunk,
+                               (heads, heads, heads, KEEP),
+                               partition.like(0))
+
+
+def _ring_attn_shards(spec):
+    return partition.local_map(_ring_attn_chunk,
+                               (spec,) * 5 + (KEEP, None), partition.like(0))
+
+
+def _split_spec(kp):
+    """(spec, group) of the plain attention forms (ring, cross): as
+    :func:`_kv_heads_spec`, but where the state shards its head dim over
+    "model" (the reference's GQA fallback) every operand keeps that
+    shard and each shard's partial scores are all-reduced over "model"
+    before the softmax, the reference's plan for it (a [B, H, T, L]
+    all-reduce instead of a gathered state)."""
+    if partition.is_sharded(kp) and partition.sharded_dim(kp, 4, "model"):
+        return ((BATCH, None, None, None, MODEL),
+                kp.device_mesh.get_group("model"))
+    return _kv_heads_spec(kp), None
+
+
+def _rec_apply(block, cfg, params, x, h, conv, lens, tok_valid):
+    """A recurrent block over a chunk on copies of its state: (y, h,
+    conv) after the chunk."""
+    h, conv = h.clone(), conv.clone()
+    return block(cfg, params, x, h, conv, lens, tok_valid), h, conv
+
+
+_rec_apply_shards = partition.local_map(
+    _rec_apply, (None, None, None, (BATCH,), (BATCH,), (BATCH,), (BATCH,),
+                 (BATCH,)), partition.like(-1))
 
 
 def _mix_decode_chunk(cfg, lp, x, kind: str, layer_state, idx: _StepIndex,
@@ -802,24 +929,33 @@ def _mix_decode_chunk(cfg, lp, x, kind: str, layer_state, idx: _StepIndex,
         v = torch.einsum("bsd,dhk->bshk", hf, a["wv"]).reshape(
             DP, Bl, T, KH, hd)
         kp, vp = layer_state
+        k, v = partition.laid_out_as(k, kp), partition.laid_out_as(v, vp)
         if sk == "paged":
-            _paged_write_chunk(kp, vp, k, v, idx.paged.write)
-            o = _paged_attn_chunk(q, kp, vp, idx.paged)
+            _paged_write_shards(kp, vp, k, v, idx.paged.write)
+            o = _paged_attn_shards(_kv_heads_spec(kp))(q, kp, vp, idx.paged)
         else:
-            o = _ring_attn_chunk(q, kp, vp, k, v, idx.ring)
-            _ring_write_chunk(kp, vp, k, v, idx.ring.write)
-        x = x + torch.einsum("xbthk,hkd->xbtd", o, a["wo"])
+            spec, group = _split_spec(kp)
+            o = _ring_attn_shards(spec)(q, kp, vp, k, v, idx.ring, group)
+            _ring_write_shards(kp, vp, k, v, idx.ring.write)
+        x = constrain_batch(x + torch.einsum("xbthk,hkd->xbtd",
+                                             gather_model(o), a["wo"]))
     else:
         st = {n: t.reshape((DP * Bl,) + t.shape[2:])
               for n, t in layer_state.items()}
         block = (ssm_mod.ssd_block_apply if base_kind(kind) == "ssd"
                  else rglru_mod.rglru_block_apply)
-        o = block(cfg, lp[base_kind(kind)], h.reshape(DP * Bl, T, d),
-                  st["h"], st["conv"], idx.lens.reshape(DP * Bl),
-                  idx.tok_valid.reshape(DP * Bl, T))
-        x = x + o.reshape(DP, Bl, T, d)
+        args = (cfg, lp[base_kind(kind)], h.reshape(DP * Bl, T, d),
+                st["h"], st["conv"], idx.lens.reshape(DP * Bl),
+                idx.tok_valid.reshape(DP * Bl, T))
+        if partition.is_sharded(x):
+            o, hn, cn = _rec_apply_shards(block, *args)
+            st["h"].copy_(hn)
+            st["conv"].copy_(cn)
+        else:
+            o = block(*args)
+        x = constrain_batch(x + o.reshape(DP, Bl, T, d))
     if "xattn" in lp and enc_kv_layer is not None:
-        x = _xattn_decode_chunk(cfg, lp, x, enc_kv_layer)
+        x = constrain_batch(_xattn_decode_chunk(cfg, lp, x, enc_kv_layer))
     moe_meta = None
     if "ffn" in lp:
         h2 = apply_norm(cfg, lp["norm2"], x).reshape(DP * Bl, T, d)
@@ -842,7 +978,7 @@ def _mix_decode_chunk(cfg, lp, x, kind: str, layer_state, idx: _StepIndex,
                         routed.reshape(DP, Bl, E).sum(1, dtype=I32))
         else:
             f = ffn_apply(cfg, lp["ffn"], h2)
-        x = x + f.reshape(DP, Bl, T, d)
+        x = constrain_batch(x + constrain_batch(f).reshape(DP, Bl, T, d))
     return x, moe_meta
 
 
@@ -856,6 +992,43 @@ def _gather_expert_pages(pages, tab):
     p = pages[0]
     ids = tab[0].clamp(0, p.shape[0] - 2).T.long()       # [PPE, E]
     return p[ids].unbind(0)
+
+
+def _alloc_and_index(lens, state: DecodeState, cfg, T: int, verify: bool):
+    """The step's bookkeeping before the layers, on one shard's rows (on
+    plain tensors, on all): where the model has paged layers, pages for
+    the whole chunk from each slot's private lane in one
+    :func:`hier_pool.alloc_n_or_shared` call, all-or-nothing per
+    sequence (a denied chunk appends nothing), then the step's index.
+    Returns (page_tables, pool, lens, idx)."""
+    base = state.seq_lens
+    dev = lens.device
+    if state.kv_pages:
+        # page allocation for the whole chunk (once, all paged layers)
+        psz = cfg.page_size
+        maxp = state.page_tables.shape[2]
+        kmax = -(-T // psz)
+        lens, pages_before, counts = block_pool.chunk_page_plan(
+            base, lens, psz, maxp)
+        pool, got = classed_pool.alloc_n_or_shared_dp(state.pool, CLS_KV,
+                                                      counts, kmax)
+        lens = torch.where(block_pool.granted_mask(got, counts), lens, 0)
+        kk = torch.arange(kmax, dtype=I32, device=dev)
+        new_page = (kk < counts[..., None]) & (got >= 0)
+        slot = torch.where(new_page, pages_before[..., None] + kk, maxp)
+        tables = block_pool.put(state.page_tables, slot, got)
+        state = state._replace(page_tables=tables, pool=pool)
+    positions = base[..., None] + torch.arange(T, dtype=I32, device=dev)
+    tok_valid = torch.arange(T, device=dev) < lens[..., None]
+    idx = _step_index(cfg, state, positions, tok_valid, base, lens, verify)
+    return state.page_tables, state.pool, lens, idx
+
+
+#: sharding boundary of the bookkeeping: each DP shard allocates from
+#: its own pool and indexes its own pages (the reference's per-shard
+#: pool), every output laid out as ``lens`` (DP over the batch axes)
+_alloc_and_index_shards = partition.local_map(
+    _alloc_and_index, ((BATCH,), KEEP, None, None, None), partition.like(0))
 
 
 def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
@@ -894,37 +1067,22 @@ def forward_decode_chunk(cfg, params, tokens, state: DecodeState, lens,
     _check_slice(cfg)
     DP, Bl, T = tokens.shape
     if active is None:
-        active = torch.ones((DP, Bl), dtype=torch.bool, device=tokens.device)
+        active = partition.constant(
+            torch.ones((DP, Bl), dtype=torch.bool, device=tokens.device),
+            tokens)
     lens = torch.where(active, lens.to(I32).clamp(0, T), 0)
     base = state.seq_lens
-    x = embed_apply(params["embed"], tokens).to(cfg.tdtype)
-
-    if state.kv_pages:
-        # page allocation for the whole chunk (once, all paged layers)
-        psz = cfg.page_size
-        maxp = state.page_tables.shape[2]
-        kmax = -(-T // psz)
-        lens, pages_before, counts = block_pool.chunk_page_plan(
-            base, lens, psz, maxp)
-        pool, got = classed_pool.alloc_n_or_shared_dp(state.pool, CLS_KV,
-                                                      counts, kmax)
-        lens = torch.where(block_pool.granted_mask(got, counts), lens, 0)
-        kk = torch.arange(kmax, dtype=I32, device=tokens.device)
-        new_page = (kk < counts[..., None]) & (got >= 0)
-        slot = torch.where(new_page, pages_before[..., None] + kk, maxp)
-        tables = block_pool.put(state.page_tables, slot, got)
-        state = state._replace(page_tables=tables, pool=pool)
-
-    positions = base[..., None] + torch.arange(T, dtype=I32,
-                                               device=tokens.device)
-    tok_valid = torch.arange(T, device=tokens.device) < lens[..., None]
-    idx = _step_index(cfg, state, positions, tok_valid, base, lens, verify)
+    x = constrain_batch(embed_apply(params["embed"], tokens).to(cfg.tdtype))
+    tables, pool, lens, idx = _alloc_and_index_shards(lens, state, cfg, T,
+                                                      verify)
+    state = state._replace(page_tables=tables, pool=pool)
 
     etabs = state.expert_tables or {}
     if etabs:
         # the paged FFN takes the shard's pages as the [E, ...] weights
         assert DP == 1, "expert paging requires shard-local DP == 1"
-    meters = {k: torch.zeros(DP, dtype=I32, device=tokens.device)
+    meters = {k: partition.constant(
+        torch.zeros(DP, dtype=I32, device=tokens.device), tokens)
               for k in ("moe_dropped", "expert_hit_pages",
                         "expert_miss_pages", "expert_prefetch_pages")}
     pat_moe, _ = moe_positions(cfg)

@@ -7,7 +7,7 @@ step's status rows and counter blocks, stats, per-shard telemetry,
 pool leaves and expert tables identical to the JAX engine's, and the
 port's paged engine token-identical to its resident one.  The refcount
 churn trace runs the port's pool beside the JAX pool and the sequential
-witness ``repro.core.refpool.RefClassedPool``, op for op.  The step
+witness ``repro_torch.core.refpool.RefClassedPool``, op for op.  The step
 makes exactly one device-to-host read under slot turnover, and
 ``launch.serve.main --expert-paging`` matches the reference's ``main``.
 The reference's one-collective test needs a device mesh, which the port
@@ -31,7 +31,7 @@ import _torch_helpers  # noqa: F401  (caps torch's CPU threads)
 from _torch_helpers import (TIMING, _engine, assert_engines_equal,
                             assert_pools_equal, engine_setup, run_main)
 from repro.core import classed_pool as jpool
-from repro.core import refpool
+from repro_torch.core import refpool
 from repro.launch import serve as jserve
 from repro.models.moe import moe_apply as j_moe_apply
 from repro_torch.bridge import params_from_numpy

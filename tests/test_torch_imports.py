@@ -41,13 +41,18 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     n, bad = head.split(" ", 1)
     assert int(n) >= 20 and bad.strip() == "[]", out.stdout
     # the modules of the sampling and recovery slice, of the
-    # expert-paged MoE slice, of the DP allocation plane and the
-    # faithful layer's history checkers are among them
+    # expert-paged MoE slice, of the DP allocation plane, the faithful
+    # layer and the dry run are among them
     assert {"repro_torch.serving.sampling", "repro_torch.serving.chaos",
             "repro_torch.models.moe", "repro_torch.serving.expert_pages",
             "repro_torch.launch.mesh", "repro_torch.launch.steps",
             "repro_torch.runtime.elastic",
-            "repro_torch.core.linearizability"} <= set(names.split()), names
+            "repro_torch.core.linearizability",
+            "repro_torch.parallel.partition", "repro_torch.launch.dryrun",
+            "repro_torch.launch.roofline", "repro_torch.launch.report",
+            "repro_torch.core.scheduler", "repro_torch.core.baselines",
+            "repro_torch.core.refpool",
+            "repro_torch.core.kv_cache"} <= set(names.split()), names
 
 
 def test_sources_name_neither_jax_nor_repro():

@@ -42,6 +42,7 @@ from repro.serving.telemetry import FlightRecorder as JFlight
 from repro_torch.launch import mesh as tmesh
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
+from repro_torch.parallel import partition
 from repro_torch.models.decode_init import empty_decode_state as t_empty
 from repro_torch.models.transformer import EXPERT_PPE, expert_layer_slots
 from repro_torch.runtime import elastic as telastic
@@ -197,7 +198,7 @@ def test_state_axes_match_the_reference_pspecs(arch, size_classes, expert):
 
     # distinct values everywhere, so a wrong axis or order shows
     g = torch.Generator().manual_seed(0)
-    whole = tsteps._map(lambda t: torch.randint(
+    whole = partition.tree_map_defs(lambda t: torch.randint(
         -100, 100, t.shape, generator=g).to(t.dtype), tstate)
     shards = [tsteps.shard_state(whole, d) for d in range(3)]
     for sh in shards:
@@ -222,7 +223,7 @@ def test_state_axes_match_the_reference_pspecs(arch, size_classes, expert):
 
 def _leaves(tree):
     out = []
-    tsteps._map(lambda t: out.append(t), tree)
+    partition.tree_map_defs(lambda t: out.append(t), tree)
     return out
 
 

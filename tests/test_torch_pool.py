@@ -4,9 +4,10 @@ Seeded random op traces run through ``block_pool`` (one pool),
 ``hier_pool`` and ``classed_pool`` (C = 1, the ``*_dp`` variants over
 DP = 2 shards) of both packages.  After every op the grants, the free
 stacks, the tops, the refcounts and the lane stacks must be exactly
-equal.  Frees are always of references the trace holds.  The
-reference's host witness ``repro.core.refpool`` (plain Python lists, no
-jax) runs the ``*_dp`` traces as a third executor: the same grants per
+equal.  Frees are always of references the trace holds.  The host
+witness ``repro_torch.core.refpool`` (plain Python lists, the port's
+copy of the reference's, held equal to it in
+``test_torch_faithful.py``) runs the ``*_dp`` traces as a third executor: the same grants per
 op and, through ``refpool.conforms``, the same stacks, tops and
 refcounts on every shard.
 """
@@ -27,7 +28,7 @@ from _torch_helpers import assert_pools_equal
 from repro.core import block_pool as jbp
 from repro.core import classed_pool as jcp
 from repro.core import hier_pool as jhp
-from repro.core import refpool
+from repro_torch.core import refpool
 from repro_torch.core import block_pool as tbp
 from repro_torch.core import classed_pool as tcp
 from repro_torch.core import hier_pool as thp
