@@ -47,13 +47,16 @@ Phases, each printed on its own line (any failure fails the run):
    2^-5 of its own scale, where two controls of the walk (a late tile
    pair dropped, delta left out) must lie beyond it; the mma.sync
    kernels at hd 16 and the float32 ones within 1e-4, and two backward
-   calls on the same inputs bit-equal; K6's hd 96 instances (bf16 on
-   mma.sync, float32 on FMAs) causal at S = 640 (phi-3-vision's
-   prefill), at a ragged S and bidirectional, bidirectional K6 at S =
-   1,500, hd 64 (whisper-tiny's encoder) on its wgmma route, and K1 (T
-   = 1 and 64) and K2 at phi-3-vision's width (hd 96, pages of 64) on
-   their fma kernels, each within one ulp of the plain version (f32
-   1e-4), two calls bit-equal;
+   calls on the same inputs bit-equal; K6 at hd 96 (bf16 on its wgmma
+   route over tiles padded to two 64-column atoms, and on the mma.sync
+   instance it replaced by explicit route; float32 on FMAs) causal at
+   S = 640 (phi-3-vision's prefill), at a ragged S and bidirectional,
+   bidirectional K6 at S = 1,500, hd 64 (whisper-tiny's encoder) on
+   its wgmma route, K1 (T = 1 and 64) at phi-3-vision's width (hd 96,
+   pages of 64) on its wgmma route and on the fma kernel it replaced,
+   and K2 there on its fma kernel, each within one ulp of the plain
+   version (f32 1e-4), two calls bit-equal; K2 and K3 asked for their
+   Hopper routes at hd 96 raise before any launch;
 4. check the port's engine on the card against the same engine on the
    CPU (where every kernel wrapper runs its plain version) on smoke
    configs: identical tokens and status rows, for olmo-1b's plain path
@@ -232,21 +235,24 @@ Phases, each printed on its own line (any failure fails the run):
    ``decode_step``s (K2 on its tma route once a layer a step, the
    cross-attention in torch ops, as the reference's is jnp); (b)
    phi-3-vision in bf16, 4 prompts of 64 tokens after 576 image
-   positions (640 positions, 10 pages of 64): K6 on the mma.sync
-   kernel at hd 96 once a layer, 16 decode steps with K2 on its fma
-   kernel; (c) both again in f32, every logit within ``PREFILL_TOL`` of
+   positions (640 positions, 10 pages of 64): K6 on its wgmma route at
+   hd 96 once a layer, 16 decode steps with K2 on its fma kernel; (c)
+   both again in f32, every logit within ``PREFILL_TOL`` of
    the one-shot ``forward_train`` with the same extra inputs (the
    one-ulp floor printed beside); (d) the engine at full width in bf16,
    dp 1, 8 slots, 16 requests of phase 5's shape: whisper-tiny with two
    size classes, each slot holding its 376 CLS_STATE blocks of encoder
-   state (4 layers x ceil(1,500 / 16)), phi-3-vision with one, K1 and
-   K2 on their wgmma/tma routes at hd 64 and their fma kernels at hd
-   96, the checks of phase 5 (one transfer a step, every class empty
-   after the drain), and phi-3-vision's text-only prompts through the
-   prefill path in f32 against the engine as phase 18 (d) does; (e) the
-   time of K6 at hd 96 at phi-3-vision's prefill shape, and of K1 (T =
-   64) and K2 at its serving width, each beside its bound, its plain
-   version and SDPA.
+   state (4 layers x ceil(1,500 / 16)), phi-3-vision with one (its
+   ms/step printed beside 62.55, the run before K1's hd 96 wgmma
+   route), K1 on its wgmma route at hd 64 and 96, K2 on its tma route
+   at hd 64 and its fma kernel at hd 96, the checks of phase 5 (one
+   transfer a step, every class empty after the drain), and
+   phi-3-vision's text-only prompts through the prefill path in f32
+   against the engine as phase 18 (d) does; (e) the time of K6 at hd 96
+   at phi-3-vision's prefill shape (wgmma, and the mma.sync instance it
+   replaced on the same inputs), and of K1 (T = 64; wgmma, and the fma
+   kernel it replaced) and K2 at its serving width, each beside its
+   bound, its plain version and SDPA.
 
 20. the DP allocation plane, one rank per DP shard
    (``repro_torch.launch.mesh``), two ranks spawned with their own
@@ -1216,7 +1222,8 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     attention (``kernel`` K1) a step of width 1 (every lane decoding)
     runs K2 instead, once per layer.  In bf16, K1 and K2 take their
     wgmma and tma routes at hd 64 and 128 and their fma kernels at any
-    other hd (phi-3-vision's 96).  The peak of CLS_STATE blocks in use
+    other hd (K1 takes wgmma at phi-3-vision's 96 too, K2 fma there).
+    The peak of CLS_STATE blocks in use
     is the most slots held after a step times a slot's grant.
     ``profile_reqs``, when given, are served again under the profiler.
     Returns the run's numbers."""
@@ -1314,8 +1321,8 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     # steps by width T
     hist = {w: n - hist0.get(w, 0) for w, n in eng.stats["chunk_hist"].items()}
     if kernel == "K1" and cfg.dtype == "bfloat16":
-        wide = cfg.hd in (64, 128)
-        r1, r2 = ("wgmma", "tma") if wide else ("fma", "fma")
+        r1 = "wgmma" if cfg.hd in (64, 96, 128) else "fma"
+        r2 = "tma" if cfg.hd in (64, 128) else "fma"
         check(k1_routes[r1] == launches["K1"],
               f"{tag}: every K1 launch took the {r1} route ({k1_routes})")
         check(k2_routes[r2] == launches["K2"],
@@ -3581,20 +3588,25 @@ def serve_moe(tengine, counted, seed, smi, n_layers=8):
 
 # ------------------------------------------------------------ phase 19
 
-def check_encdec_kernels(k6, ops, plain, plain2, rng, b_local, maxp, P):
-    """Phase 3, the kernels at phase 19's shapes: K6's hd 96 instances
-    (bf16 on mma.sync, float32 on FMAs) against the plain version,
-    causal at S = 640 (phi-3-vision's prefill: 576 image and 64 text
-    positions), at a ragged S and bidirectional; bidirectional K6 at S =
-    1,500, hd 64 (whisper-tiny's encoder) on its wgmma route; K1 at T =
-    1 and 64 and K2 at phi-3-vision's width (hd 96, G 1), bf16, pages
-    of 64, on their fma kernels.  bf16 within one ulp, f32 within 1e-4,
-    two calls bit-equal.  Returns the worst bf16 errors at hd 96 of K6,
-    K1 and K2."""
+def check_encdec_kernels(k6, ops, k3, plain, plain2, rng, b_local, maxp, P):
+    """Phase 3, the kernels at phase 19's shapes: K6 at hd 96 (bf16 on
+    its wgmma route over tiles padded to two 64-column atoms, and on the
+    mma.sync instance it replaced, by explicit route, on the same
+    inputs; float32 on FMAs) against the plain version, causal at S =
+    640 (phi-3-vision's prefill: 576 image and 64 text positions), at a
+    ragged S and bidirectional; bidirectional K6 at S = 1,500, hd 64
+    (whisper-tiny's encoder) on its wgmma route; K1 at T = 1 and 64 at
+    phi-3-vision's width (hd 96, G 1), bf16, pages of 64, on its wgmma
+    route and on the fma kernel it replaced, and K2 there on its fma
+    kernel; K2 and K3 asked for their Hopper routes at hd 96 raise
+    before any launch.  bf16 within one ulp, f32 within 1e-4, two calls
+    bit-equal.  Returns the worst bf16 errors at hd 96 of K6, K1 and K2
+    on their routes, and of the kernels K6's and K1's routes replaced
+    ("K6 mma", "K1 fma")."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     bf, f32 = torch.bfloat16, torch.float32
-    worst = {"K6": 0.0, "K1": 0.0, "K2": 0.0}
+    worst = {"K6": 0.0, "K1": 0.0, "K2": 0.0, "K6 mma": 0.0, "K1 fma": 0.0}
 
     def close(name, dt, out, ref):
         torch.testing.assert_close(out.float(), ref, atol=TOL[dt],
@@ -3610,11 +3622,11 @@ def check_encdec_kernels(k6, ops, plain, plain2, rng, b_local, maxp, P):
 
     for name, dt, B, H, KH, S, hd, causal, route in (
             ("phi-3-vision prefill bf16", bf, 4, 32, 32, 640, 96, True,
-             "mma"),
+             "wgmma"),
             ("hd=96 S=77 bf16 (ragged tile, G=2)", bf, 2, 4, 2, 77, 96, True,
-             "mma"),
+             "wgmma"),
             ("hd=96 S=200 bf16 bidirectional (G=4)", bf, 2, 4, 1, 200, 96,
-             False, "mma"),
+             False, "wgmma"),
             ("phi-3-vision prefill f32", f32, 4, 32, 32, 640, 96, True,
              "f32"),
             ("hd=96 S=77 f32 (ragged tile, G=2)", f32, 2, 4, 2, 77, 96, True,
@@ -3644,31 +3656,52 @@ def check_encdec_kernels(k6, ops, plain, plain2, rng, b_local, maxp, P):
               f"({tol}); two calls bit-equal")
         if dt == bf and hd == 96:
             worst["K6"] = max(worst["K6"], err)
+            # the mma.sync instance the wgmma route replaced, same inputs
+            old = k6.flash_attention_cuda(q, k, v, causal, route="mma")[0]
+            torch.cuda.synchronize()
+            check(torch.equal(old, k6.flash_attention_cuda(
+                q, k, v, causal, route="mma")[0]),
+                f"K6 {name}, mma: two calls bit-equal")
+            e_old, _ = close(f"K6 {name}, mma", dt, old, ref)
+            worst["K6 mma"] = max(worst["K6 mma"], e_old)
+            phase(f"[3] K6 {name}, the mma.sync instance by explicit route "
+                  f"on the same inputs: max_abs_err {e_old:.3e} ({tol}); "
+                  f"two calls bit-equal")
+            del old
         del q, k, v, out, ref
     phi = dict(H=32, KH=32, hd=96, psz=64, maxp=maxp, P=P)
     for T in (1, 64):
         args = attn_case(rng, b_local, T, dtype=bf, masked=(1,),
                          dead=((2, 0),), **phi)
         name = f"K1 phi-3-vision T={T} bf16"
-        check(ops.chunk_route(bf, 96, 64, T, 1) == "fma",
-              f"{name}: on the fma route")
+        check(ops.chunk_route(bf, 96, 64, T, 1) == "wgmma",
+              f"{name}: on the wgmma route")
         before = (ops.paged_attention_chunk.launches,
-                  ops.paged_attention_chunk.routes["fma"])
+                  ops.paged_attention_chunk.routes["wgmma"])
         out = ops.paged_attention_chunk(*args)
         torch.cuda.synchronize()
         check((ops.paged_attention_chunk.launches,
-               ops.paged_attention_chunk.routes["fma"])
+               ops.paged_attention_chunk.routes["wgmma"])
               == (before[0] + 1, before[1] + 1),
-              f"{name}: the dispatcher launched the fma kernel once")
-        check(torch.equal(out, ops.paged_attention_chunk_cuda(*args)),
-              f"{name}: two calls bit-equal")
-        check(bool((out[1] == 0).all()), f"{name}: all-masked row is zero")
+              f"{name}: the dispatcher launched the wgmma kernel once")
         ref = plain(*args).float()
-        err, tol = close(name, bf, out, ref)
-        worst["K1"] = max(worst["K1"], err)
-        phase(f"[3] {name} B={b_local} H=32 hd=96 psz=64 (fma kernel): "
-              f"max_abs_err {err:.3e}, max|ref| {ref.abs().max().item():.3e} "
-              f"({tol}); two calls bit-equal")
+        errs = {}
+        for route in ("wgmma", "fma"):
+            got = out if route == "wgmma" else \
+                ops.paged_attention_chunk_cuda(*args, route="fma")
+            check(torch.equal(got, ops.paged_attention_chunk_cuda(
+                *args, route=route)),
+                f"{name}, {route}: two calls bit-equal")
+            check(bool((got[1] == 0).all()),
+                  f"{name}, {route}: all-masked row is zero")
+            errs[route], tol = close(f"{name}, {route}", bf, got, ref)
+        worst["K1"] = max(worst["K1"], errs["wgmma"])
+        worst["K1 fma"] = max(worst["K1 fma"], errs["fma"])
+        phase(f"[3] {name} B={b_local} H=32 hd=96 psz=64, wgmma kernel: "
+              f"max_abs_err {errs['wgmma']:.3e}, max|ref| "
+              f"{ref.abs().max().item():.3e} ({tol}); the fma kernel it "
+              f"replaced on the same inputs {errs['fma']:.3e}; a dead "
+              f"page skipped, two calls bit-equal on each")
     q, kp, vp, table, base = attn_case(
         rng, b_local, 1, dtype=bf, base=rng.randint(96, 1088, b_local),
         masked=(1,), dead=((2, 0),), **phi)
@@ -3697,15 +3730,41 @@ def check_encdec_kernels(k6, ops, plain, plain2, rng, b_local, maxp, P):
           f"max_abs_err vs plain {errs[0]:.3e}, vs K1 at T=1 {errs[1]:.3e} "
           f"({tol}); contexts {int(lens.min())}-{int(lens.max())}; two "
           f"calls bit-equal")
+    # K2's tma and K3's wgmma routes have no hd 96 instance: asked for
+    # them, the wrappers raise before anything launches
+    check(k3.verify_route(bf, 96, 64, 5, 1) == "fma",
+          "K3 at phi-3-vision's width: on its fma route")
+    counts = (ops.paged_attention.launches, dict(ops.paged_attention.routes),
+              k3.verify_attention.launches, dict(k3.verify_attention.routes))
+    for what, call in (
+            ("K2 tma", lambda: ops.paged_attention_cuda(
+                q2, kp, vp, table, lens, True, "tma")),
+            ("K3 wgmma", lambda: k3.verify_attention_cuda(
+                q, kp, vp, table, base, route="wgmma"))):
+        try:
+            call()
+        except ValueError as e:
+            check("takes hd in" in str(e),
+                  f"{what} at hd 96 raised for its head dims ({e})")
+        else:
+            check(False, f"{what} at hd 96 raised")
+    check(counts == (ops.paged_attention.launches,
+                     dict(ops.paged_attention.routes),
+                     k3.verify_attention.launches,
+                     dict(k3.verify_attention.routes)),
+          "K2 tma and K3 wgmma at hd 96: no launch counted")
+    phase("[3] K2's tma and K3's wgmma routes asked for at hd 96: each "
+          "raised before a launch, no launch counted; K3 at hd 96 on fma")
     torch.cuda.empty_cache()
     return worst
 
 
-def time_k6_forward(k6, rng, B, H, KH, S, hd, causal=True):
+def time_k6_forward(k6, rng, B, H, KH, S, hd, causal=True, present=None):
     """K6's forward kernel at one shape (bf16, q and k strided views as
     the model passes them) beside its bound, its plain version and
     SDPA on the same inputs; four sets of inputs cycle, so each call
-    reads its inputs from HBM."""
+    reads its inputs from HBM.  ``present``: the route of the kernel
+    the default route replaced, timed on the same inputs."""
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_fwd_ref
 
@@ -3726,6 +3785,11 @@ def time_k6_forward(k6, rng, B, H, KH, S, hd, causal=True):
     ms, host_ms = cuda_ms(kern, iters=32)
     plain_ms, _ = cuda_ms(ref, iters=4, warmup=1)
     library_ms, _ = cuda_ms(lib, iters=32)
+    extra = {}
+    if present is not None:
+        extra["present_ms"], extra["present_host_ms"] = cuda_ms(
+            lambda: k6.flash_attention_cuda(*sets[next(it) % 4], causal,
+                                            route=present), iters=32)
     q, k, _ = sets[0]
     nbytes, nflops = k6.bound_bytes(q, k), k6.flops(q, causal)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -3738,7 +3802,8 @@ def time_k6_forward(k6, rng, B, H, KH, S, hd, causal=True):
                 bytes=nbytes, flops=nflops, route=k6.forward_route(
                     torch.bfloat16, hd),
                 shape=f"B={B} H={H} KH={KH} S={S} hd={hd} "
-                      f"{'causal' if causal else 'bidirectional'} bf16")
+                      f"{'causal' if causal else 'bidirectional'} bf16",
+                **extra)
 
 
 def extra_full_width(tag, tengine, counted, cfg, seed, n_prompts, text_len,
@@ -3917,8 +3982,9 @@ def serve_encdec_vlm(tengine, k6, ops, plain, counted, seed, smi, b_local,
     holding the encoder's CLS_STATE grant) and phi-3-vision's text-only
     prompts through the prefill path against the engine in float32, (e)
     the times of K6 at hd 96 at phi-3-vision's prefill shape and of K1
-    and K2 at its serving width.  Returns the numbers the kernels line
-    reports."""
+    and K2 at its serving width, K6's and K1's beside the kernels their
+    wgmma routes replaced, on the same inputs.  Returns the numbers the
+    kernels line reports."""
     from repro_torch.configs import get_config
 
     whisper, phi = get_config("whisper-tiny"), get_config("phi-3-vision-4.2b")
@@ -3928,6 +3994,9 @@ def serve_encdec_vlm(tengine, k6, ops, plain, counted, seed, smi, b_local,
                                  32, 32, smi),
            "b": extra_full_width("[19b]", tengine, counted, phi, seed, 4, 64,
                                  16, smi)}
+    check(out["b"]["k6_route"] == "wgmma" and out["b"]["k2_route"] == "fma",
+          f"[19b] phi-3-vision: K6 on its wgmma route at hd 96, K2 on fma "
+          f"({out['b']['k6_route']}, {out['b']['k2_route']})")
     out["c"] = {c.name: extra_full_width("[19c]", tengine, counted, c, seed,
                                          n, m, 16, smi, one_shot=True,
                                          stacks=stacks)
@@ -3944,20 +4013,26 @@ def serve_encdec_vlm(tengine, k6, ops, plain, counted, seed, smi, b_local,
     out["d_text"] = prefill_full_width("[19d]", tengine, counted, phi, seed,
                                        4, 512, smi, stacks=("groups",))
     for name, r in out["d"].items():
+        # a printed figure, not a claim: the recorded run with K1 on its
+        # fma kernel at hd 96 (PERF.md's kernel table)
+        before = (", the recorded run with K1 on fma at hd 96: 62.55 "
+                  "ms/step" if name == phi.name else "")
         phase(f"[19d] {name} engine on {smi}: {r['tok_s']:.1f} generated "
-              f"tok/s, {r['ms_step']:.2f} ms/step, K1 {r['k1_routes']}, K2 "
-              f"{r['k2_routes']}, peak CLS_STATE blocks in use "
-              f"{r['state_peak']}")
+              f"tok/s, {r['ms_step']:.2f} ms/step{before}; K1 "
+              f"{r['k1_routes']}, K2 {r['k2_routes']}, peak CLS_STATE "
+              f"blocks in use {r['state_peak']}")
     # [19e] the hd 96 kernels' times at phi-3-vision's shapes
     rng = np.random.RandomState(seed + 190)
     t6 = time_k6_forward(k6, rng, 4, phi.n_heads, phi.n_kv_heads,
-                         phi.img_tokens + 64, phi.hd)
+                         phi.img_tokens + 64, phi.hd, present="mma")
     phi8 = dataclasses.replace(phi, n_layers=8)
     base1 = rng.randint(64 + 32, 1024 + 64, b_local)
     base64 = rng.randint(0, 1024 - 64, b_local) // 64 * 64
-    t1 = time_kernel(lambda *a: lambda: ops.paged_attention_chunk_cuda(*a),
-                     ops.bound_bytes, plain, rng, phi8, b_local, maxp, P, 64,
-                     base64)
+    t1 = time_kernel(
+        lambda *a: lambda: ops.paged_attention_chunk_cuda(*a, route="wgmma"),
+        ops.bound_bytes, plain, rng, phi8, b_local, maxp, P, 64, base64,
+        present=lambda *a: lambda: ops.paged_attention_chunk_cuda(
+            *a, route="fma"))
     t2 = time_kernel(
         lambda q, kp, vp, table, base: lambda: ops.paged_attention_cuda(
             q[:, 0].contiguous(), kp, vp, table, base + 1, True),
@@ -3966,16 +4041,22 @@ def serve_encdec_vlm(tengine, k6, ops, plain, counted, seed, smi, b_local,
         lambda q, kp, vp, table, base: ops.paged_attention_ref(
             q[:, 0], kp, vp, table, base + 1, zero_empty=True),
         rng, phi8, b_local, maxp, P, 1, base1)
-    for name, t in (("K6 forward (mma.sync, hd 96) " + t6["shape"], t6),
-                    (f"K1 (fma) T=64 B={b_local} H=32 hd=96 psz=64 bf16", t1),
-                    (f"K2 (fma) T=1 B={b_local} H=32 hd=96 psz=64 bf16, "
-                     f"contexts {int(base1.min()) + 1}-{int(base1.max()) + 1}",
-                     t2)):
+    for name, t, old in (
+            ("K6 forward (wgmma, hd 96) " + t6["shape"], t6, "mma.sync"),
+            (f"K1 (wgmma) T=64 B={b_local} H=32 hd=96 psz=64 bf16", t1,
+             "fma"),
+            (f"K2 (fma) T=1 B={b_local} H=32 hd=96 psz=64 bf16, "
+             f"contexts {int(base1.min()) + 1}-{int(base1.max()) + 1}", t2,
+             None)):
+        present = ("" if old is None else
+                   f", the {old} kernel it replaced on the same inputs "
+                   f"{t['present_ms']:.4f} ms (host "
+                   f"{t['present_host_ms']:.4f} ms a call)")
         phase(f"[19e] {name} on {smi}: kernel {t['ms']:.4f} ms (host "
-              f"{t['host_ms']:.4f} ms a call), bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}: {t['flops']} flop, {t['bytes']} B), plain "
-              f"{t['plain_ms']:.4f} ms, library (SDPA) "
-              f"{t['library_ms']:.4f} ms")
+              f"{t['host_ms']:.4f} ms a call){present}, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['flops']} flop, "
+              f"{t['bytes']} B), plain {t['plain_ms']:.4f} ms, library "
+              f"(SDPA) {t['library_ms']:.4f} ms")
     out["times"] = {"K6": t6, "K1": t1, "K2": t2}
     return out
 
@@ -4742,7 +4823,7 @@ def main() -> int:
                   for T in (3, 16, 64, 100, 200)])
     err6, err6b, row6b, ctrl6b = check_k6(k6, rng)
     # a stream of its own: the later phases draw the inputs they drew
-    err19 = check_encdec_kernels(k6, ops, plain, plain2,
+    err19 = check_encdec_kernels(k6, ops, k3, plain, plain2,
                                  np.random.RandomState(args.seed + 24),
                                  b_local, maxp, P)
     lap(3, "kernels against their plain versions")
@@ -5220,13 +5301,25 @@ def main() -> int:
             max_abs_err=err19["K2"], shape=f"T=1 B={b_local} H=32 hd=96 "
                                            f"psz=64 bf16"),
         "paged_attention_chunk": dict(
-            route="fma", source=pa_src + "paged_attention.cu",
-            launches=phi19["k1_routes"]["fma"], max_abs_err=err19["K1"],
-            shape=f"T=64 B={b_local} H=32 hd=96 psz=64 bf16"),
+            route="wgmma", source=pa_src + "paged_attention_wgmma.cu",
+            launches=phi19["k1_routes"]["wgmma"],
+            launches_by_route=phi19["k1_routes"], max_abs_err=err19["K1"],
+            shape=f"T=64 B={b_local} H=32 hd=96 psz=64 bf16",
+            present_kernel=dict(
+                source=pa_src + "paged_attention.cu",
+                ms=r19["times"]["K1"]["present_ms"],
+                host_ms=r19["times"]["K1"]["present_host_ms"],
+                max_abs_err=err19["K1 fma"])),
         "flash_attention": dict(
-            route="mma", source=fa_src + "flash_attention.cu",
-            launches=r19["b"]["k6"], max_abs_err=err19["K6"],
-            shape=r19["times"]["K6"]["shape"])}
+            route="wgmma", source=fa_src + "flash_attention.cu",
+            launches=r19["b"]["k6"],
+            launches_by_route={r19["b"]["k6_route"]: r19["b"]["k6"]},
+            max_abs_err=err19["K6"], shape=r19["times"]["K6"]["shape"],
+            present_kernel=dict(
+                source=fa_src + "flash_attention.cu", route="mma",
+                ms=r19["times"]["K6"]["present_ms"],
+                host_ms=r19["times"]["K6"]["present_host_ms"],
+                max_abs_err=err19["K6 mma"]))}
     for row_ in kernels:
         if row_["name"] in hd96:
             key = {"paged_attention": "K2", "paged_attention_chunk": "K1",

@@ -27,7 +27,8 @@
 //
 // Three kernels, chosen by dtype and hd (ops.py states the dispatch):
 //
-// fa_fwd_wgmma (bf16, hd 64 and 128), the training path's kernel.  A
+// fa_fwd_wgmma (bf16, hd 64, 96 and 128), the kernel of the training
+// path and of phi-3-vision's prefill.  A
 // block of 288 threads owns 128 query rows of one (batch, head): two
 // consumer warpgroups of 64 rows each and one producer warp.  The
 // producer loads the Q tile once and keeps a ring of kStages K/V
@@ -38,7 +39,7 @@
 // arrival from each consumer warp).  A consumer warpgroup runs S = Q
 // K^T as wgmma m64n64k16 with both operands in shared memory (both
 // K-major), keeps the online softmax in registers (exp2 of scores
-// pre-scaled by log2 e), and runs O += P V as wgmma m64n{hd}k16 with P
+// pre-scaled by log2 e), and runs O += P V as wgmma m64n{hd, padded}k16 with P
 // as the register A operand and V read MN-major (the transpose flag),
 // so V is stored as it lies in memory.  P is split into bf16 hi and lo
 // and PV runs on both (see the mma.sync kernel below for why): measured
@@ -47,13 +48,19 @@
 // plain version, and the split makes the kernel a fifth slower
 // (tools/k6_split_probe.py).  The warpgroup whose rows all lie above a
 // causal tile skips it; tiles that cross the diagonal or S are masked.
-// The heaviest causal tiles launch first.  Not done yet: no overlap of
-// a warpgroup's softmax with its next QK^T, no setmaxnreg, no
-// persistent grid.
+// The heaviest causal tiles launch first.  hd 96 (phi-3-vision) runs
+// over tiles padded to two 64-column atoms: the tensor maps are built
+// on the true hd, so the box at column 64 lands 32 real columns and 32
+// zeros (no HBM bytes past the row; the mbarrier counts the full box);
+// QK^T runs its 6 k-steps of the true hd, PV runs m64n128k16 over the
+// padded V, whose zero columns give zero outputs that are not stored;
+// the scale stays 1 / sqrt(96).  Shared memory and registers are then
+// hd 128's.  Not done yet: no overlap of a warpgroup's softmax with its
+// next QK^T, no setmaxnreg, no persistent grid.
 //
-// fa_fwd_mma (bf16, hd 16 and 96, the shapes the wgmma kernel does not
-// take: hd 96 is phi-3-vision's, whose 96-element rows the wgmma
-// kernel's 64-element swizzle atoms do not tile): one block of four
+// fa_fwd_mma (bf16, hd 16, which the wgmma kernel's 64-column atoms do
+// not tile, and hd 96 by an explicit route only, to time it beside the
+// wgmma instance that replaced it): one block of four
 // warps per (batch, head, 64-row query tile); K
 // staged row-major and V transposed in shared memory by plain loads;
 // each warp owns 16 query rows and runs mma.sync m16n8k16.  P is split
@@ -108,10 +115,13 @@ constexpr int kWgThreads = 288;       // 2 consumer warpgroups + 1 producer warp
 
 template <int HD>
 struct Layout {
-  // Q: [HD / 64 column atoms][128 rows][64] bf16, each atom 128-byte
+  // Q: [kAtoms column atoms][128 rows][64] bf16, each atom 128-byte
   // swizzled (rows of 128 bytes, 8-row groups of 1024 bytes); a stage:
-  // K then V, each [HD / 64][64 keys][64].
-  static constexpr int kAtoms = HD / 64;
+  // K then V, each [kAtoms][64 keys][64].  hd is padded to whole atoms
+  // (kPad): at hd 96 the second atom holds columns 64-95 and the zeros
+  // TMA writes past the tensor's last column (HD / 64 at 64 and 128).
+  static constexpr int kAtoms = (HD + 63) / 64;
+  static constexpr int kPad = kAtoms * 64;
   static constexpr int kQAtom = kRows * 128;            // bytes
   static constexpr int kTileAtom = kBK * 128;
   static constexpr int kQBytes = kAtoms * kQAtom;
@@ -190,9 +200,10 @@ fa_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   // tiles this warpgroup's rows can see; the rest it only releases
   const int mine = sh.causal ? min(nk, (wq0 + kBQ - 1) / kBK + 1) : nk;
 
-  float acc[HD / 2];
+  // O over the padded width; columns past HD stay zero and are not stored
+  float acc[L::kPad / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < L::kPad / 2; ++i) acc[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   mbar_wait(qbar, 0);
@@ -201,8 +212,8 @@ fa_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     mbar_wait(full + 8 * st, ph);
     if (t < mine) {
       const uint32_t sK = sKV + st * L::kStageBytes, sV = sK + L::kTileBytes;
-      // S = Q K^T over hd in steps of 16 (32 bytes within a 128-byte
-      // atom; the next atom after four)
+      // S = Q K^T over the true hd in steps of 16 (32 bytes within a
+      // 128-byte atom; the next atom after four): the padding is not read
       float s[32];
       wgmma_fence();
 #pragma unroll
@@ -240,7 +251,7 @@ fa_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         l[r] *= corr[r];
       }
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < L::kPad / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
         s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
@@ -254,14 +265,15 @@ fa_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         for (int j = 0; j < 4; ++j)
           split2(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], ph_[kk][j],
                  pl_[kk][j]);
-      // O += P V: V MN-major, 16 keys a step (2,048 bytes), the second
-      // 64-column atom LBO = one atom's bytes away, 8-key groups 1 KB
+      // O += P V over the padded width (m64n{kPad}k16): V MN-major, 16
+      // keys a step (2,048 bytes), the second 64-column atom LBO = one
+      // atom's bytes away, 8-key groups 1 KB
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t dv = sw128_desc(sV + kk * 2048, L::kTileAtom, 1024);
-        wgmma_pv<HD>(acc, ph_[kk], dv);
-        wgmma_pv<HD>(acc, pl_[kk], dv);
+        wgmma_pv<L::kPad>(acc, ph_[kk], dv);
+        wgmma_pv<L::kPad>(acc, pl_[kk], dv);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -281,6 +293,7 @@ fa_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     den[r] = fmaxf(l[r], 1e-20f);
   }
   __nv_bfloat16* ob = o + b * sh.o[0] + h * sh.o[1];
+  // registers i < HD / 2 hold the columns d < HD
 #pragma unroll
   for (int i = 0; i < HD / 2; i += 2) {
     const int r = (i >> 1) & 1, row = r ? row1 : row0;
@@ -642,7 +655,7 @@ extern "C" {
 // elements.  lse: float32 [B, H, S], contiguous.  Both entry points
 // return cudaGetLastError() after the launch.
 //
-// The wgmma/TMA kernel: bfloat16, hd 64 or 128; q, k, v 16-byte
+// The wgmma/TMA kernel: bfloat16, hd 64, 96 or 128; q, k, v 16-byte
 // aligned with strides of a multiple of 8 elements (the tensor maps').
 int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
                               void* o, float* lse, const int64_t* strides,
@@ -654,13 +667,15 @@ int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: return launch_wgmma<64>(q, k, v, o, lse, sh, st);
+    case 96: return launch_wgmma<96>(q, k, v, o, lse, sh, st);
     case 128: return launch_wgmma<128>(q, k, v, o, lse, sh, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The mma.sync kernel (dtype 1, bfloat16, hd 16 or 96) or the float32
-// one (dtype 0, hd in {16, 64, 96, 128}).
+// The mma.sync kernel (dtype 1, bfloat16, hd 16 or 96: hd 96 only by
+// an explicit route, its wgmma instance takes phi-3-vision's path) or
+// the float32 one (dtype 0, hd in {16, 64, 96, 128}).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         float* lse, const int64_t* strides, int dtype, int B,
                         int H, int KH, int S, int hd, int causal,

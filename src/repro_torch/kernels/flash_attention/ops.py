@@ -9,11 +9,14 @@ are built for ``sm_90a`` at first use and called through ctypes.
 The forward (``csrc/flash_attention.cu``) has three kernels, chosen by
 dtype and hd (:func:`forward_route`):
 
-- ``"wgmma"``, bf16 at hd 64 and 128 (the training path): 128 query
-  rows a block in two consumer warpgroups and a producer warp that
-  keeps a ring of K/V stages full with TMA; QK^T and PV on ``wgmma``;
-- ``"mma"``, bf16 at hd 16 and 96 (phi-3-vision's prefill): 64 rows a
-  block on ``mma.sync``;
+- ``"wgmma"``, bf16 at hd 64, 96 and 128 (the training path and
+  phi-3-vision's prefill): 128 query rows a block in two consumer
+  warpgroups and a producer warp that keeps a ring of K/V stages full
+  with TMA; QK^T and PV on ``wgmma``; hd 96 over tiles padded to two
+  64-column swizzle atoms, the padding zeros from TMA;
+- ``"mma"``, bf16 at hd 16: 64 rows a block on ``mma.sync``; its hd 96
+  instance, which phi-3-vision's prefill ran before, only by an
+  explicit ``route`` of :func:`flash_attention_cuda`;
 - ``"f32"``, float32 at any of :data:`HEAD_DIMS`: plain float32 FMAs.
 
 Each walks the K/V tiles up to the diagonal with an online softmax and
@@ -61,15 +64,20 @@ from .ref import flash_attention_bwd_ref, flash_attention_fwd_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 64, 96, 128)
-#: head dims of the wgmma/TMA forward (bf16)
-WGMMA_HEAD_DIMS = (64, 128)
-#: head dims of the backward kernels
+#: head dims of the wgmma/TMA forward (bf16); hd 96 runs over tiles
+#: padded to 128
+WGMMA_HEAD_DIMS = (64, 96, 128)
+#: head dims of the mma.sync forward (bf16): 16 by default, 96 by an
+#: explicit route only
+MMA_HEAD_DIMS = (16, 96)
+#: head dims of the backward kernels, and of its wgmma/TMA route
 BWD_HEAD_DIMS = (16, 64, 128)
+BWD_WGMMA_HEAD_DIMS = (64, 128)
 
 
 def forward_route(dtype, hd: int) -> str:
     """The forward's kernel for (dtype, hd): ``"wgmma"`` for bf16 at hd
-    64 or 128, ``"mma"`` for bf16 at hd 16 or 96, ``"f32"`` for
+    64, 96 or 128, ``"mma"`` for bf16 at hd 16, ``"f32"`` for
     float32."""
     if dtype == torch.bfloat16:
         return "wgmma" if hd in WGMMA_HEAD_DIMS else "mma"
@@ -143,15 +151,23 @@ def _check(name, q, k, v):
                          f"contiguous")
 
 
-def flash_attention_cuda(q, k, v, causal: bool = True):
-    """Launch the forward kernel of :func:`forward_route` on PyTorch's
-    current stream (no sync).  q: [B, H, S, hd], k, v: [B, KH, S, hd],
-    any strides with the last dim contiguous (for ``"wgmma"``, rows on
+def flash_attention_cuda(q, k, v, causal: bool = True, route=None):
+    """Launch the forward kernel of ``route`` (by default
+    :func:`forward_route` of q's dtype and hd) on PyTorch's current
+    stream (no sync).  q: [B, H, S, hd], k, v: [B, KH, S, hd], any
+    strides with the last dim contiguous (for ``"wgmma"``, rows on
     16-byte boundaries).  Returns (o like q, lse float32 [B, H, S])."""
     _check("flash_attention", q, k, v)
     B, H, S, hd = q.shape
     KH = k.shape[1]
-    route = forward_route(q.dtype, hd)
+    if route is None:
+        route = forward_route(q.dtype, hd)
+    bf16 = q.dtype == torch.bfloat16
+    if not ((route == "wgmma" and bf16 and hd in WGMMA_HEAD_DIMS)
+            or (route == "mma" and bf16 and hd in MMA_HEAD_DIMS)
+            or (route == "f32" and not bf16)):
+        raise ValueError(f"flash_attention: no route {route!r} for "
+                         f"{q.dtype} at hd {hd}")
     if route == "wgmma" and not all(map(_rows_aligned, (q, k, v))):
         raise ValueError("flash_attention: the wgmma kernel's tensor maps "
                          "need q, k, v rows on 16-byte boundaries")
@@ -188,9 +204,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
         raise ValueError(f"flash_attention_bwd: hd {hd} outside "
                          f"{BWD_HEAD_DIMS}")
     if route == "wgmma":
-        if q.dtype != torch.bfloat16 or hd not in WGMMA_HEAD_DIMS:
+        if q.dtype != torch.bfloat16 or hd not in BWD_WGMMA_HEAD_DIMS:
             raise ValueError(f"flash_attention_bwd: the wgmma route takes "
-                             f"bfloat16 at hd in {WGMMA_HEAD_DIMS}, got "
+                             f"bfloat16 at hd in {BWD_WGMMA_HEAD_DIMS}, got "
                              f"{q.dtype}, hd {hd}")
     elif route not in ("mma", "f32") or (route == "f32") != (
             q.dtype == torch.float32):

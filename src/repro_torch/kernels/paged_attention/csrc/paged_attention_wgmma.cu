@@ -2,10 +2,10 @@
 //
 // Replaces the JAX package's Pallas TPU kernel
 // kernels/paged_attention/kernel.py::paged_attention_chunk
-// (pallas_call at kernel.py:171), for bf16 at hd 64 and 128 with pages
-// of 64 tokens (olmo-1b, llama3.2-1b, gemma3-27b).  The float32, hd 16
-// and page-8 shapes take paged_attention.cu; ops.py::chunk_route states
-// the dispatch.
+// (pallas_call at kernel.py:171), for bf16 at hd 64, 96 and 128 with
+// pages of 64 tokens (olmo-1b, llama3.2-1b, gemma3-27b, phi-3-vision).
+// The float32, hd 16 and page-8 shapes take paged_attention.cu;
+// ops.py::chunk_route states the dispatch.
 //
 // What it computes: the function of paged_attention.cu.  For each
 // sequence b, T new query tokens; query t sits at position base[b] + t
@@ -34,9 +34,16 @@
 //   m64n64k16 with both operands in shared memory, masks the pages that
 //   reach past base + t (pi * 64 + j <= base + t), keeps the online
 //   softmax in registers with exp2, and runs O += P V as wgmma
-//   m64n{hd}k16 with P as the register operand split into bf16 hi and
-//   lo (one-ulp parity with the float32 plain version, as in K6) and V
-//   read MN-major, as it lies in the pool.
+//   m64n{hd, padded}k16 with P as the register operand split into bf16
+//   hi and lo (one-ulp parity with the float32 plain version, as in K6)
+//   and V read MN-major, as it lies in the pool.
+// * hd 96 (phi-3-vision): tiles padded to two 64-column atoms, as in
+//   K6's forward.  The page maps are built on the true hd, so the box at
+//   column 64 lands 32 real columns and 32 zeros (no HBM bytes past the
+//   row); the gather writes zeros to the rest of Q's second atom; QK^T
+//   runs the 6 k-steps of the true hd, PV m64n128k16 over the padded V,
+//   whose zero columns give outputs that are never stored; the scale
+//   stays 1 / sqrt(96).
 // * Evening out the lanes: with one row tile (T * G <= 64, e.g. olmo-1b
 //   at T = 64) the two warpgroups own the same rows and split the
 //   lane's live pages, even and odd, and merge through shared memory at
@@ -63,10 +70,12 @@ constexpr int kThreads = 288;   // 2 consumer warpgroups + 1 producer warp
 
 template <int HD>
 struct Layout {
-  // Q: a tile per warpgroup, [HD / 64 atoms][64 rows][64]; a stage: K
-  // then V, each [HD / 64 atoms][64 keys][64]; every atom 8 KB, 128-byte
-  // swizzled.  After the page loop the ring holds the merge.
-  static constexpr int kAtoms = HD / 64;
+  // Q: a tile per warpgroup, [kAtoms][64 rows][64]; a stage: K then V,
+  // each [kAtoms][64 keys][64]; every atom 8 KB, 128-byte swizzled.  hd
+  // is padded to whole atoms (kPad; HD / 64 atoms at 64 and 128).  After
+  // the page loop the ring holds the merge.
+  static constexpr int kAtoms = (HD + 63) / 64;
+  static constexpr int kPad = kAtoms * 64;
   static constexpr int kAtom = kTile * 128;
   static constexpr int kQBytes = kAtoms * kAtom;
   static constexpr int kTileBytes = kAtoms * kAtom;     // K or V
@@ -75,7 +84,7 @@ struct Layout {
   static constexpr int kBars = kRing + kStages * kStageBytes;
   // 1024 bytes of slack to align the base for the swizzle
   static constexpr int kSmem = kBars + 16 * kStages + 1024;
-  static_assert((HD / 2 + 4) * 128 * 4 <= kStages * kStageBytes,
+  static_assert((kPad / 2 + 4) * 128 * 4 <= kStages * kStageBytes,
                 "the merge fits in the ring");
 };
 
@@ -90,7 +99,8 @@ struct Args {
 
 // The 64 rows r0 .. r0 + 63 of (b, kh) -- row r is token r / G of head
 // kh * G + r % G -- into the swizzled tile at sQ, by the 128 threads of
-// one warpgroup (tid 0..127): two threads a row, 32 bytes apart.
+// one warpgroup (tid 0..127): two threads a row, 32 bytes apart.  The
+// chunks past hd (the padding of the last atom) are written as zeros.
 template <int HD>
 __device__ __forceinline__ void gather_q(uint32_t sQ, const Args& a, int b,
                                          int kh, int r0, int tid) {
@@ -100,10 +110,11 @@ __device__ __forceinline__ void gather_q(uint32_t sQ, const Args& a, int b,
       in ? a.q + (((size_t)b * a.T + r / a.G) * a.H + kh * a.G + r % a.G) * HD
          : a.q;
 #pragma unroll
-  for (int k = 0; k < HD / 16; ++k) {
+  for (int k = 0; k < Layout<HD>::kPad / 16; ++k) {
     const int c = 2 * k + (tid & 1);          // 16-byte chunk of the row
+    const bool real = in && c < HD / 8;
     cp16(sQ + (c / 8) * Layout<HD>::kAtom + sw128_chunk(rl, c % 8),
-         in ? src + 8 * c : src, in);
+         real ? src + 8 * c : src, real);
   }
   cp_commit();
 }
@@ -178,9 +189,11 @@ k1_wgmma(const __grid_constant__ CUtensorMap tk,
   const int lim[2] = {base + (r0 + lr0) / a.G, base + (r0 + lr0 + 8) / a.G};
   const int t_lo = r0 / a.G, t_hi = min(a.T - 1, (r0 + kTile - 1) / a.G);
 
-  float acc[HD / 2];
+  // O over the padded width; columns past HD stay zero and are not
+  // merged or stored
+  float acc[L::kPad / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < L::kPad / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
   int i = 0;
@@ -192,8 +205,8 @@ k1_wgmma(const __grid_constant__ CUtensorMap tk,
     mbar_wait(full + 8 * st, ph);
     if (mine) {
       const uint32_t sK = ring + st * L::kStageBytes, sV = sK + L::kTileBytes;
-      // S = Q K^T over hd in steps of 16 (32 bytes within a 128-byte
-      // atom; the next atom after four)
+      // S = Q K^T over the true hd in steps of 16 (32 bytes within a
+      // 128-byte atom; the next atom after four)
       float s[32];
       wgmma_fence();
 #pragma unroll
@@ -231,7 +244,7 @@ k1_wgmma(const __grid_constant__ CUtensorMap tk,
         l[r] *= corr[r];
       }
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
+      for (int j = 0; j < L::kPad / 2; ++j) acc[j] *= corr[(j >> 1) & 1];
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         s[j] = exp2f(s[j] - ms[(j >> 1) & 1]);
@@ -245,14 +258,15 @@ k1_wgmma(const __grid_constant__ CUtensorMap tk,
         for (int j = 0; j < 4; ++j)
           split2(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1], ph_[kk][j],
                  pl_[kk][j]);
-      // O += P V: V MN-major, 16 keys a step (2,048 bytes), the second
-      // 64-column atom LBO = one atom's bytes away, 8-key groups 1 KB
+      // O += P V over the padded width: V MN-major, 16 keys a step
+      // (2,048 bytes), the second 64-column atom LBO = one atom's bytes
+      // away, 8-key groups 1 KB
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         const uint64_t dv = sw128_desc(sV + kk * 2048, L::kAtom, 1024);
-        wgmma_pv<HD>(acc, ph_[kk], dv);
-        wgmma_pv<HD>(acc, pl_[kk], dv);
+        wgmma_pv<L::kPad>(acc, ph_[kk], dv);
+        wgmma_pv<L::kPad>(acc, pl_[kk], dv);
       }
       wgmma_commit();
       wgmma_wait0();
@@ -352,7 +366,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* table,
 extern "C" {
 
 // bfloat16 only.  q/out: [B, T, H, hd]; k/v pages: [P, psz, KH, hd] with
-// psz 64 and hd 64 or 128; table: int32 [B, maxp]; base: int32 [B].  All
+// psz 64 and hd 64, 96 or 128; table: int32 [B, maxp]; base: int32 [B].  All
 // contiguous, q and the pools 16-byte aligned.  Returns
 // cudaGetLastError() after the launch.
 int paged_attention_chunk_wgmma(const void* q, const void* k_pages,
@@ -366,6 +380,8 @@ int paged_attention_chunk_wgmma(const void* q, const void* k_pages,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: return launch<64>(q, k_pages, v_pages, table, base_lens, out, B,
+                               T, H, KH, maxp, P, s);
+    case 96: return launch<96>(q, k_pages, v_pages, table, base_lens, out, B,
                                T, H, KH, maxp, P, s);
     case 128: return launch<128>(q, k_pages, v_pages, table, base_lens, out,
                                  B, T, H, KH, maxp, P, s);

@@ -6,30 +6,34 @@ plain PyTorch versions.
   (its ``pallas_call`` at ``kernel.py:171``).  Two CUDA C++ kernels for
   Hopper, chosen by :func:`chunk_route`:
 
-  - ``"wgmma"`` (``csrc/paged_attention_wgmma.cu``), bf16 at hd 64 and
-    128 with pages of 64 tokens, the serving path of olmo-1b,
-    llama3.2-1b and gemma3-27b: a producer warp keeps a ring of K/V
-    page stages full by TMA, two consumer warpgroups run QK^T and PV on
-    ``wgmma`` over 64-row query tiles and, when one tile holds all of a
-    lane's rows, split its pages between them;
+  - ``"wgmma"`` (``csrc/paged_attention_wgmma.cu``), bf16 at hd 64, 96
+    and 128 (:data:`CHUNK_WGMMA_HEAD_DIMS`) with pages of 64 tokens, the
+    serving path of olmo-1b, llama3.2-1b, gemma3-27b and phi-3-vision: a
+    producer warp keeps a ring of K/V page stages full by TMA, two
+    consumer warpgroups run QK^T and PV on ``wgmma`` over 64-row query
+    tiles and, when one tile holds all of a lane's rows, split its pages
+    between them; hd 96 over tiles padded to two 64-column swizzle
+    atoms, the padding zeros from TMA;
   - ``"fma"`` (``csrc/paged_attention.cu``), every other shape (float32,
-    hd 16, pages of 8: the smoke configs): one block per (kv head,
-    sequence), each K/V page staged in shared memory as float, scalar
-    float FMAs.
+    hd 16, pages of 8: the smoke configs; hd 96 by an explicit route
+    only): one block per (kv head, sequence), each K/V page staged in
+    shared memory as float, scalar float FMAs.
 * K2, :func:`paged_attention`, single-token decode, replaces
   ``kernel.py::paged_attention`` (its ``pallas_call`` at
   ``kernel.py:227``).  Two CUDA C++ kernels, chosen by
   :func:`decode_route`:
 
   - ``"tma"`` (``csrc/paged_decode_tma.cu``), bf16 at hd 64 and 128
-    with pages of 64 tokens and G of 1, 2, 4 or 8, the decode-only
-    steps of olmo-1b, llama3.2-1b and gemma3-27b: each lane's pages
+    (:data:`WGMMA_HEAD_DIMS`; not 96) with pages of 64 tokens and G of
+    1, 2, 4 or 8, the decode-only steps of olmo-1b, llama3.2-1b and
+    gemma3-27b: each lane's pages
     cut into splits of :data:`PAGES_PER_SPLIT` (:func:`.ref.decode_splits`),
     a block per (kv head, lane, split) fed by TMA from a producer warp,
     then a merge of each lane's splits in split order;
-  - ``"fma"`` (``csrc/paged_decode.cu``), every other shape: one block
-    per (kv head, sequence) whose warps take the live pages' keys in
-    units of 32, each warp its own online softmax, merged at the end.
+  - ``"fma"`` (``csrc/paged_decode.cu``), every other shape (among
+    them phi-3-vision's hd 96): one block per (kv head, sequence) whose
+    warps take the live pages' keys in units of 32, each warp its own
+    online softmax, merged at the end.
 
 All kernels are built for ``sm_90a`` at first use and called through
 ctypes.  Bound on an H100: bytes.  The least time is the bytes of the
@@ -55,36 +59,39 @@ import torch
 from .ref import paged_attention_chunk_ref, paged_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims and page size of the wgmma/TMA routes of K1 and K3 (bf16)
+#: head dims and page size of K2's tma and K3's wgmma routes (bf16)
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_PAGE = 64
+#: head dims of K1's wgmma/TMA route: hd 96 runs over tiles padded to 128
+CHUNK_WGMMA_HEAD_DIMS = (64, 96, 128)
 
 
 def chunk_route(dtype, hd: int, psz: int, T: int, G: int) -> str:
     """K1's kernel for q of ``dtype`` with head dim ``hd``, pages of
     ``psz`` tokens, ``T`` tokens a lane and ``G`` query heads a kv head:
-    ``"wgmma"`` for bf16 at hd 64 or 128 with pages of 64, at every T
-    and G, else ``"fma"``.  No width goes to ``"fma"``: on an H100 the
+    ``"wgmma"`` for bf16 at hd 64, 96 or 128 with pages of 64, at every
+    T and G, else ``"fma"``.  No width goes to ``"fma"``: on an H100 the
     wgmma kernel is the faster one at T = 1 too, where one query row
     fills a 64-row tile (``chip_smoke.py`` phase 6, PERF.md)."""
     del T, G
-    if (dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+    if (dtype == torch.bfloat16 and hd in CHUNK_WGMMA_HEAD_DIMS
             and psz == WGMMA_PAGE):
         return "wgmma"
     return "fma"
 
 
-def check_wgmma(name, q, k_pages, v_pages):
-    """Raise on what the wgmma/TMA kernels of K1 and K3 do not take:
-    they read bf16 pages of 64 tokens at hd 64 or 128 through TMA
-    tensor maps, and q rows with 16-byte copies."""
+def check_wgmma(name, q, k_pages, v_pages, head_dims=WGMMA_HEAD_DIMS):
+    """Raise on what the wgmma/TMA kernels of K1, K2 and K3 do not take:
+    they read bf16 pages of 64 tokens at ``head_dims`` (K1 takes
+    :data:`CHUNK_WGMMA_HEAD_DIMS`) through TMA tensor maps, and q rows
+    with 16-byte copies."""
     if not all(t.dtype == torch.bfloat16 for t in (q, k_pages, v_pages)):
         raise TypeError(f"{name}: the wgmma route takes bfloat16 only, got "
                         f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
-    if (q.shape[-1] not in WGMMA_HEAD_DIMS or k_pages.dim() != 4
+    if (q.shape[-1] not in head_dims or k_pages.dim() != 4
             or k_pages.shape[1] != WGMMA_PAGE):
         raise ValueError(f"{name}: the wgmma route takes hd in "
-                         f"{WGMMA_HEAD_DIMS} and pages of {WGMMA_PAGE} "
+                         f"{head_dims} and pages of {WGMMA_PAGE} "
                          f"tokens, got q {tuple(q.shape)} pages "
                          f"{tuple(k_pages.shape)}")
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages)):
@@ -122,7 +129,8 @@ def paged_attention_chunk_cuda(q, k_pages, v_pages, page_table, base_lens,
     if route is None:
         route = chunk_route(q.dtype, hd, psz, T, H // max(KH, 1))
     if route == "wgmma":
-        check_wgmma("paged_attention_chunk", q, k_pages, v_pages)
+        check_wgmma("paged_attention_chunk", q, k_pages, v_pages,
+                    CHUNK_WGMMA_HEAD_DIMS)
     elif route != "fma":
         raise ValueError(f"paged_attention_chunk: no route {route!r}")
     tensors = (q, k_pages, v_pages, page_table, base_lens)

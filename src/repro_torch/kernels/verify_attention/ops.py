@@ -42,7 +42,7 @@ import functools
 
 import torch
 
-from ..paged_attention.ops import check_wgmma, chunk_route
+from ..paged_attention.ops import WGMMA_HEAD_DIMS, check_wgmma, chunk_route
 from .ref import verify_attention_ref
 from .schedule import build_verify_schedule, build_verify_units, \
     units_capacity
@@ -51,9 +51,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def verify_route(dtype, hd: int, psz: int, T: int, G: int) -> str:
-    """K3's route for these inputs, K1's rule (:func:`..paged_attention.
-    ops.chunk_route`): ``"wgmma"`` for bf16 at hd 64 or 128 with pages
-    of 64, at every T and G, else ``"fma"``."""
+    """K3's route for these inputs: K1's rule (:func:`..paged_attention.
+    ops.chunk_route`), ``"wgmma"`` for bf16 at hd 64 or 128 with pages
+    of 64, at every T and G, else ``"fma"``; hd 96, which K1's wgmma
+    route takes, is outside K3's :data:`..paged_attention.ops.
+    WGMMA_HEAD_DIMS` and takes ``"fma"``."""
+    if hd not in WGMMA_HEAD_DIMS:
+        return "fma"
     return chunk_route(dtype, hd, psz, T, G)
 
 

@@ -255,14 +255,46 @@ def test_delta_vs_reference_oracle(causal):
     (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 16, "mma"),
-    (torch.bfloat16, 96, "mma"),
+    (torch.bfloat16, 96, "wgmma"),      # phi-3-vision, padded to 128
     (torch.float32, 128, "f32"),
     (torch.float32, 16, "f32"),
     (torch.float32, 96, "f32"),
 ])
 def test_forward_route_by_dtype_and_hd(dtype, hd, route):
+    """The forward's kernel by dtype and hd: bf16 hd 96 takes the wgmma
+    route over tiles padded to two 64-column atoms; its mma.sync
+    instance stays reachable by an explicit route only."""
     assert ops.forward_route(dtype, hd) == route
     assert hd in ops.HEAD_DIMS
+    if route == "wgmma" and hd == 96:
+        assert 96 in ops.MMA_HEAD_DIMS and 96 not in ops.BWD_HEAD_DIMS
+
+
+@pytest.mark.parametrize("H,KH,S,causal", [
+    (4, 4, 80, True),                   # phi-3-vision's G 1, a ragged tile
+    (4, 2, 77, False),                  # bidirectional, G 2
+])
+def test_hd96_padded_to_two_atoms(H, KH, S, causal):
+    """The wgmma route's argument at hd 96: q, k and v zero-padded to 128
+    columns give, at the true hd's scale 1 / sqrt(96), the JAX oracle's
+    attention in the first 96 columns (float32, within 1e-4) and zeros
+    in the padding.  The control: the port's plain version on the padded
+    tensors takes 1 / sqrt(128) from their width and misses."""
+    q, k, v = _inputs(31 + S, 2, H, KH, S, 96)
+    k, v = _expand(k, H), _expand(v, H)
+    want = j_flash_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=causal)
+    qp, kp, vp = (torch.nn.functional.pad(torch.from_numpy(a), (0, 32))
+                  for a in (q, k, v))
+    s = qp @ kp.transpose(-1, -2) * 96 ** -0.5
+    if causal:
+        s = torch.where(torch.ones(S, S, dtype=torch.bool).tril(), s, -1e30)
+    got = torch.softmax(s, -1) @ vp
+    assert got.shape == (2, H, S, 128) and (got[..., 96:] == 0).all()
+    _close(got[..., :96], want)
+    ctrl = flash_attention_ref(qp, kp, vp, causal)[..., :96]
+    assert not np.allclose(ctrl.numpy(), np.asarray(want), atol=TOL,
+                           rtol=TOL)
 
 
 def test_backward_bound_at_the_training_shape():

@@ -14,8 +14,8 @@ import torch
 
 from repro_torch.kernels.flash_attention import ops as k6
 from repro_torch.kernels.flash_attention.ref import (
-    BWD_ROW_TOL, flash_attention_bwd_tiled_ref, flash_attention_ref,
-    row_scaled_err)
+    BWD_ROW_TOL, flash_attention_bwd_tiled_ref, flash_attention_fwd_ref,
+    flash_attention_ref, row_scaled_err)
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import \
     paged_attention_chunk_ref as plain
@@ -59,6 +59,8 @@ def _case(rng, B, T, H, KH, hd, psz, maxp, P, dtype):
     (torch.bfloat16, 1, 16, 16, 128, 64),
     (torch.bfloat16, 64, 32, 8, 64, 64),      # llama3.2-1b widths, G = 4
     (torch.bfloat16, 100, 8, 4, 128, 16),     # rows beyond one tile
+    (torch.bfloat16, 1, 32, 32, 96, 64),      # phi-3-vision widths, wgmma
+    (torch.bfloat16, 64, 32, 32, 96, 64),
 ])
 def test_paged_attention_chunk_kernel_vs_plain(card, dtype, T, H, KH, hd,
                                                psz):
@@ -195,6 +197,41 @@ def test_wgmma_routes_vs_plain(card, T, H, KH, hd):
     _one_ulp(o3, o1)
     assert torch.equal(o1, ops.paged_attention_chunk(*args))
     assert torch.equal(o3, k3.verify_attention(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 5, 64, 100])
+def test_k1_wgmma_route_at_hd96(card, T):
+    """K1 at phi-3-vision's width (hd 96, G 1, pages of 64) on its wgmma
+    route, over tiles padded to two 64-column atoms: within one bf16 ulp
+    of the plain version, rows without a key zero, two calls bit-equal;
+    the fma kernel it replaced, by its explicit route, within one ulp
+    too; K3 and K2 at the same width stay on fma and refuse their
+    Hopper routes before any launch."""
+    rng = np.random.RandomState(960 + T)
+    args = _route_case(rng, T, 32, 32, 96)
+    assert ops.chunk_route(torch.bfloat16, 96, 64, T, 1) == "wgmma"
+    assert k3.verify_route(torch.bfloat16, 96, 64, T, 1) == "fma"
+    assert ops.decode_route(torch.bfloat16, 96, 64, 1) == "fma"
+    r1 = dict(ops.paged_attention_chunk.routes)
+    out = ops.paged_attention_chunk(*args)
+    torch.cuda.synchronize()
+    assert ops.paged_attention_chunk.routes == {
+        **r1, "wgmma": r1["wgmma"] + 1}
+    ref = plain(*args)
+    assert out.dtype == torch.bfloat16 and (out[1] == 0).all()
+    assert (out[6, :61] == 0).all()
+    _one_ulp(out, ref)
+    assert torch.equal(out, ops.paged_attention_chunk(*args))
+    _one_ulp(ops.paged_attention_chunk_cuda(*args, route="fma"), ref)
+    r3, r2 = dict(k3.verify_attention.routes), dict(ops.paged_attention.routes)
+    with pytest.raises(ValueError, match="takes hd in"):
+        k3.verify_attention_cuda(*args, route="wgmma")
+    with pytest.raises(ValueError, match="takes hd in"):
+        ops.paged_attention_cuda(args[0][:, 0].contiguous(), *args[1:4],
+                                 args[4] + 1, route="tma")
+    assert k3.verify_attention.routes == r3
+    assert ops.paged_attention.routes == r2
 
 
 @pytest.mark.cuda
@@ -492,8 +529,9 @@ def _qkv(rng, B, H, KH, S, hd, dtype, grad=False):
     (torch.bfloat16, 2, 4, 1, 77, 16, False),
     (torch.bfloat16, 2, 4, 2, 77, 128, True),      # ragged, wgmma
     (torch.bfloat16, 2, 4, 1, 200, 64, False),
-    (torch.bfloat16, 1, 32, 32, 640, 96, True),    # phi-3-vision, mma
+    (torch.bfloat16, 1, 32, 32, 640, 96, True),    # phi-3-vision, wgmma
     (torch.bfloat16, 2, 4, 2, 77, 96, False),      # ragged, hd 96
+    (torch.bfloat16, 2, 4, 1, 200, 96, False),     # hd 96, G = 4
     (torch.float32, 2, 4, 2, 77, 96, True),
     (torch.bfloat16, 1, 6, 6, 1500, 64, False),    # whisper's encoder
 ])
@@ -635,6 +673,30 @@ def test_flash_attention_backward_present_routes(card, dtype, hd, route):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KH,S,causal", [
+    (4, 32, 32, 640, True),                        # phi-3-vision's prefill
+    (2, 4, 2, 77, True),                           # ragged, G = 2
+    (2, 4, 1, 200, False),                         # bidirectional, G = 4
+])
+def test_flash_attention_hd96_wgmma_and_mma(card, B, H, KH, S, causal):
+    """bf16 hd 96 on the wgmma route (tiles padded to two atoms) and on
+    the mma.sync instance it replaced, by explicit route, on the same
+    inputs: each within one ulp of the plain version, lse within 1e-4,
+    two calls bit-equal."""
+    rng = np.random.RandomState(96 + S)
+    q, k, v = _qkv(rng, B, H, KH, S, 96, torch.bfloat16)
+    assert k6.forward_route(torch.bfloat16, 96) == "wgmma"
+    o_ref, lse_ref = flash_attention_fwd_ref(q, k, v, causal)
+    for route in ("wgmma", "mma"):
+        o, lse = k6.flash_attention_cuda(q, k, v, causal, route=route)
+        torch.cuda.synchronize()
+        _one_ulp(o, o_ref)
+        torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
+        assert torch.equal(o, k6.flash_attention_cuda(q, k, v, causal,
+                                                      route=route)[0])
+
+
+@pytest.mark.cuda
 def test_flash_attention_raises_on_what_it_does_not_take(card):
     rng = np.random.RandomState(0)
     q, k, v = _qkv(rng, 1, 4, 2, 64, 32, torch.float32)
@@ -653,6 +715,14 @@ def test_flash_attention_raises_on_what_it_does_not_take(card):
     o, lse = k6.flash_attention_cuda(q, k, v)
     with pytest.raises(ValueError):                   # lse of another shape
         k6.flash_attention_bwd_cuda(q, k, v, o, lse[:, :, 1:], o)
+    # a route without an instance at this (dtype, hd): no launch
+    with pytest.raises(ValueError):
+        k6.flash_attention_cuda(q, k, v, route="mma")     # mma at hd 128
+    with pytest.raises(ValueError):
+        k6.flash_attention_cuda(q, k, v, route="f32")     # f32 on bf16
+    q, k, v = _qkv(rng, 1, 4, 2, 64, 16, torch.bfloat16)
+    with pytest.raises(ValueError):
+        k6.flash_attention_cuda(q, k, v, route="wgmma")   # wgmma at hd 16
 
 
 @pytest.mark.cuda

@@ -70,10 +70,15 @@ def _close(out, ref, tol):
     (1, 16, 16, 8, 64, 16, 4, 48, jnp.float32, True),
     (4, 3, 4, 2, 16, 8, 6, 32, jnp.float32, False),   # smoke shape, G = 2
     (2, 4, 4, 4, 128, 64, 3, 8, jnp.float32, False),  # olmo-1b hd/psz
+    (2, 64, 4, 4, 96, 64, 4, 12, jnp.float32, True),  # phi-3-vision, T 64
+    (3, 1, 4, 4, 96, 64, 4, 16, jnp.float32, True),   # phi-3-vision, T 1
+    (2, 64, 4, 4, 96, 64, 3, 8, jnp.bfloat16, False),
 ])
 def test_plain_vs_ref_and_pallas(B, T, H, KH, hd, psz, maxp, P, dt, pallas):
     """The reference suite's shape sweep (Pallas in interpret mode) and
-    the port's own serving shapes (against the jnp oracle)."""
+    the port's own serving shapes (against the jnp oracle), among them
+    phi-3-vision's (hd 96, pages of 64, G 1, T 1 and 64), which the
+    wgmma route takes over tiles padded to 128."""
     rng = np.random.RandomState(hash((B, T, H, KH)) % 2**31)
     j, t = _both(*_case(rng, B, T, H, KH, hd, psz, maxp, P), dt)
     out = plain(*t)
@@ -154,12 +159,18 @@ def test_dispatcher_takes_plain_version_on_cpu():
     (torch.bfloat16, 16, 8, 8, 2, "fma"),         # hd 16
     (torch.bfloat16, 128, 16, 64, 1, "fma"),      # pages of 16
     (torch.bfloat16, 32, 64, 64, 1, "fma"),       # hd 32
+    (torch.bfloat16, 96, 64, 64, 1, "wgmma"),     # phi-3-vision, prefill
+    (torch.bfloat16, 96, 64, 1, 1, "wgmma"),      # phi-3-vision, T = 1
+    (torch.float32, 96, 64, 64, 1, "fma"),        # f32 at hd 96
+    (torch.bfloat16, 96, 16, 64, 1, "fma"),       # hd 96, pages of 16
 ])
 def test_chunk_route(dtype, hd, psz, T, G, route):
     """K1's route function picks the documented kernel: the wgmma/TMA
-    one for bf16 at hd 64 or 128 with pages of 64, at every width; the
-    present kernel for everything else."""
+    one for bf16 at hd 64, 96 or 128 with pages of 64, at every width;
+    the present kernel for everything else."""
     assert ops.chunk_route(dtype, hd, psz, T, G) == route
+    if route == "wgmma":
+        assert hd in ops.CHUNK_WGMMA_HEAD_DIMS
 
 
 def _pages(dtype, P=4, psz=64, KH=2, hd=128):
@@ -171,6 +182,8 @@ def _pages(dtype, P=4, psz=64, KH=2, hd=128):
     (torch.bfloat16, 16, 64, ValueError),
     (torch.bfloat16, 128, 8, ValueError),
     (torch.bfloat16, 128, 64, ValueError),   # right shapes, CPU tensors
+    (torch.bfloat16, 96, 8, ValueError),     # hd 96, pages of 8
+    (torch.bfloat16, 96, 64, ValueError),    # hd 96: CPU tensors
 ])
 def test_wgmma_wrapper_raises_on_what_it_does_not_take(dtype, hd, psz, exc):
     """Asked for the wgmma route, the wrapper raises on a dtype, head

@@ -213,6 +213,7 @@ def test_engine_routes_decode_only_steps_to_k2(monkeypatch):
     (torch.float32, 16, 8, 2, "fma"),          # the smoke configs
     (torch.bfloat16, 16, 8, 2, "fma"),
     (torch.bfloat16, 128, 16, 1, "fma"),
+    (torch.bfloat16, 96, 64, 1, "fma"),        # phi-3-vision: no tma at 96
 ])
 def test_decode_route(dtype, hd, psz, G, route):
     assert ops.decode_route(dtype, hd, psz, G) == route
@@ -273,16 +274,21 @@ def test_split_form_vs_ref(seed, pages_per_split):
     (torch.bfloat16, 4, 2, 16, 8, "tma", ValueError),       # hd 16, psz 8
     (torch.bfloat16, 48, 16, 128, 64, "tma", ValueError),   # G = 3
     (torch.bfloat16, 16, 16, 128, 64, "wgmma", ValueError),  # no such route
+    (torch.bfloat16, 32, 32, 96, 64, "tma", ValueError),    # phi-3-vision
 ])
 def test_wrapper_raises_on_what_the_route_does_not_take(dtype, H, KH, hd,
                                                         psz, route, err):
     """K2's kernel wrapper refuses the tma route for inputs it does not
     take, before it looks for a card (nothing falls back to the fma
-    kernel)."""
+    kernel); at hd 96, which K1's wgmma route takes and K2's tma route
+    does not, for the head dim itself; no launch is counted."""
     q = torch.zeros(2, H, hd, dtype=dtype)
     pages = torch.zeros(8, psz, KH, hd, dtype=dtype)
     table = torch.zeros(2, 4, dtype=torch.int32)
     lens = torch.ones(2, dtype=torch.int32)
-    with pytest.raises(err):
+    before = (ops.paged_attention.launches, dict(ops.paged_attention.routes))
+    with pytest.raises(err, match="takes hd in" if hd == 96 else None):
         ops.paged_attention_cuda(q, pages, pages.clone(), table, lens,
                                  route=route)
+    assert (ops.paged_attention.launches,
+            ops.paged_attention.routes) == before

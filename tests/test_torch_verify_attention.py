@@ -233,9 +233,13 @@ def test_units_fill_the_capacity_at_worst():
     (torch.float32, 16, 8, 5, 2, "fma"),          # the smoke configs
     (torch.bfloat16, 16, 8, 5, 2, "fma"),
     (torch.bfloat16, 128, 32, 5, 1, "fma"),
+    (torch.bfloat16, 96, 64, 5, 1, "fma"),        # phi-3-vision's width
+    (torch.bfloat16, 96, 64, 64, 1, "fma"),
 ])
 def test_verify_route(dtype, hd, psz, T, G, route):
-    """K3's route function picks the documented kernel (K1's rule)."""
+    """K3's route function picks the documented kernel: K1's rule at hd
+    64 and 128, and the fma kernel at hd 96, where K1 takes its wgmma
+    route and K3 has no wgmma instance."""
     assert ops.verify_route(dtype, hd, psz, T, G) == route
 
 
@@ -244,19 +248,22 @@ def test_verify_route(dtype, hd, psz, T, G, route):
     (torch.bfloat16, 16, 64, ValueError),
     (torch.bfloat16, 128, 8, ValueError),
     (torch.bfloat16, 128, 64, ValueError),   # right shapes, CPU tensors
+    (torch.bfloat16, 96, 64, ValueError),    # hd 96: K1's route, not K3's
 ])
 def test_wgmma_wrapper_raises_on_what_it_does_not_take(dtype, hd, psz, exc):
     """Asked for the wgmma route, the wrapper raises before anything
-    launches on what that kernel does not take; no fallback."""
+    launches on what that kernel does not take; no fallback.  At hd 96
+    it raises for the head dim itself."""
     q = torch.zeros(2, 5, 4, hd, dtype=dtype)
     kp = torch.zeros(4, psz, 2, hd, dtype=dtype)
     table = torch.zeros(2, 3, dtype=torch.int32)
     base = torch.zeros(2, dtype=torch.int32)
-    before = dict(ops.verify_attention.routes)
-    with pytest.raises(exc):
+    before = (ops.verify_attention.launches, dict(ops.verify_attention.routes))
+    with pytest.raises(exc, match="takes hd in" if hd == 96 else None):
         ops.verify_attention_cuda(q, kp, kp.clone(), table, base,
                                   route="wgmma")
-    assert ops.verify_attention.routes == before
+    assert (ops.verify_attention.launches,
+            ops.verify_attention.routes) == before
 
 
 @pytest.fixture(scope="module")

@@ -142,7 +142,7 @@ def main() -> int:
                          f"{logit_floor(cs, phi, args.seed, stacks, rows, S=S):.3e}"
                          f" of their scale")
     if not args.no_checks:
-        cs.check_encdec_kernels(k6, ops, paged_attention_chunk_ref,
+        cs.check_encdec_kernels(k6, ops, k3, paged_attention_chunk_ref,
                                 paged_attention_ref,
                                 np.random.RandomState(args.seed + 24),
                                 b_local, maxp, P)
