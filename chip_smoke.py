@@ -54,9 +54,13 @@ Phases, each printed on its own line (any failure fails the run):
    bidirectional K6 at S = 1,500, hd 64 (whisper-tiny's encoder) on
    its wgmma route, K1 (T = 1 and 64) at phi-3-vision's width (hd 96,
    pages of 64) on its wgmma route and on the fma kernel it replaced,
-   and K2 there on its fma kernel, each within one ulp of the plain
-   version (f32 1e-4), two calls bit-equal; K2 and K3 asked for their
-   Hopper routes at hd 96 raise before any launch;
+   and K2 there on its tma route and on the fma kernel it replaced,
+   each within one ulp of the plain version (f32 1e-4) and K2 of K1 at
+   T = 1, two calls bit-equal; K3 asked for its wgmma route at hd 96
+   raises before any launch; K4's step route (bf16, T = 1, P 64, N 128
+   and 64) within one ulp of the plain version and of the fma kernel on
+   the same inputs, the state within 1e-4, the inert lane bit for bit,
+   two calls bit-equal;
 4. check the port's engine on the card against the same engine on the
    CPU (where every kernel wrapper runs its plain version) on smoke
    configs: identical tokens and status rows, for olmo-1b's plain path
@@ -99,23 +103,28 @@ Phases, each printed on its own line (any failure fails the run):
 9. the SSD path: serve mamba2-370m at full width (48 SSD layers, d_model
    1024, 32 heads of 64, state 128, bf16) with two size classes, the
    workload of phase 5, max_len 2048: every request finishes, K4 ran 48
-   times per step (on its wgmma route at T >= SCAN_WGMMA_MIN_S, its fma
-   route below) and no other kernel ran, one transfer per step, no KV
-   page and no state block in use after the drain;
+   times per step (on its step route at T = 1, its wgmma route at T >=
+   SCAN_WGMMA_MIN_S, its fma route between) and no other kernel ran,
+   one transfer per step, no KV page and no state block in use after
+   the drain;
 10. the RG-LRU path: the same for recurrentgemma-2b (18 RG-LRU layers
    and 8 sliding-window layers of window 2048, d_model 2560, bf16) at
    max_len 4096, 16 prompts of 64-3,000 tokens, 4 of them past the
    window: K5 ran 18 times per step (on its tma route at T >=
    LRU_TMA_MIN_S, its seq route below);
 11. time K4 and K5 at T = 1 and 64 beside their bounds and plain
-   versions (K4's wgmma route at T = 2, 3, 4, 16 and 64 beside the
-   fma kernel on the same inputs, with the bytes, the dual form's
-   tensor-core operations and the sequential form's float32
-   operations as bounds; K5's tma route beside its seq kernel on the
-   same inputs at T = 1, 2, 4, 8, 16 and 64, which sets
-   LRU_TMA_MIN_S), serve phase 5's workload on mamba2-370m once with K4
-   on its fma kernel and once on its wgmma route, and print both
-   families' end-to-end rates;
+   versions (K4's step route at T = 1 beside the fma kernel on the same
+   inputs and a ``copy_`` of one state, the practical floor; its wgmma
+   route at T = 2, 3, 4, 16 and 64 beside the fma kernel on the same
+   inputs, with the bytes, the dual form's tensor-core operations and
+   the sequential form's float32 operations as bounds; K5's tma route
+   beside its seq kernel on the same inputs at T = 1, 2, 4, 8, 16 and
+   64, which sets LRU_TMA_MIN_S), serve phase 5's workload on
+   mamba2-370m in turns (every K4 launch on its fma kernel; then, in
+   the order A B B A, the wgmma route from SCAN_WGMMA_MIN_S tokens on
+   with T = 1 still on fma, and T = 1 on the step route too), so that
+   each route's end-to-end share reads apart, and print both families'
+   end-to-end rates;
 12. the training path: olmo-1b at full depth and width (bf16
    parameters, float32 AdamW state), one micro-batch of 4 sequences of
    2048 tokens from ``TokenStream``, a warm-up step and 5 steps of
@@ -236,7 +245,7 @@ Phases, each printed on its own line (any failure fails the run):
    cross-attention in torch ops, as the reference's is jnp); (b)
    phi-3-vision in bf16, 4 prompts of 64 tokens after 576 image
    positions (640 positions, 10 pages of 64): K6 on its wgmma route at
-   hd 96 once a layer, 16 decode steps with K2 on its fma kernel; (c)
+   hd 96 once a layer, 16 decode steps with K2 on its tma route; (c)
    both again in f32, every logit within ``PREFILL_TOL`` of
    the one-shot ``forward_train`` with the same extra inputs (the
    one-ulp floor printed beside); (d) the engine at full width in bf16,
@@ -244,15 +253,16 @@ Phases, each printed on its own line (any failure fails the run):
    size classes, each slot holding its 376 CLS_STATE blocks of encoder
    state (4 layers x ceil(1,500 / 16)), phi-3-vision with one (its
    ms/step printed beside 62.55, the run before K1's hd 96 wgmma
-   route), K1 on its wgmma route at hd 64 and 96, K2 on its tma route
-   at hd 64 and its fma kernel at hd 96, the checks of phase 5 (one
+   route), K1 on its wgmma route and K2 on its tma route at hd 64 and
+   96, the checks of phase 5 (one
    transfer a step, every class empty after the drain), and
    phi-3-vision's text-only prompts through the prefill path in f32
    against the engine as phase 18 (d) does; (e) the time of K6 at hd 96
    at phi-3-vision's prefill shape (wgmma, and the mma.sync instance it
    replaced on the same inputs), and of K1 (T = 64; wgmma, and the fma
-   kernel it replaced) and K2 at its serving width, each beside its
-   bound, its plain version and SDPA.
+   kernel it replaced) and K2 (tma, and the fma kernel it replaced) at
+   its serving width, each beside its bound, its plain version and
+   SDPA.
 
 20. the DP allocation plane, one rank per DP shard
    (``repro_torch.launch.mesh``), two ranks spawned with their own
@@ -330,7 +340,7 @@ PEAK_OPS = {torch.bfloat16: PEAK_FLOPS, torch.float32: PEAK_FLOPS_F32}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 6e-2}
 #: the kernels of the port's CUDA sources, by name prefix
 PORT_KERNELS = ("k1_", "k2_", "k3_", "k4_", "fa_", "paged_", "verify_",
-                "ssd_scan_", "rg_lru_")
+                "ssd_scan_", "ssd_step_", "rg_lru_")
 #: bf16: kernel and plain version may differ by one ulp of the output
 BF16_ULP_RTOL, BF16_ULP_ATOL = 2.0 ** -7, 1e-5
 
@@ -410,7 +420,9 @@ def attn_case(rng, B, T, H, KH, hd, psz, maxp, P, dtype, base=None,
     table of random pages covering base + T, the first ``hot`` of them
     the same pages in every lane (a shared prefix) and the rest
     distinct, optional all-masked rows (table all -1) and dead pages
-    (-1 inside the run)."""
+    (-1 inside the run).  q and the pools are drawn on the card from a
+    seed ``rng`` gives (the timing phases hold many layers of pools,
+    which numpy would draw in seconds each)."""
     if base is None:
         hi = max((maxp - 1) * psz - T, hot * psz + 1)
         base = rng.randint(hot * psz, hi, B)
@@ -426,9 +438,9 @@ def attn_case(rng, B, T, H, KH, hd, psz, maxp, P, dtype, base=None,
     for b, i in dead:
         table[b, i] = -1
     dev = "cuda"
-    q = torch.from_numpy(rng.randn(B, T, H, hd).astype(np.float32))
-    kp = torch.from_numpy(rng.randn(P, psz, KH, hd).astype(np.float32))
-    vp = torch.from_numpy(rng.randn(P, psz, KH, hd).astype(np.float32))
+    g = torch.Generator(device=dev).manual_seed(int(rng.randint(2 ** 31)))
+    q, kp, vp = (torch.randn(sh, generator=g, device=dev) for sh in
+                 ((B, T, H, hd), (P, psz, KH, hd), (P, psz, KH, hd)))
     return (q.to(dev, dtype), kp.to(dev, dtype), vp.to(dev, dtype),
             torch.from_numpy(table).to(dev), torch.from_numpy(base).to(dev))
 
@@ -792,6 +804,60 @@ def check_scan(name, fn, plain, kind, cases, rng, route_of=None,
               f"({tol}); inert lane bit-equal; two calls bit-equal")
         worst[route] = max(worst.get(route, 0.0), err)
     return worst if route_of else worst[None]
+
+
+def check_k4_step(k4, plain, rng, dims_list):
+    """Phase 3: K4's step route (one token, bf16) through the dispatcher
+    at each (B, 1, H, P, N) of ``dims_list``, from a carried state with
+    an inert lane (dt = 0): y within one bf16 ulp of the plain version
+    and of the fma kernel it replaced (by explicit route, on the same
+    inputs), the state within 1e-4 of both, the inert lane's state bit
+    for bit, two calls bit-equal.  Returns the worst error of y against
+    the plain version, the step route's and the fma kernel's."""
+    worst = fma_worst = 0.0
+    for dims in dims_list:
+        args, h0 = scan_case(rng, "ssd", dims, torch.bfloat16)
+        B, _, H, P, N = dims
+        name = f"K4 step B={B} H={H} P={P} N={N}"
+        check(k4.scan_route(torch.bfloat16, 1, P, N) == "step",
+              f"{name}: the dispatcher's route")
+        y_ref, h_ref = plain(*args, h0)
+        h_fma = h0.clone()
+        y_fma = k4.ssd_scan_cuda(*args, h_fma, route="fma")
+        h = h0.clone()
+        before = (k4.ssd_scan.launches, k4.ssd_scan.routes["step"])
+        y, _ = k4.ssd_scan(*args, h)
+        check((k4.ssd_scan.launches, k4.ssd_scan.routes["step"])
+              == (before[0] + 1, before[1] + 1),
+              f"{name}: the dispatcher launched the step kernel once")
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y.float()).all())
+              and bool(torch.isfinite(h).all()), f"{name}: finite")
+        check(torch.equal(h[2], h0[2]),
+              f"{name}: an inert lane keeps its state bit for bit")
+        h2 = h0.clone()
+        check(torch.equal(k4.ssd_scan_cuda(*args, h2, route="step"), y)
+              and torch.equal(h2, h), f"{name}: two calls bit-equal")
+        for what, y_o, h_o in (("plain", y_ref, h_ref),
+                               ("fma", y_fma, h_fma)):
+            torch.testing.assert_close(
+                h, h_o, atol=TOL[torch.float32], rtol=TOL[torch.float32],
+                msg=lambda m, w=what: f"{name} h vs {w}: {m}")
+            torch.testing.assert_close(
+                y.float(), y_o.float(), atol=BF16_ULP_ATOL,
+                rtol=BF16_ULP_RTOL,
+                msg=lambda m, w=what: f"{name} vs {w}, one bf16 ulp: {m}")
+        err = (y.float() - y_ref.float()).abs().max().item()
+        err_fma = (y_fma.float() - y_ref.float()).abs().max().item()
+        worst, fma_worst = max(worst, err), max(fma_worst, err_fma)
+        phase(f"[3] {name} T=1 bf16: max_abs_err vs plain {err:.3e}, vs "
+              f"the fma kernel on the same inputs "
+              f"{(y.float() - y_fma.float()).abs().max().item():.3e} (one "
+              f"ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}); state vs plain "
+              f"{(h - h_ref).abs().max().item():.3e} (tol "
+              f"{TOL[torch.float32]:g}); inert lane bit-equal; two calls "
+              f"bit-equal")
+    return worst, fma_worst
 
 
 def check_k5_tma(k5, plain, rng, cases, B=8):
@@ -1221,8 +1287,9 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     must launch once a step, and no other kernel may run.  For paged
     attention (``kernel`` K1) a step of width 1 (every lane decoding)
     runs K2 instead, once per layer.  In bf16, K1 and K2 take their
-    wgmma and tma routes at hd 64 and 128 and their fma kernels at any
-    other hd (K1 takes wgmma at phi-3-vision's 96 too, K2 fma there).
+    wgmma and tma routes at hd 64, 96 and 128 and their fma kernels at
+    any other hd; K4 its step route at T = 1, its wgmma route from
+    SCAN_WGMMA_MIN_S tokens on and its fma kernel between.
     The peak of CLS_STATE blocks in use
     is the most slots held after a step times a slot's grant.
     ``profile_reqs``, when given, are served again under the profiler.
@@ -1322,19 +1389,22 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     hist = {w: n - hist0.get(w, 0) for w, n in eng.stats["chunk_hist"].items()}
     if kernel == "K1" and cfg.dtype == "bfloat16":
         r1 = "wgmma" if cfg.hd in (64, 96, 128) else "fma"
-        r2 = "tma" if cfg.hd in (64, 128) else "fma"
+        r2 = "tma" if cfg.hd in (64, 96, 128) else "fma"
         check(k1_routes[r1] == launches["K1"],
               f"{tag}: every K1 launch took the {r1} route ({k1_routes})")
         check(k2_routes[r2] == launches["K2"],
               f"{tag}: every K2 launch took the {r2} route ({k2_routes})")
     if kernel == "K4" and cfg.dtype == "bfloat16":
-        # T >= SCAN_WGMMA_MIN_S on the wgmma route
+        # T = 1 on the step route, T >= SCAN_WGMMA_MIN_S on the wgmma
+        # route, the widths between on the fma kernel
         wide = sum(n for w, n in hist.items() if w >= SCAN_WGMMA_MIN_S)
+        one = hist.get(1, 0)
         check(k4_routes["wgmma"] == n_layers * wide > 0
-              and k4_routes["fma"] == launches["K4"] - n_layers * wide,
-              f"{tag}: every K4 launch at T >= SCAN_WGMMA_MIN_S took the "
-              f"wgmma route, the others the fma route ({k4_routes}, steps "
-              f"by width {hist})")
+              and k4_routes["step"] == n_layers * one > 0
+              and k4_routes["fma"] == launches["K4"] - n_layers * (wide + one),
+              f"{tag}: every K4 launch at T = 1 took the step route, at T >= "
+              f"SCAN_WGMMA_MIN_S the wgmma route, the others the fma route "
+              f"({k4_routes}, steps by width {hist})")
     if kernel == "K5" and cfg.d_model % 4 == 0:
         # T >= LRU_TMA_MIN_S on the tma route
         wide = sum(n for w, n in hist.items() if w >= LRU_TMA_MIN_S)
@@ -1700,6 +1770,21 @@ def route_ab(tag, tengine, cfg, seed, b_local, max_len, chunk, smi,
     del eng, params
     torch.cuda.empty_cache()
     return rates
+
+
+def k4_turn(k4, scan_route, wgmma_from, step):
+    """A :func:`route_ab` setter for K4 (the module ``k4``): its wgmma
+    route from ``wgmma_from`` tokens on, and T = 1 on the step route if
+    ``step``, else on the fma kernel; ``scan_route``, the module's own
+    dispatcher, decides the rest."""
+    def no_step(dtype, S, P, N):
+        route = scan_route(dtype, S, P, N)
+        return "fma" if route == "step" else route
+
+    def set_():
+        k4.SCAN_WGMMA_MIN_S = wgmma_from
+        k4.scan_route = scan_route if step else no_step
+    return set_
 
 
 def decode_route_ab(tengine, ops, cfg, seed, b_local, max_len, chunk,
@@ -2264,6 +2349,18 @@ def device_split(fn, n):
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.count > 0}
+
+
+def k2_launcher(ops, route, *options):
+    """A ``kernel`` for :func:`time_kernel`: K2 on ``route`` (with
+    ``options``, paged_attention_cuda's arguments after it) over K1's
+    inputs at T = 1, q's one token and the lengths base + 1 made once,
+    outside the timed call."""
+    def make(q, kp, vp, table, base):
+        q2, lens = q[:, 0].contiguous(), base + 1
+        return lambda: ops.paged_attention_cuda(q2, kp, vp, table, lens,
+                                                True, route, *options)
+    return make
 
 
 def time_kernel(kernel, bound_bytes, plain, rng, cfg, b_local, maxp, P, T,
@@ -3597,16 +3694,19 @@ def check_encdec_kernels(k6, ops, k3, plain, plain2, rng, b_local, maxp, P):
     ragged S and bidirectional; bidirectional K6 at S = 1,500, hd 64
     (whisper-tiny's encoder) on its wgmma route; K1 at T = 1 and 64 at
     phi-3-vision's width (hd 96, G 1), bf16, pages of 64, on its wgmma
-    route and on the fma kernel it replaced, and K2 there on its fma
-    kernel; K2 and K3 asked for their Hopper routes at hd 96 raise
-    before any launch.  bf16 within one ulp, f32 within 1e-4, two calls
-    bit-equal.  Returns the worst bf16 errors at hd 96 of K6, K1 and K2
-    on their routes, and of the kernels K6's and K1's routes replaced
-    ("K6 mma", "K1 fma")."""
+    route and on the fma kernel it replaced, and K2 there (contexts of
+    97-1,088 tokens) on its tma route and on the fma kernel it replaced,
+    against the plain version and K1 at T = 1, a row without keys zero;
+    K3 asked for its wgmma route at hd 96 raises before any launch.
+    bf16 within one ulp, f32 within 1e-4, two calls bit-equal.  Returns
+    the worst bf16 errors at hd 96 of K6, K1 and K2 on their routes, and
+    of the kernels their routes replaced ("K6 mma", "K1 fma", "K2
+    fma")."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     bf, f32 = torch.bfloat16, torch.float32
-    worst = {"K6": 0.0, "K1": 0.0, "K2": 0.0, "K6 mma": 0.0, "K1 fma": 0.0}
+    worst = {"K6": 0.0, "K1": 0.0, "K2": 0.0, "K6 mma": 0.0, "K1 fma": 0.0,
+             "K2 fma": 0.0}
 
     def close(name, dt, out, ref):
         torch.testing.assert_close(out.float(), ref, atol=TOL[dt],
@@ -3707,54 +3807,61 @@ def check_encdec_kernels(k6, ops, k3, plain, plain2, rng, b_local, maxp, P):
         masked=(1,), dead=((2, 0),), **phi)
     q2, lens = q[:, 0].contiguous(), base + 1
     name = "K2 phi-3-vision bf16"
-    check(ops.decode_route(bf, 96, 64, 1) == "fma", f"{name}: fma route")
-    before = (ops.paged_attention.launches, ops.paged_attention.routes["fma"])
+    check(ops.decode_route(bf, 96, 64, 1) == "tma", f"{name}: tma route")
+    before = (ops.paged_attention.launches, ops.paged_attention.routes["tma"])
     out = ops.paged_attention(q2, kp, vp, table, lens, zero_empty=True)
     torch.cuda.synchronize()
-    check((ops.paged_attention.launches, ops.paged_attention.routes["fma"])
+    check((ops.paged_attention.launches, ops.paged_attention.routes["tma"])
           == (before[0] + 1, before[1] + 1),
-          f"{name}: the dispatcher launched the fma kernel once")
-    check(torch.equal(out, ops.paged_attention_cuda(q2, kp, vp, table, lens,
-                                                    True, "fma")),
-          f"{name}: two calls bit-equal")
-    check(bool((out[1] == 0).all()), f"{name}: a row without keys is zero")
-    errs = []
-    for what, ref in (("plain", plain2(q2, kp, vp, table, lens,
-                                       zero_empty=True)),
-                      ("K1 T=1", ops.paged_attention_chunk(
-                          q, kp, vp, table, base)[:, 0])):
-        err, tol = close(f"{name} vs {what}", bf, out, ref.float())
-        errs.append(err)
-    worst["K2"] = errs[0]
-    phase(f"[3] {name} B={b_local} H=32 hd=96 psz=64 (fma kernel): "
-          f"max_abs_err vs plain {errs[0]:.3e}, vs K1 at T=1 {errs[1]:.3e} "
-          f"({tol}); contexts {int(lens.min())}-{int(lens.max())}; two "
-          f"calls bit-equal")
-    # K2's tma and K3's wgmma routes have no hd 96 instance: asked for
-    # them, the wrappers raise before anything launches
+          f"{name}: the dispatcher launched the tma kernel once")
+    refs = (("plain", plain2(q2, kp, vp, table, lens,
+                             zero_empty=True).float()),
+            ("K1 T=1", ops.paged_attention_chunk(
+                q, kp, vp, table, base)[:, 0].float()))
+    errs = {}
+    for route in ("tma", "fma"):
+        # the fma kernel the tma route replaced, by explicit route, on the
+        # same inputs
+        got = out if route == "tma" else ops.paged_attention_cuda(
+            q2, kp, vp, table, lens, True, "fma")
+        torch.cuda.synchronize()
+        check(torch.equal(got, ops.paged_attention_cuda(
+            q2, kp, vp, table, lens, True, route)),
+            f"{name}, {route}: two calls bit-equal")
+        check(bool(torch.isfinite(got.float()).all()),
+              f"{name}, {route}: finite")
+        check(bool((got[1] == 0).all()),
+              f"{name}, {route}: a row without keys is zero")
+        for what, ref in refs:
+            errs[route, what], tol = close(f"{name}, {route} vs {what}", bf,
+                                           got, ref)
+    worst["K2"] = errs["tma", "plain"]
+    worst["K2 fma"] = errs["fma", "plain"]
+    phase(f"[3] {name} B={b_local} H=32 hd=96 psz=64, tma kernel (tiles "
+          f"padded to two 64-column atoms): max_abs_err vs plain "
+          f"{errs['tma', 'plain']:.3e}, vs K1 at T=1 "
+          f"{errs['tma', 'K1 T=1']:.3e}; the fma kernel it replaced on "
+          f"the same inputs vs plain {errs['fma', 'plain']:.3e}, vs K1 "
+          f"{errs['fma', 'K1 T=1']:.3e} ({tol}); contexts "
+          f"{int(lens.min())}-{int(lens.max())}; a row without keys zero, "
+          f"two calls bit-equal on each")
+    # K3's wgmma route has no hd 96 instance: asked for it, the wrapper
+    # raises before anything launches
     check(k3.verify_route(bf, 96, 64, 5, 1) == "fma",
           "K3 at phi-3-vision's width: on its fma route")
-    counts = (ops.paged_attention.launches, dict(ops.paged_attention.routes),
-              k3.verify_attention.launches, dict(k3.verify_attention.routes))
-    for what, call in (
-            ("K2 tma", lambda: ops.paged_attention_cuda(
-                q2, kp, vp, table, lens, True, "tma")),
-            ("K3 wgmma", lambda: k3.verify_attention_cuda(
-                q, kp, vp, table, base, route="wgmma"))):
-        try:
-            call()
-        except ValueError as e:
-            check("takes hd in" in str(e),
-                  f"{what} at hd 96 raised for its head dims ({e})")
-        else:
-            check(False, f"{what} at hd 96 raised")
-    check(counts == (ops.paged_attention.launches,
-                     dict(ops.paged_attention.routes),
-                     k3.verify_attention.launches,
+    counts = (k3.verify_attention.launches, dict(k3.verify_attention.routes))
+    try:
+        k3.verify_attention_cuda(q, kp, vp, table, base, route="wgmma")
+    except ValueError as e:
+        check("takes hd in" in str(e),
+              f"K3 wgmma at hd 96 raised for its head dims ({e})")
+    else:
+        check(False, "K3 wgmma at hd 96 raised")
+    check(counts == (k3.verify_attention.launches,
                      dict(k3.verify_attention.routes)),
-          "K2 tma and K3 wgmma at hd 96: no launch counted")
-    phase("[3] K2's tma and K3's wgmma routes asked for at hd 96: each "
-          "raised before a launch, no launch counted; K3 at hd 96 on fma")
+          "K3 wgmma at hd 96: no launch counted")
+    phase("[3] K3's wgmma route asked for at hd 96: raised before a launch, "
+          "no launch counted; K3 at hd 96 on fma")
     torch.cuda.empty_cache()
     return worst
 
@@ -3982,9 +4089,9 @@ def serve_encdec_vlm(tengine, k6, ops, plain, counted, seed, smi, b_local,
     holding the encoder's CLS_STATE grant) and phi-3-vision's text-only
     prompts through the prefill path against the engine in float32, (e)
     the times of K6 at hd 96 at phi-3-vision's prefill shape and of K1
-    and K2 at its serving width, K6's and K1's beside the kernels their
-    wgmma routes replaced, on the same inputs.  Returns the numbers the
-    kernels line reports."""
+    and K2 at its serving width, each beside the kernel its Hopper route
+    replaced, on the same inputs.  Returns the numbers the kernels line
+    reports."""
     from repro_torch.configs import get_config
 
     whisper, phi = get_config("whisper-tiny"), get_config("phi-3-vision-4.2b")
@@ -3994,8 +4101,8 @@ def serve_encdec_vlm(tengine, k6, ops, plain, counted, seed, smi, b_local,
                                  32, 32, smi),
            "b": extra_full_width("[19b]", tengine, counted, phi, seed, 4, 64,
                                  16, smi)}
-    check(out["b"]["k6_route"] == "wgmma" and out["b"]["k2_route"] == "fma",
-          f"[19b] phi-3-vision: K6 on its wgmma route at hd 96, K2 on fma "
+    check(out["b"]["k6_route"] == "wgmma" and out["b"]["k2_route"] == "tma",
+          f"[19b] phi-3-vision: K6 on its wgmma route at hd 96, K2 on tma "
           f"({out['b']['k6_route']}, {out['b']['k2_route']})")
     out["c"] = {c.name: extra_full_width("[19c]", tengine, counted, c, seed,
                                          n, m, 16, smi, one_shot=True,
@@ -4033,23 +4140,25 @@ def serve_encdec_vlm(tengine, k6, ops, plain, counted, seed, smi, b_local,
         ops.bound_bytes, plain, rng, phi8, b_local, maxp, P, 64, base64,
         present=lambda *a: lambda: ops.paged_attention_chunk_cuda(
             *a, route="fma"))
+    check(ops.decode_route(phi.tdtype, phi.hd, phi.page_size,
+                           phi.n_heads // phi.n_kv_heads) == "tma",
+          "[19e] K2 at phi-3-vision's width: on its tma route")
     t2 = time_kernel(
-        lambda q, kp, vp, table, base: lambda: ops.paged_attention_cuda(
-            q[:, 0].contiguous(), kp, vp, table, base + 1, True),
+        k2_launcher(ops, "tma"),
         lambda q, kp, table, base: ops.decode_bound_bytes(
             q[:, 0], kp, table, base + 1),
         lambda q, kp, vp, table, base: ops.paged_attention_ref(
             q[:, 0], kp, vp, table, base + 1, zero_empty=True),
-        rng, phi8, b_local, maxp, P, 1, base1)
+        rng, phi8, b_local, maxp, P, 1, base1,
+        present=k2_launcher(ops, "fma"))
     for name, t, old in (
             ("K6 forward (wgmma, hd 96) " + t6["shape"], t6, "mma.sync"),
             (f"K1 (wgmma) T=64 B={b_local} H=32 hd=96 psz=64 bf16", t1,
              "fma"),
-            (f"K2 (fma) T=1 B={b_local} H=32 hd=96 psz=64 bf16, "
+            (f"K2 (tma) T=1 B={b_local} H=32 hd=96 psz=64 bf16, "
              f"contexts {int(base1.min()) + 1}-{int(base1.max()) + 1}", t2,
-             None)):
-        present = ("" if old is None else
-                   f", the {old} kernel it replaced on the same inputs "
+             "fma")):
+        present = (f", the {old} kernel it replaced on the same inputs "
                    f"{t['present_ms']:.4f} ms (host "
                    f"{t['present_host_ms']:.4f} ms a call)")
         phase(f"[19e] {name} on {smi}: kernel {t['ms']:.4f} ms (host "
@@ -4753,7 +4862,7 @@ def main() -> int:
     t0 = time.perf_counter()
     stems = ("paged_attention", "paged_attention_wgmma", "paged_decode",
              "paged_decode_tma", "verify_attention", "verify_attention_wgmma",
-             "ssd_scan", "ssd_scan_wgmma", "rg_lru", "rg_lru_tma",
+             "ssd_scan", "ssd_scan_wgmma", "ssd_step", "rg_lru", "rg_lru_tma",
              "flash_attention", "flash_attention_bwd",
              "flash_attention_bwd_wgmma")
     build.load_all(stems)
@@ -4810,6 +4919,13 @@ def main() -> int:
         ("full T=200 bf16 (four chunks)", ssd_dims(mamba, 200), bf),
         ("T=64 N=64 bf16", n64, bf)], rng,
         route_of=lambda d, dt: k4.scan_route(dt, d[1], d[3], d[4]))
+    # the step route at every slice count, beside the fma kernel; a stream
+    # of its own: the later phases draw the inputs they drew
+    err_step, err_fma = check_k4_step(
+        k4, ssd_scan_ref, np.random.RandomState(args.seed + 29),
+        [ssd_dims(mamba, 1), ssd_dims(mamba, 1)[:4] + (64,)])
+    err4["step"] = max(err4["step"], err_step)
+    err4["fma"] = max(err4["fma"], err_fma)
     # K5's a and b are float32 in a bf16 model too
     err5 = check_scan("K5", k5.rg_lru, rg_lru_ref, "rglru", [
         ("full T=1 f32", (b_local, 1, rgemma.d_model), f32),
@@ -4969,15 +5085,33 @@ def main() -> int:
             tensor_flops=(lambda a: k4.dual_flops(a[0], a[3]))
             if route == "wgmma" else None, with_plain=with_plain)
 
-    check(k4.scan_route(bf, 1, mamba.ssd_head_dim, mamba.ssd_state) == "fma"
+    check(k4.scan_route(bf, 1, mamba.ssd_head_dim, mamba.ssd_state) == "step"
           and k4.scan_route(bf, 64, mamba.ssd_head_dim,
                             mamba.ssd_state) == "wgmma",
-          "K4: T = 1 on the fma route, T = 64 on the wgmma route")
-    k4_times = [k4_time(1, "fma"),
+          "K4: T = 1 on the step route, T = 64 on the wgmma route")
+    # T = 1: the step route beside the fma kernel it replaced, on the
+    # same inputs
+    k4_times = [k4_time(1, "step", present=k4_route("fma")),
                 k4_time(64, "wgmma", present=k4_route("fma"))]
+    check(k4_times[0]["ms"] < k4_times[0]["present_ms"],
+          "K4 at T = 1: the step route faster than the fma kernel on the "
+          "same inputs")
     check(k4_times[1]["ms"] < k4_times[1]["present_ms"],
           "K4 at T = 64: the wgmma route faster than the fma kernel on the "
           "same inputs")
+    # the practical floor of the step: one copy_ of a state's size (read
+    # once, written once), cycling through as many states as layers
+    states = [torch.empty(ssd_dims(mamba, 1)[0:1] + ssd_dims(mamba, 1)[2:],
+                          device="cuda") for _ in range(2 * mamba.n_layers)]
+    it_copy = iter(range(10 ** 9))
+
+    def copy_state():
+        i = 2 * (next(it_copy) % mamba.n_layers)
+        states[i + 1].copy_(states[i])
+
+    copy_ms = cuda_ms(copy_state, iters=4 * mamba.n_layers)[0]
+    copy_bytes = 2 * states[0].numel() * 4
+    del states
     # both routes at a few widths: where the wgmma route starts to pay
     k4_sweep = [k4_time(T, "wgmma", present=k4_route("fma"),
                         with_plain=False) for T in (2, 3, 4, 16)]
@@ -5000,12 +5134,16 @@ def main() -> int:
     k4_shape = (f"B={b_local} H={ssd_dims(mamba, 1)[2]} "
                 f"P={mamba.ssd_head_dim} N={mamba.ssd_state} bf16 x")
     t = k4_times[0]
-    phase(f"[11] K4 T=1 {k4_shape} on {smi}: kernel (fma route) "
-          f"{t['ms']:.4f} ms (host {t['host_ms']:.4f} ms a call, its "
-          f"enqueue {t['enqueue_ms']:.4f} ms), bound "
-          f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
-          f"{t['flops']} float32 flop), plain {t['plain_ms']:.4f} ms, "
-          f"library: no single PyTorch call")
+    phase(f"[11] K4 T=1 {k4_shape} on {smi}: kernel (step route) "
+          f"{t['ms']:.4f} ms (host "
+          f"{t['host_ms']:.4f} ms a call, its enqueue {t['enqueue_ms']:.4f} "
+          f"ms), present kernel (fma route) {t['present_ms']:.4f} ms (host "
+          f"{t['present_host_ms']:.4f} ms a call, its enqueue "
+          f"{t['present_enqueue_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms "
+          f"({t['bound_by']}: {t['bytes']} B, {t['flops']} float32 flop), "
+          f"plain {t['plain_ms']:.4f} ms, library: no single PyTorch call; "
+          f"a copy_ of one state ({copy_bytes} B moved) {copy_ms:.4f} ms")
+    t["copy_ms"] = copy_ms
     for t in k4_times[1:] + k4_sweep:
         b = t["bounds"]
         plain_txt = (f", plain {t['plain_ms']:.4f} ms"
@@ -5036,19 +5174,21 @@ def main() -> int:
               f"B, {t['flops']} flop){plain_txt}, library: no single PyTorch "
               f"call; the dispatcher takes the {takes} route here "
               f"(LRU_TMA_MIN_S = {k5.LRU_TMA_MIN_S})")
-    # end to end: K4 from SCAN_WGMMA_MIN_S tokens through the fma kernel
-    # and through the wgmma route, in turns on one warm engine
-    def k4_min_s(n):
-        def set_():
-            k4.SCAN_WGMMA_MIN_S = n
-        return set_
-
-    wgmma_from = f"K4 (wgmma from T={k4.SCAN_WGMMA_MIN_S})"
+    # end to end, in turns on one warm engine: every K4 launch through
+    # the fma kernel; the wgmma route from SCAN_WGMMA_MIN_S tokens on,
+    # T = 1 still on fma; and T = 1 on the step route too.  The first
+    # two differ in the wgmma route alone, the last two in the step
+    # route alone, served twice each in the order A B B A.
+    scan_route, wgmma_from = k4.scan_route, k4.SCAN_WGMMA_MIN_S
+    no_step_name = f"K4 (wgmma from T={wgmma_from})"
+    step_name = f"K4 (step at T=1, wgmma from T={wgmma_from})"
     route_ab("[11]", tengine, mamba, args.seed, b_local, 2048, chunk, smi,
-             {"K4 (fma)": k4_min_s(10 ** 9),
-              wgmma_from: k4_min_s(k4.SCAN_WGMMA_MIN_S),
-              None: k4_min_s(k4.SCAN_WGMMA_MIN_S)},
-             ("K4 (fma)", wgmma_from), size_classes=2)
+             {"K4 (fma)": k4_turn(k4, scan_route, 10 ** 9, False),
+              no_step_name: k4_turn(k4, scan_route, wgmma_from, False),
+              step_name: k4_turn(k4, scan_route, wgmma_from, True),
+              None: k4_turn(k4, scan_route, wgmma_from, True)},
+             ("K4 (fma)", no_step_name, step_name, step_name, no_step_name),
+             size_classes=2)
     for name, r in (("mamba2-370m", run4), ("recurrentgemma-2b", run5)):
         phase(f"[11] end-to-end {name} on {smi}: {r['tok_s']:.1f} generated "
               f"tok/s, {r['ms_step']:.2f} ms/step")
@@ -5082,13 +5222,6 @@ def main() -> int:
 
     # [15] K2 and K1 at T = 1 on the same inputs (decode at contexts of
     # 96-1,087 tokens), beside K2's bound, plain version and SDPA
-    def k2_route(route, pages_per_split=ops.PAGES_PER_SPLIT):
-        def make(q, kp, vp, table, base):
-            q2, lens = q[:, 0].contiguous(), base + 1
-            return lambda: ops.paged_attention_cuda(
-                q2, kp, vp, table, lens, True, route, pages_per_split)
-        return make
-
     def k2_plain(q, kp, vp, table, base):
         return plain2(q[:, 0], kp, vp, table, base + 1, zero_empty=True)
 
@@ -5099,11 +5232,11 @@ def main() -> int:
     check(ops.decode_route(bf, cfg.hd, cfg.page_size,
                            cfg.n_heads // cfg.n_kv_heads) == "tma",
           "K2: olmo-1b's decode on the tma route")
-    t2 = time_kernel(k2_route("tma"), k2_bytes, k2_plain,
+    t2 = time_kernel(k2_launcher(ops, "tma"), k2_bytes, k2_plain,
                      np.random.RandomState(args.seed + 15), cfg, b_local,
-                     maxp, P, 1, base15, present=k2_route("fma"),
-                     variants={f"pages_per_split={n}": k2_route("tma", n)
-                               for n in (1, 2, 8)})
+                     maxp, P, 1, base15, present=k2_launcher(ops, "fma"),
+                     variants={f"pages_per_split={n}":
+                               k2_launcher(ops, "tma", n) for n in (1, 2, 8)})
     check(t2["ms"] < t2["present_ms"], "K2: the tma route faster than the "
                                        "fma kernel on the same inputs")
     t2k1 = time_kernel(k1_call, ops.bound_bytes, plain,
@@ -5247,7 +5380,12 @@ def main() -> int:
               if "present_ms" in t else {})}
           for name, src, route, t in (
               ("ssd_scan_wgmma", "ssd_scan_wgmma.cu", "wgmma", k4_times[1]),
-              ("ssd_scan", "ssd_scan.cu", "fma", k4_times[0]))),
+              ("ssd_step", "ssd_step.cu", "step", k4_times[0]),
+              ("ssd_scan", "ssd_scan.cu", "fma",
+               {**{k: v for k, v in k4_times[0].items()
+                   if not k.startswith("present")},
+                "ms": k4_times[0]["present_ms"],
+                "host_ms": k4_times[0]["present_host_ms"]}))),
         *({"name": name, "route": "cuda", "source": lru_src + src,
            "replaces": "src/repro/kernels/rg_lru/kernel.py:67",
            "launches": run5["k5_routes"][route], "max_abs_err": err5[route],
@@ -5289,6 +5427,8 @@ def main() -> int:
                     "host_ms": t6["bwd"]["present_host_ms"]}}))),
     ]
     kernels[1]["sampled_launches"] = sampled_launches["K1"]
+    next(r for r in kernels if r["name"] == "ssd_step")["copy_ms"] = (
+        k4_times[0]["copy_ms"])
     # phase 19: the instances at phi-3-vision's hd 96, and whisper-tiny's
     # launches on the routes olmo-1b takes
     phi19 = r19["d"]["phi-3-vision-4.2b"]
@@ -5296,10 +5436,19 @@ def main() -> int:
              "library_ms")
     hd96 = {
         "paged_attention": dict(
-            route="fma", source=pa_src + "paged_decode.cu",
-            launches=r19["b"]["k2"] + phi19["k2_routes"]["fma"],
+            route="tma", source=pa_src + "paged_decode_tma.cu",
+            launches=r19["b"]["k2"] + phi19["k2_routes"]["tma"],
+            launches_by_route={
+                r: phi19["k2_routes"][r] + (r19["b"]["k2"] if r == "tma"
+                                            else 0)
+                for r in phi19["k2_routes"]},
             max_abs_err=err19["K2"], shape=f"T=1 B={b_local} H=32 hd=96 "
-                                           f"psz=64 bf16"),
+                                           f"psz=64 bf16",
+            present_kernel=dict(
+                source=pa_src + "paged_decode.cu",
+                ms=r19["times"]["K2"]["present_ms"],
+                host_ms=r19["times"]["K2"]["present_host_ms"],
+                max_abs_err=err19["K2 fma"])),
         "paged_attention_chunk": dict(
             route="wgmma", source=pa_src + "paged_attention_wgmma.cu",
             launches=phi19["k1_routes"]["wgmma"],

@@ -37,8 +37,9 @@
 //
 // The split of a lane's pages over several blocks, fed by TMA, is the
 // tma route (paged_decode_tma.cu), which ops.py::decode_route picks for
-// bf16 at hd 64 and 128 with pages of 64; this kernel keeps float32,
-// hd 16, pages of 8 and the other shapes.
+// bf16 at hd 64, 96 and 128 (DECODE_TMA_HEAD_DIMS) with pages of 64;
+// this kernel keeps float32, hd 16, pages of 8 and the other shapes,
+// and takes bf16 hd 96 only when asked for by route="fma".
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -3,10 +3,10 @@
 //
 // Replaces the JAX package's Pallas TPU kernel
 // kernels/paged_attention/kernel.py::paged_attention (pallas_call at
-// kernel.py:227), for bf16 at hd 64 and 128 with pages of 64 tokens and
-// G = H / KH of 1, 2, 4 or 8 (olmo-1b, llama3.2-1b, gemma3-27b).  The
-// float32, hd 16 and page-8 shapes take paged_decode.cu;
-// ops.py::decode_route states the dispatch.
+// kernel.py:227), for bf16 at hd 64, 96 and 128 with pages of 64 tokens
+// and G = H / KH of 1, 2, 4 or 8 (olmo-1b, llama3.2-1b, gemma3-27b,
+// phi-3-vision).  The float32, hd 16 and page-8 shapes take
+// paged_decode.cu; ops.py::decode_route states the dispatch.
 //
 // What it computes: the function of paged_decode.cu.  For each sequence
 // b, one query token of H heads attends to every kv position p <
@@ -47,6 +47,16 @@
 //   writes its output; otherwise each split writes its partial (m, l,
 //   acc[hd]) to a float32 workspace and a second kernel merges a lane's
 //   splits in split order.  No atomics: two calls are bit-equal.
+// * hd 96 (phi-3-vision) runs over tiles padded to two 64-column
+//   swizzle atoms, as K1 and K6 do: the map is built on the true hd, so
+//   the box at column 64 brings 32 real columns and 32 zeros (TMA's
+//   fill past the row; the mbarrier counts the whole box).  The padded
+//   width kHDP sets everything that tiles (atoms, stages, hd / 8 lanes
+//   a key); the true width sets everything that indexes memory (q and
+//   out rows, the workspace, the merge).  Lanes 12-15 of a key hold
+//   zero q and read zero K and V columns, so their partial dot products
+//   and accumulators stay zero; they read no q and write nothing.  The
+//   scale stays 1 / sqrt(96).  At hd 64 and 128 kHDP == HD.
 // * The tensor maps are encoded per call (ops.py says what that costs).
 
 #include <cuda.h>
@@ -65,18 +75,21 @@ constexpr int kPage = 64;                        // tokens a page
 constexpr int kConsumers = 4;                    // consumer warps
 constexpr int kThreads = 32 * (kConsumers + 1);  // + the producer warp
 
+// HD the true head dim (memory), kHDP the padded one (tiles)
 template <int HD, int G>
 struct Layout {
-  static constexpr int kAtoms = HD / 64;
+  static constexpr int kHDP = ((HD + 63) / 64) * 64;
+  static constexpr int kAtoms = kHDP / 64;
   static constexpr int kTile = kAtoms * kPage * 128;   // K or V of a page
   static constexpr int kStage = 2 * kTile;
-  static constexpr int kStages = HD == 128 ? 2 : 4;    // a 64 KB ring
+  static constexpr int kStages = kAtoms == 2 ? 2 : 4;  // a 64 KB ring
   static constexpr int kMerge = kStages * kStage;      // the warps' states
   static constexpr int kML = HD + 2;                   // acc, m, l
   static constexpr int kBars = kMerge + 4 * kConsumers * G * kML;
   // 1024 bytes of slack to align the base for the swizzle
   static constexpr int kSmem = kBars + 16 * kStages + 1024;
-  static constexpr int kCH = HD / 8;                   // lanes a key
+  static constexpr int kCH = kHDP / 8;                 // lanes a key
+  static constexpr int kReal = HD / 8;                 // chunks with data
   static constexpr int kKPW = 32 / kCH;                // keys a warp a pass
   static constexpr int kPasses = kPage / (kConsumers * kKPW);
 };
@@ -179,15 +192,17 @@ k2_split(const __grid_constant__ CUtensorMap tk,
   }
 
   // a consumer lane: chunk c (dims 8 c .. 8 c + 7) of keys kg + 8 ip
-  // (hd 128: two keys a warp a pass) or kg + 16 ip (hd 64: four)
+  // (hd 96 and 128: two keys a warp a pass) or kg + 16 ip (hd 64: four);
+  // chunks past the true hd hold zero q
   const int c = lane % CH;
   const int kg = warp * KPW + lane / CH;
   const uint32_t coff = (c / 8) * kPage * 128;
+  const bool real = L::kReal == CH || c < L::kReal;
   float qv[G][8];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(
-        a.q + (row0 + g) * HD + 8 * c);
+    const uint4 raw = real ? *reinterpret_cast<const uint4*>(
+        a.q + (row0 + g) * HD + 8 * c) : make_uint4(0u, 0u, 0u, 0u);
     const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
@@ -307,7 +322,7 @@ k2_split(const __grid_constant__ CUtensorMap tk,
         acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
     }
   float* mg = reinterpret_cast<float*>(base_ptr + L::kMerge);
-  if (lane < CH) {
+  if (lane < L::kReal) {
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float* dst = mg + (warp * G + g) * L::kML;
@@ -407,7 +422,7 @@ int by_g(const void* kp, const void* vp, const Args& a, int B, int P,
 extern "C" {
 
 // bfloat16 only.  q/out: [B, H, hd]; k/v pages: [P, psz, KH, hd] with
-// psz 64 and hd 64 or 128, H / KH in {1, 2, 4, 8}; table: int32 [B,
+// psz 64 and hd 64, 96 or 128, H / KH in {1, 2, 4, 8}; table: int32 [B,
 // maxp]; seq_lens: int32 [B]; workspace: float32, B H nsplit (hd + 2)
 // values, nsplit = ceil(maxp / pages_per_split).  All contiguous, q and
 // the pools 16-byte aligned.  Launches the split kernel, then the merge;
@@ -436,6 +451,7 @@ int paged_decode_tma(const void* q, const void* k_pages, const void* v_pages,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: return by_g<64>(k_pages, v_pages, a, B, P, s);
+    case 96: return by_g<96>(k_pages, v_pages, a, B, P, s);
     case 128: return by_g<128>(k_pages, v_pages, a, B, P, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -23,15 +23,17 @@ plain PyTorch versions.
   ``kernel.py:227``).  Two CUDA C++ kernels, chosen by
   :func:`decode_route`:
 
-  - ``"tma"`` (``csrc/paged_decode_tma.cu``), bf16 at hd 64 and 128
-    (:data:`WGMMA_HEAD_DIMS`; not 96) with pages of 64 tokens and G of
-    1, 2, 4 or 8, the decode-only steps of olmo-1b, llama3.2-1b and
-    gemma3-27b: each lane's pages
+  - ``"tma"`` (``csrc/paged_decode_tma.cu``), bf16 at hd 64, 96 and
+    128 (:data:`DECODE_TMA_HEAD_DIMS`) with pages of 64 tokens and G of
+    1, 2, 4 or 8, the decode-only steps of olmo-1b, llama3.2-1b,
+    gemma3-27b and phi-3-vision: each lane's pages
     cut into splits of :data:`PAGES_PER_SPLIT` (:func:`.ref.decode_splits`),
     a block per (kv head, lane, split) fed by TMA from a producer warp,
-    then a merge of each lane's splits in split order;
-  - ``"fma"`` (``csrc/paged_decode.cu``), every other shape (among
-    them phi-3-vision's hd 96): one block per (kv head, sequence) whose
+    then a merge of each lane's splits in split order; hd 96 over tiles
+    padded to two 64-column atoms, the padding zeros from TMA;
+  - ``"fma"`` (``csrc/paged_decode.cu``), every other shape (float32,
+    hd 16, pages of 8, a G outside :data:`TMA_GROUPS`; hd 96 in bf16 by
+    an explicit route only): one block per (kv head, sequence) whose
     warps take the live pages' keys in units of 32, each warp its own
     online softmax, merged at the end.
 
@@ -59,11 +61,14 @@ import torch
 from .ref import paged_attention_chunk_ref, paged_attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims and page size of K2's tma and K3's wgmma routes (bf16)
+#: head dims of K3's wgmma route, and the page size of every Hopper
+#: route of K1, K2 and K3 (bf16)
 WGMMA_HEAD_DIMS = (64, 128)
 WGMMA_PAGE = 64
 #: head dims of K1's wgmma/TMA route: hd 96 runs over tiles padded to 128
 CHUNK_WGMMA_HEAD_DIMS = (64, 96, 128)
+#: head dims of K2's tma route: hd 96 runs over tiles padded to 128
+DECODE_TMA_HEAD_DIMS = (64, 96, 128)
 
 
 def chunk_route(dtype, hd: int, psz: int, T: int, G: int) -> str:
@@ -83,8 +88,8 @@ def chunk_route(dtype, hd: int, psz: int, T: int, G: int) -> str:
 def check_wgmma(name, q, k_pages, v_pages, head_dims=WGMMA_HEAD_DIMS):
     """Raise on what the wgmma/TMA kernels of K1, K2 and K3 do not take:
     they read bf16 pages of 64 tokens at ``head_dims`` (K1 takes
-    :data:`CHUNK_WGMMA_HEAD_DIMS`) through TMA tensor maps, and q rows
-    with 16-byte copies."""
+    :data:`CHUNK_WGMMA_HEAD_DIMS`, K2 :data:`DECODE_TMA_HEAD_DIMS`)
+    through TMA tensor maps, and q rows with 16-byte copies."""
     if not all(t.dtype == torch.bfloat16 for t in (q, k_pages, v_pages)):
         raise TypeError(f"{name}: the wgmma route takes bfloat16 only, got "
                         f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
@@ -221,9 +226,9 @@ TMA_GROUPS = (1, 2, 4, 8)
 def decode_route(dtype, hd: int, psz: int, G: int) -> str:
     """K2's kernel for q of ``dtype`` with head dim ``hd``, pages of
     ``psz`` tokens and ``G`` query heads a kv head: ``"tma"`` for bf16
-    at hd 64 or 128 with pages of 64 and G in :data:`TMA_GROUPS`, else
-    ``"fma"``."""
-    if (dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+    at hd 64, 96 or 128 with pages of 64 and G in :data:`TMA_GROUPS`,
+    else ``"fma"``."""
+    if (dtype == torch.bfloat16 and hd in DECODE_TMA_HEAD_DIMS
             and psz == WGMMA_PAGE and G in TMA_GROUPS):
         return "tma"
     return "fma"
@@ -267,7 +272,8 @@ def paged_attention_cuda(q, k_pages, v_pages, page_table, seq_lens,
     if route is None:
         route = decode_route(q.dtype, hd, psz, H // max(KH, 1))
     if route == "tma":
-        check_wgmma("paged_attention", q, k_pages, v_pages)
+        check_wgmma("paged_attention", q, k_pages, v_pages,
+                    DECODE_TMA_HEAD_DIMS)
         if H % KH or H // KH not in TMA_GROUPS:
             raise ValueError(f"paged_attention: the tma route takes G in "
                              f"{TMA_GROUPS}, got H {H} KH {KH}")

@@ -37,8 +37,9 @@
 //
 // The chunked dual form on tensor cores is the wgmma route
 // (ssd_scan_wgmma.cu), which ops.py::scan_route picks for bf16 at P 64
-// from SCAN_WGMMA_MIN_S tokens on; this kernel keeps T = 1, float32 and
-// the other widths.
+// from SCAN_WGMMA_MIN_S tokens on, and the decode step at those widths
+// (T = 1) is ssd_step.cu; this kernel keeps T = 2, float32 and the
+// other widths, and T = 1 in bf16 by an explicit route.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

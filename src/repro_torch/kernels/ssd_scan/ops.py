@@ -3,9 +3,9 @@ plain PyTorch version.
 
 Replaces the JAX package's Pallas TPU kernel
 ``kernels/ssd_scan/kernel.py::ssd_scan`` (its ``pallas_call`` at
-``kernel.py:93``).  Two CUDA C++ kernels for Hopper, built for
+``kernel.py:93``).  Three CUDA C++ kernels for Hopper, built for
 ``sm_90a`` at first use and called through ctypes, chosen by
-:func:`scan_route`; both read and write the decode state's own
+:func:`scan_route`; all read and write the decode state's own
 [B, H, P, N] layout in place:
 
 - ``"wgmma"`` (``csrc/ssd_scan_wgmma.cu``), bf16 x, B and C with P 64
@@ -13,7 +13,11 @@ Replaces the JAX package's Pallas TPU kernel
   tokens: the chunked dual form of the TPU kernel, chunks of 64 tokens
   on ``wgmma``, the state in the warpgroup's accumulator across chunks,
   the float32 operands as three bf16 terms;
-- ``"fma"`` (``csrc/ssd_scan.cu``), every other shape (T = 1, float32,
+- ``"step"`` (``csrc/ssd_step.cu``), the same shapes at S = 1 (the
+  decode step): each (sequence, head) cut into four blocks of rows, a
+  lane's four state columns a 16-byte load and an evict-first store,
+  every load issued before the arithmetic;
+- ``"fma"`` (``csrc/ssd_scan.cu``), every other shape (T = 2, float32,
   the smoke widths): one block per (sequence, head) with the float32
   state [P, N] in registers, one token after the other.
 
@@ -53,10 +57,13 @@ def _wgmma_takes(dtype, P: int, N: int) -> bool:
 
 def scan_route(dtype, S: int, P: int, N: int) -> str:
     """K4's kernel for x of ``dtype``, ``S`` tokens, head dim ``P`` and
-    state size ``N``: ``"wgmma"`` for bf16 at P 64, N 64 or 128 and S
-    >= :data:`SCAN_WGMMA_MIN_S`, else ``"fma"``."""
-    if _wgmma_takes(dtype, P, N) and S >= SCAN_WGMMA_MIN_S:
-        return "wgmma"
+    state size ``N``: at bf16, P 64, N 64 or 128, ``"step"`` for S = 1
+    and ``"wgmma"`` for S >= :data:`SCAN_WGMMA_MIN_S`; else ``"fma"``."""
+    if _wgmma_takes(dtype, P, N):
+        if S == 1:
+            return "step"
+        if S >= SCAN_WGMMA_MIN_S:
+            return "wgmma"
     return "fma"
 
 
@@ -80,6 +87,16 @@ def _wgmma_fn():
     return fn
 
 
+@functools.cache
+def _step_fn():
+    from ..build import load
+    fn = load("ssd_step").ssd_step
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p])
+    return fn
+
+
 def ssd_scan_cuda(x, dt, A, Bm, Cm, D, h, route=None):
     """Launch the kernel of ``route`` (by default :func:`scan_route` of
     these inputs) on PyTorch's current stream (no sync): returns y and
@@ -88,11 +105,14 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, D, h, route=None):
     N = Bm.shape[-1]
     if route is None:
         route = scan_route(x.dtype, S, P, N)
-    if route == "wgmma":
+    if route in ("wgmma", "step"):
         if not _wgmma_takes(x.dtype, P, N):
-            raise ValueError(f"ssd_scan: the wgmma route takes bfloat16 "
+            raise ValueError(f"ssd_scan: the {route} route takes bfloat16 "
                              f"x, B and C at P 64 and N 64 or 128, got "
                              f"{x.dtype}, P {P}, N {N}")
+        if route == "step" and S != 1:
+            raise ValueError(f"ssd_scan: the step route takes one token, "
+                             f"got S {S}")
     elif route != "fma":
         raise ValueError(f"ssd_scan: no route {route!r}")
     tensors = (x, dt, A, Bm, Cm, D, h)
@@ -120,6 +140,11 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, D, h, route=None):
             raise ValueError("ssd_scan: the wgmma route needs x, B and C "
                              "on 16-byte boundaries")
         err = _wgmma_fn()(*ptrs, Bsz, S, H, P, N, stream)
+    elif route == "step":
+        if h.data_ptr() % 16 or any(t.data_ptr() % 8 for t in (Bm, Cm)):
+            raise ValueError("ssd_scan: the step route needs h on 16-byte "
+                             "and B and C on 8-byte boundaries")
+        err = _step_fn()(*ptrs, Bsz, H, P, N, stream)
     else:
         err = _fn()(*ptrs, _DTYPES[x.dtype], Bsz, S, H, P, N, stream)
     if err != 0:
@@ -152,7 +177,7 @@ def ssd_scan(x, dt, A, Bm, Cm, D, h=None):
 
 
 ssd_scan.launches = 0
-ssd_scan.routes = {"wgmma": 0, "fma": 0}
+ssd_scan.routes = {"wgmma": 0, "step": 0, "fma": 0}
 
 
 def bound_bytes(x, dt, Bm, h) -> int:

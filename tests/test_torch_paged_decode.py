@@ -26,6 +26,7 @@ from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import (
     decode_splits, paged_attention_chunk_ref as k1_plain,
     paged_attention_ref as plain, paged_attention_split_ref as split_plain)
+from repro_torch.kernels.verify_attention import ops as k3
 from repro_torch.models import transformer
 
 TORCH_DT = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -74,9 +75,12 @@ def _close(out, ref, tol):
     (2, 4, 4, 64, 8, 4, 32, jnp.float32),
     (3, 8, 1, 128, 32, 3, 16, jnp.bfloat16),
     (1, 16, 8, 64, 16, 5, 48, jnp.float32),
+    (3, 4, 4, 96, 64, 4, 16, jnp.bfloat16),    # phi-3-vision: hd 96, G 1
 ])
 def test_plain_vs_ref_and_pallas(B, H, KH, hd, psz, maxp, P, dt):
-    """The reference suite's cases (tests/test_kernels.py:27-32)."""
+    """The reference suite's cases (tests/test_kernels.py:27-32) and a
+    phi-3-vision case (H 4, KH 4, hd 96, pages of 64), which the Pallas
+    kernel also runs in interpret mode."""
     rng = np.random.RandomState(hash((B, H, KH)) % 2**31)
     j, t = _both(*_case(rng, B, H, KH, hd, psz, maxp, P), dt)
     out = plain(*t)
@@ -213,7 +217,10 @@ def test_engine_routes_decode_only_steps_to_k2(monkeypatch):
     (torch.float32, 16, 8, 2, "fma"),          # the smoke configs
     (torch.bfloat16, 16, 8, 2, "fma"),
     (torch.bfloat16, 128, 16, 1, "fma"),
-    (torch.bfloat16, 96, 64, 1, "fma"),        # phi-3-vision: no tma at 96
+    (torch.bfloat16, 96, 64, 1, "tma"),        # phi-3-vision
+    (torch.bfloat16, 96, 64, 4, "tma"),
+    (torch.float32, 96, 64, 1, "fma"),
+    (torch.bfloat16, 96, 16, 1, "fma"),
 ])
 def test_decode_route(dtype, hd, psz, G, route):
     assert ops.decode_route(dtype, hd, psz, G) == route
@@ -240,33 +247,41 @@ def test_decode_splits_schedule():
     assert splits.tolist() == n.tolist()
 
 
+@pytest.mark.parametrize("hd", [64, 96])
 @pytest.mark.parametrize("seed", range(4))
 @pytest.mark.parametrize("pages_per_split", [1, 2, 3])
-def test_split_form_vs_ref(seed, pages_per_split):
+def test_split_form_vs_ref(seed, pages_per_split, hd):
     """The TMA route's arithmetic (splits, each a partial softmax state
     in log2 units, merged in split order) over random tables with dead
-    pages, an idle lane and a lane whose pages are all dead: against the
-    JAX oracle with ``zero_empty`` off, and with it on, zeros on the
-    lanes without a key and the oracle elsewhere."""
-    rng = np.random.RandomState(200 + seed)
+    pages, an idle lane and a lane whose pages are all dead, at hd 64
+    and at phi-3-vision's 96: against the JAX oracle with
+    ``zero_empty`` off, and with it on, zeros on the lanes without a key
+    and the oracle elsewhere."""
+    rng = np.random.RandomState(200 + seed + hd - 64)
     G, KH = [1, 4, 2, 8][seed], [2, 1][seed % 2]
     psz, maxp = 8, int(rng.randint(3, 7))
     B = 6
     lens = rng.randint(1, maxp * psz + 10, B)
-    q, kp, vp, table, lens = _case(rng, B, G * KH, KH, 64, psz, maxp, 64,
+    q, kp, vp, table, lens = _case(rng, B, G * KH, KH, hd, psz, maxp, 64,
                                    lens)
     table[1] = -1                              # idle
     table[2, :] = -1                           # every live page dead
     table[3, 0] = -1                           # a dead page in a live run
     lens[1] = 0
+    # the lanes with a valid key (lane 3 may have none: its first page
+    # is dead and its length may end inside it)
+    pos = np.arange(maxp * psz)
+    keyed = ((pos[None] < lens[:, None])
+             & (table[:, pos // psz] >= 0)).any(1)
+    assert not keyed[1] and not keyed[2] and keyed[[0, 4, 5]].all()
     for dt in (jnp.float32, jnp.bfloat16):
         j, t = _both(q, kp, vp, table, lens, dt)
         ref = np.asarray(jref(*j), np.float32)
         out = split_plain(*t, False, pages_per_split)
         _close(out, ref, _tol(dt))
         z = split_plain(*t, True, pages_per_split)
-        assert (z[1] == 0).all() and (z[2] == 0).all()
-        _close(z[[0, 3, 4, 5]], ref[[0, 3, 4, 5]], _tol(dt))
+        assert (z[~keyed] == 0).all()
+        _close(z[keyed], ref[keyed], _tol(dt))
 
 
 @pytest.mark.parametrize("dtype,H,KH,hd,psz,route,err", [
@@ -274,21 +289,39 @@ def test_split_form_vs_ref(seed, pages_per_split):
     (torch.bfloat16, 4, 2, 16, 8, "tma", ValueError),       # hd 16, psz 8
     (torch.bfloat16, 48, 16, 128, 64, "tma", ValueError),   # G = 3
     (torch.bfloat16, 16, 16, 128, 64, "wgmma", ValueError),  # no such route
-    (torch.bfloat16, 32, 32, 96, 64, "tma", ValueError),    # phi-3-vision
+    (torch.bfloat16, 32, 32, 80, 64, "tma", ValueError),    # hd 80
 ])
 def test_wrapper_raises_on_what_the_route_does_not_take(dtype, H, KH, hd,
                                                         psz, route, err):
     """K2's kernel wrapper refuses the tma route for inputs it does not
     take, before it looks for a card (nothing falls back to the fma
-    kernel); at hd 96, which K1's wgmma route takes and K2's tma route
-    does not, for the head dim itself; no launch is counted."""
+    kernel); at hd 80, which no Hopper route takes, for the head dim
+    itself; no launch is counted."""
     q = torch.zeros(2, H, hd, dtype=dtype)
     pages = torch.zeros(8, psz, KH, hd, dtype=dtype)
     table = torch.zeros(2, 4, dtype=torch.int32)
     lens = torch.ones(2, dtype=torch.int32)
     before = (ops.paged_attention.launches, dict(ops.paged_attention.routes))
-    with pytest.raises(err, match="takes hd in" if hd == 96 else None):
+    with pytest.raises(err, match="takes hd in" if hd == 80 else None):
         ops.paged_attention_cuda(q, pages, pages.clone(), table, lens,
                                  route=route)
     assert (ops.paged_attention.launches,
             ops.paged_attention.routes) == before
+
+
+def test_k3_wgmma_refuses_hd96():
+    """K3's wgmma route keeps hd 64 and 128 only: at phi-3-vision's hd
+    96, which K1's and K2's Hopper routes take, the verify dispatcher
+    picks ``"fma"`` and the wrapper refuses ``"wgmma"`` for the head dim
+    before it looks for a card; no launch is counted."""
+    assert k3.verify_route(torch.bfloat16, 96, 64, 5, 1) == "fma"
+    q = torch.zeros(2, 5, 4, 96, dtype=torch.bfloat16)
+    pages = torch.zeros(8, 64, 4, 96, dtype=torch.bfloat16)
+    table = torch.zeros(2, 4, dtype=torch.int32)
+    base = torch.ones(2, dtype=torch.int32)
+    before = (k3.verify_attention.launches, dict(k3.verify_attention.routes))
+    with pytest.raises(ValueError, match="takes hd in"):
+        k3.verify_attention_cuda(q, pages, pages.clone(), table, base,
+                                 route="wgmma")
+    assert (k3.verify_attention.launches,
+            k3.verify_attention.routes) == before

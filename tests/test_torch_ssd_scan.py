@@ -160,15 +160,21 @@ def test_bf16_inputs_match_reference_oracle():
     (torch.bfloat16, 200, 64, 64, "wgmma"),    # N 64, several chunks
     (torch.bfloat16, ops.SCAN_WGMMA_MIN_S, 64, 128, "wgmma"),
     (torch.bfloat16, ops.SCAN_WGMMA_MIN_S - 1, 64, 128, "fma"),
-    (torch.bfloat16, 1, 64, 128, "fma"),       # decode
+    (torch.bfloat16, 1, 64, 128, "step"),      # decode
     (torch.float32, 64, 64, 128, "fma"),
     (torch.bfloat16, 64, 16, 16, "fma"),       # the smoke widths
     (torch.bfloat16, 64, 64, 100, "fma"),
     (torch.bfloat16, 64, 48, 128, "fma"),
+    (torch.bfloat16, 1, 64, 64, "step"),       # decode at N 64
+    (torch.bfloat16, 2, 64, 128, "fma"),
+    (torch.float32, 1, 64, 128, "fma"),        # the f32 parity phases
+    (torch.bfloat16, 1, 16, 16, "fma"),        # the smoke widths, decode
+    (torch.float32, 1, 16, 16, "fma"),
 ])
 def test_scan_route(dtype, S, P, N, route):
-    """bf16 at P 64, N 64 or 128 from SCAN_WGMMA_MIN_S tokens on takes
-    the wgmma route; T = 1, float32 and other widths the present one."""
+    """bf16 at P 64, N 64 or 128 takes the step route at one token and
+    the wgmma route from SCAN_WGMMA_MIN_S tokens on; T = 2, float32 and
+    other widths the present one."""
     assert ops.scan_route(dtype, S, P, N) == route
 
 
@@ -279,3 +285,26 @@ def test_wrapper_raises_on_what_the_route_does_not_take(dtype, P, N, route):
             torch.zeros(H), torch.zeros(B, H, P, N))
     with pytest.raises(ValueError, match="route"):
         ops.ssd_scan_cuda(*args, route=route)
+
+
+@pytest.mark.parametrize("dtype,S,P,N", [
+    (torch.bfloat16, 8, 64, 128),              # more than one token
+    (torch.bfloat16, 2, 64, 64),
+    (torch.float32, 1, 64, 128),               # float32: the fma kernel
+    (torch.bfloat16, 1, 16, 16),               # the smoke widths
+    (torch.bfloat16, 1, 64, 100),
+    (torch.float16, 1, 64, 128),               # a dtype it lacks
+])
+def test_step_wrapper_raises_on_what_it_does_not_take(dtype, S, P, N):
+    """The step route takes one token of bf16 x, B and C at P 64 and N
+    64 or 128: anything else raises before the wrapper looks for a
+    card, and no launch is counted."""
+    B, H = 2, 2
+    x = torch.zeros(B, S, H, P, dtype=dtype)
+    Bm = torch.zeros(B, S, N, dtype=dtype)
+    args = (x, torch.zeros(B, S, H), torch.zeros(H), Bm, Bm.clone(),
+            torch.zeros(H), torch.zeros(B, H, P, N))
+    before = (ops.ssd_scan.launches, dict(ops.ssd_scan.routes))
+    with pytest.raises(ValueError, match="step route"):
+        ops.ssd_scan_cuda(*args, route="step")
+    assert (ops.ssd_scan.launches, ops.ssd_scan.routes) == before

@@ -1,5 +1,6 @@
-"""Do two checkouts' builds of K6's kernels and K5's ``seq`` kernel give
-the same bits?  Run on an H100, once with each checkout's ``src``:
+"""Do two checkouts' builds of K6's kernels, K5's ``seq`` kernel and
+K2's ``tma`` route give the same bits?  Run on an H100, once with each
+checkout's ``src``:
 
     python3 tools/kernel_bits.py --src /path/to/other/src --save bits.pt
     python3 tools/kernel_bits.py --compare bits.pt
@@ -9,7 +10,10 @@ this checkout's) into that checkout's build directory and runs them on
 the same inputs, drawn from a seed with numpy: K6's forward on each of
 its kernels (bf16 at hd 128 and 64, hd 16, float32), its backward on
 the ``mma.sync`` and float32 kernels of ``flash_attention_bwd.cu`` (bf16
-at hd 16, 64 and 128; float32 at hd 16, 64 and 128), and K5 at T = 1.
+at hd 16, 64 and 128; float32 at hd 16, 64 and 128), K5 at T = 1, and
+K2's ``tma`` route at hd 64 and 128 with G 1, 2, 4 and 8 (contexts of
+1-1,023 tokens, an idle lane and a dead page; ``zero_empty`` off and
+on).
 ``--save`` writes the outputs; ``--compare`` holds them bit for bit
 against a saved file, prints one line a case, and exits 1 if any
 differs.  Prints the card's name and power limit first.
@@ -27,6 +31,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
+#: K2's tma cases: (H, KH, hd)
+K2_CASES = [(16, 16, 128), (32, 8, 64), (32, 16, 128), (64, 8, 128)]
 #: K6's cases: (dtype, B, H, KH, S, hd, causal)
 K6_CASES = [("bfloat16", 2, 8, 4, 300, 128, True),
             ("bfloat16", 2, 4, 1, 200, 64, False),
@@ -39,6 +45,7 @@ K6_CASES = [("bfloat16", 2, 8, 4, 300, 128, True),
 def outputs(seed: int) -> dict:
     """Every case's outputs, on the CPU, by name."""
     from repro_torch.kernels.flash_attention import ops as k6
+    from repro_torch.kernels.paged_attention import ops as k2
     from repro_torch.kernels.rg_lru import ops as k5
 
     rng = np.random.RandomState(seed)
@@ -70,6 +77,24 @@ def outputs(seed: int) -> dict:
     route = {"route": "seq"} if hasattr(k5, "lru_route") else {}
     hs = k5.rg_lru_cuda(a, b, h, **route)          # h updated in place
     out["K5 T=1 B=8 d=2560 hs"], out["K5 T=1 B=8 d=2560 h"] = hs, h
+    B, maxp, P = 8, 16, 160
+    for H, KH, hd in K2_CASES:
+        lens = rng.randint(1, maxp * 64, B).astype(np.int32)
+        table = np.full((B, maxp), -1, np.int32)
+        avail = list(rng.permutation(P))
+        for b in range(B):
+            for i in range(-(-int(lens[b]) // 64)):
+                table[b, i] = avail.pop()
+        table[1] = -1                  # idle: no valid key
+        table[2, 0] = -1               # a dead page in a live run
+        q = f(B, H, hd, dtype=torch.bfloat16)
+        kp, vp = (f(P, 64, KH, hd, dtype=torch.bfloat16) for _ in range(2))
+        tbl = torch.from_numpy(table).cuda()
+        sl = torch.from_numpy(lens).cuda()
+        for zero_empty in (False, True):
+            out[f"K2 tma H={H} KH={KH} hd={hd} zero_empty={zero_empty}"] = (
+                k2.paged_attention_cuda(q, kp, vp, tbl, sl, zero_empty,
+                                        "tma"))
     torch.cuda.synchronize()
     return {n: t.cpu() for n, t in out.items()}
 

@@ -130,7 +130,7 @@ def main() -> int:
     build.load_all(("paged_attention", "paged_attention_wgmma",
                     "paged_decode", "paged_decode_tma", "verify_attention",
                     "verify_attention_wgmma", "ssd_scan", "ssd_scan_wgmma",
-                    "rg_lru", "rg_lru_tma", "flash_attention",
+                    "ssd_step", "rg_lru", "rg_lru_tma", "flash_attention",
                     "flash_attention_bwd", "flash_attention_bwd_wgmma"))
     counted = {"K1": ops.paged_attention_chunk, "K2": ops.paged_attention,
                "K3": k3.verify_attention, "K4": k4.ssd_scan,
