@@ -299,10 +299,41 @@ Phases, each printed on its own line (any failure fails the run):
    are the plane's correctness gates; (b)'s bf16 near-tie allowance
    makes it a smoke check.
 
+21. the dry run of phase 12's step and ``core/kv_cache.py`` on the
+   card.
+
+22. phi-3-vision-4.2b and whisper-tiny training at full width through
+   ``build_step`` (bf16 parameters from ``--seed``, float32 AdamW, remat
+   on): (e) first, phase 3's checks of K6's backward at hd 96 (bf16 on
+   its wgmma route over tiles padded to two 64-column atoms, float32 on
+   FMAs; causal and bidirectional, G 1 and 2, S 640 and 700, and bf16 at
+   phi-3-vision's training shape B 4, H 32, S 2,048, causal),
+   bidirectional at whisper-tiny's encoder shape (B 8, H 6, S 1,500, hd
+   64) and causal at its decoder's (B 8, H 6, S 448); (a) phi-3-vision
+   at its published widths, 32 layers, 4 x (576 image positions drawn on
+   the card + 1,472 text tokens), a warm-up and 5 steps: finite losses,
+   K6 forward 64 and backward 32 launches a step, all on the wgmma route
+   at hd 96, no other kernel, one synchronizing call a step; ms a step,
+   text tokens a second, peak memory, the model-flops share; (b)
+   ``launch.train.main`` for phi-3-vision, text only, 3 steps of 2 x 512
+   tokens, at the deepest depth whose two checkpoints (the trainer's
+   whole state) fit the free disk, the run's disk-write budget and the
+   host's available memory (both held there at once), each printed:
+   finite losses, the backward on wgmma; (c) whisper-tiny, 4 encoder and
+   4 decoder layers, 8 x 448 tokens beside 8 x 1,500 frames: the checks
+   of (a), K6 forward 8 bidirectional and 8 causal launches a step, its
+   backward 4 and 4; (d) phi-3-vision in float32 at full width cut to 2
+   layers, 1 x (576 + 128) positions: the loss and every gradient leaf
+   on the card within 1e-3 of its scale from the CPU's (K6's float32
+   backward at hd 96); (f) K6's backward at phi-3-vision's training
+   shape (B 4, H 32, S 2,048, hd 96, causal), at S 640 and at
+   whisper-tiny's encoder shape, each beside its bound, its plain
+   version and SDPA's backward.
+
 Every phase prints its seconds.  ``--profile`` serves the workloads of
-phases 5, 9 and 10 again, and
-runs two more training steps in phases 12 and 18, under ``torch.profiler``,
-and prints where a step's time goes.  The last line is ``{"ok": true,
+phases 5, 9 and 10 again, and runs two more training steps in phases
+12, 18 and 22, under ``torch.profiler``, and prints where a step's
+time goes.  The last line is ``{"ok": true,
 "device": {...}}``.  Without a CUDA device, or without the rest of the
 repository beside it, the script exits with a non-zero code and prints
 no result.
@@ -312,6 +343,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -2450,11 +2482,12 @@ def k6_inputs(rng, B, H, KH, S, hd, dtype, grad=False):
     return [t.requires_grad_(grad) for t in (q, k, f(B, KH, S, hd))]
 
 
-def check_k6_twin(k6, q, k, v, do, causal, got, name):
-    """Phase 3: the wgmma backward's gradients ``got`` against its walk
-    in float32 with P and dS rounded to bf16 where the kernels round
-    them (``ref.flash_attention_bwd_tiled_ref``), each row held to its
-    own scale (``ref.row_scaled_err``) within ``ref.BWD_ROW_TOL``; and
+def check_k6_twin(k6, q, k, v, do, causal, got, name, tag="[3]"):
+    """Phases 3 and 22 (e): the wgmma backward's gradients ``got``
+    against its walk in float32 with P and dS rounded to bf16 where the
+    kernels round them (``ref.flash_attention_bwd_tiled_ref``), each
+    row held to its own scale (``ref.row_scaled_err``) within
+    ``ref.BWD_ROW_TOL``; and
     two controls of the walk, the last query tile's pair with the key
     tile before it dropped and delta left out, above that limit, so a
     fault confined to late tiles would fail the check.  Returns the
@@ -2482,13 +2515,66 @@ def check_k6_twin(k6, q, k, v, do, causal, got, name):
     check(min(ctrl.values()) > BWD_ROW_TOL,
           f"K6 gradient {name}: the walk's controls lie beyond "
           f"{BWD_ROW_TOL:g} ({ctrl})")
-    phase(f"[3] K6 gradient {name}, wgmma route vs its walk with bf16 P "
+    phase(f"{tag} K6 gradient {name}, wgmma route vs its walk with bf16 P "
           f"and dS, row-scaled: dq {sound[0]:.3e}, dk {sound[1]:.3e}, dv "
           f"{sound[2]:.3e} (limit {BWD_ROW_TOL:g}); controls: "
           + ", ".join(f"{c} {e:.3e}" for c, e in ctrl.items()))
     del twin, controls
     torch.cuda.empty_cache()
     return max(sound), min(ctrl.values())
+
+
+def check_k6_grad(k6, rng, name, dt, B, H, KH, S, hd, causal, tag="[3]"):
+    """Phases 3 and 22 (e): K6's gradient through the autograd Function
+    the model calls, its backward on the route ``ops.backward_route``
+    picks (counted once, on that route), against autograd through the
+    plain version at the dtype's ``TOL`` (bf16 at 6e-2: the kernels
+    round P and dS to bf16 as the A operand of their products, and both
+    read o rounded to bf16 in rowsum(dO * O)); the wgmma route also
+    against its walk (:func:`check_k6_twin`); a second call bit-equal.
+    Returns the largest error of dq, dk and dv, and for the wgmma route
+    the walk's reading and its smaller control (else None)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    q, k, v = k6_inputs(rng, B, H, KH, S, hd, dt, grad=True)
+    do = torch.from_numpy(rng.randn(B, H, S, hd).astype(np.float32)).to(
+        "cuda", dt)
+    route = k6.backward_route(dt, hd)
+    before = (k6.flash_attention.launches, k6.flash_attention_bwd.launches,
+              k6.flash_attention_bwd.routes[route])
+    got = torch.autograd.grad(k6.flash_attention(q, k, v, causal),
+                              (q, k, v), do)
+    torch.cuda.synchronize()
+    check((k6.flash_attention.launches, k6.flash_attention_bwd.launches,
+           k6.flash_attention_bwd.routes[route])
+          == (before[0] + 1, before[1] + 1, before[2] + 1),
+          f"K6 gradient {name}: one forward and one backward launch, "
+          f"the backward on its {route} route")
+    want = torch.autograd.grad(flash_attention_ref(q, k, v, causal),
+                               (q, k, v), do)
+    errs = []
+    for what, a, b in zip(("dq", "dk", "dv"), got, want):
+        check(a.dtype == dt, f"K6 gradient {name} {what}: dtype")
+        torch.testing.assert_close(
+            a.float(), b.float(), atol=TOL[dt], rtol=TOL[dt],
+            msg=lambda m, n=name, w=what: f"K6 gradient {n} {w}: {m}")
+        errs.append((a.float() - b.float()).abs().max().item())
+    del want
+    again = torch.autograd.grad(k6.flash_attention(q, k, v, causal),
+                                (q, k, v), do)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"K6 gradient {name}: two backward calls bit-equal")
+    del again
+    phase(f"{tag} K6 gradient {name} B={B} H={H} KH={KH} S={S} hd={hd} "
+          f"{'causal' if causal else 'bidirectional'}, backward "
+          f"kernels ({route} route): max_abs_err dq {errs[0]:.3e}, dk "
+          f"{errs[1]:.3e}, dv {errs[2]:.3e} (tol {TOL[dt]:g}); a second "
+          f"call bit-equal")
+    twin = (check_k6_twin(k6, q, k, v, do, causal, got, name, tag)
+            if route == "wgmma" else None)
+    del got
+    torch.cuda.empty_cache()
+    return max(errs), twin
 
 
 def check_k6(k6, rng):
@@ -2544,12 +2630,10 @@ def check_k6(k6, rng):
     check(all(n > 0 for n in ran.values()),
           f"K6: every forward kernel launched ({ran})")
     # the backward kernels against the gradient of the plain version;
-    # bf16 at 6e-2: the kernels round P and dS to bf16 as the A operand
-    # of their products, and both read o rounded to bf16 in rowsum(dO *
-    # O).  bf16 at hd 64 and 128 takes the wgmma route, hd 16 the
-    # mma.sync kernels, float32 the FMA kernels.
+    # bf16 at hd 64 and 128 takes the wgmma route, hd 16 the mma.sync
+    # kernels, float32 the FMA kernels (check_k6_grad)
     bwd_routes = dict(k6.flash_attention_bwd.routes)
-    for name, dt, B, H, KH, S, hd, causal in (
+    for case in (
             ("smoke f32", f32, 2, 4, 2, 64, 16, True),
             ("S=200 f32 bidirectional", f32, 2, 4, 2, 200, 64, False),
             ("S=1024 bf16", bf, 1, 16, 16, 1024, 128, True),
@@ -2562,44 +2646,10 @@ def check_k6(k6, rng):
             ("S=130 bf16 (a key tile past 128)", bf, 1, 2, 2, 130, 128,
              True),
             ("hd=16 bf16 bidirectional", bf, 2, 4, 1, 77, 16, False)):
-        q, k, v = k6_inputs(rng, B, H, KH, S, hd, dt, grad=True)
-        do = torch.from_numpy(rng.randn(B, H, S, hd).astype(np.float32)).to(
-            "cuda", dt)
-        route = k6.backward_route(dt, hd)
-        before = (k6.flash_attention.launches,
-                  k6.flash_attention_bwd.launches,
-                  k6.flash_attention_bwd.routes[route])
-        got = torch.autograd.grad(k6.flash_attention(q, k, v, causal),
-                                  (q, k, v), do)
-        torch.cuda.synchronize()
-        check((k6.flash_attention.launches, k6.flash_attention_bwd.launches,
-               k6.flash_attention_bwd.routes[route])
-              == (before[0] + 1, before[1] + 1, before[2] + 1),
-              f"K6 gradient {name}: one forward and one backward launch, "
-              f"the backward on its {route} route")
-        want = torch.autograd.grad(flash_attention_ref(q, k, v, causal),
-                                   (q, k, v), do)
-        errs = []
-        for what, a, b in zip(("dq", "dk", "dv"), got, want):
-            check(a.dtype == dt, f"K6 gradient {name} {what}: dtype")
-            torch.testing.assert_close(
-                a.float(), b.float(), atol=TOL[dt], rtol=TOL[dt],
-                msg=lambda m, n=name, w=what: f"K6 gradient {n} {w}: {m}")
-            errs.append((a.float() - b.float()).abs().max().item())
-        again = torch.autograd.grad(k6.flash_attention(q, k, v, causal),
-                                    (q, k, v), do)
-        check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"K6 gradient {name}: two backward calls bit-equal")
-        phase(f"[3] K6 gradient {name} B={B} H={H} KH={KH} S={S} hd={hd} "
-              f"{'causal' if causal else 'bidirectional'}, backward "
-              f"kernels ({route} route): max_abs_err dq {errs[0]:.3e}, dk "
-              f"{errs[1]:.3e}, dv {errs[2]:.3e} (tol {TOL[dt]:g}); a second "
-              f"call bit-equal")
-        if route == "wgmma":
-            worst_bwd = max(worst_bwd, *errs)
-            r, c = check_k6_twin(k6, q, k, v, do, causal, got, name)
-            row, ctrl = max(row, r), min(ctrl, c)
-        del got, want, again
+        err, twin = check_k6_grad(k6, rng, *case)
+        if twin is not None:
+            worst_bwd = max(worst_bwd, err)
+            row, ctrl = max(row, twin[0]), min(ctrl, twin[1])
     ran = {r: n - bwd_routes[r]
            for r, n in k6.flash_attention_bwd.routes.items()}
     check(all(n > 0 for n in ran.values()),
@@ -2792,19 +2842,75 @@ def check_train_loop(cfg_smoke, seed):
           f"{[failed[0][i] for i in range(5)]} == the uninterrupted run's")
 
 
+def train_flops(cfg, batch, text):
+    """Model flops of one training step of ``batch`` sequences of
+    ``text`` tokens: 6 for each matmul parameter and each position it
+    acts on (the input embedding is a lookup; the output head acts on
+    the text positions alone, as ``model.py::loss_fn`` takes the loss;
+    an encoder's layers and the decoder's cross-attention K and V on the
+    encoder's frames; every other parameter on the decoder's positions,
+    a VLM's image positions among them), and the attention products
+    forward and backward, 12 B H hd a visible (query, key) pair: the
+    decoder's causal self-attention, an encoder's bidirectional layers
+    and the decoder's cross-attention over the frames.  Returns (flops,
+    the decoder's positions a sequence)."""
+    import math
+
+    from repro_torch.models.transformer import model_defs
+
+    encdec = cfg.arch_kind == "encdec"
+    enc = cfg.enc_len if encdec else 0
+    dec = text + (cfg.img_tokens if cfg.arch_kind == "vlm" else 0)
+
+    def walk(tree, path):
+        for key, d in tree.items():
+            if isinstance(d, dict):
+                yield from walk(d, f"{path}/{key}")
+            else:
+                yield f"{path}/{key}", math.prod(d.shape)
+
+    mm = 0
+    for path, n in walk(model_defs(cfg), ""):
+        on_frames = (path.startswith(("/encoder/", "/enc_final_norm/"))
+                     or path.endswith(("/xattn/wk", "/xattn/wv")))
+        mm += n * (0 if path == "/embed/tok" else
+                   text if path == "/embed/lm_head" else
+                   enc if on_frames else dec)
+    n_self = sum(1 for k in cfg.layer_kinds if k == "global")
+    pairs = n_self * dec * (dec + 1) // 2
+    if encdec:
+        pairs += cfg.enc_layers * enc * enc + cfg.n_layers * dec * enc
+    return 6 * batch * mm + 12 * batch * cfg.n_heads * cfg.hd * pairs, dec
+
+
 def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
-                     profile=False):
-    """Phase 12: olmo-1b at full width through ``build_step``: a warm-up
-    step, then ``steps`` steps with the kernels' launch counts zeroed
-    just before and read just after; with ``profile``, two more steps
-    under the profiler.  Returns the run's numbers."""
+                     profile=False, tag="[12]", turns=True):
+    """Phases 12 and 22 (a), (c): ``cfg`` through ``build_step`` (bf16
+    parameters from ``seed``, float32 AdamW mu, nu and master, remat
+    on): a warm-up step, then ``steps`` steps with the kernels' launch
+    counts zeroed just before and read just after.  A sequence is
+    ``seq`` text tokens of the trainer's ``TokenStream``, after a VLM's
+    image patch embeddings [img_tokens, d] or beside an
+    encoder-decoder's frame embeddings [enc_len, d], both drawn on the
+    card from ``seed`` (data loading is set-up).  K6 must launch twice
+    a global attention layer a step (the forward, and its recomputation
+    under remat), causal in the decoder and bidirectional in an
+    encoder, its backward once a layer, all on the route of the model's
+    dtype and hd, and no other kernel; one synchronizing call a step.
+    With ``turns`` (phase 12), the backward's bf16 routes in turns
+    after the counted run; with ``profile``, two more steps under the
+    profiler.  Returns the run's numbers."""
     from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.kernels.flash_attention import ops as k6
     from repro_torch.launch.train import build_step
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.model import count_params, init_params
     from repro_torch.optim import adamw
 
+    gc.collect()                    # earlier phases' engines and caches
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=seed, device="cuda")
     state = (params, adamw.init(params), None)
@@ -2816,26 +2922,42 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     state_bytes = sum(t.numel() * t.element_size() for t in
                       tree_leaves(params) + [opt.step] + tree_leaves(opt.mu)
                       + tree_leaves(opt.nu) + tree_leaves(opt.master))
-    tag = f"[12] {cfg.name}"
+    tag = f"{tag} {cfg.name}"
+    encdec = cfg.arch_kind == "encdec"
+    rows = (cfg.enc_len if encdec else cfg.img_tokens
+            if cfg.arch_kind == "vlm" else 0)
+    name = "enc_embeds" if encdec else "img_embeds"
+    inputs = (f", {name} [{batch}, {rows}, {cfg.d_model}] drawn on the card"
+              if rows else "")
     phase(f"{tag} params: {n_params} ({cfg.dtype}; AdamW mu, nu and master "
           f"float32), init {time.perf_counter() - t0:.1f} s; batch {batch} "
-          f"x {seq} tokens (one micro-batch), {cfg.n_layers} layers")
+          f"x {seq} tokens (one micro-batch){inputs}, {cfg.n_layers} "
+          f"layers{f' + {cfg.enc_layers} encoder layers' if encdec else ''}")
     stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=seq,
                                     global_batch=batch, seed=0))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     # data loading is set-up: every batch on the card before the steps
-    batches = [{k: torch.from_numpy(a).cuda() for k, a in
-                stream.batch_at(i).items()} for i in range(steps + 1)]
+    batches = [{**{k: torch.from_numpy(a).cuda() for k, a in
+                   stream.batch_at(i).items()},
+                **({name: torch.randn(batch, rows, cfg.d_model,
+                                      generator=gen, device="cuda")}
+                   if rows else {})} for i in range(steps + 1)]
     step_fn = build_step(cfg, adamw.AdamWConfig(warmup_steps=10,
                                                 decay_steps=steps + 1))
     state, m = step_fn(state, batches[0])           # warm-up, not counted
     losses = [float(m["loss"])]
-    n_global = sum(1 for k in cfg.layer_kinds if k == "global")
-    expected = 2 * n_global
-    phase(f"{tag}: K6 launches expected {expected} a step = {n_global} "
-          f"global layers x 2 (the forward, and its recomputation in the "
-          f"backward pass: remat=True puts each one-layer pattern group "
-          f"under torch.utils.checkpoint), and {n_global} K6 backward "
-          f"launches")
+    n_dec = sum(1 for k in cfg.layer_kinds if k == "global")
+    n_enc = cfg.enc_layers if encdec else 0
+    route = k6.forward_route(cfg.tdtype, cfg.hd)
+    masks = {"causal": n_dec, "bidirectional": n_enc}
+    expected, n_bwd = 2 * (n_dec + n_enc), n_dec + n_enc
+    phase(f"{tag}: K6 launches expected {expected} a step = "
+          f"{n_dec + n_enc} global layers x 2 (the forward, and its "
+          f"recomputation in the backward pass: remat=True puts each "
+          f"one-layer pattern group{' and encoder layer' if n_enc else ''}"
+          f" under torch.utils.checkpoint), and {n_bwd} K6 backward "
+          f"launches, by mask {masks} x (2, 1), all on the {route} route "
+          f"(bf16 at hd {cfg.hd})")
     # the main path's run: counts zeroed just before, read just after
     zero_counts(counted)
     syncs = []
@@ -2858,61 +2980,68 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     peak = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(losses)), f"{tag}: finite losses {losses}")
     k6_bwd = launches["K6 backward"]
-    check(launches["K6"] == expected * steps and k6_bwd == n_global * steps
+    by = {what: (dict(counted[k].routes), dict(counted[k].masks))
+          for what, k in (("forward", "K6"), ("backward", "K6 backward"))}
+    check(launches["K6"] == expected * steps and k6_bwd == n_bwd * steps
           and sum(launches.values()) == launches["K6"] + k6_bwd,
           f"{tag}: K6 launched {expected} times a step, its backward "
-          f"{n_global} times, and no other kernel ran ({launches}, {steps} "
+          f"{n_bwd} times, and no other kernel ran ({launches}, {steps} "
           f"steps)")
-    bwd_routes = dict(counted["K6 backward"].routes)
-    check(bwd_routes["wgmma"] == k6_bwd,
-          f"{tag}: every K6 backward launch on the wgmma route "
-          f"({bwd_routes})")
+    for what, (routes, got) in by.items():
+        n = 2 * steps if what == "forward" else steps
+        check(routes[route] == sum(routes.values())
+              and got == {k: n * v for k, v in masks.items()},
+              f"{tag}: every K6 {what} launch on the {route} route, "
+              f"{n} x {masks} by mask ({routes}, {got})")
     check(all(len(s) == 1 for s in syncs),
           f"{tag}: one device-to-host transfer a step (the loss): {syncs}")
     ms = 1e3 * wall / steps
     tokens = batch * seq
-    H, hd, L = cfg.n_heads, cfg.hd, n_global
-    # 6 N per token for the matmul parameters (the input embedding is a
-    # lookup), and the causal attention products forward and backward
-    n_mm = n_params - cfg.vocab * cfg.d_model
-    flops = 6 * n_mm * tokens + 6 * batch * H * hd * seq * (seq + 1) * L
+    flops, positions = train_flops(cfg, batch, seq)
     mfu = flops / (ms / 1e3) / PEAK_OPS[torch.bfloat16]
     phase(f"{tag}: losses {losses} (the first the warm-up step's); K6 "
           f"launches {launches['K6']} = {expected} x {steps} steps, K6 "
-          f"backward {k6_bwd} = {n_global} x {steps} (by route "
-          f"{bwd_routes}), other kernels "
-          f"{sum(launches.values()) - launches['K6'] - k6_bwd}; "
+          f"backward {k6_bwd} = {n_bwd} x {steps} (forward by route and "
+          f"mask {by['forward']}, backward {by['backward']}), other "
+          f"kernels {sum(launches.values()) - launches['K6'] - k6_bwd}; "
           f"synchronizing calls a step under sync-debug mode: "
           f"{[len(s) for s in syncs]} {syncs[0]}")
+    where = (f" ({positions} positions a sequence, {cfg.img_tokens} of them "
+             f"image positions)" if positions != seq else
+             f" (beside {cfg.enc_len} frames a sequence)" if encdec else "")
     phase(f"{tag} on {smi}: {ms:.1f} ms a step, {tokens / (ms / 1e3):.0f} "
-          f"tokens/s, peak memory {peak / 2**30:.2f} GiB "
-          f"(max_memory_allocated), model flops {flops:.4e} a step "
-          f"(6 N_matmul tokens + attention), {100 * mfu:.1f}% of the card's "
-          f"989 TFLOP/s bf16 peak")
-    # the backward on each of its bf16 routes in turns (wgmma, mma, mma,
-    # wgmma), ``steps`` steps a turn, after the counted run: the step's
-    # share of the kernel's gain, read on one card
-    from repro_torch.kernels.flash_attention import ops as k6
-
-    backward_route, turns = k6.backward_route, []
-    try:
-        for route in ("wgmma", "mma", "mma", "wgmma"):
-            k6.backward_route = lambda dtype, hd, r=route: r
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(1, steps + 1):
-                state, m = step_fn(state, batches[i])
-                check(np.isfinite(float(m["loss"])),
-                      f"{tag} ({route} backward): finite loss")
-            turns.append(1e3 * (time.perf_counter() - t0) / steps)
-    finally:
-        k6.backward_route = backward_route
-    ab = {"wgmma": (turns[0] + turns[3]) / 2, "mma": (turns[1] + turns[2]) / 2}
-    phase(f"{tag} on {smi}, the backward's routes in turns wgmma, mma, mma, "
-          f"wgmma ({steps} steps each): "
-          f"{', '.join(f'{t:.1f}' for t in turns)} ms a step; wgmma "
-          f"{ab['wgmma']:.1f}, mma {ab['mma']:.1f}, difference "
-          f"{ab['mma'] - ab['wgmma']:.1f} ms a step")
+          f"{'text ' if rows else ''}tokens/s{where}, peak memory "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated; "
+          f"{held / 2**30:.2f} GiB held before the phase; the card "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} "
+          f"GiB), model flops {flops:.4e} a step (6 N_matmul positions + "
+          f"attention: train_flops), {100 * mfu:.1f}% of the card's 989 "
+          f"TFLOP/s bf16 peak")
+    turns_ms = []
+    if turns:
+        # the backward on each of its bf16 routes in turns (wgmma, mma,
+        # mma, wgmma), ``steps`` steps a turn, after the counted run: the
+        # step's share of the kernel's gain, read on one card
+        backward_route = k6.backward_route
+        try:
+            for r in ("wgmma", "mma", "mma", "wgmma"):
+                k6.backward_route = lambda dtype, hd, r=r: r
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for i in range(1, steps + 1):
+                    state, m = step_fn(state, batches[i])
+                    check(np.isfinite(float(m["loss"])),
+                          f"{tag} ({r} backward): finite loss")
+                turns_ms.append(1e3 * (time.perf_counter() - t0) / steps)
+        finally:
+            k6.backward_route = backward_route
+        ab = {"wgmma": (turns_ms[0] + turns_ms[3]) / 2,
+              "mma": (turns_ms[1] + turns_ms[2]) / 2}
+        phase(f"{tag} on {smi}, the backward's routes in turns wgmma, mma, "
+              f"mma, wgmma ({steps} steps each): "
+              f"{', '.join(f'{t:.1f}' for t in turns_ms)} ms a step; wgmma "
+              f"{ab['wgmma']:.1f}, mma {ab['mma']:.1f}, difference "
+              f"{ab['mma'] - ab['wgmma']:.1f} ms a step")
     if profile:
         def run():
             nonlocal state
@@ -2922,12 +3051,15 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
             return 2
 
         profiled(run, f"{tag} [p]")
-    del state, params, batches
+    del state, params, batches, opt
+    gc.collect()
     torch.cuda.empty_cache()
     return dict(launches=launches["K6"], bwd_launches=k6_bwd, steps=steps,
-                ms=ms, mfu=mfu, turns_ms=turns,
-                tok_s=tokens / (ms / 1e3), peak=peak, losses=losses,
-                state_bytes=state_bytes, batch=batch, seq=seq)
+                ms=ms, mfu=mfu, turns_ms=turns_ms, flops=flops,
+                tok_s=tokens / (ms / 1e3), peak=peak, held=held,
+                losses=losses, state_bytes=state_bytes, batch=batch,
+                seq=seq, positions=positions, n_layers=cfg.n_layers,
+                by_route_and_mask=by)
 
 
 def attention_pairs(S, window):
@@ -3203,90 +3335,97 @@ def prefill_full_width(tag, tengine, counted, cfg, seed, n_prompts,
     return dict(err=err, floor=floor, same=same, ties=ties, wall=wall)
 
 
-def time_k6(k6, rng, cfg, B=4, S=2048):
-    """Phase 13: K6's forward and backward kernels at the training shape
-    (bf16, causal, q and k strided views as the training step passes
-    them), each beside its bound, its plain version and the library
-    call (SDPA with ``is_causal``; its backward through
-    ``torch.autograd.grad``).  Four sets of inputs (134 MB each) cycle,
-    so each call reads its inputs from HBM as a layer of the step
-    does."""
+def time_k6(k6, rng, H, KH, hd, B=4, S=2048, causal=True, fwd=True,
+            present="mma"):
+    """Phases 13 and 22 (f): K6's backward kernels (and with ``fwd`` its
+    forward) at one shape (bf16, q and k strided views as the training
+    step passes them), each beside its bound, its plain version and the
+    library call (SDPA, causal or not; its backward through
+    ``torch.autograd.grad``).  Four sets of inputs cycle, so each call
+    reads its inputs from HBM as a layer of the step does.  ``present``:
+    the backward route the default one replaced, timed on the same
+    inputs in turns (default, present, present, default)."""
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_fwd_ref)
 
-    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     gen = torch.Generator(device="cuda").manual_seed(int(rng.randint(2**31)))
     f = lambda *shape: torch.randn(  # noqa: E731
         shape, generator=gen, device="cuda").to(torch.bfloat16)
     sets = [(f(B, S, H, hd).transpose(1, 2), f(B, S, KH, hd).transpose(1, 2),
              f(B, KH, S, hd)) for _ in range(4)]
     it = iter(range(10 ** 9))
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention,
+                             is_causal=causal, enable_gqa=KH != H)
 
     def kern():
-        k6.flash_attention_cuda(*sets[next(it) % 4])
+        k6.flash_attention_cuda(*sets[next(it) % 4], causal)
 
     def ref():
-        flash_attention_fwd_ref(*sets[next(it) % 4])
+        flash_attention_fwd_ref(*sets[next(it) % 4], causal)
 
     def lib():
-        torch.nn.functional.scaled_dot_product_attention(
-            *sets[next(it) % 4], is_causal=True)
+        sdpa(*sets[next(it) % 4])
 
     saved = []
     for q, k, v in sets:
-        o, lse = k6.flash_attention_cuda(q, k, v)
+        o, lse = k6.flash_attention_cuda(q, k, v, causal)
         saved.append((q, k, v, o, lse, torch.randn_like(o)))
 
     def bwd():
-        k6.flash_attention_bwd_cuda(*saved[next(it) % 4])
+        k6.flash_attention_bwd_cuda(*saved[next(it) % 4], causal)
 
     def bwd_present():
-        # the mma.sync kernels the wgmma route replaced, same inputs
-        k6.flash_attention_bwd_cuda(*saved[next(it) % 4], True, "mma")
+        # the kernels the default route replaced, same inputs
+        k6.flash_attention_bwd_cuda(*saved[next(it) % 4], causal, present)
 
     def bwd_ref():
-        flash_attention_bwd_ref(*saved[next(it) % 4])
+        flash_attention_bwd_ref(*saved[next(it) % 4], causal)
 
     # SDPA's backward alone: its graph kept, the gradient asked again
     graphs = []
     for q, k, v in sets[:2]:
         q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-        o = torch.nn.functional.scaled_dot_product_attention(q, k, v,
-                                                             is_causal=True)
+        o = sdpa(q, k, v)
         graphs.append((o, (q, k, v), torch.randn_like(o)))
 
     def bwd_lib():
         torch.autograd.grad(*graphs[next(it) % 2], retain_graph=True)
 
-    ms, host_ms = cuda_ms(kern, iters=32)
-    plain_ms, _ = cuda_ms(ref, iters=4, warmup=1)
-    library_ms, _ = cuda_ms(lib, iters=32)
-    # the backward's two routes in turns: wgmma, mma, mma, wgmma
-    turns = [cuda_ms(fn, iters=16) for fn in (bwd, bwd_present, bwd_present,
-                                              bwd)]
-    b_ms, b_host_ms = (sum(x) / 2 for x in zip(turns[0], turns[3]))
-    present = {"present_ms": (turns[1][0] + turns[2][0]) / 2,
-               "present_host_ms": (turns[1][1] + turns[2][1]) / 2,
-               "turns_ms": [t[0] for t in turns]}
-    b_plain_ms, _ = cuda_ms(bwd_ref, iters=4, warmup=1)
-    b_library_ms, _ = cuda_ms(bwd_lib, iters=16)
-    q, k, _ = sets[0]
-    out = {}
-    for name, t, nbytes, nflops in (
-            ("fwd", (ms, host_ms, plain_ms, library_ms),
-             k6.bound_bytes(q, k), k6.flops(q)),
-            ("bwd", (b_ms, b_host_ms, b_plain_ms, b_library_ms),
-             k6.bound_bytes_bwd(q, k), k6.flops_bwd(q))):
+    out, q, k = {}, sets[0][0], sets[0][1]
+    timed = [("bwd", bwd, bwd_ref, bwd_lib, k6.bound_bytes_bwd(q, k),
+              k6.flops_bwd(q, causal))]
+    if fwd:
+        timed.insert(0, ("fwd", kern, ref, lib, k6.bound_bytes(q, k),
+                         k6.flops(q, causal)))
+    for name, fn, plain, library, nbytes, nflops in timed:
+        if name == "bwd" and present is not None:
+            # the backward's two routes in turns: default, present,
+            # present, default
+            turns = [cuda_ms(g, iters=16) for g in (fn, bwd_present,
+                                                     bwd_present, fn)]
+            ms, host_ms = (sum(x) / 2 for x in zip(turns[0], turns[3]))
+            out["present"] = {
+                "present_ms": (turns[1][0] + turns[2][0]) / 2,
+                "present_host_ms": (turns[1][1] + turns[2][1]) / 2,
+                "turns_ms": [t[0] for t in turns]}
+        else:
+            ms, host_ms = cuda_ms(fn, iters=32 if name == "fwd" else 16)
+        plain_ms, _ = cuda_ms(plain, iters=4, warmup=1)
+        library_ms, _ = cuda_ms(library, iters=32 if name == "fwd" else 16)
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
         ops_ms = 1e3 * nflops / PEAK_OPS[torch.bfloat16]
-        out[name] = dict(zip(("ms", "host_ms", "plain_ms", "library_ms"), t),
+        out[name] = dict(ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+                         library_ms=library_ms,
                          bound_ms=max(bytes_ms, ops_ms),
                          bound_by="bytes" if bytes_ms >= ops_ms
                          else "operations", bytes=nbytes, flops=nflops)
-    out["bwd"].update(present)
+    out["bwd"].update(out.pop("present", {}))
     del sets, saved, graphs
     torch.cuda.empty_cache()
-    return dict(B=B, S=S, **out)
+    return dict(B=B, S=S, H=H, KH=KH, hd=hd, causal=causal,
+                shape=f"B={B} H={H} KH={KH} S={S} hd={hd} "
+                      f"{'causal' if causal else 'bidirectional'} bf16",
+                **out)
 
 
 def moe_cfg(cfg, **kw):
@@ -4805,6 +4944,318 @@ def check_kv_cache(seed, smi, device="cuda"):
     return dict(shared=shared, denied=n_denied)
 
 
+# ------------------------------------------------------------ phase 22
+
+#: phase 22 (a): phi-3-vision-4.2b's batch, 4 x (576 image positions +
+#: 1,472 text tokens) = 4 x 2,048 positions a step; (c) whisper-tiny's,
+#: 8 x 448 decoder tokens (Whisper's text context, arXiv:2212.04356)
+#: beside 8 x 1,500 frames
+PHI_TRAIN = {"batch": 4, "seq": 2048 - 576}
+WHISPER_TRAIN = {"batch": 8, "seq": 448}
+#: phase 22 (b): ``launch.train.main`` saves the trainer's whole state
+#: at its first and last step and keeps both, 16 bytes a parameter
+#: (weights, mu, nu and master as float32): 61.1 GB a save at
+#: phi-3-vision's 32 layers.  Each save is held whole on the host, and
+#: the loop saves in a thread, so the last save's host copy is made
+#: while the first may still be writing: two on the host at once.  The
+#: depth is the deepest whose two saves take at most these shares of
+#: the free disk and of the host's available memory (the rest of the
+#: latter for the written pages) (:func:`entry_depth`)
+ENTRY_DISK_SHARE, ENTRY_HOST_SHARE = 0.9, 0.6
+#: phase 22 (b): the most its two saves may write.  A run of this script
+#: is held to 45 GiB of disk writes, deleted files included, whatever
+#: ``df`` shows free; the builds and the other phases write a few GiB
+#: of the rest
+ENTRY_WRITE_BYTES = 32 * 2**30
+#: phase 22 (d): the float32 card-against-CPU tolerance of the loss and
+#: of each gradient leaf, relative to its scale: phi-3-vision's
+#: gradient tolerance of the CPU tests (test_torch_encdec.py)
+F32_TRAIN_TOL = 1e-3
+
+
+def check_k6_hd96_backward(k6, rng):
+    """Phase 22 (e): phase 3's checks of K6's backward (check_k6_grad) at
+    phi-3-vision's hd 96, bf16 on the wgmma route (held to its walk
+    under ``BWD_ROW_TOL`` and to the plain version at 6e-2) and float32
+    on the FMA kernels (1e-4), causal and bidirectional, G 1 and 2, at
+    phase 19 (e)'s S 640 (B 4) and at S 700 (a ragged last tile), and
+    bf16 at the shape (a) trains at (B 4, H 32, S 2,048, causal), two
+    calls bit-equal; and the bf16 backward at the shapes (c) trains at:
+    whisper-tiny's encoder, bidirectional (B 8, H 6, S 1,500, hd 64),
+    and its decoder, causal (B 8, H 6, S 448).  Returns the worst error
+    of each route (whisper's apart) and the walk's reading and
+    control."""
+    bf, f32 = torch.bfloat16, torch.float32
+    out = {"wgmma": 0.0, "f32": 0.0, "whisper": 0.0, "row": 0.0,
+           "ctrl": float("inf")}
+    cases = [(f"hd 96 {'bf16' if dt == bf else 'f32'} (G={32 // KH})", dt, B,
+              32, KH, S, 96, causal)
+             for S, B in ((640, 4), (700, 1)) for KH in (32, 16)
+             for causal in (True, False) for dt in (bf, f32)]
+    cases += [("phi-3-vision's training shape bf16", bf, 4, 32, 32, 2048,
+               96, True),
+              ("whisper-tiny's encoder bf16", bf, 8, 6, 6, 1500, 64, False),
+              ("whisper-tiny's decoder bf16", bf, 8, 6, 6, 448, 64, True)]
+    for case in cases:
+        err, twin = check_k6_grad(k6, rng, *case, tag="[22e]")
+        key = ("whisper" if case[6] == 64 else
+               k6.backward_route(case[1], case[6]))
+        out[key] = max(out[key], err)
+        if twin is not None:
+            out["row"], out["ctrl"] = (max(out["row"], twin[0]),
+                                       min(out["ctrl"], twin[1]))
+    return out
+
+
+def host_available_bytes() -> int:
+    """The host memory the kernel reports available (MemAvailable)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def host_rss_bytes() -> int:
+    """This process's resident host memory (VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+def entry_depth(full, where):
+    """Phase 22 (b)'s depth: the deepest of ``full``'s layers whose two
+    saves of the trainer's state (16 bytes a parameter each) take at
+    most ``ENTRY_DISK_SHARE`` of the disk free at ``where``, at most
+    ``ENTRY_WRITE_BYTES`` and at most ``ENTRY_HOST_SHARE`` of the host's
+    available memory.  Returns (depth, bytes a save at that
+    depth, free disk, available host memory); depth 0 where not even
+    one layer fits."""
+    import shutil
+
+    from repro_torch.models.model import count_params
+
+    free, avail = shutil.disk_usage(where).free, host_available_bytes()
+
+    def save(n):
+        return 16 * count_params(dataclasses.replace(full, n_layers=n))
+
+    fits = [n for n in range(1, full.n_layers + 1)
+            if 2 * save(n) <= min(ENTRY_DISK_SHARE * free, ENTRY_WRITE_BYTES,
+                                  ENTRY_HOST_SHARE * avail)]
+    n = max(fits, default=0)
+    return n, save(n) if n else 0, free, avail
+
+
+def train_entry_point(counted, smi):
+    """Phase 22 (b): ``launch.train.main`` on the card for
+    phi-3-vision-4.2b, text only, as the reference's ``main`` trains it
+    (it feeds no image embeddings): 3 steps of 2 x 512 tokens, its
+    checkpoints under the build directory, removed after, at the
+    deepest depth those checkpoints fit (:func:`entry_depth`, from the
+    free disk and available host memory measured here; all 32 layers
+    where they fit).  Gates: a depth of at least one layer, finite
+    losses, K6 on the wgmma route at hd 96 (2 launches a layer a step,
+    its backward 1), no other kernel.  Returns the counts."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as trainer
+    from repro_torch.models.model import count_params
+
+    full = get_config("phi-3-vision-4.2b")
+    ckpt = ROOT / "build" / "chip_smoke_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt.parent.mkdir(parents=True, exist_ok=True)
+    n_layers, per_save, free, avail = entry_depth(full, ckpt.parent)
+    check(n_layers >= 1,
+          f"[22b] two checkpoints of one layer fit {free / 1e9:.1f} GB of "
+          f"free disk, the write budget and {avail / 1e9:.1f} GB of host "
+          f"memory")
+    cut = dataclasses.replace(full, n_layers=n_layers)
+    steps = 3
+    argv = ["--arch", full.name, "--steps", str(steps), "--batch", "2",
+            "--seq", "512", "--ckpt-dir", str(ckpt)]
+    phase(f"[22b] python -m repro_torch.launch.train {' '.join(argv)} at "
+          f"{n_layers} of {full.n_layers} layers: main saves the trainer's "
+          f"whole state at its first and last step and keeps both, 16 "
+          f"bytes a parameter, both held whole on the host at once: "
+          f"{16 * count_params(full) / 1e9:.1f} GB a save at "
+          f"{full.n_layers} layers, {per_save / 1e9:.1f} GB at {n_layers}, "
+          f"the deepest whose two saves take at most {ENTRY_DISK_SHARE:g} "
+          f"of the {free / 1e9:.1f} GB of free disk (measured now) and at "
+          f"most the run's write budget of {ENTRY_WRITE_BYTES / 1e9:.1f} "
+          f"GB, and {ENTRY_HOST_SHARE:g} of the {avail / 1e9:.1f} GB of "
+          f"available host memory (measured now; this process holds "
+          f"{host_rss_bytes() / 1e9:.1f} GB)")
+    get = trainer.get_config
+    trainer.get_config = lambda arch: cut if arch == full.name else get(arch)
+    zero_counts(counted)
+    try:
+        t0 = time.perf_counter()
+        state, losses = trainer.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trainer.get_config = get
+        shutil.rmtree(ckpt, ignore_errors=True)
+    launches = {k: fn.launches for k, fn in counted.items()}
+    routes = {k: dict(counted[k].routes) for k in ("K6", "K6 backward")}
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"[22b] finite losses, one a step ({losses})")
+    check(launches["K6"] == 2 * n_layers * steps
+          and launches["K6 backward"] == n_layers * steps
+          and sum(launches.values()) == 3 * n_layers * steps
+          and all(r["wgmma"] == sum(r.values()) for r in routes.values()),
+          f"[22b] K6 {2 * n_layers} and its backward {n_layers} times a "
+          f"step, all on the wgmma route, no other kernel ({launches}, "
+          f"{routes})")
+    phase(f"[22b] entry point on {smi}: {steps} steps in {wall:.1f} s "
+          f"(checkpoints included), losses {losses}; K6 "
+          f"{launches['K6']}, K6 backward {launches['K6 backward']} by "
+          f"route {routes}")
+    return {"launches": launches["K6"],
+            "bwd_launches": launches["K6 backward"], "losses": losses,
+            "n_layers": n_layers}
+
+
+def check_train_f32_hd96(counted, seed, smi, n_layers=2, text=128):
+    """Phase 22 (d): phi-3-vision-4.2b at full width cut to ``n_layers``
+    layers, float32, one sequence of 576 image positions and ``text``
+    tokens (704 positions: not a multiple of 64, so the last tiles are
+    ragged): ``loss_fn`` and its gradients through autograd on the card
+    (K6's float32 forward and backward kernels at hd 96) against the
+    CPU (their plain versions), from the same parameters and batch.  The
+    stacked ``groups`` at each layer's own fan-in, as phase 19 (c) holds
+    phi-3-vision in float32 (:func:`own_fan_in`).  Gate: the loss and
+    every gradient leaf within ``F32_TRAIN_TOL`` of its scale; the CPU's
+    own one-ulp floor (every weight moved one ulp) printed beside."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.model import init_params, loss_fn
+
+    cfg = dataclasses.replace(get_config("phi-3-vision-4.2b"),
+                              n_layers=n_layers, dtype="float32")
+    t0 = time.perf_counter()
+    params = own_fan_in(cfg, init_params(cfg, seed=seed, device="cpu"),
+                        ("groups",))
+    rng = np.random.RandomState(seed + 22)
+    batch = {"tokens": rng.randint(1, cfg.vocab, (1, text)),
+             "labels": rng.randint(1, cfg.vocab, (1, text)),
+             "img_embeds": rng.randn(1, cfg.img_tokens, cfg.d_model)}
+    batch = {k: a.astype(np.float32 if k == "img_embeds" else np.int32)
+             for k, a in batch.items()}
+
+    def grads(p, device):
+        leaves = tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        b = {k: torch.from_numpy(a).to(device) for k, a in batch.items()}
+        loss = loss_fn(cfg, p, b)
+        g = torch.autograd.grad(loss, leaves)
+        return loss.detach().cpu(), [t.cpu() for t in g]
+
+    cpu = grads(params, "cpu")
+    t_cpu = time.perf_counter() - t0
+    card_params = tree_map(lambda a: a.detach().to("cuda"), params)
+    zero_counts(counted)
+    card = grads(card_params, "cuda")
+    launches = {k: fn.launches for k, fn in counted.items()}
+    routes = {k: dict(counted[k].routes) for k in ("K6", "K6 backward")}
+    del card_params
+    torch.cuda.empty_cache()
+    g = np.random.RandomState(seed)
+    nudged = tree_map(lambda a: torch.nextafter(a.detach(), torch.from_numpy(
+        np.where(g.rand(*a.shape) < 0.5, -np.inf, np.inf).astype(
+            np.float32))), params)
+    floor = grads(nudged, "cpu")
+    del params, nudged
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    loss_err = rel(card[0], cpu[0])
+    errs = [rel(a, b) for a, b in zip(card[1], cpu[1])]
+    floors = [rel(a, b) for a, b in zip(floor[1], cpu[1])]
+    check(launches["K6"] == 2 * n_layers
+          and launches["K6 backward"] == n_layers
+          and sum(launches.values()) == 3 * n_layers
+          and all(r["f32"] == sum(r.values()) for r in routes.values()),
+          f"[22d] K6 {2 * n_layers} and its backward {n_layers} times, on "
+          f"the f32 route, no other kernel ({launches}, {routes})")
+    check(loss_err <= F32_TRAIN_TOL and max(errs) <= F32_TRAIN_TOL,
+          f"[22d] loss and every gradient leaf on the card within "
+          f"{F32_TRAIN_TOL:g} of their scale from the CPU's (loss "
+          f"{loss_err:.3e}, leaves {errs})")
+    phase(f"[22d] phi-3-vision-4.2b at full width, {n_layers} layers, f32, "
+          f"1 x ({cfg.img_tokens} image + {text} text) positions, on {smi} "
+          f"against the CPU ({t_cpu:.1f} s there): loss {card[0].item():.6f}"
+          f" vs {cpu[0].item():.6f} ({loss_err:.3e}), gradients within "
+          f"{max(errs):.3e} of each leaf's scale (tol {F32_TRAIN_TOL:g}; "
+          f"the CPU's one-ulp floor reaches {max(floors):.3e}, loss "
+          f"{rel(floor[0], cpu[0]):.3e}); K6 {launches['K6']} and its "
+          f"backward {launches['K6 backward']} on {routes}")
+    return {"launches": launches["K6"],
+            "bwd_launches": launches["K6 backward"], "err": max(errs),
+            "loss_err": loss_err, "floor": max(floors)}
+
+
+def train_vlm_encdec(k6, counted, seed, smi, profile=False):
+    """Phase 22: phi-3-vision-4.2b and whisper-tiny train at full width
+    through ``build_step``: (e) K6's backward at hd 96 and at whisper's
+    encoder shape against its plain version and its walk, first; (a)
+    phi-3-vision at its published widths, 32 layers, bf16, 4 x (576 +
+    1,472) positions; (b) ``launch.train.main`` for phi-3-vision; (c)
+    whisper-tiny, 4 + 4 layers, 8 x 448 tokens beside 8 x 1,500 frames;
+    (d) phi-3-vision in float32 at 2 layers, card against CPU; (f) K6's
+    backward times at phi-3-vision's training shape, at S 640 and at
+    whisper's encoder shape, each beside its bound, its plain version and
+    SDPA's backward.  With ``profile``, (a) and (c) run two more steps
+    under the profiler.  Returns the numbers the kernels line reports."""
+    from repro_torch.configs import get_config
+
+    rng = np.random.RandomState(seed + 22)
+    out = {"e": check_k6_hd96_backward(k6, rng)}
+    phi, whisper = (get_config(a) for a in ("phi-3-vision-4.2b",
+                                            "whisper-tiny"))
+    out["a"] = train_full_width(phi, seed, counted, smi, tag="[22a]",
+                                turns=False, profile=profile, **PHI_TRAIN)
+    out["b"] = train_entry_point(counted, smi)
+    out["c"] = train_full_width(whisper, seed, counted, smi, tag="[22c]",
+                                turns=False, profile=profile,
+                                **WHISPER_TRAIN)
+    out["d"] = check_train_f32_hd96(counted, seed, smi)
+    out["f"] = {
+        "phi": time_k6(k6, rng, phi.n_heads, phi.n_kv_heads, phi.hd,
+                       fwd=False, present=None),
+        "phi_s640": time_k6(k6, rng, phi.n_heads, phi.n_kv_heads, phi.hd,
+                            S=phi.img_tokens + 64, fwd=False, present=None),
+        "whisper": time_k6(k6, rng, whisper.n_heads, whisper.n_kv_heads,
+                           whisper.hd, B=WHISPER_TRAIN["batch"],
+                           S=whisper.enc_len, causal=False, fwd=False,
+                           present=None)}
+    for t in out["f"].values():
+        b = t["bwd"]
+        phase(f"[22f] K6 backward (wgmma/TMA) {t['shape']} on {smi}: kernel "
+              f"{b['ms']:.4f} ms (host {b['host_ms']:.4f} ms a call), bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['flops']} flop, "
+              f"{b['bytes']} B), plain {b['plain_ms']:.4f} ms, library "
+              f"(SDPA's backward through torch.autograd.grad) "
+              f"{b['library_ms']:.4f} ms")
+    for name, r in (("phi-3-vision-4.2b", out["a"]),
+                    ("whisper-tiny", out["c"])):
+        phase(f"[22] {name} training on {smi}: {r['ms']:.1f} ms a step, "
+              f"{r['tok_s']:.0f} text tokens/s, {100 * r['mfu']:.1f}% model "
+              f"flops, peak {r['peak'] / 2**30:.2f} GiB, {r['n_layers']} "
+              f"layers")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5197,7 +5648,7 @@ def main() -> int:
     # [12] the training path at full width, [13] K6 at its shape
     train = train_full_width(cfg, args.seed, counted, smi,
                              profile=args.profile)
-    t6 = time_k6(k6, rng, cfg)
+    t6 = time_k6(k6, rng, cfg.n_heads, cfg.n_kv_heads, cfg.hd)
     for name, t, lib in (("forward (wgmma/TMA)", t6["fwd"], "SDPA, is_causal"),
                          ("backward (wgmma/TMA)", t6["bwd"],
                           "SDPA's backward through torch.autograd.grad")):
@@ -5303,6 +5754,10 @@ def main() -> int:
     check_dryrun(dryrun_proc, train, smi)
     check_kv_cache(args.seed, smi)
     lap(21, "the dry run against phase 12, kv_cache on the card")
+    # [22] phi-3-vision and whisper-tiny training at full width
+    r22 = train_vlm_encdec(k6, counted, args.seed, smi,
+                           profile=args.profile)
+    lap(22, "phi-3-vision and whisper-tiny training at full width")
     s16 = sampled["runs"][0]
     sampled_launches = {
         "K1": s16["launches"], "K2": s16["k2"],
@@ -5480,6 +5935,33 @@ def main() -> int:
     kernels[1]["whisper_tiny_launches"] = whisper19["k1_routes"]
     next(r for r in kernels if r["name"] == "flash_attention")[
         "whisper_tiny_launches"] = {r19["a"]["k6_route"]: r19["a"]["k6"]}
+    # phase 22: the backward at hd 96 (phi-3-vision's training, the
+    # entry point, the float32 check) and at whisper-tiny's shapes
+    t22 = {k: {**{x: t["bwd"][x] for x in times}, "shape": t["shape"]}
+           for k, t in r22["f"].items()}
+    next(r for r in kernels if r["name"] == "flash_attention")[
+        "training_launches"] = {
+        name: {"launches": r["launches"], **dict(zip(
+            ("by_route", "by_mask"), r["by_route_and_mask"]["forward"]))}
+        for name, r in (("phi-3-vision-4.2b", r22["a"]),
+                        ("whisper-tiny", r22["c"]))}
+    bwd_row = next(r for r in kernels if r["name"] == "flash_attention_bwd")
+    bwd_row["hd96"] = dict(
+        route="wgmma", source=fa_src + "flash_attention_bwd_wgmma.cu",
+        launches=r22["a"]["bwd_launches"],
+        launches_entry_point=r22["b"]["bwd_launches"],
+        entry_point_layers=r22["b"]["n_layers"],
+        max_abs_err=r22["e"]["wgmma"], row_scaled_err=r22["e"]["row"],
+        control_row_scaled_err=r22["e"]["ctrl"], **t22["phi"],
+        s640=t22["phi_s640"],
+        f32=dict(source=fa_src + "flash_attention_bwd.cu",
+                 launches=r22["d"]["bwd_launches"],
+                 max_abs_err=r22["e"]["f32"],
+                 train_grad_rel_err=r22["d"]["err"]))
+    bwd_row["whisper_tiny"] = dict(
+        route="wgmma", launches=r22["c"]["bwd_launches"],
+        launches_by_mask=r22["c"]["by_route_and_mask"]["backward"][1],
+        max_abs_err=r22["e"]["whisper"], **t22["whisper"])
     dp_launches = {f"rank{d}": {k: b["launches"][k] for k in ("K1", "K2")}
                    for d, b in enumerate(r20["ranks"])}
     for row_, key in ((kernels[0], "K2"), (kernels[1], "K1")):
@@ -5492,7 +5974,7 @@ def main() -> int:
             "nccl": None if r20["nccl"] is None else {
                 f"rank{d}": b["launches"][key]
                 for d, b in enumerate(r20["nccl"])}}
-    phase(f"[21] total {time.perf_counter() - t_start:.1f} s")
+    phase(f"[22] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

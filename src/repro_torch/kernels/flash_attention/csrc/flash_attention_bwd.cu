@@ -44,7 +44,10 @@
 // bf16 (hd 16, 64, 128): the products on mma.sync m16n8k16 (bf16 in,
 // float32 out), fragments by ldmatrix (.trans where the tile lies
 // [k][n]), P and dS rounded to bf16 as the A operand of their products.
-// float32 (the smoke configs, the tests): the same two-kernel walk with
+// No bf16 instance at hd 96: bf16 hd 96 takes the wgmma route, and no
+// dispatch would reach one.
+// float32 (hd 16, 64, 96, 128: the smoke configs, the tests, the
+// float32 checks of full-width models): the same two-kernel walk with
 // plain float32 FMAs, no TF32: a warp takes one row (key or query) at
 // a time, its lanes over the 32 rows of the other side for the scores
 // and over hd for the accumulation.  Not done yet: wgmma, TMA, and the
@@ -614,6 +617,10 @@ int launch_hd(int hd, const void* q, const void* k, const void* v,
   switch (hd) {
     case 16: return launch<T, 16>(q, k, v, o, dO, lse, delta, dq, dk, dv, sh, st);
     case 64: return launch<T, 64>(q, k, v, o, dO, lse, delta, dq, dk, dv, sh, st);
+    case 96:    // float32 only (phi-3-vision's float32 checks)
+      if constexpr (sizeof(T) == 4)
+        return launch<T, 96>(q, k, v, o, dO, lse, delta, dq, dk, dv, sh, st);
+      return (int)cudaErrorInvalidValue;
     case 128: return launch<T, 128>(q, k, v, o, dO, lse, delta, dq, dk, dv, sh, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -627,9 +634,9 @@ extern "C" {
 // with the last dim contiguous (bf16 rows 16-byte aligned); strides
 // holds (b, h, s) of q, k, v, o, do, dq, dk, dv in elements.  lse:
 // float32 [B, H, S] from the forward; delta: a float32 [B, H, S]
-// workspace, both contiguous.  dtype 0 float32, 1 bfloat16; hd in {16,
-// 64, 128}.  Launches the three kernels on the stream and returns
-// cudaGetLastError() after them.
+// workspace, both contiguous.  dtype 0 float32 (hd in {16, 64, 96,
+// 128}), 1 bfloat16 (hd in {16, 64, 128}).  Launches the three kernels
+// on the stream and returns cudaGetLastError() after them.
 int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* o, const void* dO, float* lse,
                         float* delta, void* dq, void* dk, void* dv,

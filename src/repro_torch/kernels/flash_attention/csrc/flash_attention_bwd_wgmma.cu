@@ -4,11 +4,12 @@
 //
 // Replaces: the JAX package has no backward kernel; it differentiates
 // the jnp models/attention.py::blockwise_attention (attention.py:53)
-// with jax.grad.  This route takes bf16 at hd 64 and 128 (olmo-1b,
-// llama3.2-1b); hd 16 keeps the mma.sync kernels and float32 the FMA
-// kernels of flash_attention_bwd.cu (ops.py::backward_route states the
-// dispatch).  The function is theirs and flash_attention_bwd_ref's in
-// ref.py: from (q, k, v, o, lse, do), with P = exp(scale q k^T - lse),
+// with jax.grad.  This route takes bf16 at hd 64, 96 and 128 (olmo-1b,
+// llama3.2-1b, whisper-tiny; phi-3-vision-4.2b at hd 96); hd 16 keeps
+// the mma.sync kernels and float32 the FMA kernels of
+// flash_attention_bwd.cu (ops.py::backward_route states the dispatch).
+// The function is theirs and flash_attention_bwd_ref's in ref.py: from
+// (q, k, v, o, lse, do), with P = exp(scale q k^T - lse),
 //   delta = rowsum(do * o),   dv = P^T do,   dP = do v^T,
 //   dS = P * (dP - delta),    dq = scale dS k,   dk = scale dS^T q,
 // float32 inside, dq, dk, dv written in bf16; dk and dv sum over the G
@@ -21,8 +22,13 @@
 // hd S(S+1)/2 = 171.9 Gflop, take 0.174 ms at 989 TFLOP/s; the bytes
 // 0.080 ms.  This design recomputes QK^T and dO V^T in the dQ pass, 7
 // products where the bound counts 5, so its own floor is 1.4 x 0.174 =
-// 0.243 ms.  Only wgmma reaches the tensor cores' full rate, and only
-// TMA feeds it without spending the consumers' registers on loads.
+// 0.243 ms.  At phi-3-vision-4.2b's (B 4, H 32, S 2048, hd 96,
+// causal): operations, 257.8 Gflop, 0.261 ms (the bytes 0.121 ms); the
+// three products whose N is hd run at the padded 128 columns, so this
+// design's own floor there is (4 x 96 + 3 x 128) / (5 x 96) = 1.6 x
+// 0.261 = 0.417 ms.  Only wgmma reaches the tensor cores' full rate,
+// and only TMA feeds it without spending the consumers' registers on
+// loads.
 //
 // Design: flash_attention_bwd.cu's split (no atomics, so two calls agree
 // bit for bit), each half with a producer that keeps a ring of tiles
@@ -63,6 +69,17 @@
 //   dS = P (dP - delta)                      in registers;
 //   dQ += dS K_j                             wgmma, A in registers, K
 //                                            MN-major.
+//
+// hd 96 (phi-3-vision) runs over tiles padded to two 64-column atoms,
+// as the forward's wgmma kernel does (flash_attention.cu): the tensor
+// maps are built on the true hd, so the box at column 64 lands 32 real
+// columns and 32 zeros (no HBM bytes past the row; the mbarriers count
+// the full box).  The products that contract over hd (S^T, dP^T, S, dP)
+// run the true hd's 6 k-steps; those whose N is hd (dV, dK, dQ) run
+// m64n128k16 over the padded B operand, whose zero columns give zero
+// accumulators that are not stored: the epilogues write d < 96 only.
+// The scale stays 1 / sqrt(96).  Shared memory, the dK/dV accumulators
+// (64 + 64 floats a thread) and the register budget are then hd 128's.
 //
 // Within a tile a warpgroup commits its products in groups and waits
 // for one at a time: P is formed while dP runs, dS while dV runs; the
@@ -116,10 +133,14 @@ __device__ __forceinline__ void wgmma_wait1() {
 
 template <int HD>
 struct KvLayout {
-  // K, V: [HD / 64 column atoms][128 keys][64] bf16, each atom 128-byte
-  // swizzled; a stage: Q then dO, each [HD / 64][64 rows][64]; then the
-  // stages' lse * log2 e and delta, [kStages][2][64] float32.
-  static constexpr int kAtoms = HD / 64;
+  // K, V: [kAtoms column atoms][128 keys][64] bf16, each atom 128-byte
+  // swizzled; a stage: Q then dO, each [kAtoms][64 rows][64]; then the
+  // stages' lse * log2 e and delta, [kStages][2][64] float32.  hd is
+  // padded to whole atoms (kPad): at hd 96 the second atom holds
+  // columns 64-95 and the zeros TMA writes past the tensor's last
+  // column (HD / 64 atoms at 64 and 128).
+  static constexpr int kAtoms = (HD + 63) / 64;
+  static constexpr int kPad = kAtoms * 64;
   static constexpr int kKAtom = kRows * 128;              // bytes
   static constexpr int kKBytes = kAtoms * kKAtom;         // K or V
   static constexpr int kQAtom = kBQ * 128;
@@ -223,9 +244,10 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   const int key0 = kw0 + (warp % 4) * 16 + g, key1 = key0 + 8;
   const float sl2 = sh.scale * kLog2e;
 
-  float adk[HD / 2], adv[HD / 2];
+  // dK, dV over the padded width; columns past HD stay zero
+  float adk[L::kPad / 2], adv[L::kPad / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) adk[i] = adv[i] = 0.f;
+  for (int i = 0; i < L::kPad / 2; ++i) adk[i] = adv[i] = 0.f;
 
   mbar_wait(kvbar, 0);
   for (int it = 0; it < n_it; ++it) {
@@ -278,14 +300,14 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           ap[kk][j] = pack2(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
-      // dV += P^T dO: 16 queries a step, dO read MN-major (the second
-      // 64-column atom one atom's bytes away); dS^T is formed while it
-      // runs
+      // dV += P^T dO over the padded width: 16 queries a step, dO read
+      // MN-major (the second 64-column atom one atom's bytes away); dS^T
+      // is formed while it runs
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<HD>(adv, ap[kk],
-                     sw128_desc(sdO + kk * 2048, L::kQAtom, 1024));
+        wgmma_pv<L::kPad>(adv, ap[kk],
+                          sw128_desc(sdO + kk * 2048, L::kQAtom, 1024));
       wgmma_commit();
       wgmma_wait1();                    // dP^T is done; dV may run on
       reg_fence(dp);
@@ -301,8 +323,8 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<HD>(adk, as[kk],
-                     sw128_desc(sQ + kk * 2048, L::kQAtom, 1024));
+        wgmma_pv<L::kPad>(adk, as[kk],
+                          sw128_desc(sQ + kk * 2048, L::kQAtom, 1024));
       wgmma_commit();
       wgmma_wait0();
       reg_fence(adv);
@@ -316,6 +338,7 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
 
   __nv_bfloat16* dkb = dk + b * sh.dk[0] + kh * sh.dk[1];
   __nv_bfloat16* dvb = dv + b * sh.dv[0] + kh * sh.dv[1];
+  // registers i < HD / 2 hold the columns d < HD
 #pragma unroll
   for (int i = 0; i < HD / 2; i += 2) {
     const int key = (i >> 1) & 1 ? key1 : key0;
@@ -333,9 +356,10 @@ fa_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
 
 template <int HD>
 struct QLayout {
-  // Q, dO: [HD / 64][128 rows][64] bf16; a stage: K then V, each
-  // [HD / 64][64 keys][64]
-  static constexpr int kAtoms = HD / 64;
+  // Q, dO: [kAtoms][128 rows][64] bf16; a stage: K then V, each
+  // [kAtoms][64 keys][64]; padded as KvLayout's
+  static constexpr int kAtoms = (HD + 63) / 64;
+  static constexpr int kPad = kAtoms * 64;
   static constexpr int kQAtom = kRows * 128;
   static constexpr int kQBytes = kAtoms * kQAtom;         // Q or dO
   static constexpr int kTileAtom = kBK * 128;
@@ -422,9 +446,10 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   const float dl[2] = {row0 < sh.S ? delta[at + row0] : 0.f,
                        row1 < sh.S ? delta[at + row1] : 0.f};
 
-  float acc[HD / 2];
+  // dQ over the padded width; columns past HD stay zero
+  float acc[L::kPad / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < L::kPad / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(qbar, 0);
   for (int t = 0; t < nk; ++t) {
@@ -478,12 +503,13 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int j = 0; j < 4; ++j)
           as[kk][j] = pack2(dp[8 * kk + 2 * j], dp[8 * kk + 2 * j + 1]);
-      // dQ += dS K: K read MN-major, 16 keys a step
+      // dQ += dS K over the padded width: K read MN-major, 16 keys a
+      // step
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_pv<HD>(acc, as[kk],
-                     sw128_desc(sK + kk * 2048, L::kTileAtom, 1024));
+        wgmma_pv<L::kPad>(acc, as[kk],
+                          sw128_desc(sK + kk * 2048, L::kTileAtom, 1024));
       wgmma_commit();
       wgmma_wait0();
       reg_fence(acc);
@@ -494,6 +520,7 @@ fa_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 
   __nv_bfloat16* dqb = dq + b * sh.dq[0] + h * sh.dq[1];
+  // registers i < HD / 2 hold the columns d < HD
 #pragma unroll
   for (int i = 0; i < HD / 2; i += 2) {
     const int row = (i >> 1) & 1 ? row1 : row0;
@@ -544,7 +571,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 extern "C" {
 
-// bfloat16, hd 64 or 128.  q, o, do, dq [B, H, S, hd]; k, v, dk, dv
+// bfloat16, hd 64, 96 or 128.  q, o, do, dq [B, H, S, hd]; k, v, dk, dv
 // [B, KH, S, hd]: any strides with the last dim contiguous, q, k, v and
 // do 16-byte aligned with strides of a multiple of 8 elements (the
 // tensor maps'); strides holds (b, h, s) of q, k, v, o, do, dq, dk, dv
@@ -573,6 +600,7 @@ int flash_attention_bwd_wgmma(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
     case 64: return launch<64>(q, k, v, o, dO, lse, delta, dq, dk, dv, sh, st);
+    case 96: return launch<96>(q, k, v, o, dO, lse, delta, dq, dk, dv, sh, st);
     case 128: return launch<128>(q, k, v, o, dO, lse, delta, dq, dk, dv, sh, st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -25,23 +25,25 @@ kernels a call: delta = rowsum(dO * O), then dK/dV per key tile and dQ
 per query tile (FlashAttention-2's split, no atomics, so two calls
 agree bit for bit), chosen by dtype and hd (:func:`backward_route`):
 
-- ``"wgmma"`` (``csrc/flash_attention_bwd_wgmma.cu``), bf16 at hd 64
-  and 128 (the training path): producer warps keep rings of (Q, dO) or
-  (K, V) tiles full by TMA and consumer warpgroups run all seven
-  products on ``wgmma``;
+- ``"wgmma"`` (``csrc/flash_attention_bwd_wgmma.cu``), bf16 at hd 64,
+  96 and 128 (the training path, phi-3-vision's and whisper-tiny's
+  included): producer warps keep rings of (Q, dO) or (K, V) tiles full
+  by TMA and consumer warpgroups run all seven products on ``wgmma``;
+  hd 96 over tiles padded to two 64-column atoms, as the forward;
 - ``"mma"`` and ``"f32"`` (``csrc/flash_attention_bwd.cu``), bf16 at
-  hd 16 on ``mma.sync`` and float32 on FMAs.
-
-The backward has no kernel at hd 96 yet: :func:`backward_route` raises
-there (:data:`BWD_HEAD_DIMS`).
+  hd 16 on ``mma.sync`` (its hd 64 and 128 instances by an explicit
+  route only, to time them beside the wgmma kernels; none at hd 96)
+  and float32 on FMAs at every hd.
 
 The JAX package has no backward kernel (it differentiates the jnp
 ``blockwise_attention``); the backward computes that gradient.
 
 Bounds on an H100 at the training shape (B 4, H 16, S 2048, hd 128,
 causal, bf16): operations, 68.75 Gflop forward (about 0.0695 ms at 989
-TFLOP/s) and 171.9 Gflop backward (0.174 ms) (:func:`flops`,
-:func:`bound_bytes`, :func:`flops_bwd`, :func:`bound_bytes_bwd`).
+TFLOP/s) and 171.9 Gflop backward (0.174 ms); at phi-3-vision-4.2b's
+(B 4, H 32, S 2048, hd 96) 257.8 Gflop backward (0.261 ms)
+(:func:`flops`, :func:`bound_bytes`, :func:`flops_bwd`,
+:func:`bound_bytes_bwd`).
 
 :func:`flash_attention` is a ``torch.autograd.Function``.  On a CUDA
 tensor its forward and backward launch their kernels or raise; on a
@@ -49,8 +51,9 @@ CPU tensor they run the plain versions in :mod:`.ref`.
 ``flash_attention.launches`` counts forward launches (the recomputation
 of a checkpointed forward included), ``flash_attention.routes`` the
 same by kernel and ``flash_attention.masks`` by mask (``"causal"``,
-``"bidirectional"``); ``flash_attention_bwd.launches`` counts backward calls
-and ``flash_attention_bwd.routes`` the same by route.
+``"bidirectional"``); ``flash_attention_bwd.launches`` counts backward calls,
+``flash_attention_bwd.routes`` the same by route and
+``flash_attention_bwd.masks`` by mask.
 """
 
 from __future__ import annotations
@@ -70,9 +73,10 @@ WGMMA_HEAD_DIMS = (64, 96, 128)
 #: head dims of the mma.sync forward (bf16): 16 by default, 96 by an
 #: explicit route only
 MMA_HEAD_DIMS = (16, 96)
-#: head dims of the backward kernels, and of its wgmma/TMA route
-BWD_HEAD_DIMS = (16, 64, 128)
-BWD_WGMMA_HEAD_DIMS = (64, 128)
+#: head dims of the backward's mma.sync kernels (bf16: 16 by default, 64
+#: and 128 by an explicit route only); its wgmma and f32 kernels take
+#: the forward's WGMMA_HEAD_DIMS and HEAD_DIMS
+BWD_MMA_HEAD_DIMS = (16, 64, 128)
 
 
 def forward_route(dtype, hd: int) -> str:
@@ -86,15 +90,9 @@ def forward_route(dtype, hd: int) -> str:
 
 def backward_route(dtype, hd: int) -> str:
     """The backward's kernels for (dtype, hd): ``"wgmma"`` for bf16 at hd
-    64 or 128, ``"mma"`` for bf16 at hd 16, ``"f32"`` for float32; at a
-    head dim outside :data:`BWD_HEAD_DIMS` (hd 96, whose forward is
-    phi-3-vision's prefill) it raises.  Where both directions have
-    kernels it is :func:`forward_route`'s rule, on purpose: each
-    direction has its kernel of each kind at the same (dtype, hd)."""
-    if hd not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention_bwd: no backward kernel at hd {hd} (kernels "
-            f"at hd {BWD_HEAD_DIMS}); the forward takes {HEAD_DIMS}")
+    64, 96 or 128, ``"mma"`` for bf16 at hd 16, ``"f32"`` for float32.
+    It is :func:`forward_route`'s rule, on purpose: each direction has
+    its kernel of each kind at the same (dtype, hd)."""
     return forward_route(dtype, hd)
 
 
@@ -200,18 +198,12 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
     KH = k.shape[1]
     if route is None:
         route = backward_route(q.dtype, hd)
-    if hd not in BWD_HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd: hd {hd} outside "
-                         f"{BWD_HEAD_DIMS}")
-    if route == "wgmma":
-        if q.dtype != torch.bfloat16 or hd not in BWD_WGMMA_HEAD_DIMS:
-            raise ValueError(f"flash_attention_bwd: the wgmma route takes "
-                             f"bfloat16 at hd in {BWD_WGMMA_HEAD_DIMS}, got "
-                             f"{q.dtype}, hd {hd}")
-    elif route not in ("mma", "f32") or (route == "f32") != (
-            q.dtype == torch.float32):
+    bf16 = q.dtype == torch.bfloat16
+    if not ((route == "wgmma" and bf16 and hd in WGMMA_HEAD_DIMS)
+            or (route == "mma" and bf16 and hd in BWD_MMA_HEAD_DIMS)
+            or (route == "f32" and not bf16 and hd in HEAD_DIMS)):
         raise ValueError(f"flash_attention_bwd: no route {route!r} for "
-                         f"{q.dtype}")
+                         f"{q.dtype} at hd {hd}")
     if (o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype
             or do.dtype != q.dtype or lse.shape != (B, H, S)
             or lse.dtype != torch.float32 or not lse.is_contiguous()):
@@ -219,7 +211,6 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, causal: bool = True,
                          "[B, H, S], contiguous")
     if not all(t.is_cuda and t.device == q.device for t in (o, lse, do)):
         raise ValueError("flash_attention_bwd: every input on q's device")
-    bf16 = q.dtype == torch.bfloat16
     if bf16 and not all(map(_rows_aligned, (q, k, v, o))):
         raise ValueError("flash_attention_bwd: bf16 rows must lie on "
                          "16-byte boundaries")
@@ -265,11 +256,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     out = flash_attention_bwd_cuda(q, k, v, o, lse, do, causal, route)
     flash_attention_bwd.launches += 1
     flash_attention_bwd.routes[route] += 1
+    flash_attention_bwd.masks["causal" if causal else "bidirectional"] += 1
     return out
 
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.routes = {"wgmma": 0, "mma": 0, "f32": 0}
+flash_attention_bwd.masks = {"causal": 0, "bidirectional": 0}
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -172,6 +172,41 @@ def test_forward_loss_and_gradients_match_reference(arch):
         _close(tg, g, GRAD_TOL[arch], f"{arch} grad {path}")
 
 
+def test_phi3_vision_at_hd96_loss_and_gradients_match_reference():
+    """phi-3-vision's smoke config widened to its own head dim, hd 96
+    (d 384, 4 heads of 96, its G 1, 2 layers, 8 image positions): the
+    port's ``loss_fn`` and its gradients through autograd (K6's plain
+    backward at hd 96 on the CPU) against ``jax.value_and_grad`` of the
+    reference's, loss within 1e-5 and every gradient leaf within
+    phi-3-vision's 1e-3 of its scale."""
+    import dataclasses
+
+    arch = "phi-3-vision-4.2b"
+    wide = dict(d_model=384, n_heads=4, n_kv_heads=4, head_dim=96)
+    cfg = dataclasses.replace(smoke_config(get_config(arch)), **wide)
+    tcfg = dataclasses.replace(t_smoke_config(t_get_config(arch)), **wide)
+    assert cfg.hd == tcfg.hd == 96 and tcfg.img_tokens == 8
+    assert tcfg.n_layers == 2
+    params = jmodels.init_params(cfg, jax.random.PRNGKey(3))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    batch = _batch(cfg, 4)
+    jb = jax.tree.map(jnp.asarray, batch)
+    tb = {k: torch.from_numpy(a) for k, a in batch.items()}
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: jmodels.loss_fn(cfg, p, jb)))(params)
+    leaves = tree_leaves(tparams)
+    for p in leaves:
+        p.requires_grad_(True)
+    t_loss = tmodel.loss_fn(tcfg, tparams, tb)
+    t_grads = torch.autograd.grad(t_loss, leaves)
+    _close(t_loss, loss, 1e-5, f"{arch} hd 96 loss")
+    paths = [jax.tree_util.keystr(k) for k, _ in
+             jax.tree_util.tree_flatten_with_path(grads)[0]]
+    assert len(paths) == len(t_grads)
+    for path, g, tg in zip(paths, jax.tree.leaves(grads), t_grads):
+        _close(tg, g, GRAD_TOL[arch], f"{arch} hd 96 grad {path}")
+
+
 def test_vlm_loss_leaves_out_the_image_positions():
     """The loss is the mean cross-entropy of the text positions alone:
     changing the image embeddings moves it, and it equals the chunked

@@ -263,11 +263,13 @@ def test_delta_vs_reference_oracle(causal):
 def test_forward_route_by_dtype_and_hd(dtype, hd, route):
     """The forward's kernel by dtype and hd: bf16 hd 96 takes the wgmma
     route over tiles padded to two 64-column atoms; its mma.sync
-    instance stays reachable by an explicit route only."""
+    instance stays reachable by an explicit route only, and the
+    backward has no mma.sync instance there."""
     assert ops.forward_route(dtype, hd) == route
     assert hd in ops.HEAD_DIMS
     if route == "wgmma" and hd == 96:
-        assert 96 in ops.MMA_HEAD_DIMS and 96 not in ops.BWD_HEAD_DIMS
+        assert 96 in ops.MMA_HEAD_DIMS
+        assert 96 not in ops.BWD_MMA_HEAD_DIMS
 
 
 @pytest.mark.parametrize("H,KH,S,causal", [
@@ -322,13 +324,16 @@ def test_backward_route_by_dtype_and_hd(dtype, hd, route):
     assert ops.backward_route(dtype, hd) == route
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_backward_route_raises_at_hd_96(dtype):
-    """hd 96 (phi-3-vision) has a forward kernel and no backward one
-    yet: the backward's dispatcher raises instead of falling back."""
-    assert 96 in ops.HEAD_DIMS and 96 not in ops.BWD_HEAD_DIMS
-    with pytest.raises(NotImplementedError, match="hd 96"):
-        ops.backward_route(dtype, 96)
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "f32")])
+def test_backward_route_at_hd_96(dtype, route):
+    """hd 96 (phi-3-vision) has a backward kernel of each kind its
+    forward has: bf16 on the wgmma route (tiles padded to two 64-column
+    atoms), float32 on the FMA kernels; no bf16 mma.sync instance, and
+    the route is the forward's."""
+    assert ops.backward_route(dtype, 96) == route
+    assert ops.backward_route(dtype, 96) == ops.forward_route(dtype, 96)
+    assert 96 not in ops.BWD_MMA_HEAD_DIMS
 
 
 @pytest.mark.parametrize("B,H,KH,S,hd,causal", [
@@ -405,3 +410,38 @@ def test_tiled_backward_controls_lie_beyond_the_row_limit(B, H, KH, S, hd,
     for a in twin:
         assert row_scaled_err(a, a) == 0.0
         assert row_scaled_err(a.to(torch.bfloat16), a) <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("S", [70, 200])
+@pytest.mark.parametrize("KH", [4, 2])          # G 1 (phi-3-vision) and 2
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_at_hd96_vs_jax_grad(causal, KH, S):
+    """At phi-3-vision's hd 96: the plain backward (the CPU path) and the
+    wgmma kernels' walk against ``jax.grad`` of the reference's
+    ``blockwise_attention``, in float32 within 1e-4; with P and dS
+    rounded to bf16 the walk stays within its 2e-2
+    (``test_tiled_backward_walk``)."""
+    B, H, hd = 2, 4, 96
+    q, k, v = _inputs(S + KH + int(causal), B, H, KH, S, hd)
+    do = np.random.RandomState(S + 96).randn(B, H, S, hd).astype(np.float32)
+
+    def j_loss(q, k, v):
+        o = jattn.blockwise_attention(
+            q, jattn._expand_kv(k, H), jattn._expand_kv(v, H), causal=causal,
+            block_q=64, block_k=32)
+        return jnp.sum(o * jnp.asarray(_bshd(do)))
+
+    j_g = jax.grad(j_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(_bshd(a)) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(_bshd(a)).transpose(1, 2)
+                  for a in (q, k, v))
+    tdo = torch.from_numpy(do)
+    o, lse = flash_attention_fwd_ref(tq, tk, tv, causal)
+    args = (tq, tk, tv, o, lse, tdo, causal)
+    exact = flash_attention_bwd_tiled_ref(*args, bf16_operands=False)
+    rounded = flash_attention_bwd_tiled_ref(*args)
+    for plain, walk, bf, want in zip(flash_attention_bwd_ref(*args), exact,
+                                     rounded, j_g):
+        for got in (plain, walk):
+            _close(got.transpose(1, 2), want)
+        _close(bf.transpose(1, 2), want, tol=2e-2)

@@ -598,6 +598,9 @@ def test_flash_attention_kernel_vs_plain(card, dtype, B, H, KH, S, hd,
     (torch.bfloat16, 1, 32, 8, 512, 64, True),     # llama3.2-1b, G = 4
     (torch.bfloat16, 2, 4, 1, 77, 16, False),
     (torch.float32, 2, 4, 2, 200, 64, False),
+    (torch.bfloat16, 1, 32, 32, 704, 96, True),    # phi-3-vision, 576 + 128
+    (torch.float32, 1, 32, 32, 704, 96, True),
+    (torch.float32, 2, 4, 2, 77, 96, False),       # ragged, G = 2
 ])
 def test_flash_attention_gradient(card, dtype, B, H, KH, S, hd, causal):
     """dq, dk, dv through K6's Function (its backward kernels, one
@@ -645,9 +648,13 @@ def test_flash_attention_backward_is_deterministic(card, dtype):
     (2, 4, 2, 77, 128, True),       # a ragged last tile, G = 2
     (2, 4, 1, 200, 64, False),      # bidirectional, G = 4
     (1, 2, 2, 130, 128, True),      # a key tile of one key past 128
+    (4, 32, 32, 640, 96, True),     # phi-3-vision, padded to two atoms
+    (1, 32, 16, 700, 96, False),    # hd 96, G = 2, a ragged last tile
+    (2, 4, 2, 77, 96, True),        # hd 96, ragged, G = 2
+    (8, 6, 6, 1500, 64, False),     # whisper-tiny's encoder
 ])
 def test_flash_attention_backward_wgmma_route(card, B, H, KH, S, hd, causal):
-    """The wgmma/TMA backward (bf16, hd 64 and 128) against autograd
+    """The wgmma/TMA backward (bf16, hd 64, 96 and 128) against autograd
     through the plain version at 6e-2 (P and dS enter their products
     rounded to bf16), and against its walk with P and dS so rounded,
     each row within ``BWD_ROW_TOL`` of its own scale (the limit a
@@ -682,10 +689,11 @@ def test_flash_attention_backward_wgmma_route(card, B, H, KH, S, hd, causal):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.bfloat16, 16, "mma"), (torch.float32, 64, "f32"),
-    (torch.float32, 128, "f32")])
+    (torch.float32, 128, "f32"), (torch.float32, 96, "f32")])
 def test_flash_attention_backward_present_routes(card, dtype, hd, route):
-    """hd 16 and float32 keep the kernels of flash_attention_bwd.cu,
-    counted on their routes; the wgmma route refuses them."""
+    """hd 16 and float32 (hd 96 too) keep the kernels of
+    flash_attention_bwd.cu, counted on their routes; the wgmma route
+    refuses them."""
     rng = np.random.RandomState(hd)
     q, k, v = _qkv(rng, 2, 4, 2, 77, hd, dtype, grad=True)
     do = torch.from_numpy(rng.randn(2, 4, 77, hd).astype(np.float32)).to(
@@ -725,6 +733,27 @@ def test_flash_attention_hd96_wgmma_and_mma(card, B, H, KH, S, causal):
         torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-4)
         assert torch.equal(o, k6.flash_attention_cuda(q, k, v, causal,
                                                       route=route)[0])
+
+
+@pytest.mark.cuda
+def test_flash_attention_backward_hd96_has_no_mma_instance(card):
+    """bf16 hd 96's backward is the wgmma route's alone: the mma.sync
+    route and the float32 route refuse it before a launch, and the
+    wgmma route's padded columns never reach the gradients (dq, dk, dv
+    keep hd 96 and the inputs' strides, and are finite)."""
+    rng = np.random.RandomState(97)
+    q, k, v = _qkv(rng, 1, 4, 2, 130, 96, torch.bfloat16)
+    o, lse = k6.flash_attention_cuda(q, k, v)
+    do = torch.from_numpy(rng.randn(*o.shape).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    for route in ("mma", "f32"):
+        with pytest.raises(ValueError, match="hd 96"):
+            k6.flash_attention_bwd_cuda(q, k, v, o, lse, do, route=route)
+    got = k6.flash_attention_bwd_cuda(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for g, t in zip(got, (q, k, v)):
+        assert g.shape == t.shape and g.stride() == t.stride()
+        assert bool(torch.isfinite(g).all())
 
 
 @pytest.mark.cuda

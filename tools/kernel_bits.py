@@ -10,7 +10,9 @@ this checkout's) into that checkout's build directory and runs them on
 the same inputs, drawn from a seed with numpy: K6's forward on each of
 its kernels (bf16 at hd 128 and 64, hd 16, float32), its backward on
 the ``mma.sync`` and float32 kernels of ``flash_attention_bwd.cu`` (bf16
-at hd 16, 64 and 128; float32 at hd 16, 64 and 128), K5 at T = 1, and
+at hd 16, 64 and 128; float32 at hd 16, 64 and 128) and, in bf16 at hd
+64 and 128, on the wgmma/TMA kernels of
+``flash_attention_bwd_wgmma.cu``, K5 at T = 1, and
 K2's ``tma`` route at hd 64 and 128 with G 1, 2, 4 and 8 (contexts of
 1-1,023 tokens, an idle lane and a dead page; ``zero_empty`` off and
 on).
@@ -71,6 +73,11 @@ def outputs(seed: int) -> dict:
                                             **route)
         for what, g in zip(("dq", "dk", "dv"), grads):
             out[f"{tag} backward {what}"] = g
+        if dt == torch.bfloat16 and hd in (64, 128):
+            grads = k6.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal,
+                                                route="wgmma")
+            for what, g in zip(("dq", "dk", "dv"), grads):
+                out[f"{tag} backward wgmma {what}"] = g
     a = torch.sigmoid(f(8, 1, 2560))
     b = f(8, 1, 2560)
     h = f(8, 2560)
