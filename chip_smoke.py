@@ -7,21 +7,25 @@ Phases, each printed on its own line (any failure fails the run):
 1. the card's name and power limit, as nvidia-smi reports them;
 2. build the port's CUDA kernels from the sources in this checkout
    (``src/repro_torch/kernels/*/csrc``), one nvcc per source, all
-   started together;
+   started together, printing ptxas's registers and spills of each
+   kernel it compiled; K2's tma instances at G 3 and 5 must have no
+   stack frame (no spills), as ``cuobjdump`` reads the built library;
 3. hold each kernel, through the wrapper the engine calls, against its
    plain PyTorch version on the card, at the serving path's shapes:
    f32 within 1e-4; bf16 within 6e-2 and, since both sides accumulate
    in float32 from the same inputs and round once, within one bf16 ulp
    (2^-7 relative).  K1 (paged attention) at T = 1 and 64; K2 (paged
-   decode) at olmo-1b's, llama3.2-1b's and smoke widths, contexts of
+   decode) in bf16 on its tma route at olmo-1b's widths and those of
+   phase 23's models (llama3.2-1b, G 4, hd 64; phi4-mini-3.8b, 24
+   heads over 8, G 3; gemma3-27b, 32 over 16, G 2; llama4-maverick, 40
+   over 8, G 5), in float32 at olmo-1b's and smoke widths, contexts of
    96-1,087 and 1-2,048 tokens, with ``zero_empty`` off (a row without
    keys gets the uniform mean) and on (zeros), and against K1 at T = 1
-   over base + 1 positions, bf16 at the first two widths on its tma
-   route, two calls bit-equal; K3 (verify
+   over base + 1 positions, two calls bit-equal; K3 (verify
    attention) at T = 5 and 64 on tables whose lanes share their prefix
    pages, also against K1 on the same inputs; the wgmma/TMA routes of
-   K1 and K3 (bf16, hd 64 and 128, pages of 64) at olmo-1b's and
-   llama3.2-1b's widths and T = 5, 8, 16, 64, 100, with bases off the
+   K1 and K3 (bf16, hd 64 and 128, pages of 64) at the same bf16
+   widths and T = 1, 5, 8, 16, 64, 100, with bases off the
    page grid, dead pages inside a run, an idle lane, rows that see no
    key and a hot prefix page mapped by all 8 lanes: within one ulp of
    the plain version, K3 within one ulp of K1, two calls bit-equal,
@@ -330,7 +334,29 @@ Phases, each printed on its own line (any failure fails the run):
    whisper-tiny's encoder shape, each beside its bound, its plain
    version and SDPA's backward.
 
-Every phase prints its seconds.  ``--profile`` serves the workloads of
+23. four more architectures at their published widths through
+   ``ServingEngine.run`` (bf16, random weights from ``--seed`` drawn on
+   the card, dp 1, 8 slots, chunk 64, max_len 2048), each freed before
+   the next is drawn: (a) llama3.2-1b (16 layers, G 4, hd 64) and (b)
+   phi4-mini-3.8b (32 layers, 24 heads over 8: G 3, hd 128) on phase
+   5's workload; (c) gemma3-27b (62 layers: 52 local of window 1,024
+   over rings metered on CLS_STATE, in torch ops, and 10 global, G 2,
+   hd 128; two size classes) on 16 prompts of 64-1,984 tokens, four of
+   them 1,025 or longer, so that their rings wrap; (d) llama4-maverick
+   cut from 48 to 2 layers (one global_moe of 128 experts top-1, one
+   global; G 5, hd 128), resident, capacity factor 64, on phase 5's
+   workload: phase 5's checks (every K1 launch on its wgmma route,
+   every K2 launch on its tma route, once per attention layer per step
+   of their width, no other kernel, one transfer a step, every class
+   empty after the drain), gemma3-27b's slots holding their CLS_STATE
+   grant; tok/s, ms/step, the peak of ``max_memory_allocated``, the
+   parameters and the init time of each; (e) K2's tma route at G 3 and
+   5 (phi4-mini's and llama4's widths) at phase 15's contexts, beside
+   its fma kernel on the same inputs, its bound, its plain version and
+   SDPA.
+
+Every phase prints its seconds, the process's VmRSS and the card's
+``memory_allocated``.  ``--profile`` serves the workloads of
 phases 5, 9 and 10 again, and runs two more training steps in phases
 12, 18 and 22, under ``torch.profiler``, and prints where a step's
 time goes.  The last line is ``{"ok": true,
@@ -347,6 +373,7 @@ import functools
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -402,6 +429,35 @@ def check(ok: bool, what: str) -> None:
     """A check that holds under ``python -O`` too."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def kernel_name(mangled: str) -> str:
+    """A kernel template's name with its integer arguments, as
+    ``k2_split<128,3>``, from its mangled name (each identifier there is
+    prefixed by its length); the mangled name if it is no such
+    template."""
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(m.start(), m.end()):
+            n, at = int(mangled[i:m.end()]), m.end()
+            ident = mangled[at:at + n]
+            args = re.match(r"I((?:Li\d+E)+)E", mangled[at + n:])
+            if args and len(ident) == n and ident.isidentifier():
+                vals = re.findall(r"Li(\d+)E", args.group(1))
+                return f"{ident}<{','.join(vals)}>"
+    return mangled
+
+
+def ptxas_lines(log):
+    """(kernel, line) for each of ptxas's register and spill lines in
+    an nvcc log (``-Xptxas -v``), the kernel by :func:`kernel_name`."""
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            name = kernel_name(m.group(1))
+        elif name and ("registers" in line or "spill" in line):
+            yield name, re.sub(r"^ptxas info\s*:\s*", "", line.strip())
 
 
 def zero_counts(counted):
@@ -603,18 +659,21 @@ def route_case(rng, T, H, KH, hd, B=10, psz=64, maxp=24, P=224, hot=4):
             torch.from_numpy(base.astype(np.int32)).cuda()]
 
 
-def check_wgmma_routes(k3, ops, plain, rng, cfgs):
+def check_wgmma_routes(k3, ops, plain, rng, cfgs, Ts=(1, 5, 8, 16, 64, 100)):
     """Phase 3: K1's and K3's wgmma/TMA kernels at the widths of
-    ``cfgs`` (olmo-1b, G 1; llama3.2-1b, G 4, hd 64) and T = 5, 8, 16,
-    64, 100 on :func:`route_case` inputs: each within one bf16 ulp of
-    the plain version, K3 within one ulp of K1, rows without a key
-    zero, two calls bit-equal; then float32, hd 16 and pages of 8 still
-    take the present kernels.  Returns the worst error against the
-    plain version of each."""
-    worst = {"K1": 0.0, "K3": 0.0}
+    ``cfgs`` (olmo-1b, G 1; llama3.2-1b, G 4, hd 64; phi4-mini-3.8b, G
+    3, and llama4-maverick, G 5, where a query token's G rows straddle
+    the 8-row halves a thread masks and a 64-row tile ends inside a
+    token's group; gemma3-27b, G 2 over 16 KV heads) and T in ``Ts`` on
+    :func:`route_case` inputs: each within one bf16 ulp of the plain
+    version, K3 within one ulp of K1, rows without a key zero, two calls
+    bit-equal; then float32, hd 16 and pages of 8 still take the present
+    kernels.  Returns the worst error against the plain version of each
+    kernel, and K1's of each config by name."""
+    worst, by_cfg = {"K1": 0.0, "K3": 0.0}, {}
     for cfg in cfgs:
         H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        for T in (5, 8, 16, 64, 100):
+        for T in Ts:
             name = f"{cfg.name} widths T={T} (H={H} KH={KH} hd={hd})"
             args = route_case(rng, T, H, KH, hd)
             check(int((args[3][:, 0] == args[3][0, 0]).sum()) == 8,
@@ -646,6 +705,7 @@ def check_wgmma_routes(k3, ops, plain, rng, cfgs):
                   f"{name}: two calls bit-equal")
             worst["K1"] = max(worst["K1"], errs[0])
             worst["K3"] = max(worst["K3"], errs[1])
+            by_cfg[cfg.name] = max(by_cfg.get(cfg.name, 0.0), errs[0])
             phase(f"[3] wgmma routes, {name}: K1 vs plain {errs[0]:.3e}, "
                   f"K3 vs plain {errs[1]:.3e}, K3 vs K1 {errs[2]:.3e} "
                   f"(one ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}); two calls "
@@ -665,42 +725,51 @@ def check_wgmma_routes(k3, ops, plain, rng, cfgs):
               f"{dt} hd={hd} psz={psz}: the present kernels")
         phase(f"[3] {str(dt)[6:]} hd={hd} psz={psz} T={T}: K1 and K3 took "
               f"their present (fma) kernels, within {TOL[dt]:g} of plain")
-    return worst
+    return worst, by_cfg
 
 
-def check_k2(ops, plain2, rng, cfgs, b_local, maxp, P):
+def check_k2(ops, plain2, rng, cfgs, smoke, b_local, maxp, P):
     """Phase 3: K2, through the dispatcher the engine calls, against its
     plain version with ``zero_empty`` off (lane 1 has no valid key and
     must get the uniform mean of what it gathers) and on (zeros), and
-    against K1 at T = 1 with ``base + 1`` on the same inputs; contexts
-    of 96-1,087 tokens at full width, and of 1-2,048 tokens; bf16 at
-    olmo-1b's and llama3.2-1b's widths on the tma route, float32 and the
-    smoke widths on the fma kernel; two calls bit-equal.  Returns the
-    worst bf16 error against the plain version."""
-    worst = 0.0
-    full, llama, smoke = (dict(H=c.n_heads, KH=c.n_kv_heads, hd=c.hd,
-                               psz=c.page_size) for c in cfgs)
-    full.update(maxp=maxp, P=P)
-    llama.update(maxp=maxp, P=P)
-    smoke.update(maxp=8, P=72)
-    ctx = lambda: rng.randint(64 + 32, 1024 + 64, b_local)  # noqa: E731
-    wide = rng.randint(0, 2048, b_local)       # contexts of 1-2,048 tokens
-    wide[0], wide[4] = 0, 2047
-    cases = [("full bf16", full, ctx(), torch.bfloat16),
-             ("full f32", full, ctx(), torch.float32),
-             ("llama3.2-1b widths bf16 (G=4, hd 64)", llama, ctx(),
-              torch.bfloat16),
-             ("smoke f32 (G=2)", smoke, None, torch.float32),
-             ("full bf16, contexts 1-2048", full, wide, torch.bfloat16),
-             ("llama3.2-1b widths bf16, contexts 1-2048", llama, wide,
-              torch.bfloat16)]
-    for name, shp, base, dt in cases:
+    against K1 at T = 1 with ``base + 1`` on the same inputs: bf16 at
+    the widths of each of ``cfgs`` (olmo-1b, G 1; llama3.2-1b, G 4, hd
+    64; phi4-mini-3.8b, G 3; gemma3-27b, G 2 over 16 KV heads;
+    llama4-maverick, G 5) on the tma route, with contexts of 96-1,087
+    tokens and of 1-2,048; float32 at the first's widths and at those of
+    ``smoke`` on the fma kernel; two calls bit-equal.  Returns the worst
+    bf16 error against the plain version, and that of each of ``cfgs``
+    by name."""
+    worst, by_cfg = 0.0, {}
+
+    def shape(c, **kw):
+        return dict(H=c.n_heads, KH=c.n_kv_heads, hd=c.hd, psz=c.page_size,
+                    **kw)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = []
+    for c in cfgs:
+        wide = rng.randint(0, 2048, b_local)   # contexts of 1-2,048 tokens
+        wide[0], wide[4] = 0, 2047
+        name = f"{c.name} widths bf16 (G={c.n_heads // c.n_kv_heads})"
+        cases += [(c.name, name, shape(c, maxp=maxp, P=P),
+                   rng.randint(96, 1088, b_local), bf),
+                  (c.name, f"{name}, contexts 1-2048",
+                   shape(c, maxp=maxp, P=P), wide, bf)]
+    cases += [(None, f"{cfgs[0].name} widths f32",
+               shape(cfgs[0], maxp=maxp, P=P),
+               rng.randint(96, 1088, b_local), f32),
+              (None, "smoke f32 (G=2)", shape(smoke, maxp=8, P=72), None,
+               f32)]
+    for cfg_name, name, shp, base, dt in cases:
         q, kp, vp, table, base = attn_case(rng, b_local, 1, dtype=dt,
                                            base=base, masked=(1,),
                                            dead=((2, 0),), **shp)
         q2, lens = q[:, 0].contiguous(), base + 1
         route = ops.decode_route(dt, shp["hd"], shp["psz"],
                                  shp["H"] // shp["KH"])
+        check(route == "tma" or dt != torch.bfloat16 or shp["hd"] == 16,
+              f"K2 {name}: bf16 at hd {shp['hd']} on the tma route")
         errs = []
         for zero_empty in (False, True):
             before = ops.paged_attention.launches
@@ -748,9 +817,11 @@ def check_k2(ops, plain2, rng, cfgs, b_local, maxp, P):
               f"{errs[2]:.3e}; max|ref| {out.float().abs().max().item():.3e}"
               f" ({tol}); contexts {int(lens.min())}-{int(lens.max())}; "
               f"two calls bit-equal")
-        if dt == torch.bfloat16:
+        if cfg_name is not None:
             worst = max(worst, errs[0], errs[1])
-    return worst
+            by_cfg[cfg_name] = max(by_cfg.get(cfg_name, 0.0), errs[0],
+                                   errs[1])
+    return worst, by_cfg
 
 
 def scan_case(rng, kind, dims, dtype):
@@ -1321,23 +1392,37 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     runs K2 instead, once per layer.  In bf16, K1 and K2 take their
     wgmma and tma routes at hd 64, 96 and 128 and their fma kernels at
     any other hd; K4 its step route at T = 1, its wgmma route from
-    SCAN_WGMMA_MIN_S tokens on and its fma kernel between.
-    The peak of CLS_STATE blocks in use
-    is the most slots held after a step times a slot's grant.
+    SCAN_WGMMA_MIN_S tokens on and its fma kernel between.  Layers
+    count by their base kind (a ``global_moe`` layer is ``global``).
+    The peak of CLS_STATE blocks in use is the most slots held after a
+    step times a slot's grant; after the step it watches, the blocks in
+    use are read and must be the slots held times the grant.
     ``profile_reqs``, when given, are served again under the profiler.
-    Returns the run's numbers."""
+    Returns the run's numbers, among them the peaks of
+    ``max_memory_allocated`` in the weights' draw (``init_tree`` drawing
+    a leaf in float32 beside the leaves drawn) and from then to the
+    drain."""
+    from repro_torch.configs.base import base_kind
+    from repro_torch.core.classed_pool import CLS_STATE
     from repro_torch.kernels.rg_lru.ops import LRU_TMA_MIN_S
     from repro_torch.kernels.ssd_scan.ops import SCAN_WGMMA_MIN_S
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.model import init_params
 
+    tag = f"{tag} {cfg.name}"
+    phase(f"{tag}: before the weights, memory_allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=seed, device="cuda")
     torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     n_params = sum(p.numel() for p in tree_leaves(params))
-    tag = f"{tag} {cfg.name}"
-    phase(f"{tag} params: {n_params} ({cfg.dtype}), init "
-          f"{time.perf_counter() - t0:.1f} s")
+    phase(f"{tag} params: {n_params} ({cfg.dtype}), init {init_s:.1f} s, "
+          f"memory_allocated {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB, the draw's peak {init_peak / 2**30:.2f} GiB")
     eng = tengine.ServingEngine(cfg, params, dp=1, b_local=b_local,
                                 max_len=max_len, chunk_size=chunk,
                                 size_classes=size_classes, device="cuda")
@@ -1353,7 +1438,7 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
                                max_new_tokens=3))
     eng.run(max_steps=100)
     kind = {"K1": "global", "K4": "ssd", "K5": "rglru"}[kernel]
-    n_layers = sum(1 for k in cfg.layer_kinds if k == kind)
+    n_layers = sum(1 for k in cfg.layer_kinds if base_kind(k) == kind)
     phase(f"{tag}: {n_layers} {kind} layers, {size_classes} size "
           f"class(es): {eng.pages_local} KV pages a shard, "
           f"{eng.est_state_blocks(reqs[0])} state blocks a slot; "
@@ -1382,6 +1467,12 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
     syncs = [str(w.message).splitlines()[0] for w in caught
              if "called a synchronizing" in str(w.message)]
     peak_slots = len(eng.active)
+    if eng._state_blocks:
+        held = eng.blocks_in_use(CLS_STATE)
+        check(held == peak_slots * eng._state_blocks,
+              f"{tag}: CLS_STATE blocks in use after step 4 ({held}) are "
+              f"the slots held x a slot's grant ({peak_slots} x "
+              f"{eng._state_blocks})")
     for _ in range(10_000):
         if eng.idle():
             break
@@ -1472,6 +1563,8 @@ def serve_full_width(tag, tengine, counted, kernel, cfg, seed, b_local,
                k1_routes=k1_routes, k2_routes=k2_routes,
                k4_routes=k4_routes, k5_routes=k5_routes,
                state_peak=peak_slots * eng._state_blocks,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               init_peak_bytes=init_peak, n_params=n_params, init_s=init_s,
                tokens=[r.out_tokens for r in reqs])
     if profile_reqs is not None:
         profile_serve(eng, profile_reqs, f"{tag} [p]")
@@ -5256,6 +5349,146 @@ def train_vlm_encdec(k6, counted, seed, smi, profile=False):
     return out
 
 
+# ------------------------------------- phase 23: four more architectures
+
+#: llama4-maverick's depth in phase 23: one global_moe layer (128 experts)
+#: and one global, 18.43B parameters (36.86 GB in bf16); at 4 layers 69.6
+#: GB, too close to the card's 79.18 GiB to leave room for the dispatch
+#: buffers, and its 48 layers are 800 GB
+LLAMA4_LAYERS = 2
+
+
+def phase23_configs():
+    """(tag, config, size classes, ``make_requests`` options) of phase
+    23's four models: llama3.2-1b, phi4-mini-3.8b, gemma3-27b (its 52
+    window-1,024 rings on CLS_STATE; four prompts of 1,025-1,984 tokens
+    that wrap them) and llama4-maverick cut to :data:`LLAMA4_LAYERS`
+    layers, resident, capacity factor 64."""
+    from repro_torch.configs import get_config
+
+    llama4 = moe_cfg(get_config("llama4-maverick-400b-a17b"),
+                     n_layers=LLAMA4_LAYERS)
+    return (("a", get_config("llama3.2-1b"), 1, {}),
+            ("b", get_config("phi4-mini-3.8b"), 1, {}),
+            ("c", get_config("gemma3-27b"), 2,
+             dict(hi=1984, n_long=4, long_lo=1025)),
+            ("d", llama4, 1, {}))
+
+
+def serve_four_archs(tengine, counted, seed, smi, b_local, max_len, chunk):
+    """Phase 23: llama3.2-1b, phi4-mini-3.8b, gemma3-27b and
+    llama4-maverick (cut to :data:`LLAMA4_LAYERS` layers) at their
+    published widths through ``ServingEngine.run``, bf16, random weights
+    from ``seed`` drawn on the card, dp 1: the checks of
+    :func:`serve_full_width` (K1 on its wgmma route once per attention
+    layer per step with a prompt lane, K2 on its tma route once per
+    attention layer per decode-only step, at G 4, 3, 2 and 5; no other
+    kernel; one transfer a step; every class empty after the drain).
+    gemma3-27b's 52 local layers attend over their rings in torch ops,
+    as the reference does, and launch nothing; its four long prompts
+    wrap the 1,025-slot rings, and its slots hold their CLS_STATE grant
+    at the peak.  Each model is freed before the next is drawn.
+    Returns each model's run by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import count_params
+    from repro_torch.models.transformer import state_blocks_per_slot
+
+    full = get_config("llama4-maverick-400b-a17b")
+    out = {}
+    for x, cfg, classes, kw in phase23_configs():
+        tag = f"[23{x}]"
+        if cfg.moe is not None:
+            four = dataclasses.replace(cfg, n_layers=2 * LLAMA4_LAYERS)
+            card = torch.cuda.get_device_properties(0).total_memory
+            E = cfg.moe.num_experts
+            phase(f"{tag} {full.name} cut from {full.n_layers} to "
+                  f"{cfg.n_layers} layers ({'/'.join(cfg.layer_kinds)}; "
+                  f"{E} experts top-{cfg.moe.top_k}), served resident, "
+                  f"capacity factor {cfg.moe.capacity_factor:g}: "
+                  f"{count_params(cfg)} parameters, "
+                  f"{2 * count_params(cfg) / 1e9:.2f} GB in bf16; at "
+                  f"{four.n_layers} layers {2 * count_params(four) / 1e9:.1f}"
+                  f" GB, too close to the card's {card / 2**30:.2f} GiB "
+                  f"for the dispatch buffers; expert paging would gather "
+                  f"all {E} x 3 pages of a layer "
+                  f"({6 * E * cfg.d_model * cfg.d_ff / 1e9:.1f} GB) before "
+                  f"each MoE layer")
+        gc.collect()
+        torch.cuda.empty_cache()
+        reqs = make_requests(tengine, cfg, seed, **kw)
+        r = serve_full_width(tag, tengine, counted, "K1", cfg, seed,
+                             b_local, max_len, chunk, reqs,
+                             size_classes=classes)
+        check(r["n_layers"] == sum(1 for k in cfg.layer_kinds
+                                   if k.startswith("global")) > 0
+              and r["k1_routes"]["fma"] == r["k2_routes"]["fma"] == 0,
+              f"{tag} {cfg.name}: every attention layer on K1's wgmma and "
+              f"K2's tma route ({r['k1_routes']}, {r['k2_routes']})")
+        if classes > 1:
+            ring = cfg.window + 1
+            wrapped = sum(len(q.prompt) > ring for q in reqs)
+            grant = state_blocks_per_slot(cfg, max_len)
+            check(cfg.n_layers == len(cfg.layer_kinds) == 62 and wrapped >= 4
+                  and r["state_peak"] == b_local * grant,
+                  f"{tag} {cfg.name}: 62 layers, at least four prompts past "
+                  f"the {ring}-slot rings ({wrapped}), the slots held "
+                  f"{grant} CLS_STATE blocks each at the peak "
+                  f"({r['state_peak']})")
+            phase(f"{tag} {cfg.name}: {cfg.n_layers} layers, "
+                  f"{cfg.n_layers - r['n_layers']} of them local (window "
+                  f"{cfg.window}, rings of {ring} slots, torch ops); "
+                  f"{wrapped} prompts wrap their rings; peak CLS_STATE "
+                  f"blocks in use {r['state_peak']} ({b_local} slots x "
+                  f"{grant})")
+        phase(f"{tag} {cfg.name} on {smi}: {r['tok_s']:.1f} generated "
+              f"tok/s, {r['ms_step']:.2f} ms/step, peak "
+              f"max_memory_allocated serving "
+              f"{r['peak_bytes'] / 2**30:.2f} GiB (drawing the weights "
+              f"{r['init_peak_bytes'] / 2**30:.2f} GiB), {r['n_params']} "
+              f"parameters, init {r['init_s']:.1f} s")
+        out[cfg.name] = r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_k2_groups(ops, rng, b_local, maxp, P, base):
+    """Phase 23 (e): K2's tma route at phi4-mini-3.8b's widths (G 3) and
+    llama4-maverick's (G 5), hd 128, pages of 64, at ``base`` + 1
+    contexts (phase 15's), beside its fma kernel on the same inputs, its
+    bytes bound, its plain version and SDPA on dense K/V, over 8 layers
+    of pools.  Returns the times by model."""
+    from repro_torch.configs import get_config
+
+    out = {}
+    for name in ("phi4-mini-3.8b", "llama4-maverick-400b-a17b"):
+        cfg = dataclasses.replace(get_config(name), n_layers=8)
+        G = cfg.n_heads // cfg.n_kv_heads
+        check(ops.decode_route(cfg.tdtype, cfg.hd, cfg.page_size, G)
+              == "tma", f"[23e] K2 at {name}'s width (G {G}) on its tma "
+                        f"route")
+        t = time_kernel(
+            k2_launcher(ops, "tma"),
+            lambda q, kp, table, b: ops.decode_bound_bytes(
+                q[:, 0], kp, table, b + 1),
+            lambda q, kp, vp, table, b: ops.paged_attention_ref(
+                q[:, 0], kp, vp, table, b + 1, zero_empty=True),
+            rng, cfg, b_local, maxp, P, 1, base,
+            present=k2_launcher(ops, "fma"))
+        t["shape"] = (f"T=1 B={b_local} H={cfg.n_heads} KH={cfg.n_kv_heads} "
+                      f"hd={cfg.hd} psz={cfg.page_size} bf16, contexts "
+                      f"{int(base.min()) + 1}-{int(base.max()) + 1}")
+        phase(f"[23e] K2 (tma, G {G}) {t['shape']}: kernel {t['ms']:.4f} "
+              f"ms (host {t['host_ms']:.4f} ms a call), the fma kernel on "
+              f"the same inputs {t['present_ms']:.4f} ms (host "
+              f"{t['present_host_ms']:.4f} ms a call), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}: {t['bytes']} B, "
+              f"{t['flops']} flop), plain {t['plain_ms']:.4f} ms, library "
+              f"(SDPA, dense K/V) {t['library_ms']:.4f} ms")
+        out[name] = t
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5292,9 +5525,12 @@ def main() -> int:
     t_lap = [t_start]
 
     def lap(n, what):
-        """A phase's seconds, on a line of its own."""
+        """A phase's seconds, on a line of its own, beside the process's
+        host memory (VmRSS) and the card's ``memory_allocated``."""
         now = time.perf_counter()
-        phase(f"[{n}] {what} in {now - t_lap[0]:.1f} s")
+        phase(f"[{n}] {what} in {now - t_lap[0]:.1f} s; VmRSS "
+              f"{host_rss_bytes() / 1e9:.1f} GB, memory_allocated "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
         t_lap[0] = now
 
     # [1] the card
@@ -5318,9 +5554,22 @@ def main() -> int:
              "flash_attention_bwd_wgmma")
     build.load_all(stems)
     for stem in stems:
-        for line in build.logs.get(stem, "").splitlines():
-            if "registers" in line or "spill" in line:
-                phase(f"[2] {stem}: {line.strip()}")
+        for name, line in ptxas_lines(build.logs.get(stem, "")):
+            phase(f"[2] {stem} {name}: {line}")
+    # K2's tma instances at G 3 and 5 (phi4-mini, llama4) do not spill:
+    # read from the built library, so a reused build is held too
+    usage = {kernel_name(k): v for k, v in
+             build.resource_usage("paged_decode_tma").items()}
+    for name in (f"k2_split<{hd},{g}>" for hd in (64, 96, 128)
+                 for g in (3, 5)):
+        got = usage.get(name)
+        check(got is not None and got.get("STACK") == 0
+              and got.get("LOCAL") == 0,
+              f"[2] paged_decode_tma {name} built, no stack frame or local "
+              f"memory (no spills): {got}")
+        phase(f"[2] paged_decode_tma {name} (cuobjdump): {got['REG']} "
+              f"registers, stack frame {got['STACK']} bytes, local "
+              f"{got['LOCAL']} bytes")
     phase(f"[2] built {', '.join(stems)} in {time.perf_counter() - t0:.1f} "
           f"s into {build.BUILD_DIR}")
     lap(2, "the build")
@@ -5337,14 +5586,17 @@ def main() -> int:
     # [3] kernels vs plain versions
     rng = np.random.RandomState(args.seed)
     err = check_kernel(ops, plain, rng, cfg, cfg_smoke, b_local, maxp, P)
-    err2 = check_k2(ops, plain2, rng, (cfg, get_config("llama3.2-1b"),
-                                       cfg_smoke), b_local, maxp, P)
+    # bf16 at olmo-1b's widths, then phase 23's: llama3.2-1b (G 4, hd 64),
+    # phi4-mini-3.8b (G 3), gemma3-27b (G 2, 16 KV heads), llama4 (G 5)
+    widths = (cfg, *(c for _, c, _, _ in phase23_configs()))
+    # streams of their own
+    err2, err2_g = check_k2(ops, plain2,
+                            np.random.RandomState(args.seed + 23), widths,
+                            cfg_smoke, b_local, maxp, P)
     err3 = check_k3(k3, ops, plain, rng, cfg, cfg_smoke, b_local, maxp, P)
-    # a stream of its own: the later phases draw the inputs they drew
-    err_routes = check_wgmma_routes(k3, ops, plain,
-                                    np.random.RandomState(args.seed + 3),
-                                    (cfg, get_config("llama3.2-1b")))
-    err, err3 = max(err, err_routes["K1"]), max(err3, err_routes["K3"])
+    err_routes, err1_g = check_wgmma_routes(
+        k3, ops, plain, np.random.RandomState(args.seed + 3), widths)
+    err, err3 = (max(err, err_routes["K1"]), max(err3, err_routes["K3"]))
     mamba, mamba_smoke = (get_config("mamba2-370m"),
                           smoke_config(get_config("mamba2-370m")))
     rgemma, rgemma_smoke = (get_config("recurrentgemma-2b"),
@@ -5758,6 +6010,13 @@ def main() -> int:
     r22 = train_vlm_encdec(k6, counted, args.seed, smi,
                            profile=args.profile)
     lap(22, "phi-3-vision and whisper-tiny training at full width")
+    # [23] four more architectures at full width, and K2 at G 3 and 5
+    r23 = serve_four_archs(tengine, counted, args.seed, smi, b_local,
+                           max_len, chunk)
+    t23 = time_k2_groups(ops, np.random.RandomState(args.seed + 230),
+                         b_local, maxp, P, base15)
+    lap(23, "llama3.2-1b, phi4-mini-3.8b, gemma3-27b and llama4-maverick "
+            "serving at full width, K2 at G 3 and 5")
     s16 = sampled["runs"][0]
     sampled_launches = {
         "K1": s16["launches"], "K2": s16["k2"],
@@ -5974,7 +6233,26 @@ def main() -> int:
             "nccl": None if r20["nccl"] is None else {
                 f"rank{d}": b["launches"][key]
                 for d, b in enumerate(r20["nccl"])}}
-    phase(f"[22] total {time.perf_counter() - t_start:.1f} s")
+    # phase 23: every model's K1 and K2 launches, and K2's G 3 and 5
+    # instances at phi4-mini-3.8b's and llama4-maverick's widths
+    kernels[0]["phase23_launches"] = {
+        name: {"launches": r["k2"], "by_route": r["k2_routes"]}
+        for name, r in r23.items()}
+    kernels[1]["phase23_launches"] = {
+        name: {"launches": r["launches"], "by_route": r["k1_routes"]}
+        for name, r in r23.items()}
+    for row_, errs in ((kernels[0], err2_g), (kernels[1], err1_g)):
+        row_["phase23_max_abs_err"] = {name: errs[name] for name in r23}
+    kernels[0]["odd_g"] = {
+        name: dict(route="tma", source=pa_src + "paged_decode_tma.cu",
+                   launches=r23[name]["k2_routes"]["tma"],
+                   max_abs_err=err2_g[name], shape=t["shape"],
+                   **{k: t[k] for k in times},
+                   present_kernel=dict(source=pa_src + "paged_decode.cu",
+                                       ms=t["present_ms"],
+                                       host_ms=t["present_host_ms"]))
+        for name, t in t23.items()}
+    phase(f"[23] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

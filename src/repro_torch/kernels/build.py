@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -46,18 +47,28 @@ def nvcc() -> str:
     return found
 
 
+def _source(stem: str) -> Path:
+    (src,) = PKG.glob(f"kernels/**/csrc/{stem}.cu")
+    return src
+
+
+def library(stem: str) -> Path:
+    """Where ``csrc/<stem>.cu``'s shared library is (or will be) built:
+    named by a hash of the source and its headers."""
+    src = _source(stem)
+    h = hashlib.sha256(src.read_bytes())
+    for header in (sorted(COMMON.glob("*.cuh"))
+                   + sorted(src.parent.glob("*.cuh"))):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
+
+
 def load(stem: str) -> ctypes.CDLL:
     """The shared library of ``csrc/<stem>.cu``, compiled if it is not
     built yet."""
     lib = _loaded.get(stem)
     if lib is None:
-        (src,) = PKG.glob(f"kernels/**/csrc/{stem}.cu")
-        h = hashlib.sha256(src.read_bytes())
-        for header in (sorted(COMMON.glob("*.cuh"))
-                       + sorted(src.parent.glob("*.cuh"))):
-            h.update(header.read_bytes())
-        digest = h.hexdigest()[:16]
-        out = BUILD_DIR / f"lib{stem}-{digest}.so"
+        src, out = _source(stem), library(stem)
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -71,6 +82,28 @@ def load(stem: str) -> ctypes.CDLL:
             logs[stem] = proc.stdout
         lib = _loaded[stem] = ctypes.CDLL(str(out))
     return lib
+
+
+def resource_usage(stem: str) -> Dict[str, Dict[str, int]]:
+    """Each kernel of ``stem``'s built library by its mangled name: its
+    registers (``REG``), stack frame (``STACK``, where spilled registers
+    go), local memory (``LOCAL``) and shared memory bytes, as
+    ``cuobjdump --dump-resource-usage`` reads them from the library, so
+    a library built by an earlier process is read alike."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "--dump-resource-usage",
+                           str(library(stem))], capture_output=True,
+                          text=True, check=True).stdout
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function (\S+?):(?:\s|$)", line)
+        if m:
+            name, line = m.group(1), line[m.end():]
+        if name is not None and "REG:" in line:
+            usage[name] = {k: int(v) for k, v in
+                           re.findall(r"(\w+):(\d+)", line)}
+            name = None
+    return usage
 
 
 def load_all(stems: Sequence[str]) -> Dict[str, ctypes.CDLL]:

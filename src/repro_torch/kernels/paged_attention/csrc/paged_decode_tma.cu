@@ -4,9 +4,10 @@
 // Replaces the JAX package's Pallas TPU kernel
 // kernels/paged_attention/kernel.py::paged_attention (pallas_call at
 // kernel.py:227), for bf16 at hd 64, 96 and 128 with pages of 64 tokens
-// and G = H / KH of 1, 2, 4 or 8 (olmo-1b, llama3.2-1b, gemma3-27b,
-// phi-3-vision).  The float32, hd 16 and page-8 shapes take
-// paged_decode.cu; ops.py::decode_route states the dispatch.
+// and G = H / KH of 1, 2, 3, 4, 5 or 8 (olmo-1b, llama3.2-1b, gemma3-27b,
+// phi-3-vision, phi4-mini-3.8b at G 3, llama4-maverick at G 5).  The
+// float32, hd 16 and page-8 shapes take paged_decode.cu;
+// ops.py::decode_route states the dispatch.
 //
 // What it computes: the function of paged_decode.cu.  For each sequence
 // b, one query token of H heads attends to every kv position p <
@@ -411,7 +412,9 @@ int by_g(const void* kp, const void* vp, const Args& a, int B, int P,
   switch (a.H / a.KH) {
     case 1: return launch<HD, 1>(kp, vp, a, B, P, s);
     case 2: return launch<HD, 2>(kp, vp, a, B, P, s);
+    case 3: return launch<HD, 3>(kp, vp, a, B, P, s);
     case 4: return launch<HD, 4>(kp, vp, a, B, P, s);
+    case 5: return launch<HD, 5>(kp, vp, a, B, P, s);
     case 8: return launch<HD, 8>(kp, vp, a, B, P, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -422,9 +425,9 @@ int by_g(const void* kp, const void* vp, const Args& a, int B, int P,
 extern "C" {
 
 // bfloat16 only.  q/out: [B, H, hd]; k/v pages: [P, psz, KH, hd] with
-// psz 64 and hd 64, 96 or 128, H / KH in {1, 2, 4, 8}; table: int32 [B,
-// maxp]; seq_lens: int32 [B]; workspace: float32, B H nsplit (hd + 2)
-// values, nsplit = ceil(maxp / pages_per_split).  All contiguous, q and
+// psz 64 and hd 64, 96 or 128, H / KH in {1, 2, 3, 4, 5, 8}; table:
+// int32 [B, maxp]; seq_lens: int32 [B]; workspace: float32, B H nsplit
+// (hd + 2) values, nsplit = ceil(maxp / pages_per_split).  All contiguous, q and
 // the pools 16-byte aligned.  Launches the split kernel, then the merge;
 // returns cudaGetLastError() after them.
 int paged_decode_tma(const void* q, const void* k_pages, const void* v_pages,

@@ -25,8 +25,9 @@ plain PyTorch versions.
 
   - ``"tma"`` (``csrc/paged_decode_tma.cu``), bf16 at hd 64, 96 and
     128 (:data:`DECODE_TMA_HEAD_DIMS`) with pages of 64 tokens and G of
-    1, 2, 4 or 8, the decode-only steps of olmo-1b, llama3.2-1b,
-    gemma3-27b and phi-3-vision: each lane's pages
+    1, 2, 3, 4, 5 or 8, the decode-only steps of olmo-1b, llama3.2-1b,
+    gemma3-27b, phi-3-vision, phi4-mini-3.8b (G 3) and llama4-maverick
+    (G 5): each lane's pages
     cut into splits of :data:`PAGES_PER_SPLIT` (:func:`.ref.decode_splits`),
     a block per (kv head, lane, split) fed by TMA from a producer warp,
     then a merge of each lane's splits in split order; hd 96 over tiles
@@ -220,7 +221,7 @@ def bound_bytes(q, k_pages, page_table, base_lens) -> int:
 #: 15; PERF.md)
 PAGES_PER_SPLIT = 4
 #: G = H / KH that K2's TMA route takes
-TMA_GROUPS = (1, 2, 4, 8)
+TMA_GROUPS = (1, 2, 3, 4, 5, 8)
 
 
 def decode_route(dtype, hd: int, psz: int, G: int) -> str:

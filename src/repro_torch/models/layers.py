@@ -45,8 +45,10 @@ def tree_leaves(tree: Any) -> list:
 def init_tree(defs, generator: torch.Generator, device="cuda") -> Any:
     """Initialize a tree of ParamDefs: normal leaves are N(0, 1) /
     sqrt(fan_in) drawn in float32 from ``generator`` (on ``device``),
-    then cast.  torch's generator cannot reproduce ``jax.random``, so
-    parity with the reference runs on bridged weights (``bridge.py``)."""
+    scaled in place (one float32 buffer a leaf: llama4-maverick's expert
+    leaf alone is 21.5 GB in float32), then cast.  torch's generator
+    cannot reproduce ``jax.random``, so parity with the reference runs
+    on bridged weights (``bridge.py``)."""
     def one(d: ParamDef):
         if d.init == "zeros":
             return torch.zeros(d.shape, dtype=d.dtype, device=device)
@@ -55,7 +57,7 @@ def init_tree(defs, generator: torch.Generator, device="cuda") -> Any:
         fan_in = d.shape[0] if d.shape else 1
         x = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                         device=device)
-        return (x * (1.0 / math.sqrt(max(fan_in, 1)))).to(d.dtype)
+        return x.mul_(1.0 / math.sqrt(max(fan_in, 1))).to(d.dtype)
     return tree_map(one, defs)
 
 

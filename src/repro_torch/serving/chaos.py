@@ -69,9 +69,10 @@ class StepError(RuntimeError):
 
 class RankFailure(RuntimeError):
     """A rank of a DP group failed after a status gather (or in a step
-    that gathered nothing), when the ranks' host state may already
-    differ: no in-place recovery is tried.  Raised on every rank at the
-    group's next gather, naming the failing rank and serve step."""
+    that gathered nothing), or in its recovery (in place, or a crash's
+    rebuild), when the ranks' host state may already differ: no in-place
+    recovery is tried.  Raised on every rank at the group's next gather,
+    naming the failing rank, where it failed and the serve step."""
 
 
 class PoisonedRequest(RuntimeError):
@@ -337,7 +338,11 @@ def recover_engine(factory, crashed, journal: ServingJournal):
     journals are compared first (one gather of their digests, outside
     any serve step; a difference raises on every rank), the factory
     builds over the same group, and each rank adopts its own crashed
-    shard against its own pin row.
+    shard against its own pin row.  A rank whose rebuild raises before
+    its engine's construction gather tells the others at that gather
+    (:func:`~.engine.tell_rebuild_failure`); one whose adoption raises
+    holds the failure and goes on in step.  Either way every rank raises
+    :class:`RankFailure` at the group's next gather.
 
     Returns ``(engine, report)`` where ``report`` extends the
     :func:`classed_pool.audit_and_reconcile` report (of this rank's
@@ -345,7 +350,7 @@ def recover_engine(factory, crashed, journal: ServingJournal):
     ``finished_at_crash`` and the requeued ``requests`` (for
     token-identity checks).
     """
-    from .engine import Request
+    from .engine import FAIL_REBUILD, Request, tell_rebuild_failure
 
     mesh = getattr(crashed, "mesh", None)
     if mesh is not None:
@@ -356,7 +361,14 @@ def recover_engine(factory, crashed, journal: ServingJournal):
             raise RuntimeError(
                 f"recover_engine: the ranks' journals differ (digest, "
                 f"events by rank: {got}): the shards cannot recover alike")
-    eng = factory()
+    try:
+        eng = factory()
+    except RankFailure:
+        raise                       # another rank's failure, told here
+    except Exception as e:
+        if mesh is None:
+            raise
+        tell_rebuild_failure(mesh, crashed.bl, crashed.stats["steps"], e)
     assert eng.dp == crashed.dp and eng.bl == crashed.bl, \
         "recovery requires an identical topology"
 
@@ -382,13 +394,20 @@ def recover_engine(factory, crashed, journal: ServingJournal):
                 ok[r, e["row"]] = True
         pin_np[~ok] = NULL
 
-    report = eng.adopt_crashed_state(crashed.state, pin_np)
-    if eng.pins is not None and pins_live:
-        eng.pins.load_state(pins_live)
-        if eng.prefix_cache is not None:
-            for pid, e in eng.pins.entries.items():
-                eng.prefix_cache.pin_insert(pid, e["shard"],
-                                            list(e["tokens"]))
+    try:
+        report = eng.adopt_crashed_state(crashed.state, pin_np)
+        if eng.pins is not None and pins_live:
+            eng.pins.load_state(pins_live)
+            if eng.prefix_cache is not None:
+                for pid, e in eng.pins.entries.items():
+                    eng.prefix_cache.pin_insert(pid, e["shard"],
+                                                list(e["tokens"]))
+    except Exception as e:
+        if mesh is None:
+            raise
+        # told at the next gather, which this rank still joins
+        eng._hold(e, FAIL_REBUILD, crashed.stats["steps"])
+        report = {}
 
     for s in sorted(journal.lost_shards()):
         eng.lose_shard(s)            # fresh engine: just retires the shard

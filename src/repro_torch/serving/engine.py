@@ -88,8 +88,12 @@ work, or a schedule that not every rank holds) is held while the rank's
 host control goes on in step, and rides the trailing rows of the next
 gather: raised before the step's status gather, every rank recovers in
 place at it; after it, every rank raises :class:`~.chaos.RankFailure`
-at the next one.  A warm save writes each rank's shard file, rank 0's
-sidecar, and the completion marker once every file has landed.
+at the next one, as it does when a rank's crash rebuild through
+``recover_engine`` raises.  Every in-place recovery ends in a gather
+of the trailing rows, where a rank whose recovery raised makes every
+rank raise :class:`~.chaos.RankFailure` at once.  A warm save writes
+each rank's shard file, rank 0's sidecar, and the completion marker
+once every file has landed.
 """
 
 from __future__ import annotations
@@ -222,14 +226,20 @@ STATUS_PAGES = 2     # + T: KV pages-in-use on the slot's DP shard
 # status: the sending rank's wall clock (microseconds, high and low
 # 32 bits) and its wall time of the previous serve step (microseconds,
 # -1 for none), of which host decisions read rank 0's, so the ranks
-# agree; then the rank's failure flag (0, FAIL_IN_STEP or FAIL_LATE)
-# and the serve step it names; then the checksum of the rank's fault
-# schedule (0 without an injector).
+# agree; then the rank's failure flag (0 or a FAIL_ kind) and the
+# serve step it names; then the checksum of the rank's fault schedule
+# (0 without an injector).
 CLOCK_ROWS = 3
 TRAIL_FAIL, TRAIL_FAIL_STEP, TRAIL_SCHEDULE = 3, 4, 5
 TRAIL_ROWS = 6
 FAIL_IN_STEP = 1   # failed in the step this status gather closes
 FAIL_LATE = 2      # failed after an earlier gather, or in a step with none
+FAIL_RECOVERY = 3  # failed in its in-place recovery (run)
+FAIL_REBUILD = 4   # failed in chaos.recover_engine's rebuild or adoption
+FAIL_WHERE = {FAIL_IN_STEP: "in serve step {} before its status gather",
+              FAIL_LATE: "in serve step {} after its status gather",
+              FAIL_RECOVERY: "in its in-place recovery after serve step {}",
+              FAIL_REBUILD: "in recover_engine's rebuild after serve step {}"}
 
 
 def _trail_rows(now: float, dt: Optional[float], fail: int, fail_step: int,
@@ -241,6 +251,38 @@ def _trail_rows(now: float, dt: Optional[float], fail: int, fail_step: int,
                      -1 if dt is None else min(int(dt * 1e6), 2**31 - 1),
                      fail, fail_step, schedule)
     return rows.astype(np.int32)
+
+
+def _raise_told(trail: np.ndarray, size: int, in_step: bool,
+                cause: Optional[BaseException]) -> None:
+    """Raise if the gathered trailing rows carry a rank's failure: a
+    :class:`~.chaos.StepError` (recovered in place by ``run`` on every
+    rank) when each failing rank failed before this status gather, in
+    the step it closes, and :class:`~.chaos.RankFailure` otherwise,
+    naming each failing rank, where it failed and the serve step.  This
+    rank's own error, if it held one, is the cause."""
+    fails = [(r, int(trail[TRAIL_FAIL, r, 0]),
+              int(trail[TRAIL_FAIL_STEP, r, 0]))
+             for r in range(size) if int(trail[TRAIL_FAIL, r, 0])]
+    if not fails:
+        return
+    told = "; ".join(f"rank {r} failed {FAIL_WHERE[k].format(s)}"
+                     for r, k, s in fails)
+    if in_step and all(k == FAIL_IN_STEP for _, k, _ in fails):
+        raise StepError(told) from cause
+    raise RankFailure(told) from cause
+
+
+def tell_rebuild_failure(mesh: DPGroup, bl: int, step: int,
+                         cause: BaseException) -> None:
+    """A rank whose engine rebuild (``chaos.recover_engine``'s factory)
+    raised before its construction gather: join the gather that the
+    other ranks' new engines make at construction with a FAIL_REBUILD
+    flag, so that every rank raises :class:`~.chaos.RankFailure` there
+    at once; this one raises it too."""
+    rows = _trail_rows(time.time(), None, FAIL_REBUILD, step, 0, bl)
+    got = mesh.gather_status(torch.from_numpy(rows))
+    _raise_told(got, mesh.size, False, cause)
 
 
 def _read_clock(rows: np.ndarray) -> Tuple[float, Optional[float]]:
@@ -671,7 +713,7 @@ class ServingEngine:
         self._cost_key: Optional[Tuple[int, bool]] = None
         self._group_verdict: Optional[str] = None
         # under a group: this rank's failure not yet told to the others,
-        # as (exception, serve step, raised before the step's gather),
+        # as (exception, serve step, FAIL_ kind),
         # and whether its fault schedule is its own (not every rank's)
         self._held: Optional[tuple] = None
         self._faults_alone = False
@@ -733,13 +775,16 @@ class ServingEngine:
         try:
             self._injector.fire(self, phase, alone=True, **ctx)
         except (StepError, HostCrash, PoisonedRequest) as e:
-            self._hold(e, before_gather=phase not in ("post_sync",
-                                                      "post_step"))
+            self._hold(e, FAIL_LATE if phase in ("post_sync", "post_step")
+                       else FAIL_IN_STEP)
 
-    def _hold(self, e: BaseException, before_gather: bool) -> None:
-        """Keep this rank's first failure until a gather tells it."""
+    def _hold(self, e: BaseException, kind: int,
+              step: Optional[int] = None) -> None:
+        """Keep this rank's first failure, a FAIL_ ``kind`` after serve
+        step ``step`` (this engine's last), until a gather tells it."""
         if self._held is None:
-            self._held = (e, self.stats["steps"], before_gather)
+            self._held = (e, self.stats["steps"] if step is None else step,
+                          kind)
 
     @contextlib.contextmanager
     def _holding(self):
@@ -753,7 +798,7 @@ class ServingEngine:
         except Exception as e:
             if self.mesh is None:
                 raise
-            self._hold(e, before_gather=True)
+            self._hold(e, FAIL_IN_STEP)
 
     def _sampling_registers(self):
         """Zeroed (temps float32, topks int32, seeds int32) [DP, Bl] on
@@ -1421,9 +1466,11 @@ class ServingEngine:
         0's wall clock becomes every rank's.  The status gather moves
         the agreed clock on every serve step; an engine with nothing
         owed runs none, so this one runs at construction, at a submit to
-        an idle engine and at an idle step that leaves work owed.  Every
-        rank decides it from the host state they share, so all call it
-        at the same point; counted in ``clock_syncs``.  At construction
+        an idle engine, at an idle step that leaves work owed and after
+        an in-place recovery (:meth:`run`), where it tells a rank's
+        failed recovery to every rank.  Every rank decides it from the
+        host state they share, so all call it at the same point; counted
+        in ``clock_syncs``.  At construction
         the ranks also compare their fault schedules: a schedule that
         not every rank holds is its rank's alone (:meth:`_fire`)."""
         self.clock_syncs += 1
@@ -1441,35 +1488,17 @@ class ServingEngine:
         and its schedule's checksum."""
         fail, fail_step = 0, 0
         if self._held is not None:
-            fail = FAIL_IN_STEP if self._held[2] else FAIL_LATE
-            fail_step = self._held[1]
+            fail_step, fail = self._held[1:]
         return _trail_rows(self._local_clock(), dt, fail, fail_step,
                            0 if self._injector is None
                            else self._injector.digest(), self.bl)
 
     def _read_trail(self, trail: np.ndarray, in_step: bool) -> None:
-        """Raise on every rank if a gather carried a rank's failure: a
-        :class:`~.chaos.StepError` (recovered in place by :meth:`run` on
-        every rank) when each failing rank failed before this status
-        gather, in the step it closes, and :class:`~.chaos.RankFailure`
-        otherwise.  The failing rank's own error is the cause."""
+        """Raise on every rank if a gather carried a rank's failure
+        (:func:`_raise_told`); the failure this rank held is told."""
         held, self._held = self._held, None
-        fails = [(r, int(trail[TRAIL_FAIL, r, 0]),
-                  int(trail[TRAIL_FAIL_STEP, r, 0]))
-                 for r in range(self.mesh.size)
-                 if int(trail[TRAIL_FAIL, r, 0])]
-        if not fails:
-            return
-        cause = None if held is None else held[0]
-        if in_step and all(k == FAIL_IN_STEP for _, k, _ in fails):
-            raise StepError("; ".join(
-                f"rank {r} failed in serve step {s} before its status "
-                f"gather" for r, _, s in fails)) from cause
-        raise RankFailure("; ".join(
-            f"rank {r} failed in serve step {s}"
-            + (" after its status gather" if k == FAIL_LATE
-               else " before its status gather")
-            for r, k, s in fails)) from cause
+        _raise_told(trail, self.mesh.size, in_step,
+                    None if held is None else held[0])
 
     def _observe_cost(self, key: Tuple[int, bool], dt: float
                       ) -> Optional[str]:
@@ -1570,9 +1599,9 @@ class ServingEngine:
         self._fire("post_admission")
         if not self.active:
             self.telemetry.inc("idle_steps")
-            if self._held is not None:
+            if self._held is not None and self._held[2] == FAIL_IN_STEP:
                 # no status gather in this step: told as a late failure
-                self._held = self._held[:2] + (False,)
+                self._held = self._held[:2] + (FAIL_LATE,)
             if self.mesh is not None and self.scheduler.backlog():
                 self._sync_clock()     # parked work's deadlines move on
             return False
@@ -1655,7 +1684,7 @@ class ServingEngine:
                     raise
                 # this rank's device step failed: the others learn it at
                 # the status gather, which this rank still joins
-                self._hold(e, before_gather=True)
+                self._hold(e, FAIL_IN_STEP)
         self.telemetry.inc("steps")
         self.telemetry.observe_hist("chunk_hist", T)
         self._fire("dispatched")
@@ -1813,7 +1842,11 @@ class ServingEngine:
         place: one raised alike on every rank (an injected ``error``, or
         a rank's failure told at the step's status gather), so every
         rank's restart count and budget move together.  Anything else
-        (:class:`~.chaos.RankFailure` included) re-raises.
+        (:class:`~.chaos.RankFailure` included) re-raises.  After the
+        in-place recovery every rank joins one gather of the trailing
+        rows (:meth:`_sync_clock`): a rank whose recovery raised holds
+        the failure into it, and every rank raises
+        :class:`~.chaos.RankFailure` there.
         """
         budget = self.max_restarts if max_restarts is None else max_restarts
         restarts = 0
@@ -1840,7 +1873,19 @@ class ServingEngine:
                                      "error": repr(e)}):
                     self.telemetry.inc("flight_dumps")
                     self.tracer.instant("flight_dump", reason="step_error")
-                self._recover_inplace()
+                try:
+                    self._recover_inplace()
+                except Exception as failed:
+                    if self.mesh is None:
+                        raise
+                    # this rank's recovery failed: held for the gather
+                    # below, which this rank still joins
+                    self._hold(failed, FAIL_RECOVERY)
+                if self.mesh is not None:
+                    # every rank recovered at this point: a failed
+                    # recovery raises RankFailure on every rank here,
+                    # before any rank serves on a partly recovered engine
+                    self._sync_clock()
                 if restarts > budget:
                     raise
 
@@ -1929,7 +1974,8 @@ class ServingEngine:
         ledger entry never landed is reclaimed, as after a crash.  Under
         a DP group every rank runs it at the same point, on its own
         shard, with no collective; the step costs waiting to be observed
-        are dropped alike on every rank."""
+        are dropped alike on every rank, and a raise here is held by
+        :meth:`run` and told at the gather that follows."""
         self.telemetry.inc("recoveries")
         self.tracer.begin("recover", kind="inplace")
         for slot in list(self.active):
@@ -2085,8 +2131,10 @@ class ServingEngine:
         from every rank, in rank order, with this rank's held failure
         beside it, so a failure after a run's last status gather is told
         here at the latest (:meth:`_read_trail`)."""
-        fail = 0 if self._held is None else FAIL_LATE
-        step = 0 if self._held is None else self._held[1]
+        fail, step = 0, 0
+        if self._held is not None:
+            step, fail = self._held[1:]
+            fail = FAIL_LATE if fail == FAIL_IN_STEP else fail
         mine = torch.tensor([int(local.reshape(-1)[0]), fail, step],
                             dtype=torch.int64)
         got = self.mesh.gather(mine).reshape(self.mesh.size, 3).cpu()

@@ -96,9 +96,13 @@ def run_main(mod, argv, monkeypatch, jparams=None):
 TIMING = {"stragglers", "step_timeouts"}
 
 
-def engine_setup(arch):
+def engine_setup(arch, **overrides):
     """(reference config, reference params, port config, bridged port
-    params) of ``arch``'s smoke config, weights from PRNGKey(0)."""
+    params) of ``arch``'s smoke config with the fields ``overrides``
+    replaced (the same ``dataclasses.replace`` on both packages'
+    configs), weights from PRNGKey(0)."""
+    import dataclasses
+
     import jax
     from repro import models as jmodels
     from repro.configs import get_config, smoke_config
@@ -106,9 +110,10 @@ def engine_setup(arch):
     from repro_torch.configs import get_config as t_get_config
     from repro_torch.configs import smoke_config as t_smoke_config
 
-    cfg = smoke_config(get_config(arch))
+    cfg = dataclasses.replace(smoke_config(get_config(arch)), **overrides)
     params = jmodels.init_params(cfg, jax.random.PRNGKey(0))
-    tcfg = t_smoke_config(t_get_config(arch))
+    tcfg = dataclasses.replace(t_smoke_config(t_get_config(arch)),
+                               **overrides)
     tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     return cfg, params, tcfg, tparams
 

@@ -26,6 +26,7 @@ import io
 import itertools
 import json
 import os
+import time
 
 import numpy as np
 import torch
@@ -43,6 +44,8 @@ from repro_torch.serving import engine as tengine  # noqa: E402
 from repro_torch.serving.sched import SchedConfig  # noqa: E402
 from repro_torch.serving.telemetry import FlightRecorder  # noqa: E402
 
+#: the gloo group's timeout: a rank left waiting raises after it
+GROUP_TIMEOUT_S = 90
 #: Tensor methods that read a tensor's values on the host
 READS = ("item", "tolist", "numpy", "__bool__", "__int__", "__float__",
          "__index__")
@@ -563,6 +566,89 @@ def scenario_one_rank(group, job):
             done=all(r.done for r in reqs), host=eng.host_state(),
             stats=(eng.stats["steps"], eng.host_transfers,
                    eng.collectives))
+    out.update(_recovery_failures(cfg, params, group, alone))
+    return out
+
+
+def _raises_adopting(eng, what):
+    """``eng`` whose first ``adopt_crashed_state`` raises."""
+    eng.adopt_crashed_state = _once(eng.adopt_crashed_state, 1, what)
+    return eng
+
+
+def _raises_requeueing(eng, what):
+    """``eng`` whose first requeue in an in-place recovery raises after
+    requeueing its slot: a recovery that stops midway, its other slots
+    still active and its pool not reconciled."""
+    real = eng._requeue
+
+    def requeue(slot, reason):
+        real(slot, reason)
+        if reason == "recovery" and not requeue.raised:
+            requeue.raised = True
+            raise RuntimeError(what)
+    requeue.raised = False
+    eng._requeue = requeue
+    return eng
+
+
+def _recovery_failures(cfg, params, group, alone):
+    """Rank 1's recovery raising on rank 1 alone: its in-place recovery
+    (after an error at ``dispatched`` that only rank 1's schedule
+    holds, both ranks recover in place and rank 1's adoption raises,
+    ``recovery``, or its first requeue raises midway, ``requeue``), and
+    after a crash at ``post_sync`` on both ranks, inside
+    ``recover_engine`` rank 1's adoption (``adoption``) or its factory
+    before building (``rebuild``).  Each case: what each rank raised,
+    the case's seconds and the serve steps of its (first) engine."""
+    out = {}
+    for case in ("recovery", "requeue", "adoption", "rebuild"):
+        t0 = time.perf_counter()
+        raised = None
+        try:
+            if case in ("recovery", "requeue"):
+                eng = _engine(cfg, params, group, dp=2, b_local=2,
+                              max_restarts=4,
+                              injector=chaos.ServingFailureInjector(
+                                  [chaos.Fault(step=2, phase="dispatched",
+                                               kind="error")])
+                              if alone else None)
+                if alone and case == "recovery":
+                    _raises_adopting(eng, "recovery failed on this rank")
+                if alone and case == "requeue":
+                    _raises_requeueing(eng, "requeue failed on this rank")
+                for r in chaos_requests():
+                    eng.submit(r)
+                eng.run(max_steps=300)
+            else:
+                journal = chaos.ServingJournal()
+                injector = chaos.ServingFailureInjector(
+                    [chaos.Fault(step=2, phase="post_sync", kind="crash")])
+
+                def build():
+                    return _engine(cfg, params, group, dp=2, b_local=2,
+                                   journal=journal, injector=injector)
+
+                def rebuild():
+                    if alone and case == "rebuild":
+                        raise RuntimeError("rebuild failed on this rank")
+                    eng = build()
+                    if alone:
+                        _raises_adopting(eng, "adoption failed on this rank")
+                    return eng
+
+                eng = build()
+                for r in chaos_requests():
+                    eng.submit(r)
+                try:
+                    eng.run(max_steps=300)
+                except chaos.HostCrash:
+                    pass
+                chaos.recover_engine(rebuild, eng, journal)
+        except Exception as e:
+            raised = (type(e).__name__, str(e))
+        out[case] = dict(raised=raised, seconds=time.perf_counter() - t0,
+                         steps=eng.stats["steps"])
     return out
 
 
@@ -783,7 +869,7 @@ def main(path):
     job = json.load(open(path))
     group = make_dp_group(job["dp"], "gloo", "cpu",
                           init_method="file://" + job["init"],
-                          timeout_s=job.get("timeout_s", 90))
+                          timeout_s=job.get("timeout_s", GROUP_TIMEOUT_S))
     out = {}
     for name in job["scenarios"]:
         out[name] = globals()[f"scenario_{name}"](group, job)

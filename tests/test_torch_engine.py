@@ -55,6 +55,38 @@ def test_gqa_rmsnorm_config_matches_reference():
                  max_len=64, chunk_size=4)
 
 
+@pytest.mark.parametrize("arch,heads", [("phi4-mini-3.8b", 6),
+                                        ("llama4-maverick-400b-a17b", 10)])
+def test_gqa_at_g3_and_g5_matches_reference(arch, heads):
+    """G = 3 (phi4-mini-3.8b's 24 heads over 8) and G = 5
+    (llama4-maverick's 40 over 8) at smoke width: ``heads`` query heads
+    of 16 over 2 kv heads, llama4's MoE layers (4 experts, top-1)
+    resident; prompts past a page and a prefill chunk, so that both the
+    chunk and the width-1 decode steps run."""
+    setup = engine_setup(arch, n_heads=heads, n_kv_heads=2, head_dim=16)
+    assert setup[2].n_heads // setup[2].n_kv_heads == heads // 2
+    rng = np.random.RandomState(3)
+    prompts = [list(rng.randint(1, 255, rng.randint(3, 30)))
+               for _ in range(5)]
+    tr, te = _assert_same(setup, prompts, 6, dp=1, b_local=2, max_len=64,
+                          chunk_size=8)
+    assert te.stats["chunk_hist"].get(1, 0) > 0
+
+
+def test_llama4_smoke_served_resident_matches_reference():
+    """llama4-maverick's smoke config as it is (``global_moe`` and
+    ``global`` layers, 4 experts top-1, G 2), its experts resident (no
+    expert paging), at dp 2."""
+    setup = engine_setup("llama4-maverick-400b-a17b")
+    assert setup[2].moe.num_experts == 4 and setup[2].moe.top_k == 1
+    rng = np.random.RandomState(4)
+    prompts = [list(rng.randint(1, 255, rng.randint(3, 20)))
+               for _ in range(7)]
+    tr, te = _assert_same(setup, prompts, 5, dp=2, b_local=2, max_len=64,
+                          chunk_size=4)
+    assert te.state.expert_tables is None
+
+
 def test_no_page_leaks(setup):
     _assert_same(setup, [[1, 2, 3, 4, 5]] * 6, 4, dp=1, b_local=2,
                  max_len=48)

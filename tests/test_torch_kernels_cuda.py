@@ -167,9 +167,12 @@ def _one_ulp(out, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [5, 8, 16, 64, 100])
+@pytest.mark.parametrize("T", [1, 5, 8, 16, 64, 100])
 @pytest.mark.parametrize("H,KH,hd", [(16, 16, 128),   # olmo-1b, G = 1
-                                     (32, 8, 64)])    # llama3.2-1b, G = 4
+                                     (32, 8, 64),     # llama3.2-1b, G = 4
+                                     (24, 8, 128),    # phi4-mini, G = 3
+                                     (32, 16, 128),   # gemma3-27b, G = 2
+                                     (40, 8, 128)])   # llama4, G = 5
 def test_wgmma_routes_vs_plain(card, T, H, KH, hd):
     """K1's and K3's wgmma/TMA kernels through the dispatchers: each
     within one bf16 ulp of the plain version, K3 within one ulp of K1,
@@ -304,7 +307,9 @@ def test_paged_decode_kernel_vs_plain_and_k1(card, dtype, H, KH, hd, psz):
                                      (32, 16, 128),   # gemma3-27b, G = 2
                                      (64, 8, 128),    # G = 8
                                      (32, 32, 96),    # phi-3-vision, G = 1
-                                     (32, 8, 96)])    # hd 96, G = 4
+                                     (32, 8, 96),     # hd 96, G = 4
+                                     (24, 8, 128),    # phi4-mini, G = 3
+                                     (40, 8, 128)])   # llama4, G = 5
 @pytest.mark.parametrize("hi", [64, 1088, 2048])
 def test_paged_decode_tma_route_vs_plain_and_k1(card, H, KH, hd, hi):
     """K2's TMA route at contexts of 1 to ``hi`` tokens (lane 0 has one

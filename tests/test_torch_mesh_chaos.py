@@ -180,9 +180,9 @@ def _shard_report(report, d):
 
 def _one_collective_a_step(g):
     """The collectives a run made: one ``all_gather`` a serve step (its
-    status gather, the failure flag inside it) and a clock sync, one
-    ``all_reduce`` a share's agreement, nothing else (in-place recovery
-    makes none)."""
+    status gather, the failure flag inside it) and a clock sync (an
+    in-place recovery makes one, which tells a failed recovery), one
+    ``all_reduce`` a share's agreement, nothing else."""
     steps, syncs, agreements = g["delta"]
     assert steps > 0
     assert sorted(g["colls"]) == sorted(["all_gather"] * (steps + syncs)
@@ -301,7 +301,12 @@ def test_one_rank_failures_fail_both_ranks_cleanly(run):
     error after the gather (``post_sync``), or after the run's last
     gather (the last step's ``post_step``), makes both ranks raise
     ``RankFailure`` naming rank 1 and the serve step, at the next status
-    gather or at the next read of the group."""
+    gather or at the next read of the group.  So does a raise in rank 1's
+    recovery alone: in its in-place recovery (its adoption, or midway
+    after one requeue), told at the gather that ends every in-place
+    recovery, or inside ``recover_engine`` after a crash its adoption or
+    its engine's rebuild, told at the group's next gather; each far
+    inside the group's timeout."""
     ranks, mine = run
     for case, want in (("before", mine["clean"]), ("device", mine["clean"]),
                        ("admission", mine["share"])):
@@ -324,6 +329,18 @@ def test_one_rank_failures_fail_both_ranks_cleanly(run):
                            f"status gather"), (case, msg)
             assert g["recoveries"] == 0
         assert a["stats"] == b["stats"], case
+    where = {"recovery": "in its in-place recovery after serve step 3",
+             "requeue": "in its in-place recovery after serve step 3",
+             "adoption": "in recover_engine's rebuild after serve step 3",
+             "rebuild": "in recover_engine's rebuild after serve step 3"}
+    for case, told in where.items():
+        for g in (r["one_rank"][case] for r in ranks):
+            assert g["raised"] == ("RankFailure", f"rank 1 failed {told}"), \
+                (case, g["raised"])
+            assert g["seconds"] < rank_mod.GROUP_TIMEOUT_S / 3, (case, g)
+            if case in ("recovery", "requeue"):
+                # told right after the recovery: no rank served on
+                assert g["steps"] == 3, (case, g)
 
 
 def test_recovery_refuses_journals_that_differ(run):

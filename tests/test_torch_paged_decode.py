@@ -211,7 +211,7 @@ def test_engine_routes_decode_only_steps_to_k2(monkeypatch):
     (torch.bfloat16, 64, 64, 4, "tma"),        # llama3.2-1b
     (torch.bfloat16, 128, 64, 2, "tma"),       # gemma3-27b
     (torch.bfloat16, 128, 64, 8, "tma"),
-    (torch.bfloat16, 128, 64, 3, "fma"),       # a G the route lacks
+    (torch.bfloat16, 128, 64, 6, "fma"),       # a G the route lacks
     (torch.bfloat16, 128, 64, 16, "fma"),
     (torch.float32, 128, 64, 1, "fma"),
     (torch.float32, 16, 8, 2, "fma"),          # the smoke configs
@@ -221,6 +221,8 @@ def test_engine_routes_decode_only_steps_to_k2(monkeypatch):
     (torch.bfloat16, 96, 64, 4, "tma"),
     (torch.float32, 96, 64, 1, "fma"),
     (torch.bfloat16, 96, 16, 1, "fma"),
+    (torch.bfloat16, 128, 64, 3, "tma"),       # phi4-mini-3.8b
+    (torch.bfloat16, 128, 64, 5, "tma"),       # llama4-maverick
 ])
 def test_decode_route(dtype, hd, psz, G, route):
     assert ops.decode_route(dtype, hd, psz, G) == route
@@ -248,17 +250,18 @@ def test_decode_splits_schedule():
 
 
 @pytest.mark.parametrize("hd", [64, 96])
-@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("seed", range(6))
 @pytest.mark.parametrize("pages_per_split", [1, 2, 3])
 def test_split_form_vs_ref(seed, pages_per_split, hd):
     """The TMA route's arithmetic (splits, each a partial softmax state
     in log2 units, merged in split order) over random tables with dead
     pages, an idle lane and a lane whose pages are all dead, at hd 64
-    and at phi-3-vision's 96: against the JAX oracle with
+    and at phi-3-vision's 96, at G 1, 2, 4 and 8 and at phi4-mini's 3
+    and llama4-maverick's 5: against the JAX oracle with
     ``zero_empty`` off, and with it on, zeros on the lanes without a key
     and the oracle elsewhere."""
     rng = np.random.RandomState(200 + seed + hd - 64)
-    G, KH = [1, 4, 2, 8][seed], [2, 1][seed % 2]
+    G, KH = [1, 4, 2, 8, 3, 5][seed], [2, 1][seed % 2]
     psz, maxp = 8, int(rng.randint(3, 7))
     B = 6
     lens = rng.randint(1, maxp * psz + 10, B)
@@ -287,7 +290,7 @@ def test_split_form_vs_ref(seed, pages_per_split, hd):
 @pytest.mark.parametrize("dtype,H,KH,hd,psz,route,err", [
     (torch.float32, 16, 16, 128, 64, "tma", TypeError),     # float32
     (torch.bfloat16, 4, 2, 16, 8, "tma", ValueError),       # hd 16, psz 8
-    (torch.bfloat16, 48, 16, 128, 64, "tma", ValueError),   # G = 3
+    (torch.bfloat16, 96, 16, 128, 64, "tma", ValueError),   # G = 6
     (torch.bfloat16, 16, 16, 128, 64, "wgmma", ValueError),  # no such route
     (torch.bfloat16, 32, 32, 80, 64, "tma", ValueError),    # hd 80
 ])
