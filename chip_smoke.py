@@ -208,7 +208,10 @@ Phases, each printed on its own line (any failure fails the run):
    ms/step and tok/s of each engine, the hit rate, loads, evictions and
    peak, one cold footprint's load (48 pages, 5.6 GB) in GB/s, and the
    device ms of the expert gather and of the MoE products in one
-   profiled prefill and one decode step.  Phase 4 also holds the smoke
+   profiled prefill and one decode step; at its end the pinned host
+   expert stores, which PyTorch's caching host allocator keeps after
+   the engines are freed, are returned (under 1 GiB may stay pinned),
+   VmRSS printed before and after.  Phase 4 also holds the smoke
    mixtral-8x7b expert-paged at a budget of one footprint, card against
    CPU (tokens, status rows, stats, pool leaves and expert tables).
 
@@ -355,6 +358,33 @@ Phases, each printed on its own line (any failure fails the run):
    its fma kernel on the same inputs, its bound, its plain version and
    SDPA.
 
+24. three more models train at their published widths through
+   ``build_step`` as phase 12 trains olmo-1b (bf16 parameters from
+   ``--seed``, float32 AdamW, remat on, 4 x 2,048 tokens, a warm-up and
+   3 counted steps): (e) first, K6 at llama3.2-1b's attention (H 32
+   over KH 8: G 4, hd 64) and phi4-mini-3.8b's (H 24 over 8: G 3, hd
+   128), causal, B 1, S 2,048: its bf16 forward within one ulp of its
+   plain version, its wgmma backward against autograd through it and
+   its walk, both launched from new host threads bit-equal; then for
+   each of (a) llama3.2-1b, (b) phi4-mini-3.8b and (c) mixtral-8x7b
+   (window 4,096 over every layer: no kernel), one step at 1 layer,
+   whose peak less its state (16 bytes a parameter) gives the
+   overhead, the deepest depth whose state and overhead (grown with
+   AdamW's temporaries of the largest leaf) stay within 0.9 of the card
+   (printed with its reckoning; the depth is the only cut), and the
+   counted run there: finite
+   losses, K6 forward 2 and backward 1 launch a layer a step on the
+   wgmma route, no other kernel (mixtral none at all), one
+   synchronizing call a step, mixtral's capacity drops at its config's
+   capacity factor 1.25; ms a step, tokens a second, the model-flops
+   share, peak memory against the card; (d) llama3.2-1b and
+   phi4-mini-3.8b in float32 at 2 layers, 1 x 120 tokens: the loss and
+   every gradient leaf on the card within 1e-3 of its scale from the
+   CPU's (K6's float32 kernels at G 4 and G 3); (f) K6's forward and
+   backward at B 4, S 2,048 at both models' attention, and its forward
+   at phi-3-vision's (H 32, hd 96), each beside its bound, its plain
+   version and SDPA.
+
 Every phase prints its seconds, the process's VmRSS and the card's
 ``memory_allocated``.  ``--profile`` serves the workloads of
 phases 5, 9 and 10 again, and runs two more training steps in phases
@@ -368,6 +398,7 @@ no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -2670,22 +2701,54 @@ def check_k6_grad(k6, rng, name, dt, B, H, KH, S, hd, causal, tag="[3]"):
     return max(errs), twin
 
 
-def check_k6(k6, rng):
-    """Phase 3: K6, through the autograd Function the model calls,
-    against its plain version, on each of its forward kernels (the
-    route ``ops.forward_route`` picks by dtype and hd); then its
-    backward kernels against autograd through the plain version, the
-    wgmma route also against its walk (:func:`check_k6_twin`), and
-    twice on the same inputs, each on the route ``ops.backward_route``
-    picks.  Returns the worst bf16 forward error, the worst error of
-    the backward's wgmma route, and its worst row-scaled reading
-    against the walk with the smallest control's."""
+def check_k6_forward(k6, rng, name, dt, B, H, KH, S, hd, causal,
+                     tag="[3]"):
+    """Phases 3 and 24 (e): K6's forward, through the autograd Function
+    the model calls, on the kernel ``ops.forward_route`` picks by dtype
+    and hd, launched once, against its plain version at the dtype's
+    ``TOL``, and bf16 within one ulp of it.  Returns the largest
+    error."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
+    q, k, v = k6_inputs(rng, B, H, KH, S, hd, dt)
+    route = k6.forward_route(dt, hd)
+    before = k6.flash_attention.launches
+    out = k6.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    check(k6.flash_attention.launches == before + 1,
+          f"K6 {name}: the dispatcher launched the kernel once")
+    check(bool(torch.isfinite(out.float()).all()), f"K6 {name}: finite")
+    ref = flash_attention_ref(q, k, v, causal).float()
+    torch.testing.assert_close(out.float(), ref, atol=TOL[dt], rtol=TOL[dt],
+                               msg=lambda m, n=name: f"K6 {n}: {m}")
+    tol = f"tol {TOL[dt]:g}"
+    if dt == torch.bfloat16:
+        torch.testing.assert_close(
+            out.float(), ref, atol=BF16_ULP_ATOL, rtol=BF16_ULP_RTOL,
+            msg=lambda m, n=name: f"K6 {n}, one bf16 ulp: {m}")
+        tol += f" and one ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}"
+    err = (out.float() - ref).abs().max().item()
+    phase(f"{tag} K6 {name} B={B} H={H} KH={KH} S={S} hd={hd} "
+          f"{'causal' if causal else 'bidirectional'}, {route} kernel: "
+          f"max_abs_err {err:.3e}, max|ref| {ref.abs().max().item():.3e} "
+          f"({tol})")
+    return err
+
+
+def check_k6(k6, rng):
+    """Phase 3: K6, through the autograd Function the model calls,
+    against its plain version, on each of its forward kernels
+    (:func:`check_k6_forward`); then its backward kernels against
+    autograd through the plain version, the wgmma route also against
+    its walk (:func:`check_k6_twin`), and twice on the same inputs, each
+    on the route ``ops.backward_route`` picks.  Returns the worst bf16
+    forward error, the worst error of the backward's wgmma route, and
+    its worst row-scaled reading against the walk with the smallest
+    control's."""
     bf, f32 = torch.bfloat16, torch.float32
     worst, worst_bwd, row, ctrl = 0.0, 0.0, 0.0, float("inf")
     routes = dict(k6.flash_attention.routes)
-    for name, dt, B, H, KH, S, hd, causal in (
+    for case in (
             ("olmo-1b bf16", bf, 1, 16, 16, 2048, 128, True),
             ("llama3.2-1b bf16 (G=4)", bf, 1, 32, 8, 1024, 64, True),
             ("S=77 bf16 (ragged tile, G=2)", bf, 2, 4, 2, 77, 128, True),
@@ -2694,30 +2757,8 @@ def check_k6(k6, rng):
             ("smoke f32 (G=2)", f32, 2, 4, 2, 64, 16, True),
             ("S=200 f32 (ragged tile)", f32, 2, 4, 2, 200, 64, True),
             ("bidirectional f32", f32, 1, 4, 4, 300, 128, False)):
-        q, k, v = k6_inputs(rng, B, H, KH, S, hd, dt)
-        route = k6.forward_route(dt, hd)
-        before = k6.flash_attention.launches
-        out = k6.flash_attention(q, k, v, causal)
-        torch.cuda.synchronize()
-        check(k6.flash_attention.launches == before + 1,
-              f"K6 {name}: the dispatcher launched the kernel once")
-        check(bool(torch.isfinite(out.float()).all()), f"K6 {name}: finite")
-        ref = flash_attention_ref(q, k, v, causal).float()
-        torch.testing.assert_close(out.float(), ref, atol=TOL[dt],
-                                   rtol=TOL[dt],
-                                   msg=lambda m, n=name: f"K6 {n}: {m}")
-        tol = f"tol {TOL[dt]:g}"
-        if dt == bf:
-            torch.testing.assert_close(
-                out.float(), ref, atol=BF16_ULP_ATOL, rtol=BF16_ULP_RTOL,
-                msg=lambda m, n=name: f"K6 {n}, one bf16 ulp: {m}")
-            tol += f" and one ulp: rtol 2^-7, atol {BF16_ULP_ATOL:g}"
-        err = (out.float() - ref).abs().max().item()
-        phase(f"[3] K6 {name} B={B} H={H} KH={KH} S={S} hd={hd} "
-              f"{'causal' if causal else 'bidirectional'}, {route} kernel: "
-              f"max_abs_err {err:.3e}, max|ref| {ref.abs().max().item():.3e} "
-              f"({tol})")
-        if dt == bf:
+        err = check_k6_forward(k6, rng, *case)
+        if case[1] == bf:
             worst = max(worst, err)
     ran = {r: n - routes[r] for r, n in k6.flash_attention.routes.items()}
     check(all(n > 0 for n in ran.values()),
@@ -2941,26 +2982,32 @@ def train_flops(cfg, batch, text):
     acts on (the input embedding is a lookup; the output head acts on
     the text positions alone, as ``model.py::loss_fn`` takes the loss;
     an encoder's layers and the decoder's cross-attention K and V on the
-    encoder's frames; every other parameter on the decoder's positions,
-    a VLM's image positions among them), and the attention products
-    forward and backward, 12 B H hd a visible (query, key) pair: the
-    decoder's causal self-attention, an encoder's bidirectional layers
-    and the decoder's cross-attention over the frames.  Returns (flops,
-    the decoder's positions a sequence)."""
+    encoder's frames; a mixture of experts' expert weights at top_k / E
+    of their count, the products a token is routed through, its router
+    whole; every other parameter on the decoder's positions, a VLM's
+    image positions among them), and the attention products forward and
+    backward, 12 B H hd a visible (query, key) pair: every attention
+    layer of the decoder, causal, over the pairs inside its window
+    (:func:`attention_pairs`), an encoder's bidirectional layers and the
+    decoder's cross-attention over the frames.  Returns (flops, the
+    decoder's positions a sequence)."""
     import math
 
+    from repro_torch.configs.base import base_kind
     from repro_torch.models.transformer import model_defs
 
     encdec = cfg.arch_kind == "encdec"
     enc = cfg.enc_len if encdec else 0
     dec = text + (cfg.img_tokens if cfg.arch_kind == "vlm" else 0)
+    routed = cfg.moe.top_k / cfg.moe.num_experts if cfg.moe else 1
 
     def walk(tree, path):
         for key, d in tree.items():
             if isinstance(d, dict):
                 yield from walk(d, f"{path}/{key}")
             else:
-                yield f"{path}/{key}", math.prod(d.shape)
+                share = routed if "router" in tree and key != "router" else 1
+                yield f"{path}/{key}", math.prod(d.shape) * share
 
     mm = 0
     for path, n in walk(model_defs(cfg), ""):
@@ -2969,33 +3016,40 @@ def train_flops(cfg, batch, text):
         mm += n * (0 if path == "/embed/tok" else
                    text if path == "/embed/lm_head" else
                    enc if on_frames else dec)
-    n_self = sum(1 for k in cfg.layer_kinds if k == "global")
-    pairs = n_self * dec * (dec + 1) // 2
+    pairs = sum(attention_pairs(dec, None if k == "global" else cfg.window)
+                for k in map(base_kind, cfg.layer_kinds)
+                if k in ("global", "local"))
     if encdec:
         pairs += cfg.enc_layers * enc * enc + cfg.n_layers * dec * enc
-    return 6 * batch * mm + 12 * batch * cfg.n_heads * cfg.hd * pairs, dec
+    attn = 12 * batch * cfg.n_heads * cfg.hd * pairs
+    return int(6 * batch * mm) + attn, dec
 
 
 def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
                      profile=False, tag="[12]", turns=True):
-    """Phases 12 and 22 (a), (c): ``cfg`` through ``build_step`` (bf16
-    parameters from ``seed``, float32 AdamW mu, nu and master, remat
-    on): a warm-up step, then ``steps`` steps with the kernels' launch
-    counts zeroed just before and read just after.  A sequence is
-    ``seq`` text tokens of the trainer's ``TokenStream``, after a VLM's
-    image patch embeddings [img_tokens, d] or beside an
+    """Phases 12, 22 (a), (c) and 24: ``cfg`` through ``build_step``
+    (bf16 parameters from ``seed``, float32 AdamW mu, nu and master,
+    remat on): a warm-up step, then ``steps`` steps with the kernels'
+    launch counts zeroed just before and read just after.  A sequence
+    is ``seq`` text tokens of the trainer's ``TokenStream``, after a
+    VLM's image patch embeddings [img_tokens, d] or beside an
     encoder-decoder's frame embeddings [enc_len, d], both drawn on the
     card from ``seed`` (data loading is set-up).  K6 must launch twice
-    a global attention layer a step (the forward, and its recomputation
-    under remat), causal in the decoder and bidirectional in an
-    encoder, its backward once a layer, all on the route of the model's
-    dtype and hd, and no other kernel; one synchronizing call a step.
-    With ``turns`` (phase 12), the backward's bf16 routes in turns
-    after the counted run; with ``profile``, two more steps under the
-    profiler.  Returns the run's numbers."""
+    an attention layer that ``attention_train`` runs on it a step
+    (``attention.runs_flash``; the forward, and its recomputation under
+    remat), causal in the decoder and bidirectional in an encoder, its
+    backward once a layer, all on the route of the model's dtype and
+    hd, and no other kernel (none at all where no layer runs K6: a
+    windowed local layer attends in torch ops); one synchronizing call
+    a step.  A mixture of experts meters its capacity drops in the
+    counted steps (:func:`moe_drops`).  With ``turns`` (phase 12), the
+    backward's bf16 routes in turns after the counted run; with
+    ``profile``, two more steps under the profiler.  Returns the run's
+    numbers."""
     from repro_torch.data.pipeline import DataConfig, TokenStream
     from repro_torch.kernels.flash_attention import ops as k6
     from repro_torch.launch.train import build_step
+    from repro_torch.models.attention import runs_flash
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.model import count_params, init_params
     from repro_torch.optim import adamw
@@ -3039,36 +3093,42 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
                                                 decay_steps=steps + 1))
     state, m = step_fn(state, batches[0])           # warm-up, not counted
     losses = [float(m["loss"])]
-    n_dec = sum(1 for k in cfg.layer_kinds if k == "global")
+    n_dec = sum(1 for k in cfg.layer_kinds if runs_flash(cfg, k))
     n_enc = cfg.enc_layers if encdec else 0
     route = k6.forward_route(cfg.tdtype, cfg.hd)
     masks = {"causal": n_dec, "bidirectional": n_enc}
     expected, n_bwd = 2 * (n_dec + n_enc), n_dec + n_enc
+    kinds = {k: cfg.layer_kinds.count(k) for k in dict.fromkeys(
+        cfg.layer_kinds)}
+    window = f", window {cfg.window}" if cfg.window else ""
+    enc = f", and {n_enc} encoder layers" if n_enc else ""
     phase(f"{tag}: K6 launches expected {expected} a step = "
-          f"{n_dec + n_enc} global layers x 2 (the forward, and its "
+          f"{n_dec + n_enc} layers on K6 ({n_dec} of the decoder's "
+          f"{cfg.n_layers}: {kinds}{window}{enc}) x 2 (the forward, and its "
           f"recomputation in the backward pass: remat=True puts each "
-          f"one-layer pattern group{' and encoder layer' if n_enc else ''}"
-          f" under torch.utils.checkpoint), and {n_bwd} K6 backward "
-          f"launches, by mask {masks} x (2, 1), all on the {route} route "
-          f"(bf16 at hd {cfg.hd})")
+          f"pattern group{' and encoder layer' if n_enc else ''} under "
+          f"torch.utils.checkpoint), and {n_bwd} K6 backward launches, by "
+          f"mask {masks} x (2, 1), all on the {route} route (bf16 at hd "
+          f"{cfg.hd}){'; no kernel of K1-K6 at all' if not expected else ''}")
     # the main path's run: counts zeroed just before, read just after
     zero_counts(counted)
     syncs = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(1, steps + 1):
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                state, m = step_fn(state, batches[i])
-                losses.append(float(m["loss"]))     # the one read a step
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        syncs.append([str(w.message).splitlines()[0] for w in caught
-                      if "called a synchronizing" in str(w.message)])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with moe_drops(cfg) as drops:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(1, steps + 1):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    state, m = step_fn(state, batches[i])
+                    losses.append(float(m["loss"]))  # the one read a step
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            syncs.append([str(w.message).splitlines()[0] for w in caught
+                          if "called a synchronizing" in str(w.message)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counted.items()}
     peak = torch.cuda.max_memory_allocated()
     check(all(np.isfinite(losses)), f"{tag}: finite losses {losses}")
@@ -3091,6 +3151,19 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     ms = 1e3 * wall / steps
     tokens = batch * seq
     flops, positions = train_flops(cfg, batch, seq)
+    if drops:
+        n_moe = sum(1 for k in cfg.layer_kinds if k.endswith("_moe"))
+        pairs = n_moe * batch * positions * cfg.moe.top_k * steps
+        check(drops["dropped"] + drops["kept"] == pairs,
+              f"{tag}: every (token, expert) assignment of the counted "
+              f"steps metered once, kept or dropped ({drops}, {pairs})")
+        drops = {"dropped": drops["dropped"], "assignments": pairs,
+                 "capacity_factor": cfg.moe.capacity_factor}
+        phase(f"{tag}: capacity drops in the {steps} counted steps at "
+              f"capacity factor {cfg.moe.capacity_factor:g} (capacity "
+              f"ceil(top_k S / E cf) a row per expert): {drops['dropped']} "
+              f"of {pairs} (token, expert) assignments "
+              f"({drops['dropped'] / pairs:.4%}), {n_moe} MoE layers")
     mfu = flops / (ms / 1e3) / PEAK_OPS[torch.bfloat16]
     phase(f"{tag}: losses {losses} (the first the warm-up step's); K6 "
           f"launches {launches['K6']} = {expected} x {steps} steps, K6 "
@@ -3152,7 +3225,42 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
                 tok_s=tokens / (ms / 1e3), peak=peak, held=held,
                 losses=losses, state_bytes=state_bytes, batch=batch,
                 seq=seq, positions=positions, n_layers=cfg.n_layers,
-                by_route_and_mask=by)
+                by_route_and_mask=by, n_params=n_params, drops=drops,
+                k6_layers=n_dec + n_enc)
+
+
+@contextlib.contextmanager
+def moe_drops(cfg):
+    """Phase 24: while open, every ``moe_apply`` of a forward pass also
+    meters its capacity drops (``metered=True``, the reference's meters:
+    the same output) into counters on the card, read once at the end;
+    remat's recomputation, which runs inside the backward pass, is not
+    metered again.  Yields {} for a model without experts, else a dict
+    that holds, after the block, the (token, expert) assignments of
+    valid tokens dropped past an expert's capacity and those kept."""
+    if cfg.moe is None:
+        yield {}
+        return
+    from repro_torch.models import moe as moe_mod
+
+    plain = moe_mod.moe_apply
+    acc = torch.zeros(2, dtype=torch.int64, device="cuda")
+
+    def metered(*args, **kw):
+        if torch._C._current_graph_task_id() != -1:    # in the backward
+            return plain(*args, **kw)
+        out, dropped, routed = plain(*args, **kw, metered=True)
+        acc[0] += dropped.sum()
+        acc[1] += routed.sum()
+        return out
+
+    out = {}
+    moe_mod.moe_apply = metered
+    try:
+        yield out
+    finally:
+        moe_mod.moe_apply = plain
+    out.update(zip(("dropped", "kept"), acc.tolist()))
 
 
 def attention_pairs(S, window):
@@ -3804,6 +3912,7 @@ def serve_moe(tengine, counted, seed, smi, n_layers=8):
         eng.run(max_steps=100)
         res = run_moe(tengine, counted, eng, reqs())
         del eng
+        gc.collect()            # run_moe's admit hook: a cycle
         torch.cuda.empty_cache()
 
         t0 = time.perf_counter()
@@ -3861,12 +3970,14 @@ def serve_moe(tengine, counted, seed, smi, n_layers=8):
               f"class conserved")
         mem = torch.cuda.max_memory_allocated()
         del eng
+        gc.collect()
         torch.cuda.empty_cache()
 
         eng = engine(False)
         replay = run_moe(tengine, counted, eng, reqs(),
                          schedule=paged["admitted"])
         del eng
+        gc.collect()
         torch.cuda.empty_cache()
         check(replay["tokens"] == paged["tokens"],
               f"{mix}: paged streams == resident streams on the same "
@@ -3911,8 +4022,44 @@ def serve_moe(tengine, counted, seed, smi, n_layers=8):
                         saved=saved, stats=st, sched=sched, meters=meters,
                         prof=prof, load=load)
     del params
-    torch.cuda.empty_cache()
+    out["host"] = release_pinned("[17]", smi)
     return out
+
+
+def release_pinned(tag, smi):
+    """Phase 17's end: the paged engines' host expert stores
+    (``expert_pages.build_host_experts``, page-locked) outlive their
+    tensors in PyTorch's caching host allocator, which keeps each freed
+    pinned block (its size rounded up to a power of two: 22.55 GB to 32
+    GiB at 8 layers) for reuse and never returns it by itself.  Collects
+    the engines' reference cycles, then returns the cached blocks to
+    the system (``torch._C._host_emptyCache``, as
+    ``torch.cuda.graphs`` does).  Prints the process's VmRSS and the
+    pinned bytes the allocator owns (held by live tensors and cached)
+    before and after; fails if 1 GiB or more stays pinned, since that
+    would be a store some reference still holds (the engines' other
+    pinned tensors are a step's small staging copies).  Returns the
+    readings."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def read():
+        return dict(rss=host_rss_bytes(), pinned=torch.cuda.host_memory_stats()
+                    .get("allocated_bytes.current", 0))
+
+    before = read()
+    torch._C._host_emptyCache()
+    after = read()
+    check(after["pinned"] < 2**30,
+          f"{tag} no expert store held after the phase: under 1 GiB of "
+          f"pinned host memory left ({before}, {after})")
+    phase(f"{tag} host memory on {smi}: VmRSS {before['rss'] / 1e9:.1f} GB "
+          f"at the phase's end, the caching host allocator owning "
+          f"{before['pinned'] / 2**30:.2f} GiB of pinned blocks with the "
+          f"engines freed; after returning its cached blocks VmRSS "
+          f"{after['rss'] / 1e9:.1f} GB, {after['pinned'] / 2**30:.2f} GiB "
+          f"pinned")
+    return dict(before=before, after=after)
 
 
 # ------------------------------------------------------------ phase 19
@@ -5217,30 +5364,35 @@ def train_entry_point(counted, smi):
             "n_layers": n_layers}
 
 
-def check_train_f32_hd96(counted, seed, smi, n_layers=2, text=128):
-    """Phase 22 (d): phi-3-vision-4.2b at full width cut to ``n_layers``
-    layers, float32, one sequence of 576 image positions and ``text``
-    tokens (704 positions: not a multiple of 64, so the last tiles are
-    ragged): ``loss_fn`` and its gradients through autograd on the card
-    (K6's float32 forward and backward kernels at hd 96) against the
-    CPU (their plain versions), from the same parameters and batch.  The
-    stacked ``groups`` at each layer's own fan-in, as phase 19 (c) holds
-    phi-3-vision in float32 (:func:`own_fan_in`).  Gate: the loss and
-    every gradient leaf within ``F32_TRAIN_TOL`` of its scale; the CPU's
-    own one-ulp floor (every weight moved one ulp) printed beside."""
+def check_train_f32(counted, seed, smi, arch="phi-3-vision-4.2b",
+                    tag="[22d]", n_layers=2, text=128):
+    """Phases 22 (d) and 24 (d): ``arch`` at full width cut to
+    ``n_layers`` layers, float32, one sequence of ``text`` tokens (a
+    VLM's 576 image positions before them: 704 positions for
+    phi-3-vision; not a multiple of 64, so the last tiles are ragged):
+    ``loss_fn`` and its gradients through autograd on the card (K6's
+    float32 forward and backward kernels, at the model's hd and G)
+    against the CPU (their plain versions), from the same parameters and
+    batch.  The stacked ``groups`` at each layer's own fan-in, as phase
+    19 (c) holds phi-3-vision in float32 (:func:`own_fan_in`).  Gate:
+    the loss and every gradient leaf within ``F32_TRAIN_TOL`` of its
+    scale; the CPU's own one-ulp floor (every weight moved one ulp)
+    printed beside."""
     from repro_torch.configs import get_config
     from repro_torch.models.layers import tree_leaves, tree_map
     from repro_torch.models.model import init_params, loss_fn
 
-    cfg = dataclasses.replace(get_config("phi-3-vision-4.2b"),
-                              n_layers=n_layers, dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers,
+                              dtype="float32")
+    vlm = cfg.arch_kind == "vlm"
     t0 = time.perf_counter()
     params = own_fan_in(cfg, init_params(cfg, seed=seed, device="cpu"),
                         ("groups",))
     rng = np.random.RandomState(seed + 22)
     batch = {"tokens": rng.randint(1, cfg.vocab, (1, text)),
-             "labels": rng.randint(1, cfg.vocab, (1, text)),
-             "img_embeds": rng.randn(1, cfg.img_tokens, cfg.d_model)}
+             "labels": rng.randint(1, cfg.vocab, (1, text))}
+    if vlm:
+        batch["img_embeds"] = rng.randn(1, cfg.img_tokens, cfg.d_model)
     batch = {k: a.astype(np.float32 if k == "img_embeds" else np.int32)
              for k, a in batch.items()}
 
@@ -5262,12 +5414,19 @@ def check_train_f32_hd96(counted, seed, smi, n_layers=2, text=128):
     routes = {k: dict(counted[k].routes) for k in ("K6", "K6 backward")}
     del card_params
     torch.cuda.empty_cache()
-    g = np.random.RandomState(seed)
-    nudged = tree_map(lambda a: torch.nextafter(a.detach(), torch.from_numpy(
-        np.where(g.rand(*a.shape) < 0.5, -np.inf, np.inf).astype(
-            np.float32))), params)
-    floor = grads(nudged, "cpu")
-    del params, nudged
+    bits = np.random.default_rng(seed)
+
+    def nudge(a):
+        # one random bit a weight: float64 uniforms for phi4-mini's 1.4 B
+        # weights take ten times as long
+        up = np.unpackbits(bits.integers(0, 256, -(-a.numel() // 8),
+                                         dtype=np.uint8), count=a.numel())
+        return torch.nextafter(a.detach(), torch.where(
+            torch.from_numpy(up.astype(bool)).reshape(a.shape), torch.inf,
+            -torch.inf))
+
+    floor = grads(tree_map(nudge, params), "cpu")
+    del params
 
     def rel(a, b):
         return ((a - b).abs().max() / b.abs().max()).item()
@@ -5279,14 +5438,17 @@ def check_train_f32_hd96(counted, seed, smi, n_layers=2, text=128):
           and launches["K6 backward"] == n_layers
           and sum(launches.values()) == 3 * n_layers
           and all(r["f32"] == sum(r.values()) for r in routes.values()),
-          f"[22d] K6 {2 * n_layers} and its backward {n_layers} times, on "
+          f"{tag} K6 {2 * n_layers} and its backward {n_layers} times, on "
           f"the f32 route, no other kernel ({launches}, {routes})")
     check(loss_err <= F32_TRAIN_TOL and max(errs) <= F32_TRAIN_TOL,
-          f"[22d] loss and every gradient leaf on the card within "
+          f"{tag} loss and every gradient leaf on the card within "
           f"{F32_TRAIN_TOL:g} of their scale from the CPU's (loss "
           f"{loss_err:.3e}, leaves {errs})")
-    phase(f"[22d] phi-3-vision-4.2b at full width, {n_layers} layers, f32, "
-          f"1 x ({cfg.img_tokens} image + {text} text) positions, on {smi} "
+    seq = f"({cfg.img_tokens} image + {text} text) positions" if vlm else (
+        f"{text} tokens")
+    phase(f"{tag} {cfg.name} at full width (H {cfg.n_heads}, KH "
+          f"{cfg.n_kv_heads}, hd {cfg.hd}), {n_layers} layers, f32, 1 x "
+          f"{seq}, on {smi} "
           f"against the CPU ({t_cpu:.1f} s there): loss {card[0].item():.6f}"
           f" vs {cpu[0].item():.6f} ({loss_err:.3e}), gradients within "
           f"{max(errs):.3e} of each leaf's scale (tol {F32_TRAIN_TOL:g}; "
@@ -5322,7 +5484,7 @@ def train_vlm_encdec(k6, counted, seed, smi, profile=False):
     out["c"] = train_full_width(whisper, seed, counted, smi, tag="[22c]",
                                 turns=False, profile=profile,
                                 **WHISPER_TRAIN)
-    out["d"] = check_train_f32_hd96(counted, seed, smi)
+    out["d"] = check_train_f32(counted, seed, smi)
     out["f"] = {
         "phi": time_k6(k6, rng, phi.n_heads, phi.n_kv_heads, phi.hd,
                        fwd=False, present=None),
@@ -5486,6 +5648,229 @@ def time_k2_groups(ops, rng, b_local, maxp, P, base):
               f"{t['flops']} flop), plain {t['plain_ms']:.4f} ms, library "
               f"(SDPA, dense K/V) {t['library_ms']:.4f} ms")
         out[name] = t
+    return out
+
+
+# ------------------------------------------------------------ phase 24
+
+#: phase 24: the models trained at full width.  gemma3-27b and
+#: llama4-maverick do not train on one card at any depth that runs K6
+#: (ROADMAP Queue A)
+TRAIN24 = ("llama3.2-1b", "phi4-mini-3.8b", "mixtral-8x7b")
+#: phase 24: the depth each model's memory over its state is measured
+#: at, one step (:func:`train_depth`)
+OVERHEAD_DEPTH = 1
+#: phase 24: the counted steps of each model, cut from phase 12's 5 to
+#: keep the whole script near 1,000 s
+TRAIN24_STEPS = 3
+#: phase 24: the share of the card's free memory a training step's state
+#: and overhead may fill at the depth :func:`train_depth` picks.  The rest
+#: is for the caching allocator's fragmentation: phi4-mini-3.8b at 31
+#: layers ran out of memory with 5.94 GiB of the card reserved but not
+#: allocated (0.075 of it)
+TRAIN_CARD_SHARE = 0.9
+#: float32 bytes a parameter of the leaf ``adamw.apply`` updates that it
+#: holds at once: the scaled gradient, m / bc1 and v / bc2
+ADAMW_TEMP_BYTES = 12
+#: the training state, bytes a parameter: bf16 weights and gradients,
+#: float32 AdamW mu, nu and master copy
+STATE_BYTES = 16
+#: phase 24 (d): the float32 sequence, not a multiple of 64 (ragged
+#: last tiles)
+F32_TEXT = 120
+
+
+def train_depth(cfg, free, over, tag):
+    """Phase 24: the deepest of ``cfg``'s layers whose training state
+    (``STATE_BYTES`` a parameter, ``count_params`` of ``model_defs`` at
+    that depth) plus its overhead stays within ``TRAIN_CARD_SHARE`` of
+    ``free``, the card's memory less what the process holds.  The
+    overhead is ``over``, measured on the card at ``OVERHEAD_DEPTH``
+    layers as the peak less what was held and the state, grown by the
+    part of it that grows with depth: ``adamw.apply`` updates one leaf
+    at a time and holds ``ADAMW_TEMP_BYTES`` of float32 temporaries a
+    parameter of it, and a stacked layer leaf, which holds every
+    layer's copy, may become the largest leaf (:func:`largest_leaf`).
+    Prints the reckoning at that depth and at the next.  Returns the
+    depth, 0 where not one layer fits, and its (state, overhead) in
+    bytes."""
+    from repro_torch.models.model import count_params
+
+    def at(n):
+        return dataclasses.replace(cfg, n_layers=n)
+
+    def temps(n):
+        return ADAMW_TEMP_BYTES * largest_leaf(at(n))
+
+    def need(n):
+        return (STATE_BYTES * count_params(at(n)),
+                over + temps(n) - temps(OVERHEAD_DEPTH))
+
+    limit = TRAIN_CARD_SHARE * free
+    n = max((n for n in range(1, cfg.n_layers + 1) if sum(need(n)) <= limit),
+            default=0)
+    gib = 2 ** 30
+    rows = []
+    for m in (n, n + 1):
+        if 1 <= m <= cfg.n_layers:
+            state, o = need(m)
+            rows.append(f"{m} layers: state {state / gib:.2f} GiB + overhead "
+                        f"{o / gib:.2f} GiB (AdamW's temporaries "
+                        f"{temps(m) / gib:.2f}) = {(state + o) / gib:.2f} GiB"
+                        f"{' > ' if state + o > limit else ' <= '}"
+                        f"{limit / gib:.2f}")
+    phase(f"{tag} {cfg.name} depth by reckoning: {n} of {cfg.n_layers} "
+          f"layers; state {STATE_BYTES} B a parameter (bf16 weights and "
+          f"gradients, float32 AdamW mu, nu and master), overhead measured "
+          f"on the card at {OVERHEAD_DEPTH} layer as peak - held - state "
+          f"{over / gib:.2f} GiB (AdamW's temporaries of the largest leaf "
+          f"{temps(OVERHEAD_DEPTH) / gib:.2f}); the limit "
+          f"{TRAIN_CARD_SHARE:g} of "
+          f"{free / gib:.2f} GiB free = {limit / gib:.2f} GiB; "
+          + "; ".join(rows))
+    return n, need(n) if n else None
+
+
+def largest_leaf(cfg):
+    """The parameter count of ``cfg``'s largest leaf (``model_defs``): a
+    stacked layer leaf holds every group's copy."""
+    import math
+
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.transformer import model_defs
+
+    return max(math.prod(d.shape) for d in tree_leaves(model_defs(cfg)))
+
+
+def check_fresh_thread(k6, rng, B, H, KH, S, hd, tag):
+    """Phase 24 (e): K6's wgmma forward and backward, each launched
+    first thing on a new host thread (one that has made no CUDA call,
+    as the autograd engine's worker thread is before its first launch,
+    and whose TMA maps need a current context:
+    ``hopper_common.cuh::bind_device``), bit-equal to the same calls on
+    this thread."""
+    import threading
+
+    q, k, v = k6_inputs(rng, B, H, KH, S, hd, torch.bfloat16)
+    do = torch.randn_like(q)
+    o, lse = k6.flash_attention_cuda(q, k, v)
+    want = (o, *k6.flash_attention_bwd_cuda(q, k, v, o, lse, do))
+    got = {}
+
+    def run(name, fn):
+        try:
+            got[name] = fn()
+            torch.cuda.synchronize()
+        except Exception as e:      # reported on this thread
+            got[name] = e
+
+    for name, fn in (
+            ("forward", lambda: (k6.flash_attention_cuda(q, k, v)[0],)),
+            ("backward", lambda: k6.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do))):
+        t = threading.Thread(target=run, args=(name, fn))
+        t.start()
+        t.join()
+        check(not isinstance(got[name], Exception),
+              f"{tag} K6 {name} launched from a new thread: {got[name]}")
+    check(all(torch.equal(a, b) for a, b in zip(
+        got["forward"] + got["backward"], want)),
+        f"{tag} K6 forward and backward from new threads bit-equal")
+    phase(f"{tag} K6 wgmma forward and backward B={B} H={H} KH={KH} S={S} "
+          f"hd={hd}, each launched first thing on a new host thread: "
+          f"bit-equal to this thread's")
+
+
+def check_k6_groups(k6, rng, cfgs):
+    """Phase 24 (e): K6 at each of ``cfgs``' attention (llama3.2-1b's H
+    32 over KH 8, G 4, hd 64; phi4-mini-3.8b's H 24 over KH 8, G 3, hd
+    128), causal, S 2,048, B 1 (so that the plain version's dense
+    float32 scores fit): the bf16 forward against its plain version
+    (:func:`check_k6_forward`) and the wgmma backward against autograd
+    through it and against its walk (:func:`check_k6_grad`); then
+    launched from new threads (:func:`check_fresh_thread`).  Returns
+    {name: errors}."""
+    out = {}
+    for c in cfgs:
+        G = c.n_heads // c.n_kv_heads
+        shape = (torch.bfloat16, 1, c.n_heads, c.n_kv_heads, 2048, c.hd, True)
+        name = f"{c.name} (G={G})"
+        fwd = check_k6_forward(k6, rng, name, *shape, tag="[24e]")
+        bwd, twin = check_k6_grad(k6, rng, name, *shape, tag="[24e]")
+        out[c.name] = dict(fwd=fwd, bwd=bwd, row=twin[0], ctrl=twin[1])
+    c = cfgs[0]
+    check_fresh_thread(k6, rng, 1, c.n_heads, c.n_kv_heads, 2048, c.hd,
+                       "[24e]")
+    return out
+
+
+def train_three_archs(k6, counted, seed, smi):
+    """Phase 24: llama3.2-1b, phi4-mini-3.8b and mixtral-8x7b train at
+    their published widths through ``build_step`` as phase 12 trains
+    olmo-1b (:func:`train_full_width`: 4 x 2,048 tokens, a warm-up and
+    ``TRAIN24_STEPS`` counted steps): (e) first, K6 at the first two's
+    attention against its plain version and its walk
+    (:func:`check_k6_groups`); then for (a), (b), (c) each model one
+    step at ``OVERHEAD_DEPTH`` layers, whose peak less its state gives
+    the overhead, the depth :func:`train_depth` reckons from it, and the
+    counted run at that depth (mixtral at its config's capacity factor,
+    1.25, its drops printed; its windowed local layers launch no
+    kernel); (d) llama3.2-1b
+    and phi4-mini-3.8b in float32 at 2 layers, card against CPU
+    (:func:`check_train_f32`); (f) K6's forward and backward times at
+    B 4, S 2,048 at both models' attention, and its forward at
+    phi-3-vision's (hd 96, H 32) at the same S, each beside its bound,
+    its plain version and SDPA.  Returns the numbers the kernels line
+    reports."""
+    from repro_torch.configs import get_config
+
+    rng = np.random.RandomState(seed + 24)
+    fulls = [get_config(a) for a in TRAIN24]
+    out = {"e": check_k6_groups(k6, rng, fulls[:2])}
+    card = torch.cuda.get_device_properties(0).total_memory
+    for x, full in zip("abc", fulls):
+        tag = f"[24{x}]"
+        r = train_full_width(
+            dataclasses.replace(full, n_layers=OVERHEAD_DEPTH), seed,
+            counted, smi, steps=1, turns=False,
+            tag=f"{tag} (overhead at {OVERHEAD_DEPTH} layer)")
+        over = r["peak"] - r["held"] - STATE_BYTES * r["n_params"]
+        n, need = train_depth(full, card - r["held"], over, tag)
+        check(n >= 1, f"{tag} {full.name}: one layer fits the card")
+        r = train_full_width(dataclasses.replace(full, n_layers=n), seed,
+                             counted, smi, steps=TRAIN24_STEPS, tag=tag,
+                             turns=False)
+        check(r["peak"] < card, f"{tag} {full.name}: peak under the card")
+        got = r["peak"] - r["held"] - STATE_BYTES * r["n_params"]
+        phase(f"{tag} {full.name} at {n} of {full.n_layers} layers on "
+              f"{smi}: overhead measured {got / 2**30:.2f} GiB against "
+              f"{need[1] / 2**30:.2f} reckoned")
+        out[x] = dict(r, name=full.name)
+    out["d"] = {a: check_train_f32(counted, seed, smi, a, tag="[24d]",
+                                   text=F32_TEXT) for a in TRAIN24[:2]}
+    out["f"] = {c.name: time_k6(k6, rng, c.n_heads, c.n_kv_heads, c.hd,
+                                present=None) for c in fulls[:2]}
+    phi = get_config("phi-3-vision-4.2b")
+    out["f"]["hd96"] = time_k6_forward(k6, rng, 4, phi.n_heads,
+                                       phi.n_kv_heads, 2048, phi.hd)
+    for name, t in out["f"].items():
+        for what, x, lib in (("forward", t.get("fwd", t), "SDPA"),
+                             ("backward", t.get("bwd"), "SDPA's backward")):
+            if x is None:
+                continue
+            phase(f"[24f] K6 {what} (wgmma/TMA) {t['shape']} on {smi}: "
+                  f"kernel {x['ms']:.4f} ms (host {x['host_ms']:.4f} ms a "
+                  f"call), bound {x['bound_ms']:.4f} ms ({x['bound_by']}: "
+                  f"{x['flops']} flop, {x['bytes']} B), plain "
+                  f"{x['plain_ms']:.4f} ms, library ({lib}) "
+                  f"{x['library_ms']:.4f} ms")
+    for x in "abc":
+        r = out[x]
+        phase(f"[24] {r['name']} training on {smi}: {r['n_layers']} layers, "
+              f"{r['ms']:.1f} ms a step, {r['tok_s']:.0f} tokens/s, "
+              f"{100 * r['mfu']:.1f}% model flops, peak "
+              f"{r['peak'] / 2**30:.2f} GiB of {card / 2**30:.2f}; K6 "
+              f"{r['launches']}, its backward {r['bwd_launches']}")
     return out
 
 
@@ -6017,6 +6402,10 @@ def main() -> int:
                          b_local, maxp, P, base15)
     lap(23, "llama3.2-1b, phi4-mini-3.8b, gemma3-27b and llama4-maverick "
             "serving at full width, K2 at G 3 and 5")
+    # [24] three more models train at full width: K6 at G 4 and G 3
+    r24 = train_three_archs(k6, counted, args.seed, smi)
+    lap(24, "llama3.2-1b, phi4-mini-3.8b and mixtral-8x7b training at "
+            "full width, K6 at G 4 and 3")
     s16 = sampled["runs"][0]
     sampled_launches = {
         "K1": s16["launches"], "K2": s16["k2"],
@@ -6252,7 +6641,35 @@ def main() -> int:
                                        ms=t["present_ms"],
                                        host_ms=t["present_host_ms"]))
         for name, t in t23.items()}
-    phase(f"[23] total {time.perf_counter() - t_start:.1f} s")
+    # phase 24: K6's launches in each model's counted steps, its checks
+    # and times at G 4 (hd 64) and G 3 (hd 128), and its forward at hd 96
+    # at phi-3-vision's training S
+    fa_row = next(r for r in kernels if r["name"] == "flash_attention")
+    for row_, key, what in ((fa_row, "launches", "forward"),
+                            (bwd_row, "bwd_launches", "backward")):
+        row_["phase24_launches"] = {
+            r["name"]: {"launches": r[key], "n_layers": r["n_layers"],
+                        "k6_layers": r["k6_layers"], **dict(zip(
+                            ("by_route", "by_mask"),
+                            r["by_route_and_mask"][what]))}
+            for r in (r24[x] for x in "abc")}
+        row_["groups"] = {
+            name: {"route": "wgmma", "shape": t["shape"],
+                   "max_abs_err": r24["e"][name]["fwd" if what == "forward"
+                                                 else "bwd"],
+                   **{k: t["fwd" if what == "forward" else "bwd"][k]
+                      for k in times},
+                   **({} if what == "forward" else {
+                       "row_scaled_err": r24["e"][name]["row"],
+                       "control_row_scaled_err": r24["e"][name]["ctrl"]})}
+            for name, t in r24["f"].items() if name != "hd96"}
+    fa_row["hd96"]["s2048"] = {k: r24["f"]["hd96"][k]
+                               for k in times + ("shape",)}
+    bwd_row["phase24_f32"] = {
+        name: {"launches": d["bwd_launches"], "train_grad_rel_err": d["err"],
+               "loss_rel_err": d["loss_err"]}
+        for name, d in r24["d"].items()}
+    phase(f"[24] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

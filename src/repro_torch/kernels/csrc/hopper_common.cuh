@@ -273,13 +273,26 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled fails on a host thread that has made no CUDA
+// call yet, which has no current context: the autograd engine's worker
+// thread, whose first launch may be K6's backward or a rematerialised
+// forward (seen on an H100: the first map's encode failed, a new
+// thread's every time, until the thread had a context).  The runtime
+// makes the primary context of ptr's device current first.
+inline bool bind_device(const void* ptr) {
+  cudaPointerAttributes at;
+  return cudaPointerGetAttributes(&at, ptr) == cudaSuccess &&
+         at.type == cudaMemoryTypeDevice &&
+         cudaSetDevice(at.device) == cudaSuccess;
+}
+
 // A 4-d map over (hd, s, head, batch) of a bf16 tensor with element
 // strides st = (b, h, s), boxes of 64 columns x 64 rows, 128-byte
 // swizzle, zeros past the end.
 inline bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int S,
                        int heads, int B, const int64_t* st) {
   EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || !bind_device(ptr)) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S,
                               (cuuint64_t)heads, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,

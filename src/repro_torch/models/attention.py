@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ..configs.base import base_kind
 from ..kernels.flash_attention.ops import flash_attention
 from ..parallel import partition
 from ..parallel.partition import BATCH, MODEL
@@ -152,13 +153,21 @@ def _kv_like_q(q, k, head_dim: int):
     return k
 
 
+def runs_flash(cfg, kind: str) -> bool:
+    """Whether :func:`attention_train` runs a layer of ``kind``
+    ("global_moe" as "global") on K6: every attention layer but a local
+    one under a window."""
+    bk = base_kind(kind)
+    return bk == "global" or (bk == "local" and cfg.window is None)
+
+
 def attention_train(cfg, params, x, kind: str, causal: bool = True):
     """Full-sequence attention layer: returns (out [B, S, d], (k, v)).
     Global layers run K6 on grouped kv heads without expanding them,
     causal or, for an encoder's layers, bidirectional; local layers the
     plain sliding-window form."""
     q, k, v = qkv(cfg, params, x)
-    if kind == "local" and cfg.window is not None:
+    if not runs_flash(cfg, kind):
         o = _local_shards(q, _expand_kv(k, cfg.n_heads),
                           _expand_kv(v, cfg.n_heads), cfg.window)
     else:

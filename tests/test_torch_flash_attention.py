@@ -62,6 +62,8 @@ def _close(got, want, tol=TOL):
     (1, 8, 2, 33, 128, False),
     (1, 4, 4, 70, 96, True),            # phi-3-vision's hd
     (2, 6, 6, 40, 64, False),           # an encoder's layer
+    (1, 6, 2, 53, 16, True),            # G = 3, ragged S
+    (1, 6, 2, 53, 128, True),           # G = 3 at phi4-mini's hd
 ])
 def test_plain_and_cpu_path_vs_reference_oracle(B, H, KH, S, hd, causal):
     q, k, v = _inputs(S + H, B, H, KH, S, hd)
@@ -182,6 +184,8 @@ def test_bound_at_the_training_shape():
     (1, 4, 1, 300, 16, True),           # ragged against 256-row blocks
     (2, 4, 2, 64, 16, True),            # the smoke configs
     (2, 8, 2, 45, 64, False),
+    (1, 6, 2, 53, 16, True),            # G = 3, ragged S
+    (1, 6, 2, 53, 128, True),           # G = 3 at phi4-mini's hd
 ])
 def test_plain_backward_vs_jax_grad(B, H, KH, S, hd, causal):
     """The plain backward, called directly on the plain forward's o and

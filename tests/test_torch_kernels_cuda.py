@@ -570,6 +570,7 @@ def _qkv(rng, B, H, KH, S, hd, dtype, grad=False):
     (torch.bfloat16, 2, 4, 1, 200, 96, False),     # hd 96, G = 4
     (torch.float32, 2, 4, 2, 77, 96, True),
     (torch.bfloat16, 1, 6, 6, 1500, 64, False),    # whisper's encoder
+    (torch.bfloat16, 1, 24, 8, 2048, 128, True),   # phi4-mini-3.8b, G = 3
 ])
 def test_flash_attention_kernel_vs_plain(card, dtype, B, H, KH, S, hd,
                                          causal):
@@ -606,6 +607,7 @@ def test_flash_attention_kernel_vs_plain(card, dtype, B, H, KH, S, hd,
     (torch.bfloat16, 1, 32, 32, 704, 96, True),    # phi-3-vision, 576 + 128
     (torch.float32, 1, 32, 32, 704, 96, True),
     (torch.float32, 2, 4, 2, 77, 96, False),       # ragged, G = 2
+    (torch.bfloat16, 1, 24, 8, 2048, 128, True),   # phi4-mini-3.8b, G = 3
 ])
 def test_flash_attention_gradient(card, dtype, B, H, KH, S, hd, causal):
     """dq, dk, dv through K6's Function (its backward kernels, one
@@ -657,6 +659,8 @@ def test_flash_attention_backward_is_deterministic(card, dtype):
     (1, 32, 16, 700, 96, False),    # hd 96, G = 2, a ragged last tile
     (2, 4, 2, 77, 96, True),        # hd 96, ragged, G = 2
     (8, 6, 6, 1500, 64, False),     # whisper-tiny's encoder
+    (1, 24, 8, 2048, 128, True),    # phi4-mini-3.8b, G = 3
+    (4, 32, 8, 2048, 64, True),     # llama3.2-1b's training shape, G = 4
 ])
 def test_flash_attention_backward_wgmma_route(card, B, H, KH, S, hd, causal):
     """The wgmma/TMA backward (bf16, hd 64, 96 and 128) against autograd
@@ -688,6 +692,44 @@ def test_flash_attention_backward_wgmma_route(card, B, H, KH, S, hd, causal):
     first = k6.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
     second = k6.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal)
     for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_attention_wgmma_routes_on_a_fresh_thread(card):
+    """A host thread that has made no CUDA call has no current context,
+    and the TMA maps of K6's wgmma kernels cannot be encoded without one:
+    the autograd engine's worker thread, whose first launch may be the
+    backward (or the forward, rematerialised under remat).  Each of
+    forward and backward, launched first thing on new threads, gives
+    the main thread's bits."""
+    import threading
+
+    rng = np.random.RandomState(7)
+    q, k, v = _qkv(rng, 1, 32, 8, 1024, 64, torch.bfloat16)
+    do = torch.from_numpy(rng.randn(1, 32, 1024, 64).astype(np.float32)).to(
+        "cuda", torch.bfloat16)
+    o, lse = k6.flash_attention_cuda(q, k, v)
+    want = (o, *k6.flash_attention_bwd_cuda(q, k, v, o, lse, do))
+    got = {}
+
+    def run(name, fn):
+        try:
+            got[name] = fn()
+            torch.cuda.synchronize()
+        except Exception as e:      # re-raised on the main thread
+            got[name] = e
+
+    for name, fn in (
+            ("forward", lambda: k6.flash_attention_cuda(q, k, v)[0]),
+            ("backward", lambda: k6.flash_attention_bwd_cuda(
+                q, k, v, o, lse, do))):
+        t = threading.Thread(target=run, args=(name, fn))
+        t.start()
+        t.join()
+        if isinstance(got[name], Exception):
+            raise got[name]
+    for a, b in zip((got["forward"], *got["backward"]), want):
         assert torch.equal(a, b)
 
 

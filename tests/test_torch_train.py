@@ -1,15 +1,17 @@
 """The port's training path against the JAX package's, on bridged weights.
 
 ``forward_train`` hidden states, ``loss_fn`` and its gradients on the
-smoke configs of olmo-1b, llama3.2-1b, gemma3-27b (local + global
-layers), mixtral-8x7b (local layers with a mixture of experts, its
-router, gates and expert weights differentiated through the sort-based
-dispatch), mamba2-370m (SSD layers) and recurrentgemma-2b (RG-LRU and
-local layers); remat; one AdamW step; int8 gradient compression; the token
-stream; the checkpoint format in both directions; the fault-tolerant
-loop; and the trainer's ``main`` against the reference's.  Float32
-throughout.  Tolerances are relative to each tensor's scale (TOL x
-max|ref| plus TOL relative); gemma3-27b's and mixtral-8x7b's gradients
+smoke configs of olmo-1b, llama3.2-1b, phi4-mini-3.8b (grouped kv
+heads, G 2; and at G 3, 6 heads over 2, as the full config's 24 over
+8), gemma3-27b (local + global layers), mixtral-8x7b (local layers
+with a mixture of experts, its router, gates and expert weights
+differentiated through the sort-based dispatch), mamba2-370m (SSD
+layers) and recurrentgemma-2b (RG-LRU and local layers); remat; one
+AdamW step; int8 gradient compression; the token stream; the
+checkpoint format in both directions; the fault-tolerant loop; and the
+trainer's ``main`` against the reference's.  Float32 throughout.
+Tolerances are relative to each tensor's scale (TOL x max|ref| plus
+TOL relative); gemma3-27b's and mixtral-8x7b's gradients
 are held at 1e-2, because a one-ulp change of their smoke weights alone
 can move them by more than 1e-3 on this batch
 (``test_gradient_noise_floor``, ``test_moe_gradient_noise_floor``);
@@ -18,7 +20,9 @@ local layers' gradients are held at 1e-4 one layer at a time in
 ``tests/test_torch_flash_attention.py``, and the mixture of experts'
 in ``tests/test_torch_moe.py``.  mamba2-370m holds 1e-4 and
 recurrentgemma-2b 1e-5, the smallest powers of ten above twice their
-one-ulp noise floors (``test_recurrent_gradient_noise_floor``).
+one-ulp noise floors (``test_recurrent_gradient_noise_floor``), and
+phi4-mini-3.8b at G 3 1e-3 likewise
+(``test_three_query_heads_gradient_noise_floor``).
 recurrentgemma-2b's weights are the reference's draw with each stacked
 leaf rescaled to its own layer's fan-in (``_torch_helpers.
 rglru_fan_in``): at the reference's own scale its RG-LRU gates
@@ -37,7 +41,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_helpers import rglru_fan_in
+from _torch_helpers import engine_setup, rglru_fan_in
 from repro import models as jmodels
 from repro.checkpoint.ckpt import Checkpointer as JCheckpointer
 from repro.configs import get_config, smoke_config
@@ -62,7 +66,8 @@ from repro_torch.parallel import compress
 from repro_torch.runtime.fault import FailureInjector, FaultTolerantLoop
 
 TOL = 1e-4
-GRAD_TOL = {"olmo-1b": 1e-4, "llama3.2-1b": 1e-4, "gemma3-27b": 1e-2,
+GRAD_TOL = {"olmo-1b": 1e-4, "llama3.2-1b": 1e-4, "phi4-mini-3.8b": 1e-4,
+            "phi4-mini-3.8b G3": 1e-3, "gemma3-27b": 1e-2,
             "mixtral-8x7b": 1e-2, "mamba2-370m": 1e-4,
             "recurrentgemma-2b": 1e-5}
 
@@ -105,11 +110,8 @@ def _grads(tcfg, tparams, batch, remat=True):
     return loss, torch.autograd.grad(loss, leaves)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "llama3.2-1b", "gemma3-27b",
-                                  "mixtral-8x7b", "mamba2-370m",
-                                  "recurrentgemma-2b"])
-def test_forward_loss_and_gradients_match_reference(arch):
-    cfg, params, tcfg, tparams = _setup(arch)
+def _hidden_loss_and_gradients_match(arch, cfg, params, tcfg, tparams,
+                                     grad_tol=None):
     batch = _batch(1)
     hidden = jax.jit(lambda p, t: j_forward_train(cfg, p, t))(
         params, jnp.asarray(batch["tokens"]))
@@ -125,7 +127,52 @@ def test_forward_loss_and_gradients_match_reference(arch):
     paths = [jax.tree_util.keystr(k) for k, _ in
              jax.tree_util.tree_flatten_with_path(grads)[0]]
     for path, g, tg in zip(paths, jax.tree.leaves(grads), t_grads):
-        _close(tg, g, GRAD_TOL[arch], what=f"{arch} grad {path}")
+        _close(tg, g, grad_tol or GRAD_TOL[arch], what=f"{arch} grad {path}")
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "llama3.2-1b", "phi4-mini-3.8b",
+                                  "gemma3-27b", "mixtral-8x7b", "mamba2-370m",
+                                  "recurrentgemma-2b"])
+def test_forward_loss_and_gradients_match_reference(arch):
+    _hidden_loss_and_gradients_match(arch, *_setup(arch))
+
+
+def _g3_setup():
+    """phi4-mini-3.8b's smoke config at its full config's grouping, G 3
+    (24 query heads over 8 kv heads there): 6 heads over 2, the same
+    replacement on both packages' configs."""
+    return engine_setup("phi4-mini-3.8b", n_heads=6, n_kv_heads=2)
+
+
+def test_three_query_heads_a_kv_head_match_reference():
+    """G 3: hidden states and loss at 1e-4, every gradient against
+    ``jax.grad`` of the reference's ``loss_fn`` at 1e-3, the smallest
+    power of ten above twice this config's one-ulp noise floor
+    (``test_three_query_heads_gradient_noise_floor``)."""
+    cfg, params, tcfg, tparams = _g3_setup()
+    assert tcfg.n_heads // tcfg.n_kv_heads == 3
+    assert params["groups"]["pos0"]["attn"]["wk"].shape[-2] == 2
+    _hidden_loss_and_gradients_match("phi4-mini-3.8b", cfg, params, tcfg,
+                                     tparams, GRAD_TOL["phi4-mini-3.8b G3"])
+
+
+def test_three_query_heads_gradient_noise_floor():
+    """At 6 heads over 2 the smoke gradients are worse conditioned than
+    at the smoke config's 4 over 2: of three one-ulp changes of every
+    weight (random signs, seeds 0-2), the one that moves them most moves
+    them by more than 1e-4 of a leaf's scale, so no implementation that
+    rounds differently from the reference can meet 1e-4 there; it moves
+    them by less than half of the 1e-3 they are held to."""
+    _, params, tcfg, tparams = _g3_setup()
+    batch = _batch(1)
+    _, g0 = _grads(tcfg, tparams, batch)
+    moved = []
+    for seed in range(3):
+        _, g1 = _grads(tcfg, params_from_numpy(_nudged(params, seed), "cpu"),
+                       batch)
+        moved.append(max(float((a - b).abs().max() / b.abs().max())
+                         for a, b in zip(g1, g0)))
+    assert 1e-4 < max(moved) < GRAD_TOL["phi4-mini-3.8b G3"] / 2, moved
 
 
 def test_gradient_noise_floor():

@@ -1,19 +1,23 @@
-"""Training of phi-3-vision-4.2b and whisper-tiny alone, on one H100.
+"""Training at full width alone, on one H100.
 
-    python3 tools/train_probe.py [--seed 0] [--profile]
+    python3 tools/train_probe.py [--seed 0] [--profile] [--phase 22|24]
 
-Builds K6's kernels, then runs ``chip_smoke.py``'s phase 22 through the
-same function (``train_vlm_encdec``): (e) K6's backward at hd 96 and
-at whisper-tiny's encoder shape against its plain version and its
-walk, (a) phi-3-vision-4.2b at full width through ``build_step``, (b)
+Builds K6's kernels, then runs one of ``chip_smoke.py``'s training
+phases through the same function.  Phase 22 (the default,
+``train_vlm_encdec``): (e) K6's backward at hd 96 and at whisper-tiny's
+encoder shape against its plain version and its walk, (a)
+phi-3-vision-4.2b at full width through ``build_step``, (b)
 ``launch.train.main`` for it, (c) whisper-tiny at full width, (d)
 phi-3-vision in float32 at two layers, card against CPU, (f) K6's
 backward times; ``--profile`` runs two more steps of (a) and (c)
-under ``torch.profiler`` and prints where a step's time goes.  Prints
-the card's name and power limit first, and a line per check as
-``chip_smoke.py`` does (phase 22 (b) prints the free disk and host
-memory its depth comes from).  Exits
-non-zero if a check fails.
+under ``torch.profiler`` and prints where a step's time goes.  Phase
+24 (``train_three_archs``): K6 at G 4 and G 3 against its plain
+version, llama3.2-1b, phi4-mini-3.8b and mixtral-8x7b at full width
+at their reckoned depths, the float32 checks at two layers, K6's
+times.  Prints the card's name and
+power limit first, and a line per check as ``chip_smoke.py`` does
+(phase 22 (b) prints the free disk and host memory its depth comes
+from).  Exits non-zero if a check fails.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
                     help="two more steps of (a) and (c) under the profiler")
+    ap.add_argument("--phase", type=int, choices=(22, 24), default=22)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("train_probe: no CUDA device", file=sys.stderr)
@@ -68,8 +73,12 @@ def main() -> int:
                "K3": k3.verify_attention, "K4": k4.ssd_scan,
                "K5": k5.rg_lru, "K6": k6.flash_attention,
                "K6 backward": k6.flash_attention_bwd}
-    cs.train_vlm_encdec(k6, counted, args.seed, smi, profile=args.profile)
-    cs.phase(f"[22] done in {time.perf_counter() - t0:.1f} s")
+    if args.phase == 22:
+        cs.train_vlm_encdec(k6, counted, args.seed, smi,
+                            profile=args.profile)
+    else:
+        cs.train_three_archs(k6, counted, args.seed, smi)
+    cs.phase(f"[{args.phase}] done in {time.perf_counter() - t0:.1f} s")
     return 0
 
 
