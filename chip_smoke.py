@@ -190,13 +190,14 @@ Phases, each printed on its own line (any failure fails the run):
 17. expert-paged MoE serving at mixtral-8x7b's full width (d_model
    4096, 32 heads, 8 KV heads, hd 128, d_ff 14,336, 8 experts top-2,
    window 4096, vocab 32,000; bf16, capacity factor 64), depth cut from
-   32 to 8 layers (at 32 the experts alone are 90 GB), dp 1, 8 slots,
+   32 to 4 layers (at 32 the experts alone are 90 GB; 4, not 8, keeps
+   the whole script within 1,000 s beside phase 25), dp 1, 8 slots,
    max_len 2048, chunk 64, three size classes (two for the resident
    engine, whose experts take no class): 24 requests of phase 5's
    shape under a skewed footprint mix (80% on experts (0, 1), the rest
    on the cold pairs) and a uniform one (the four disjoint pairs round
    robin), each through the resident engine, the paged engine at half
-   of full residency (96 of 192 expert pages) and the resident engine
+   of full residency (48 of 96 expert pages) and the resident engine
    again on the paged run's batches: every request finishes, paged
    streams equal the resident streams on the same batches bit for bit
    (the count equal to the resident run on its own batches printed), 0
@@ -384,6 +385,32 @@ Phases, each printed on its own line (any failure fails the run):
    backward at B 4, S 2,048 at both models' attention, and its forward
    at phi-3-vision's (H 32, hd 96), each beside its bound, its plain
    version and SDPA.
+
+25. what the JAX package runs that no earlier phase ran on the card:
+   (a) llama4-maverick expert-paged at its published widths cut to 2
+   layers (one global_moe layer of 128 experts top-1, one global; bf16,
+   capacity factor 128, dp 1, 8 slots, three size classes), 24 requests
+   of phase 5's shape under a skewed footprint mix (80% on experts
+   (0, 1)) at half of full residency, 192 of 384 expert pages, and a
+   uniform one (the 64 disjoint pairs round robin) at 48 pages; each
+   paged engine built from a fresh draw whose device experts are then
+   dropped, the pinned stores returned after both, then the resident
+   engine on each paged run's batches: every stream equal, 0 misses, 0
+   drops, >= 30% of peak expert HBM saved (skewed), evictions
+   (uniform), every class empty after ``flush_experts``, one transfer
+   a step, K1 on wgmma and K2 on tma at G 5 once per global layer a
+   step of their width; the expert gather's device time in a profiled
+   prefill and decode step; (b) olmo-1b at phase 12's shape with
+   ``--compress-grads`` (a warm-up and 3 counted steps; phase 12's
+   checks) beside phase 12, then ``compress_tree`` on the card against
+   the CPU, olmo-1b's float32 gradients at 2 layers, two rounds:
+   payloads, scales and residuals bit-equal; (c) the example twins
+   (``repro_torch.examples``): ``quickstart`` (block-pool ids equal to
+   the CPU's), ``serve_paged`` on its docstring's three argv sets and a
+   crash and a shard loss, ``train_fault_tolerant`` (run B within 1e-5
+   of run A), each to its own asserts; (d) ``launch.train.main``,
+   mixtral-8x7b smoke with ``--compress-grads``, with and without a
+   failure at step 15: parameters and residual bit-equal.
 
 Every phase prints its seconds, the process's VmRSS and the card's
 ``memory_allocated``.  ``--profile`` serves the workloads of
@@ -3026,10 +3053,12 @@ def train_flops(cfg, batch, text):
 
 
 def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
-                     profile=False, tag="[12]", turns=True):
-    """Phases 12, 22 (a), (c) and 24: ``cfg`` through ``build_step``
-    (bf16 parameters from ``seed``, float32 AdamW mu, nu and master,
-    remat on): a warm-up step, then ``steps`` steps with the kernels'
+                     profile=False, tag="[12]", turns=True, compress=False):
+    """Phases 12, 22 (a), (c), 24 and 25 (b): ``cfg`` through
+    ``build_step`` (bf16 parameters from ``seed``, float32 AdamW mu, nu
+    and master, remat on; with ``compress``, the trainer's
+    ``--compress-grads``: int8 gradients with a float32 error-feedback
+    residual): a warm-up step, then ``steps`` steps with the kernels'
     launch counts zeroed just before and read just after.  A sequence
     is ``seq`` text tokens of the trainer's ``TokenStream``, after a
     VLM's image patch embeddings [img_tokens, d] or beside an
@@ -3053,6 +3082,7 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.model import count_params, init_params
     from repro_torch.optim import adamw
+    from repro_torch.parallel.compress import init_error_feedback
 
     gc.collect()                    # earlier phases' engines and caches
     torch.cuda.empty_cache()
@@ -3060,7 +3090,8 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = init_params(cfg, seed=seed, device="cuda")
-    state = (params, adamw.init(params), None)
+    state = (params, adamw.init(params),
+             init_error_feedback(params) if compress else None)
     torch.cuda.synchronize()
     n_params = count_params(cfg)
     # the parameters and AdamW state the trainer holds (the step counter
@@ -3077,7 +3108,8 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
     inputs = (f", {name} [{batch}, {rows}, {cfg.d_model}] drawn on the card"
               if rows else "")
     phase(f"{tag} params: {n_params} ({cfg.dtype}; AdamW mu, nu and master "
-          f"float32), init {time.perf_counter() - t0:.1f} s; batch {batch} "
+          f"float32{'; the error-feedback residual float32' if compress else ''}"
+          f"), init {time.perf_counter() - t0:.1f} s; batch {batch} "
           f"x {seq} tokens (one micro-batch){inputs}, {cfg.n_layers} "
           f"layers{f' + {cfg.enc_layers} encoder layers' if encdec else ''}")
     stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=seq,
@@ -3090,7 +3122,8 @@ def train_full_width(cfg, seed, counted, smi, batch=4, seq=2048, steps=5,
                                       generator=gen, device="cuda")}
                    if rows else {})} for i in range(steps + 1)]
     step_fn = build_step(cfg, adamw.AdamWConfig(warmup_steps=10,
-                                                decay_steps=steps + 1))
+                                                decay_steps=steps + 1),
+                         use_compression=compress)
     state, m = step_fn(state, batches[0])           # warm-up, not counted
     losses = [float(m["loss"])]
     n_dec = sum(1 for k in cfg.layer_kinds if runs_flash(cfg, k))
@@ -3705,18 +3738,27 @@ def check_moe_engine_vs_cpu(tengine, seed):
           f"pages after flush_experts")
 
 
-#: the two footprint mixes of phase 17 over mixtral's 8 experts: the
-#: four disjoint pairs round robin, and 80% on pair (0, 1) with the rest
-#: on the cold pairs (the reference bench's skewed and uniform mixes)
-MOE_PAIRS = ((0, 1), (2, 3), (4, 5), (6, 7))
+def moe_pairs(E):
+    """The E / 2 disjoint expert pairs (2i, 2i + 1)."""
+    return tuple((2 * i, 2 * i + 1) for i in range(E // 2))
 
 
-def moe_footprints(mix, n, seed):
+#: mixtral's four pairs (phase 17)
+MOE_PAIRS = moe_pairs(8)
+
+
+def moe_footprints(mix, n, seed, E=8):
+    """The two footprint mixes of phases 17 and 25 over ``E`` experts
+    (the reference bench's skewed and uniform mixes): the disjoint pairs
+    of :func:`moe_pairs` round robin, or 80% on pair (0, 1) and the rest
+    on a cold pair drawn from ``seed``.  At E = 8 these are phase 17's
+    draws."""
+    pairs = moe_pairs(E)
     rng = np.random.RandomState(seed)
     if mix == "uniform":
-        return [MOE_PAIRS[i % 4] for i in range(n)]
-    return [MOE_PAIRS[0] if rng.random_sample() < 0.8
-            else MOE_PAIRS[1 + rng.randint(3)] for _ in range(n)]
+        return [pairs[i % len(pairs)] for i in range(n)]
+    return [pairs[0] if rng.random_sample() < 0.8
+            else pairs[1 + rng.randint(len(pairs) - 1)] for _ in range(n)]
 
 
 def moe_requests(tengine, cfg, seed, footprints):
@@ -3733,8 +3775,15 @@ def run_moe(tengine, counted, eng, reqs, schedule=None):
     request is submitted at once and the admissions are recorded as
     [(steps before the admitting tick, rid)]; with it each request is
     submitted just before the tick that admitted it there, so the engine
-    runs the recorded steps' exact batches.  Returns the run's numbers;
-    no kernel of K1-K6 may launch."""
+    runs the recorded steps' exact batches.  Returns the run's numbers.
+    K1 must launch once per global attention layer a step with a prompt
+    lane and K2 once per such layer a decode-only step, on their wgmma
+    and tma routes (bf16 at hd 64, 96, 128), and no other kernel of
+    K1-K6: none at all on mixtral's path, whose windowed layers attend
+    in torch ops."""
+    from repro_torch.configs.base import base_kind
+
+    n_global = sum(1 for k in eng.cfg.layer_kinds if base_kind(k) == "global")
     admitted = []
     admit = eng.admit
 
@@ -3744,10 +3793,10 @@ def run_moe(tengine, counted, eng, reqs, schedule=None):
 
     eng.admit = record
     by_rid = {r.rid: r for r in reqs}
-    for fn in counted.values():
-        fn.launches = 0
+    zero_counts(counted)
     steps0, transfers0 = eng.stats["steps"], eng.host_transfers
     tokens0 = eng.stats["tokens_out"]
+    width1_0 = eng.stats["chunk_hist"].get(1, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if schedule is None:
@@ -3765,15 +3814,29 @@ def run_moe(tengine, counted, eng, reqs, schedule=None):
     eng.admit = admit
     steps = eng.stats["steps"] - steps0
     tokens = eng.stats["tokens_out"] - tokens0
+    decode_steps = eng.stats["chunk_hist"].get(1, 0) - width1_0
+    launches = {k: fn.launches for k, fn in counted.items()}
+    routes = {k: dict(counted[k].routes) for k in ("K1", "K2")}
+    want = {"K1": n_global * (steps - decode_steps),
+            "K2": n_global * decode_steps}
     check(all(r.done for r in reqs), "every request finished")
     check(eng.host_transfers - transfers0 == steps,
           f"one transfer a step ({eng.host_transfers - transfers0}, "
           f"{steps})")
-    check(sum(fn.launches for fn in counted.values()) == 0,
-          "no kernel of K1-K6 on mixtral's path")
+    check(all(launches[k] == n for k, n in want.items())
+          and sum(launches.values()) == sum(want.values()),
+          f"K1 and K2 launched once per global layer ({n_global}) a step of "
+          f"their width and no other kernel of K1-K6 ({launches}, {steps} "
+          f"steps, {decode_steps} decode-only)")
+    if n_global:
+        check(routes["K1"]["wgmma"] == launches["K1"]
+              and routes["K2"]["tma"] == launches["K2"],
+              f"every K1 launch on its wgmma route and every K2 launch on "
+              f"its tma route ({routes})")
     return dict(tokens=[r.out_tokens for r in reqs], steps=steps,
                 wall=wall, ms_step=1e3 * wall / steps,
-                tok_s=tokens / wall,
+                tok_s=tokens / wall, decode_steps=decode_steps,
+                launches={k: launches[k] for k in want}, routes=routes,
                 admitted=[(s - steps0, rid) for s, rid in admitted])
 
 
@@ -3848,7 +3911,60 @@ def profile_moe_steps(eng, tengine, cfg, fp):
     return out
 
 
-def serve_moe(tengine, counted, seed, smi, n_layers=8):
+def paged_checks(tag, mix, eng, full):
+    """Phases 17 and 25 (a): a paged run's expert numbers, read after
+    it, and their checks: 0 in-step misses and 0 dropped tokens, the
+    resident peak within the budget; on the uniform mix evictions, and
+    expert deferrals where the budget cannot hold every slot's footprint
+    of two experts; on the skewed mix at least 30% of peak expert HBM
+    saved against ``full`` residency."""
+    from repro_torch.models.transformer import EXPERT_PPE
+
+    st, sched = dict(eng.stats), dict(eng.scheduler.stats)
+    meters = {k: int(eng.telemetry.shard[k].sum()) for k in (
+        "expert_hit_pages_c2", "expert_miss_pages_c2",
+        "expert_prefetch_pages_c2", "moe_dropped_tokens")}
+    peak = st["expert_pages_resident_peak"]
+    saved = 1 - peak / full
+    check(meters["expert_miss_pages_c2"] == 0
+          and meters["moe_dropped_tokens"] == 0,
+          f"{tag} {mix}: 0 in-step misses and 0 dropped tokens ({meters})")
+    check(peak <= eng.expert_budget,
+          f"{tag} {mix}: resident peak {peak} <= {eng.expert_budget}")
+    if mix == "uniform":
+        footprint = 2 * EXPERT_PPE * len(eng._elayer_slots)
+        defer = eng.expert_budget < eng.bl * footprint
+        check(st["expert_evictions"] > 0
+              and (sched["defer_experts"] > 0 or not defer),
+              f"{tag} uniform: evictions ({st['expert_evictions']})"
+              + (f" and expert deferrals ({sched['defer_experts']})"
+                 if defer else ""))
+    else:
+        check(saved >= 0.30, f"{tag} skewed: {saved:.1%} of peak expert "
+                             f"HBM saved against full residency (>= 30%)")
+    return dict(stats=st, sched=sched, meters=meters, peak=peak,
+                saved=saved, hit=eng.telemetry.expert_hit_rate())
+
+
+def flush_checked(tag, mix, eng):
+    """``flush_experts``, then every class empty and conserved (free +
+    live = the class's pages) and the expert ledger empty."""
+    from repro_torch.core import classed_pool
+
+    eng.flush_experts()
+    conserved = all(
+        int(classed_pool.free_per_shard(eng.state.pool, c)[0]
+            + classed_pool.live_per_shard(eng.state.pool, c)[0])
+        == classed_pool.pages_local(eng.state.pool, c)
+        for c in range(eng.n_classes))
+    in_use = [eng.blocks_in_use(c) for c in range(eng.n_classes)]
+    check(eng.leak_free() and conserved and not any(in_use)
+          and eng.expert_ledger.resident_count() == 0,
+          f"{tag} {mix}: every class empty after the drain and "
+          f"flush_experts, and conserved ({in_use})")
+
+
+def serve_moe(tengine, counted, seed, smi, n_layers=4):
     """Phase 17: expert-paged MoE serving at mixtral-8x7b's full width
     (d_model 4096, 32 heads, 8 KV heads, hd 128, d_ff 14,336, 8 experts
     top-2, window 4096, vocab 32,000; bf16, random weights from
@@ -3865,7 +3981,6 @@ def serve_moe(tengine, counted, seed, smi, n_layers=8):
     shapes, and the paged engine's expert deferrals change which
     requests share a step)."""
     from repro_torch.configs import get_config
-    from repro_torch.core import classed_pool
     from repro_torch.models.layers import tree_leaves
     from repro_torch.models.model import init_params
     from repro_torch.models.transformer import (EXPERT_PPE,
@@ -3923,25 +4038,9 @@ def serve_moe(tengine, counted, seed, smi, n_layers=8):
               "the paged engine: three classes at half residency")
         torch.cuda.reset_peak_memory_stats()
         paged = run_moe(tengine, counted, eng, reqs())
-        st, sched = dict(eng.stats), dict(eng.scheduler.stats)
-        meters = {k: int(eng.telemetry.shard[k].sum()) for k in (
-            "expert_hit_pages_c2", "expert_miss_pages_c2",
-            "expert_prefetch_pages_c2", "moe_dropped_tokens")}
-        peak = st["expert_pages_resident_peak"]
-        saved = 1 - peak / full
-        hit = eng.telemetry.expert_hit_rate()
-        check(meters["expert_miss_pages_c2"] == 0
-              and meters["moe_dropped_tokens"] == 0,
-              f"{mix}: 0 in-step misses and 0 dropped tokens ({meters})")
-        check(peak <= budget, f"{mix}: resident peak {peak} <= {budget}")
-        if mix == "uniform":
-            check(st["expert_evictions"] > 0
-                  and sched["defer_experts"] > 0,
-                  f"uniform: evictions ({st['expert_evictions']}) and "
-                  f"expert deferrals ({sched['defer_experts']})")
-        else:
-            check(saved >= 0.30, f"skewed: {saved:.1%} of peak expert HBM "
-                                 f"saved against full residency (>= 30%)")
+        r = paged_checks("[17]", mix, eng, full)
+        st, sched, meters = r["stats"], r["sched"], r["meters"]
+        peak, saved, hit = r["peak"], r["saved"], r["hit"]
         prof = (profile_moe_steps(eng, tengine, cfg, MOE_PAIRS[0])
                 if mix == "skewed" else None)
         # one cold footprint's load: 16 experts x 3 pages from the host
@@ -3958,16 +4057,7 @@ def serve_moe(tengine, counted, seed, smi, n_layers=8):
             n = len(eng._elayer_slots) * 2 * EXPERT_PPE
             load = dict(pages=n, bytes=n * page_bytes, s=secs,
                         gbs=n * page_bytes / secs / 1e9)
-        eng.flush_experts()
-        conserved = all(
-            int(classed_pool.free_per_shard(eng.state.pool, c)[0]
-                + classed_pool.live_per_shard(eng.state.pool, c)[0])
-            == classed_pool.pages_local(eng.state.pool, c)
-            for c in range(eng.n_classes))
-        check(eng.leak_free() and conserved
-              and eng.expert_ledger.resident_count() == 0,
-              f"{mix}: leak-free after drain and flush_experts, every "
-              f"class conserved")
+        flush_checked("[17]", mix, eng)
         mem = torch.cuda.max_memory_allocated()
         del eng
         gc.collect()
@@ -5874,6 +5964,408 @@ def train_three_archs(k6, counted, seed, smi):
     return out
 
 
+# ------------------------------------------------------------ phase 25
+
+def expert_checksum(cfg, params):
+    """An exact checksum of the first MoE layer slot's ``w_down``: the
+    sum of its bf16 bit patterns read as int16, expert by expert, in
+    int64 (one read to the host)."""
+    from repro_torch.models.transformer import moe_positions
+
+    w = params["groups"][moe_positions(cfg)[0][0]]["ffn"]["w_down"]
+    return int(torch.stack([w[:, e].view(torch.int16).sum(dtype=torch.int64)
+                            for e in range(w.shape[1])]).sum())
+
+
+def serve_llama4_paged(tengine, counted, seed, smi, b_local=8, max_len=2048,
+                       chunk=64):
+    """Phase 25 (a): expert-paged serving of llama4-maverick at its
+    published widths cut to :data:`LLAMA4_LAYERS` layers (one global_moe
+    layer of 128 experts top-1, one global; capacity factor 128, so that
+    no assignment drops), bf16,
+    random weights from ``seed`` drawn on the card, dp 1, 8 slots,
+    max_len 2048, chunk 64, three size classes; 24 requests of phase 5's
+    shape under each footprint mix of :func:`moe_footprints` over the 64
+    expert pairs: skewed at half of full residency (192 of 384 expert
+    pages), uniform at 48 pages (8 slots x 2 experts x 3 pages, the
+    least that lets every slot hold a distinct footprint: at half
+    residency 24 requests never make the LRU evict).  A paged engine
+    builds its host store from the weights it is given, so each paged
+    mix draws them anew; once the engine is built the caller's copy is
+    dropped (the caller's 36.86 GB beside the engine's 20 GB class and
+    the 32 GB gather would not fit the card).  After both paged runs the
+    pinned stores are returned (:func:`release_pinned`), the weights are
+    drawn once more (one expert leaf's checksum equal to every earlier
+    draw's) and the resident engine replays each paged run's admission
+    schedule, so both run the same batches.  Checks: every stream equal,
+    0 in-step misses and 0 drops, >= 30% of peak expert HBM saved on the
+    skewed mix, evictions on the uniform mix, every class empty after
+    the drain and ``flush_experts``, one transfer a step, K1 on its
+    wgmma and K2 on its tma route (G 5) once per global layer a step of
+    their width (:func:`run_moe`).  Returns each mix's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import count_params, init_params
+    from repro_torch.models.transformer import (EXPERT_PPE,
+                                                expert_layer_slots)
+
+    base = get_config("llama4-maverick-400b-a17b")
+    E = base.moe.num_experts
+    # capacity factor E: a row's capacity is then every one of its
+    # assignments.  At moe_cfg's 64 it is half a 64-token chunk's, and a
+    # footprint of two experts (top-1) overflows one of them
+    cfg = dataclasses.replace(base, n_layers=LLAMA4_LAYERS,
+                              moe=dataclasses.replace(
+                                  base.moe, capacity_factor=float(E)))
+    slots = expert_layer_slots(cfg)
+    full = slots * E * EXPERT_PPE
+    budgets = {"skewed": full // 2,
+               "uniform": b_local * 2 * EXPERT_PPE * slots}
+    page_bytes = cfg.d_model * cfg.d_ff * 2
+    expert_bytes = full * page_bytes
+    n_params = count_params(cfg)
+    card = torch.cuda.get_device_properties(0).total_memory
+
+    def draw():
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        return params, expert_checksum(cfg, params), time.perf_counter() - t0
+
+    out, sums = {}, []
+    for mix in ("skewed", "uniform"):
+        fps = moe_footprints(mix, 24, seed + 25, E)
+        params, ck, init_s = draw()
+        sums.append(ck)
+        t0 = time.perf_counter()
+        eng = tengine.ServingEngine(
+            cfg, params, dp=1, b_local=b_local, max_len=max_len,
+            chunk_size=chunk, size_classes=3, expert_paging=True,
+            expert_budget=budgets[mix], device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        check(eng.n_classes == 3 and eng.expert_budget == budgets[mix],
+              f"[25a] {mix}: the paged engine, three classes, budget "
+              f"{budgets[mix]} pages")
+        # the host store holds the experts now: drop the caller's copy
+        before = torch.cuda.memory_allocated()
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        freed = before - torch.cuda.memory_allocated()
+        check(freed >= expert_bytes,
+              f"[25a] {mix}: the caller's expert leaves freed ({freed} B, "
+              f"the experts {expert_bytes} B)")
+        class2 = eng.state.expert_pages.shape[1] - 1
+        if mix == "skewed":
+            rest = 2 * (n_params - full * cfg.d_model * cfg.d_ff)
+            need = rest + class2 * page_bytes + expert_bytes
+            phase(f"[25a] {cfg.name} cut to {cfg.n_layers} layers "
+                  f"({'/'.join(cfg.layer_kinds)}; {E} experts "
+                  f"top-{cfg.moe.top_k}, capacity factor "
+                  f"{cfg.moe.capacity_factor:g}): {n_params} parameters "
+                  f"({2 * n_params / 1e9:.2f} GB bf16); an expert page "
+                  f"{cfg.d_model * cfg.d_ff} elements ({page_bytes / 1e6:.1f}"
+                  f" MB); full residency {full} pages "
+                  f"({expert_bytes / 1e9:.2f} GB); the paged engine holds "
+                  f"{class2} pages in class 2 at budget {budgets[mix]} "
+                  f"({class2 * page_bytes / 1e9:.2f} GB), the weights "
+                  f"outside the experts {rest / 1e9:.2f} GB, and the "
+                  f"gather writes all {full} pages while the MoE layer runs "
+                  f"({expert_bytes / 1e9:.2f} GB): {need / 1e9:.2f} GB of "
+                  f"the card's {card / 1e9:.2f} GB before KV and "
+                  f"activations; the caller's weights beside it would add "
+                  f"{2 * n_params / 1e9:.2f} GB "
+                  f"({(need + 2 * n_params) / 1e9:.1f} GB)")
+        phase(f"[25a] {mix}: weights drawn in {init_s:.1f} s, the paged "
+              f"engine built with its pinned host store in {build_s:.1f} s "
+              f"({class2} pages in class 2 at budget {budgets[mix]}); the "
+              f"caller's copy dropped, {freed / 1e9:.2f} GB freed, "
+              f"memory_allocated "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+        paged = run_moe(tengine, counted, eng,
+                        moe_requests(tengine, cfg, seed + 25, fps))
+        mem = torch.cuda.max_memory_allocated()
+        out[mix] = dict(paged_checks("[25a]", mix, eng, full), paged=paged,
+                        mem=mem, build_s=build_s, budget=budgets[mix],
+                        class2=class2)
+        out[mix]["prof"] = (profile_moe_steps(eng, tengine, cfg,
+                                              moe_pairs(E)[0])
+                            if mix == "skewed" else None)
+        flush_checked("[25a]", mix, eng)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["host"] = release_pinned("[25a]", smi)
+    params, ck, _ = draw()
+    check(all(c == ck for c in sums),
+          f"[25a] the same weights at every draw (checksums {sums}, {ck})")
+    for mix in ("skewed", "uniform"):
+        r = out[mix]
+        fps = moe_footprints(mix, 24, seed + 25, E)
+        eng = tengine.ServingEngine(cfg, params, dp=1, b_local=b_local,
+                                    max_len=max_len, chunk_size=chunk,
+                                    device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        replay = run_moe(tengine, counted, eng,
+                         moe_requests(tengine, cfg, seed + 25, fps),
+                         schedule=r["paged"]["admitted"])
+        r["replay"], r["replay_mem"] = replay, torch.cuda.max_memory_allocated()
+        check(not any(eng.blocks_in_use(c) for c in range(eng.n_classes))
+              and eng.leak_free(), f"[25a] {mix}: the resident engine "
+                                   f"empty after the drain")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        p, st = r["paged"], r["stats"]
+        check(replay["tokens"] == p["tokens"],
+              f"[25a] {mix}: paged streams == resident streams on the same "
+              f"batches, bit for bit")
+        phase(f"[25a] {mix} mix on {smi}: paged {p['ms_step']:.2f} ms/step, "
+              f"{p['tok_s']:.1f} generated tok/s ({p['steps']} steps, "
+              f"{p['decode_steps']} decode-only); resident on the same "
+              f"batches {replay['ms_step']:.2f} ms/step, "
+              f"{replay['tok_s']:.1f} tok/s; all 24 streams equal; K1 "
+              f"{p['launches']['K1']} and K2 {p['launches']['K2']} launches "
+              f"paged (by route {p['routes']}), resident K1 "
+              f"{replay['launches']['K1']}, K2 {replay['launches']['K2']}; "
+              f"one transfer a step")
+        phase(f"[25a] {mix} on {smi}: budget {r['budget']} pages, loads "
+              f"{st['expert_load_pages']} pages, evictions "
+              f"{st['expert_evictions']}, expert deferrals "
+              f"{r['sched']['defer_experts']}, hit rate {r['hit']:.4f}, "
+              f"resident peak {r['peak']} of {full} pages ({r['saved']:.1%} "
+              f"saved); meters {r['meters']}; peak max_memory_allocated "
+              f"paged {r['mem'] / 2**30:.2f} GiB, resident "
+              f"{r['replay_mem'] / 2**30:.2f} GiB; 0 blocks in every class "
+              f"after flush_experts")
+        if r["prof"] is not None:
+            for name, q in r["prof"].items():
+                phase(f"[25a] profiled {name} step, paged, on {smi}: "
+                      f"expert gather {q['expert_gather']:.3f} ms (CUDA "
+                      f"events {q['expert_gather (events)']:.3f} ms), MoE "
+                      f"products {q['moe_products']:.3f} ms (CUDA events "
+                      f"{q['moe_products (events)']:.3f} ms) over "
+                      f"{q['calls']} MoE layers; all kernels "
+                      f"{q['all kernels']:.3f} ms (device), "
+                      f"{q['launches']} launches")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_compress(seed, smi):
+    """Phase 25 (b): ``parallel/compress.py::compress_tree`` on the card
+    against the CPU on the same inputs: olmo-1b's float32 gradients at
+    full width cut to 2 layers (batches 0 and 1 of 2 x 512 tokens), two
+    rounds, each device carrying its own residual into the second.
+    Payloads, scales and residuals must be bit-equal: each operation is
+    exact (the max, the clamp, the payload's product) or correctly
+    rounded (the adds and divisions).  Also printed: the leaves whose
+    scale the card would round otherwise with the divisor 127 a Python
+    number (a CPU scalar, which PyTorch's CUDA division turns into a
+    multiplication by its reciprocal)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.models.layers import tree_leaves, tree_map
+    from repro_torch.models.model import init_params, loss_fn
+    from repro_torch.parallel import compress
+
+    cfg = dataclasses.replace(get_config("olmo-1b"), n_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, seed=seed, device="cuda")
+    leaves = tree_leaves(params)
+    n_leaves = len(leaves)
+    for p in leaves:
+        p.requires_grad_(True)
+    stream = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=512,
+                                    global_batch=2, seed=seed))
+    ef = {"cuda": compress.init_error_feedback(params),
+          "cpu": compress.init_error_feedback(tree_map(
+              lambda a: a.detach().cpu(), params))}
+    differ, scalar_differ, n = [], 0, 0
+    for rnd in range(2):
+        batch = {k: torch.from_numpy(a).cuda()
+                 for k, a in stream.batch_at(rnd).items()}
+        grads = iter(torch.autograd.grad(loss_fn(cfg, params, batch),
+                                         leaves))
+        grads = tree_map(lambda _: next(grads), params)
+        got = {}
+        for dev in ("cuda", "cpu"):
+            q, s, ef[dev] = compress.compress_tree(
+                tree_map(lambda g: g.to(dev), grads), ef[dev])
+            got[dev] = (tree_leaves(q), tree_leaves(s),
+                        tree_leaves(ef[dev].residual))
+        for what, a, b in zip(("payloads", "scales", "residuals"),
+                              got["cuda"], got["cpu"]):
+            bad = sum(not torch.equal(x.cpu(), y) for x, y in zip(a, b))
+            if bad:
+                differ.append((rnd, what, bad))
+        for g, r in zip(tree_leaves(grads),
+                        tree_leaves(ef["cuda"].residual)):
+            n += 1
+            m = g.detach().abs().amax()
+            scalar_differ += not torch.equal((m / 127.0).cpu(),
+                                             m.cpu() / 127.0)
+    nonzero = sum(int(torch.count_nonzero(r)) for r in
+                  tree_leaves(ef["cuda"].residual))
+    numel = sum(r.numel() for r in tree_leaves(ef["cuda"].residual))
+    check(not differ and nonzero > 0,
+          f"[25b] compress_tree on the card == on the CPU, payloads, scales "
+          f"and residuals bit for bit over two rounds (differ: {differ}; "
+          f"{nonzero} non-zero residual entries)")
+    phase(f"[25b] compress_tree, {cfg.name} float32 gradients at full width "
+          f"cut to {cfg.n_layers} layers ({n_leaves} leaves, {numel} "
+          f"entries), two rounds on {smi}: the card == the CPU bit for bit "
+          f"(payloads, scales, residuals; {nonzero} residual entries "
+          f"non-zero after round 2); with the divisor 127 a Python number "
+          f"the card's scale would differ on {scalar_differ} of {n} "
+          f"leaf-rounds")
+    del params, leaves, ef
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(leaves=n_leaves, numel=numel, nonzero=nonzero,
+                scalar_differ=scalar_differ)
+
+
+def train_compressed(counted, seed, smi, train12):
+    """Phase 25 (b): olmo-1b at phase 12's shape (bf16, float32 AdamW,
+    remat, 4 x 2,048 tokens) with ``--compress-grads``, a warm-up and 3
+    counted steps through :func:`train_full_width` and its checks (K6's
+    launches and routes, one transfer a step, finite losses), beside
+    phase 12's uncompressed run ``train12`` of this process; then
+    :func:`check_compress`.  Returns the run's numbers."""
+    from repro_torch.configs import get_config
+
+    r = train_full_width(get_config("olmo-1b"), seed, counted, smi,
+                         steps=3, tag="[25b]", turns=False, compress=True)
+    phase(f"[25b] olmo-1b on {smi}: with --compress-grads "
+          f"{r['ms']:.1f} ms a step, {r['tok_s']:.0f} tokens/s, peak "
+          f"{r['peak'] / 2**30:.2f} GiB; phase 12 without it in this "
+          f"process {train12['ms']:.1f} ms, {train12['tok_s']:.0f} "
+          f"tokens/s, peak {train12['peak'] / 2**30:.2f} GiB: "
+          f"{100 * (r['ms'] / train12['ms'] - 1):+.1f}% a step, "
+          f"{(r['peak'] - train12['peak']) / 1e9:+.2f} GB of peak")
+    r["compress"] = check_compress(seed, smi)
+    return r
+
+
+#: phase 25 (c): the argv sets of ``examples/serve_paged.py``'s
+#: docstring, and a fault schedule
+SERVE_PAGED_ARGVS = (
+    [],
+    ["--hot-prefix", "24", "--pin-pages", "12", "--bursts", "3",
+     "--interactive-frac", "0.25"],
+    ["--hot-prefix", "24", "--speculate", "--draft-len", "4",
+     "--chunk-buckets", "1,4,8"],
+    ["--inject-fault", "crash@6:post_sync:torn,shard_loss@12:post_admission:1"])
+
+
+def echoed(tag, fn, *a):
+    """``fn(*a)`` with its standard output echoed line by line after
+    ``tag |``; returns (its result, its seconds)."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*a), time.perf_counter() - t0
+    finally:
+        for line in buf.getvalue().splitlines():
+            phase(f"{tag} | {line}")
+
+
+def run_examples(smi):
+    """Phase 25 (c): the port's twins of the JAX package's examples on
+    the card, in this process, each to its own asserts: ``quickstart``
+    (its block-pool ids and free counts equal to a CPU run of its
+    section 2), ``serve_paged`` on each argv of
+    :data:`SERVE_PAGED_ARGVS` (each drains clean), and
+    ``train_fault_tolerant`` (run B within 1e-5 of run A after the
+    injected failure; whether they are bit-equal is printed).
+    ``allocator_showcase`` is host-only, as its reference, and runs in
+    the CPU tests.  Returns each run's seconds."""
+    from repro_torch.examples import (quickstart, serve_paged,
+                                      train_fault_tolerant)
+    from repro_torch.models.layers import tree_leaves
+
+    out = {}
+    qs, out["quickstart"] = echoed("[25c] quickstart", quickstart.main,
+                                   ["--device", "cuda"])
+    cpu, _ = echoed("[25c] quickstart section 2 on the CPU",
+                    quickstart.block_pool_section, "cpu")
+    check(list(qs["ids"]) == list(cpu[0])
+          and (qs["top"], qs["freed"]) == cpu[1:],
+          f"[25c] quickstart: block-pool ids and free counts on the card "
+          f"== on the CPU ({qs['ids']}, {cpu[0]})")
+    for i, argv in enumerate(SERVE_PAGED_ARGVS):
+        _, out[f"serve_paged {i}"] = echoed(
+            f"[25c] serve_paged {' '.join(argv)}", serve_paged.main,
+            argv + ["--device", "cuda"])
+    (a, b), out["train_fault_tolerant"] = echoed(
+        "[25c] train_fault_tolerant", train_fault_tolerant.main,
+        ["--device", "cuda"])
+    exact = all(torch.equal(x, y) for x, y in zip(tree_leaves(a[0][0]),
+                                                  tree_leaves(b[0][0])))
+    phase(f"[25c] examples on {smi}: quickstart {out['quickstart']:.1f} s, "
+          f"serve_paged "
+          + ", ".join(f"{out[f'serve_paged {i}']:.1f}"
+                      for i in range(len(SERVE_PAGED_ARGVS)))
+          + f" s, train_fault_tolerant {out['train_fault_tolerant']:.1f} s "
+          f"(run B bit-equal to run A: {exact}); block-pool ids equal to "
+          f"the CPU's")
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def compressed_recovery(smi):
+    """Phase 25 (d): ``launch.train.main`` on the card, mixtral-8x7b
+    smoke, 24 steps, ``--save-every 6 --compress-grads``, with and
+    without ``--inject-failure-at 15``: one restart, the parameters and
+    the error-feedback residual (which the checkpoint carries) equal
+    bit for bit, the losses of the replayed steps equal the first
+    run's.  Returns the losses."""
+    import shutil
+
+    from repro_torch.launch import train
+    from repro_torch.models.layers import tree_leaves
+
+    root = ROOT / "build" / "chip_smoke_compress"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", "mixtral-8x7b", "--smoke", "--steps", "24",
+            "--save-every", "6", "--compress-grads", "--device", "cuda"]
+    try:
+        (a, la), _ = echoed("[25d] clean", train.main,
+                            argv + ["--ckpt-dir", str(root / "a")])
+        (b, lb), _ = echoed("[25d] failure at 15", train.main,
+                            argv + ["--ckpt-dir", str(root / "b"),
+                                    "--inject-failure-at", "15"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    same = [all(torch.equal(x, y) for x, y in zip(tree_leaves(p), tree_leaves(q)))
+            for p, q in ((a[0], b[0]), (a[2].residual, b[2].residual))]
+    nonzero = sum(int(torch.count_nonzero(r))
+                  for r in tree_leaves(a[2].residual))
+    # the save at step 12 is restored: steps 13 and 14 run twice
+    check(all(same) and nonzero > 0 and len(lb) == len(la) + 2
+          and lb[:15] == la[:15] and lb[15:] == la[13:],
+          f"[25d] compressed training resumed after the failure at step 15: "
+          f"parameters and residual bit-equal {same} ({nonzero} residual "
+          f"entries non-zero), losses {la} and {lb}")
+    phase(f"[25d] mixtral-8x7b smoke, --compress-grads, failure injected "
+          f"before step 15, on {smi}: restored from step 12, 24 steps; "
+          f"parameters and error-feedback residual bit-equal to the clean "
+          f"run ({nonzero} non-zero residual entries); losses {la[0]:.6f} "
+          f"-> {la[-1]:.6f}, the replayed steps' equal")
+    return dict(losses=la, replayed=lb, nonzero=nonzero)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6406,6 +6898,15 @@ def main() -> int:
     r24 = train_three_archs(k6, counted, args.seed, smi)
     lap(24, "llama3.2-1b, phi4-mini-3.8b and mixtral-8x7b training at "
             "full width, K6 at G 4 and 3")
+    # [25] llama4-maverick's experts paged, compressed training, the
+    # example twins, compressed training under recovery
+    r25 = {"a": serve_llama4_paged(tengine, counted, args.seed, smi)}
+    lap("25a", "llama4-maverick expert-paged")
+    r25["b"] = train_compressed(counted, args.seed, smi, train)
+    lap("25b", "olmo-1b training with --compress-grads")
+    r25["c"] = run_examples(smi)
+    r25["d"] = compressed_recovery(smi)
+    lap("25c, d", "the example twins, compressed training under recovery")
     s16 = sampled["runs"][0]
     sampled_launches = {
         "K1": s16["launches"], "K2": s16["k2"],
@@ -6669,7 +7170,22 @@ def main() -> int:
         name: {"launches": d["bwd_launches"], "train_grad_rel_err": d["err"],
                "loss_rel_err": d["loss_err"]}
         for name, d in r24["d"].items()}
-    phase(f"[24] total {time.perf_counter() - t_start:.1f} s")
+    # phase 25: K1 and K2 on llama4-maverick's expert-paged path, and K6
+    # in olmo-1b's compressed training
+    for row_, key in ((kernels[0], "K2"), (kernels[1], "K1")):
+        row_["phase25_llama4_paged_launches"] = {
+            mix: {"launches": r25["a"][mix]["paged"]["launches"][key],
+                  "by_route": r25["a"][mix]["paged"]["routes"][key],
+                  "steps": r25["a"][mix]["paged"]["steps"],
+                  "decode_steps": r25["a"][mix]["paged"]["decode_steps"]}
+            for mix in ("skewed", "uniform")}
+    for row_, key, what in ((fa_row, "launches", "forward"),
+                            (bwd_row, "bwd_launches", "backward")):
+        row_["phase25_compressed_launches"] = {
+            "olmo-1b": {"launches": r25["b"][key], **dict(zip(
+                ("by_route", "by_mask"),
+                r25["b"]["by_route_and_mask"][what]))}}
+    phase(f"[25] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

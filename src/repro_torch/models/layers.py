@@ -220,7 +220,10 @@ def embed_apply(params, tokens):
     tok = params["tok"]
     ids = tokens.clamp(0, tok.shape[0] - 1)
     if not partition.is_sharded(tok):
-        return tok[ids.long()]
+        # F.embedding, not tok[ids]: indexing's backward accumulates
+        # repeated ids with atomic adds on a multi-threaded CPU, so the
+        # table's gradient would change from run to run
+        return F.embedding(ids.long(), tok)
     v0 = partition.shard_offset(tok, 0, "model")
     return _embed_shards(tok, ids, v0)
 

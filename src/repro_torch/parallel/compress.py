@@ -29,8 +29,13 @@ def init_error_feedback(grads_like: Any) -> EFState:
 
 def quantize(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int8 payload, float32 scale) with g ~ payload * scale; rounding
-    half to even, as ``jnp.round``."""
-    scale = torch.clamp(g.abs().amax(), min=1e-12) / 127.0
+    half to even, as ``jnp.round``.  Every operation is exact or
+    correctly rounded, so the card and the CPU give the same bits.  The
+    divisor 127 is a tensor on ``g``'s device: a Python number is a CPU
+    scalar, which PyTorch's CUDA division replaces by a multiplication
+    by its reciprocal, one rounding more."""
+    scale = (torch.clamp(g.abs().amax(), min=1e-12)
+             / torch.full((), 127.0, device=g.device))
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -2101,6 +2101,10 @@ class ServingEngine:
     def page_occupancy(self) -> float:
         return self.pages_in_use() / (self.pages_local * self.dp)
 
+    def pages_mean(self) -> float:
+        """Mean pages-in-use per step (from the packed status row)."""
+        return self.stats["pages_sum"] / max(self.stats["steps"], 1)
+
     def shard_occupancy(self) -> Dict[str, list]:
         """Per-shard pages in use over the run, from the status row's
         PAGES entries (no extra transfer; under a group no collective

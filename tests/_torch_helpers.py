@@ -100,7 +100,9 @@ def engine_setup(arch, **overrides):
     """(reference config, reference params, port config, bridged port
     params) of ``arch``'s smoke config with the fields ``overrides``
     replaced (the same ``dataclasses.replace`` on both packages'
-    configs), weights from PRNGKey(0)."""
+    configs; a callable override gives the field's value from each
+    package's smoke config, as ``moe=lambda c: dataclasses.replace(
+    c.moe, num_experts=128)``), weights from PRNGKey(0)."""
     import dataclasses
 
     import jax
@@ -110,10 +112,13 @@ def engine_setup(arch, **overrides):
     from repro_torch.configs import get_config as t_get_config
     from repro_torch.configs import smoke_config as t_smoke_config
 
-    cfg = dataclasses.replace(smoke_config(get_config(arch)), **overrides)
+    def replaced(c):
+        return dataclasses.replace(c, **{
+            k: v(c) if callable(v) else v for k, v in overrides.items()})
+
+    cfg = replaced(smoke_config(get_config(arch)))
     params = jmodels.init_params(cfg, jax.random.PRNGKey(0))
-    tcfg = dataclasses.replace(t_smoke_config(t_get_config(arch)),
-                               **overrides)
+    tcfg = replaced(t_smoke_config(t_get_config(arch)))
     tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
     return cfg, params, tcfg, tparams
 

@@ -155,6 +155,84 @@ def test_tight_budget_eviction_churn_identity():
     assert te.telemetry.never_dry_margin_min() >= 0
 
 
+def _pair_footprint(rid, E):
+    """Request ``rid``'s footprint: the disjoint pairs (2i, 2i + 1) of
+    the E experts round robin (``chip_smoke.py::moe_footprints``'s
+    uniform mix)."""
+    i = rid % (E // 2)
+    return (2 * i, 2 * i + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _llama4_setup():
+    """llama4-maverick's smoke config (4 layers: 2 MoE layer slots) with
+    its published 128 experts, top-1, capacity factor 64."""
+    return engine_setup("llama4-maverick-400b-a17b",
+                        moe=lambda c: dataclasses.replace(
+                            c.moe, num_experts=128, capacity_factor=64.0))
+
+
+def test_llama4_128_experts_paged_vs_reference_and_resident():
+    """llama4-maverick's 128 experts paged at a 48-page budget: 12
+    requests on 12 distinct pairs round robin, a footprint 12 pages (2
+    experts x 2 MoE layer slots x 3), so at most 4 stay resident and
+    the LRU evicts.  The port's paged engine equals the reference's
+    (tokens, status rows, stats, pool leaves, expert tables, then
+    leak-free after ``flush_experts``), and the port's resident engine,
+    each request submitted just before the step the paged engine
+    admitted it on, gives the same tokens on the same batches."""
+    setup = _llama4_setup()
+    E = setup[2].moe.num_experts
+    assert E == 128 and setup[2].moe.top_k == 1
+    assert EXPERT_PPE * expert_layer_slots(setup[2]) * 2 == 12
+    rng = np.random.RandomState(3)
+    prompts = [[int(t) for t in rng.randint(1, setup[0].vocab - 1, 6)]
+               for _ in range(12)]
+    runs, admitted = [], []
+    for port in (False, True):
+        eng, Req = _engine(setup, port, dp=1, b_local=2, max_len=64,
+                           prefix_sharing=False, mesh=None,
+                           expert_paging=True, expert_budget=48)
+        if port:
+            admit = eng.admit
+
+            def record(req, match, shard, eng=eng, admit=admit):
+                admitted.append((eng.stats["steps"], req.rid))
+                return admit(req, match, shard)
+
+            eng.admit = record
+        reqs = [Req(rid, prompt=p, max_new_tokens=5,
+                    experts=_pair_footprint(rid, E))
+                for rid, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run(max_steps=500)
+        runs.append((eng, reqs, None))
+    te = runs[1][0]
+    st = dict(te.stats)
+    _same_engines(*runs)
+    assert st["expert_evictions"] > 0
+    assert st["expert_pages_resident_peak"] <= 48
+    assert _meter(te, "expert_miss_pages_c2") == 0
+    assert _meter(te, "moe_dropped_tokens") == 0
+    # the resident engine on the paged run's batches
+    res, Req = _engine(setup, True, dp=1, b_local=2, max_len=64,
+                       prefix_sharing=False, mesh=None)
+    reqs = {rid: Req(rid, prompt=p, max_new_tokens=5,
+                     experts=_pair_footprint(rid, E))
+            for rid, p in enumerate(prompts)}
+    pending = sorted(admitted)
+    assert [rid for _, rid in pending] == list(range(12))
+    while pending or not res.idle():
+        while pending and pending[0][0] == res.stats["steps"]:
+            res.submit(reqs[pending.pop(0)[1]])
+        assert res.step()
+    assert res.stats["steps"] == st["steps"]
+    assert [reqs[r].out_tokens for r in range(12)] == \
+        [r.out_tokens for r in runs[1][1]]
+    assert res.n_classes == 1 and res.leak_free()
+
+
 def test_unservable_footprint_rejected_too_large():
     runs = []
     for port in (False, True):

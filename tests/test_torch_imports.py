@@ -42,7 +42,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert int(n) >= 20 and bad.strip() == "[]", out.stdout
     # the modules of the sampling and recovery slice, of the
     # expert-paged MoE slice, of the DP allocation plane, the faithful
-    # layer and the dry run are among them
+    # layer, the dry run and the example twins are among them
     assert {"repro_torch.serving.sampling", "repro_torch.serving.chaos",
             "repro_torch.models.moe", "repro_torch.serving.expert_pages",
             "repro_torch.launch.mesh", "repro_torch.launch.steps",
@@ -52,7 +52,12 @@ def test_every_module_imports_with_jax_and_repro_blocked():
             "repro_torch.launch.roofline", "repro_torch.launch.report",
             "repro_torch.core.scheduler", "repro_torch.core.baselines",
             "repro_torch.core.refpool",
-            "repro_torch.core.kv_cache"} <= set(names.split()), names
+            "repro_torch.core.kv_cache",
+            "repro_torch.examples.quickstart",
+            "repro_torch.examples.allocator_showcase",
+            "repro_torch.examples.serve_paged",
+            "repro_torch.examples.train_fault_tolerant"} <= set(
+                names.split()), names
 
 
 def test_sources_name_neither_jax_nor_repro():

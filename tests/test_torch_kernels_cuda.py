@@ -868,3 +868,42 @@ def test_sampler_on_the_card_matches_the_cpu(card):
         top = scores[idx].topk(2).values
         assert top[0] - top[1] <= 1e-5 * scores[idx][
             scores[idx].isfinite()].abs().max(), idx
+
+
+@pytest.mark.cuda
+def test_compress_tree_on_the_card_matches_the_cpu(card):
+    """``parallel/compress.py::compress_tree`` (torch ops, no kernel of
+    its own) on the card: int8 payloads, scales and error-feedback
+    residuals bit-equal to the CPU's over two rounds, each device
+    carrying its own residual, on leaves of float32 gradients at three
+    scales, the first round's largest leaf with a row of halves to round
+    (half to even).  Every operation
+    is exact or correctly rounded on both; a Python-number divisor would
+    be a CPU scalar, which the card's division multiplies by its
+    reciprocal."""
+    from repro_torch.parallel import compress
+
+    rng = np.random.RandomState(33)
+    shapes = ((4096, 1024), (50304,), (7, 333))
+    rounds = []
+    for r in range(2):
+        leaves = {f"w{i}": torch.from_numpy(
+            (rng.randn(*s) * 10.0 ** (i - 3)).astype(np.float32))
+            for i, s in enumerate(shapes)}
+        if r == 0:      # scale 1: every payload of the row a .5 to round
+            leaves["w0"][0, :255] = torch.cat([
+                torch.arange(-127, 127) + 0.5, torch.tensor([127.0])])
+        rounds.append(leaves)
+    ef = {d: compress.init_error_feedback(
+        {k: v.to(d) for k, v in rounds[0].items()}) for d in ("cpu", "cuda")}
+    for grads in rounds:
+        out = {}
+        for d in ("cpu", "cuda"):
+            q, s, ef[d] = compress.compress_tree(
+                {k: v.to(d) for k, v in grads.items()}, ef[d])
+            out[d] = (q, s, ef[d].residual)
+        for a, b in zip(out["cpu"], out["cuda"]):
+            for k in a:
+                assert a[k].dtype == b[k].dtype and torch.equal(
+                    a[k], b[k].cpu()), k
+    assert all(bool(v.any()) for v in ef["cuda"].residual.values())

@@ -553,3 +553,69 @@ def _main_vs_reference(tmp_path, monkeypatch, arch):
     assert int(opt.step) == 3 and tparams["embed"]["tok"].device.type == "cpu"
     assert abs(t_losses[0] - j_losses[0]) <= 1e-4 * abs(j_losses[0])
     np.testing.assert_allclose(t_losses, j_losses, rtol=1e-3)
+
+
+def test_embedding_gradient_is_deterministic():
+    """The table's gradient through ``embed_apply`` is the same bits on
+    every run, with repeated ids over four CPU threads: an indexing
+    lookup's backward accumulates repeated ids with atomic adds there
+    (a trainer on eight threads gave a different gradient each run),
+    and the loop's recovery, which replays steps, would then differ from
+    the uninterrupted run.  The gradient is the float64 sum within
+    1e-5."""
+    from repro_torch.models.layers import embed_apply
+
+    rng = np.random.RandomState(0)
+    tok = torch.from_numpy(rng.randn(64, 96).astype(np.float32))
+    ids = torch.from_numpy(rng.randint(0, 64, (8, 512)))
+    up = torch.from_numpy(rng.randn(8, 512, 96).astype(np.float32))
+    grads = []
+    threads = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        for _ in range(8):
+            t = tok.clone().requires_grad_(True)
+            (embed_apply({"tok": t}, ids) * up).sum().backward()
+            grads.append(t.grad)
+    finally:
+        torch.set_num_threads(threads)
+    assert all(torch.equal(g, grads[0]) for g in grads[1:])
+    want = np.zeros((64, 96))
+    np.add.at(want, ids.numpy().ravel(), up.numpy().reshape(-1, 96))
+    np.testing.assert_allclose(grads[0].numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_compressed_main_resumes_exactly_and_matches_reference(
+        tmp_path, monkeypatch):
+    """``launch.train.main --compress-grads``: with a failure injected
+    before step 4 (the step-2 checkpoint, which carries the
+    error-feedback residual, restored) it ends on the uninterrupted
+    run's parameters and residual bit for bit, and its losses (the
+    replayed step's included) are the reference ``main``'s on the same
+    argv at ``test_main_matches_reference_main``'s tolerance, on
+    mixtral-8x7b's smoke config from the reference's PRNGKey(0)
+    weights."""
+    cfg = smoke_config(get_config("mixtral-8x7b"))
+    params = jax.tree.map(np.asarray,
+                          jmodels.init_params(cfg, jax.random.PRNGKey(0)))
+    monkeypatch.setattr(ttrain, "init_params", lambda c, seed, device:
+                        params_from_numpy(params, device))
+    argv = ["--arch", "mixtral-8x7b", "--smoke", "--steps", "6", "--batch",
+            "2", "--seq", "24", "--save-every", "2", "--compress-grads"]
+    fail = ["--inject-failure-at", "4"]
+    runs = {name: ttrain.main(argv + extra + [
+        "--device", "cpu", "--ckpt-dir", str(tmp_path / name)])
+        for name, extra in (("clean", []), ("failed", fail))}
+    (pa, oa, ea), la = runs["clean"]
+    (pb, ob, eb), lb = runs["failed"]
+    for x, y in zip(tree_leaves(pa) + tree_leaves(ea.residual),
+                    tree_leaves(pb) + tree_leaves(eb.residual)):
+        assert x.dtype == y.dtype and torch.equal(x.detach(), y.detach())
+    assert int(oa.step) == int(ob.step) == 6
+    assert any(bool(r.any()) for r in tree_leaves(ea.residual))
+    assert len(lb) == len(la) + 1 and lb[:4] == la[:4] and lb[4:] == la[3:]
+    _, j_losses = jtrain.main(argv + fail + ["--ckpt-dir",
+                                             str(tmp_path / "j")])
+    assert len(j_losses) == len(lb)
+    assert abs(lb[0] - j_losses[0]) <= 1e-4 * abs(j_losses[0])
+    np.testing.assert_allclose(lb, j_losses, rtol=1e-3)
